@@ -1,0 +1,38 @@
+"""blades_tpu_torch: the PyTorch/CUDA port of ``blades_tpu``.
+
+A second package beside the JAX one, written for one NVIDIA H100. It keeps
+``blades_tpu``'s module names so each counterpart is easy to find, and its
+entry points run on the card unless the caller asks for the CPU
+(``Simulator(..., device="cpu")``). It imports nothing of ``blades_tpu`` and
+nothing of JAX: what it shares with the JAX package it keeps as its own copy.
+
+Ported so far: the synchronous dense fedsgd round with the MLP, the ALIE
+attack and the mean / trimmed-mean defenses. The coordinate-wise trimmed
+mean runs on the card through a CUDA kernel written by hand for Hopper
+(``csrc/trimmed_mean.cu``, bound in ``ops/trimmed.py``). What is still to
+port, and in which order, is queue A of ``ROADMAP.md``.
+
+Top-level names resolve lazily (PEP 562), as in ``blades_tpu/__init__.py:54``,
+so importing a subpackage stays light.
+"""
+
+from __future__ import annotations
+
+_LAZY = {
+    "Simulator": "blades_tpu_torch.simulator",
+    "RoundEngine": "blades_tpu_torch.core.engine",
+    "ClientOptSpec": "blades_tpu_torch.core.engine",
+    "ServerOptSpec": "blades_tpu_torch.core.engine",
+    "get_aggregator": "blades_tpu_torch.aggregators",
+    "get_attack": "blades_tpu_torch.attackers",
+}
+
+__all__ = sorted(_LAZY)
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(_LAZY[name]), name)
+    raise AttributeError(f"module 'blades_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,33 @@
+"""Coordinate-wise trimmed mean (Yin et al., 2018).
+
+Counterpart: ``blades_tpu/aggregators/trimmedmean.py:20-40``: drop the b
+largest and b smallest values per coordinate and average the rest, with b
+shrunk until ``K - 2b > 0``. On a CUDA tensor the selection runs in the
+Hopper kernel behind ``ops/trimmed.py``. The trim-mask ``diagnostics`` come
+with the forensics of ``ROADMAP.md`` queue A, slice 10.
+"""
+
+from __future__ import annotations
+
+from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.ops.trimmed import trimmed_mean
+
+
+class Trimmedmean(Aggregator):
+    def __init__(self, num_byzantine: int = 5, nb: int = None):
+        # `nb` mirrors the reference ctor arg name
+        self.b = nb if nb is not None else num_byzantine
+
+    def _effective_b(self, k: int) -> int:
+        b = self.b
+        while k - 2 * b <= 0:  # auto-shrink, parity with the reference
+            b -= 1
+        if b < 0:
+            raise RuntimeError(f"cannot trim {self.b} from {k} clients")
+        return b
+
+    def aggregate(self, updates, state=(), **ctx):
+        return trimmed_mean(updates, self._effective_b(updates.shape[0])), state
+
+    def __repr__(self):
+        return f"Trimmed Mean (b={self.b})"

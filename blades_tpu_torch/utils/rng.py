@@ -1,0 +1,50 @@
+"""Random-stream discipline: one ``torch.Generator`` per (seed, round,
+purpose[, client]).
+
+Counterpart: ``blades_tpu/utils/rng.py:26-61``, a ``fold_in`` key tree:
+
+    root(seed) -> round -> purpose (DATA, AUGMENT, ATTACK, ...)
+                        -> CLIENTS -> client_id
+
+Here every node is a fresh generator seeded from a hash of its path, so any
+round's streams are a pure function of (seed, round, purpose, client) and a
+round is reproducible in isolation. The bits differ from JAX's threefry
+streams; tests that compare the two packages draw the random inputs once
+with numpy and hand them to both.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Purpose tags; keep stable across releases for reproducibility.
+DATA = 0
+AUGMENT = 1
+ATTACK = 2
+INIT = 3
+EVAL = 4
+# client streams branch through a dedicated tag first, so a client id can
+# never collide with a purpose stream
+CLIENTS = 5
+AGG = 6
+FAULT = 7
+ARRIVAL = 8
+
+
+def generator(
+    seed: int,
+    round_idx: int,
+    purpose: int,
+    client: Optional[int] = None,
+    device="cpu",
+) -> torch.Generator:
+    """The generator at ``root(seed) -> round -> purpose`` or, with
+    ``client``, at ``root(seed) -> round -> CLIENTS -> client`` (``purpose``
+    is then ignored, as the JAX tree has no purpose below a client)."""
+    path = [int(seed), int(round_idx)]
+    path += [CLIENTS, int(client)] if client is not None else [int(purpose)]
+    state = np.random.SeedSequence(path).generate_state(1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state) >> 1)

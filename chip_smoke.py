@@ -1,0 +1,331 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``blades_tpu_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernel from ``blades_tpu_torch/csrc`` with
+``nvcc``, holds the kernel against its plain PyTorch version on the card,
+times both beside the card's bound and a one-call PyTorch yardstick, drives
+the port's main path (``Simulator(...).run``: the synchronous MLP round with
+ALIE and trimmed mean at K=1000 clients) and checks what comes out. Each
+phase prints one JSON line. The line before the last is the ``kernels``
+record, and the last line is ``{"ok": true, "device": {...}}``, printed only
+when every phase passed. Any failure raises and exits non-zero; without
+CUDA it exits non-zero before doing anything.
+
+Imports nothing of JAX or of the JAX package ``blades_tpu``.
+"""
+
+from __future__ import annotations
+
+import json
+import re
+import subprocess
+import sys
+import tempfile
+import time
+from pathlib import Path
+
+# H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+# [K, D, b]: BASELINE config 1 (K=10, b=5 auto-shrunk to 4), the main path's
+# K=1000 with b=5 and with the largest kernel b=16, and a ragged D
+KERNEL_SHAPES = [(10, 59_850, 4), (1000, 59_850, 5), (1000, 59_850, 16), (33, 257, 3)]
+MAIN_SHAPE = (1000, 59_850, 5)
+MAIN_CLIENTS, MAIN_BYZANTINE = 1000, 5  # the main path's population and b
+TOL = dict(rtol=1e-5, atol=1e-5)  # f32: only the summation order differs
+# card vs CPU round: the same f32 math, with matmuls and reductions summed in
+# other orders (TF32 off on both backends)
+ROUND_TOL = dict(rtol=1e-4, atol=1e-5)
+MAX_KINK_ROWS = 5  # of the main path's 1000 client rows (see phase_card_vs_cpu)
+
+
+def emit(record: dict) -> None:
+    print(json.dumps(record), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, reps: int, warmup: int = 2) -> float:
+    """Mean device time of one call, from CUDA events around ``reps`` calls."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound_ms(k: int, d: int) -> tuple:
+    """Least time for the function on this card: read [K, D] f32 once, write
+    [D] f32 once; at least one compare-or-add per input element, at the f32
+    rate. The larger of the two, and which one it is."""
+    bytes_ms = (k * d * 4 + d * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * k * d / F32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def kernel_cases(torch, dev):
+    """(name, [K, D] matrix on the card, b) for every kernel check."""
+    g = torch.Generator(device="cpu").manual_seed(0)
+    cases = []
+    for k, d, b in KERNEL_SHAPES:
+        x = torch.randn(k, d, generator=g) * 1e-2
+        x[: b + 1] = x[0]  # ALIE-style identical rows: ties across both trims
+        cases.append((f"K{k}-D{d}-b{b}", x, b))
+    ties = torch.tensor([[5.0, 1.0], [5.0, 1.0], [0.0, 1.0], [-5.0, 0.0],
+                         [-5.0, 0.0], [2.0, 0.5]])
+    cases.append(("ties-6x2-b2", ties, 2))
+    equal = torch.randn(12, 5, generator=g)
+    equal[:, 2] = 0.75
+    cases.append(("all-equal-column-b3", equal, 3))
+    extremes = torch.randn(10, 65, generator=g)
+    extremes[0], extremes[1], extremes[2] = 1e30, -3e38, 3e38
+    cases.append(("extremes-b3", extremes, 3))
+    return [(name, x.to(dev).contiguous(), b) for name, x, b in cases]
+
+
+def phase_kernel(torch, trimmed, dev, card: str) -> dict:
+    max_err = 0.0
+    timings = {}
+    for name, x, b in kernel_cases(torch, dev):
+        got = trimmed.trimmed_mean_cuda(x, b)
+        ref = trimmed.trimmed_mean_plain(x, b)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"{name}: non-finite kernel output")
+        err = float((got - ref).abs().max())
+        ok = bool(torch.allclose(got, ref, **TOL))
+        rec = {"phase": "kernel_check", "case": name, "max_abs_err": err, "ok": ok}
+        k, d = x.shape
+        if (k, d, b) in KERNEL_SHAPES and d == 59_850:
+            kern = time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20)
+            plain = time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1)
+            lib = time_ms(lambda: torch.sort(x, 0)[0][b : k - b].mean(0), reps=5, warmup=1)
+            bnd, by = bound_ms(k, d)
+            timings[(k, d, b)] = dict(ms=kern, plain_ms=plain, library_ms=lib,
+                                      bound_ms=bnd, bound_by=by)
+            rec.update(timings[(k, d, b)], card=card)
+        emit(rec)
+        check(ok, f"{name}: kernel and plain version differ by {err} (tol {TOL})")
+        max_err = max(max_err, err)
+    return {"max_abs_err": max_err, **timings[MAIN_SHAPE]}
+
+
+def phase_main_path(torch, trimmed, dev, card: str, log_root: Path):
+    """The MLP at K=1000, ALIE + trimmed mean (b=5), 3 rounds through
+    Simulator.run; returns the kernel's launches during the run and the
+    simulator."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.datasets import Synthetic
+
+    k, f = MAIN_CLIENTS, MAIN_BYZANTINE
+    sim = Simulator(
+        dataset=Synthetic(num_clients=k, train_bs=32, train_size=50_000, cache=False),
+        attack="alie", num_byzantine=f, aggregator="trimmedmean",
+        aggregator_kws={"num_byzantine": f}, seed=1, device=dev,
+        log_path=str(log_root / "main_path"),
+    )
+    seen = []
+
+    def on_round_end(rnd, state, m):
+        u = sim.engine.last_updates
+        seen.append((tuple(u.shape), u.device.type, u.dtype, float(m.train_loss)))
+
+    torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
+    times = sim.run(model="mlp", global_rounds=3, local_steps=1, server_lr=1.0,
+                    client_lr=0.1, validate_interval=3, on_round_end=on_round_end)
+    torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
+    peak = torch.cuda.max_memory_allocated()
+
+    losses = [s[3] for s in seen]
+    emit({"phase": "main_path", "clients": k, "byzantine": f, "b": f, "rounds": 3,
+          "kernel_launches": launches, "updates_shape": list(seen[0][0]),
+          "updates_device": seen[0][1], "train_loss": losses, "round_s": times,
+          "rounds_per_s_after_first": 2 / sum(times[1:]),
+          "peak_mem_bytes": peak, "card": card})
+    check(launches == 3, f"kernel launched {launches} times in 3 rounds, want 3")
+    check(all(s[:3] == ((k, 59_850), "cuda", torch.float32) for s in seen),
+          f"update matrices {[s[:3] for s in seen]}")
+    check(all(torch.isfinite(torch.tensor(losses))), f"non-finite losses {losses}")
+    return launches, sim
+
+
+def phase_profile(torch, sim, card: str) -> None:
+    """Where one warm main-path round's time goes on the card:
+    ``torch.profiler`` device time by kernel beside the round's host wall
+    time (synchronised). Device time 0 means the profiler saw no device
+    activity here (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch.utils import rng
+
+    eng, state = sim.engine, sim.server.state
+    cx, cy = sim.dataset.sample_round(rng.generator(sim.seed, 99, rng.DATA, device=eng.device),
+                                      1, 32)
+    eng.run_round(state, cx, cy, 0.1, 1.0)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run_round(state, cx, cy, 0.1, 1.0)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # device-side kernel events only: an aten op's own row repeats the device
+    # time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3
+    kernel_ms = sum(e.self_device_time_total for e in events
+                    if "trimmed_mean_kernel" in e.key) / 1e3
+    top = sorted(events, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+    emit({"phase": "profile_round", "clients": eng.num_clients, "wall_ms": wall_ms,
+          "device_ms": device_ms, "device_busy_share": device_ms / wall_ms,
+          "trimmed_mean_kernel_ms": kernel_ms,
+          "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
+                             for e in top],
+          "card": card})
+
+
+def phase_card_vs_cpu(torch, dev) -> None:
+    """One main-path round on the card and on the CPU from the same params
+    and the same batches: the aggregate and the new params within
+    ROUND_TOL, and every client's update row within ROUND_TOL but for at
+    most MAX_KINK_ROWS rows. A ReLU pre-activation within rounding of zero
+    can take the other side of the kink on the other backend and change that
+    one sample's gradient outright; such a row is reported, not hidden, and
+    the trimmed mean bounds what it does to the aggregate."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.attackers import Alie
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.datasets import Synthetic
+    from blades_tpu_torch.models import create_mnist_model
+    from blades_tpu_torch.ops.pytree import ravel
+
+    k, f = MAIN_CLIENTS, MAIN_BYZANTINE
+    spec = create_mnist_model()
+    params = spec.init(torch.Generator().manual_seed(11))
+    ds = Synthetic(num_clients=k, train_bs=32, train_size=50_000, cache=False).get_dls("cpu")
+    cx, cy = ds.sample_round(torch.Generator().manual_seed(12), 1, 32)
+    out = {}
+    for where in ("cpu", dev):
+        eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                          num_clients=k, num_byzantine=f,
+                          attack=Alie(num_clients=k, num_byzantine=f),
+                          aggregator=Trimmedmean(num_byzantine=f), device=where)
+        state, _ = eng.run_round(eng.init(params), cx.to(where), cy.to(where), 0.1, 1.0)
+        agg, _ = eng.aggregator.aggregate(eng.last_updates)  # what the round applied
+        out[str(where)] = (eng.last_updates.cpu(), agg.cpu(),
+                           ravel(state.params, spec.layout).cpu())
+    (u_cpu, a_cpu, p_cpu), (u_gpu, a_gpu, p_gpu) = out["cpu"], out[str(dev)]
+    row_ok = torch.isclose(u_gpu, u_cpu, **ROUND_TOL).all(dim=1)
+    emit({"phase": "card_vs_cpu_round", "clients": k, "tol": ROUND_TOL,
+          "updates_max_abs_err": float((u_gpu - u_cpu).abs().max()),
+          "update_rows_outside_tol": torch.nonzero(~row_ok).flatten().tolist(),
+          "agg_max_abs_err": float((a_gpu - a_cpu).abs().max()),
+          "params_max_abs_err": float((p_gpu - p_cpu).abs().max())})
+    check(int((~row_ok).sum()) <= MAX_KINK_ROWS,
+          f"{int((~row_ok).sum())} update rows differ (allowed {MAX_KINK_ROWS})")
+    check(torch.allclose(a_gpu, a_cpu, **ROUND_TOL), "aggregates differ")
+    check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), "new params differ")
+
+
+def phase_config1(torch, dev, card: str, log_root: Path) -> None:
+    """BASELINE config 1's shape: MNIST-sized MLP, K=10, f=4, ALIE + trimmed
+    mean (b=5 auto-shrunk to 4), the README quick start's run parameters."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.datasets import Synthetic
+
+    sim = Simulator(
+        dataset=Synthetic(num_clients=10, train_bs=32, train_size=60_000,
+                          test_size=10_000, cache=False),
+        attack="alie", num_byzantine=4, aggregator="trimmedmean", seed=1,
+        device=dev, log_path=str(log_root / "config1"),
+    )
+    torch.cuda.reset_peak_memory_stats()
+    times = sim.run(model="mlp", global_rounds=2, local_steps=50, server_lr=1.0, client_lr=0.1)
+    torch.cuda.synchronize()
+    emit({"phase": "config1", "clients": 10, "byzantine": 4, "b": 4, "rounds": 2,
+          "local_steps": 50, "round_s": times, "rounds_per_s": len(times) / sum(times),
+          "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card})
+    check(sim.aggregator._effective_b(10) == 4, "b did not shrink to 4 at K=10")
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this smoke test "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from blades_tpu_torch.ops import _build, trimmed
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(card, flush=True)
+    emit({"phase": "env", "device": name, "nvidia_smi": card,
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+
+    t0 = time.perf_counter()
+    built = _build.build("trimmed_mean")
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "nvcc_seconds": built.seconds, "library": built.path.name,
+          "ptxas": re.findall(r"(?:Compiling entry function|Used \d+ registers|"
+                              r"\d+ bytes stack frame)[^\n]*", built.log)})
+
+    kernel = phase_kernel(torch, trimmed, dev, card)
+    # run logs go under the (git-ignored) build directory of the checkout
+    with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+        launches, sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
+        phase_profile(torch, sim, card)
+        phase_card_vs_cpu(torch, dev)
+        phase_config1(torch, dev, card, Path(tmp))
+
+    emit({"kernels": [{
+        "name": "trimmed_mean",
+        "route": "cuda",
+        "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+        "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+        "launches": launches,
+        "max_abs_err": kernel["max_abs_err"],
+        "ms": kernel["ms"],
+        "plain_ms": kernel["plain_ms"],
+        "bound_ms": kernel["bound_ms"],
+        "bound_by": kernel["bound_by"],
+        "library_ms": kernel["library_ms"],
+    }]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -43,3 +43,8 @@ def pytest_configure(config):
         "slow: heavy end-to-end scenarios (full chaos sweep, supervised "
         "subprocess runs) excluded from tier-1 via -m 'not slow'",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU (the port's hand-written kernels); skips "
+        "where torch.cuda.is_available() is False",
+    )

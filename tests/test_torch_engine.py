@@ -1,0 +1,129 @@
+"""One MLP round of the port against ``blades_tpu.core.RoundEngine``.
+
+BASELINE config 1's shape: K=10 clients, f=4 byzantine, ALIE + trimmed mean
+(b=5 shrunk to 4), plain SGD. The initial params (the JAX package's init,
+carried over) and every round's ``[K, S, B, ...]`` batches are drawn once
+and handed to both engines. The JAX engine runs with ``plan=None``, as its
+own tests run it: the conftest's virtual 8-device mesh would make its
+Simulator shard.
+
+Tolerances, f32: one round ``rtol=1e-4, atol=1e-5`` on the ``[K, D]``
+matrix, the aggregate and the new params; the scalar metrics ``rtol=1e-4``
+and, for the variance metrics (about 1e-7 in size), ``atol=1e-12``. The two
+frameworks' CPU matmuls and reductions sum in different orders, and local
+training compounds that over the local steps. Three rounds: ``rtol=1e-3,
+atol=1e-5``, since each round's small differences feed the next.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.flatten_util import ravel_pytree
+
+from blades_tpu.aggregators.trimmedmean import Trimmedmean as JaxTrimmedmean
+from blades_tpu.attackers.alie import Alie as JaxAlie
+from blades_tpu.core import RoundEngine as JaxRoundEngine
+from blades_tpu.models.mlp import create_mnist_model as jax_mlp
+from blades_tpu_torch.aggregators import Trimmedmean
+from blades_tpu_torch.attackers import Alie
+from blades_tpu_torch.core import RoundEngine, RoundMetrics
+from blades_tpu_torch.models import create_mnist_model, params_from_jax
+from blades_tpu_torch.ops.pytree import ravel
+
+K, F, S, B = 10, 4, 2, 8
+CLIENT_LR, SERVER_LR = 0.1, 1.0
+TOL = dict(rtol=1e-4, atol=1e-5)
+TOL_3 = dict(rtol=1e-3, atol=1e-5)
+
+
+def _batches(rnd):
+    rng = np.random.RandomState(100 + rnd)
+    cx = rng.randn(K, S, B, 28, 28, 1).astype(np.float32)
+    cy = rng.randint(0, 10, (K, S, B)).astype(np.int32)
+    return cx, cy
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    return jax.tree_util.tree_map(np.asarray, jax_mlp().init(jax.random.PRNGKey(0)))
+
+
+def _engines(jax_params, client_chunks):
+    jspec, tspec = jax_mlp(), create_mnist_model()
+    jeng = JaxRoundEngine(
+        jspec.train_loss_fn, jspec.eval_logits_fn, jax_params,
+        num_clients=K, num_byzantine=F,
+        attack=JaxAlie(num_clients=K, num_byzantine=F),
+        aggregator=JaxTrimmedmean(num_byzantine=5),
+        plan=None, client_chunks=client_chunks, keep_updates=True,
+    )
+    tparams = params_from_jax(jax_params, tspec.layout)
+    teng = RoundEngine(
+        tspec.train_loss_fn, tspec.eval_logits_fn, tparams, tspec.layout,
+        num_clients=K, num_byzantine=F,
+        attack=Alie(num_clients=K, num_byzantine=F),
+        aggregator=Trimmedmean(num_byzantine=5),
+        client_chunks=client_chunks, keep_updates=True, device="cpu",
+    )
+    jstate = jeng.init(jax_params)
+    tstate = teng.init(tparams)
+    return (jeng, jstate), (teng, tstate, tspec.layout)
+
+
+def _round(jax_side, torch_side, rnd):
+    (jeng, jstate), (teng, tstate, layout) = jax_side, torch_side
+    cx, cy = _batches(rnd)
+    jstate, jm = jeng.run_round(
+        jstate, jnp.asarray(cx), jnp.asarray(cy), CLIENT_LR, SERVER_LR,
+        jax.random.PRNGKey(7),
+    )
+    tstate, tm = teng.run_round(
+        tstate, torch.from_numpy(cx), torch.from_numpy(cy), CLIENT_LR, SERVER_LR
+    )
+    return (jeng, jstate), (teng, tstate, layout), jm, tm
+
+
+def _check_metrics(jm, tm, rtol):
+    for name in RoundMetrics._fields:
+        atol = 1e-12 if name.startswith("update_variance") else 1e-5
+        np.testing.assert_allclose(
+            float(getattr(tm, name)), float(getattr(jm, name)),
+            rtol=rtol, atol=atol, err_msg=name,
+        )
+
+
+def _flat_params(jstate, tstate, layout):
+    return ravel(tstate.params, layout).numpy(), np.asarray(ravel_pytree(jstate.params)[0])
+
+
+@pytest.mark.parametrize("client_chunks", [1, 3])
+def test_one_round_matches_jax(jax_params, client_chunks):
+    j, t = _engines(jax_params, client_chunks)
+    j, t, jm, tm = _round(j, t, 0)
+    (jeng, jstate), (teng, tstate, layout) = j, t
+    assert teng.chunk_size == jeng.chunk_size
+    assert teng.client_chunks == jeng.client_chunks
+
+    ju, tu = np.asarray(jeng.last_updates), teng.last_updates
+    assert tu.shape == (K, 59_850)
+    np.testing.assert_allclose(tu.numpy(), ju, **TOL)
+    # ALIE wrote one vector into every byzantine row, in both engines
+    np.testing.assert_array_equal(tu[:F].numpy(), np.repeat(tu[:1].numpy(), F, 0))
+
+    jagg, _ = jeng.aggregator.aggregate(jnp.asarray(ju))
+    tagg, _ = teng.aggregator.aggregate(tu)
+    np.testing.assert_allclose(tagg.numpy(), np.asarray(jagg), **TOL)
+    np.testing.assert_allclose(*_flat_params(jstate, tstate, layout), **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])
+    assert tstate.round_idx == int(jstate.round_idx) == 1
+
+
+def test_three_round_trajectory_matches_jax(jax_params):
+    j, t = _engines(jax_params, 1)
+    for rnd in range(3):
+        j, t, jm, tm = _round(j, t, rnd)
+        _check_metrics(jm, tm, rtol=TOL_3["rtol"])
+    np.testing.assert_allclose(*_flat_params(j[1], t[1], t[2]), **TOL_3)
+    assert np.isfinite(float(tm.train_loss))

@@ -1,0 +1,70 @@
+"""The port stands alone: ``blades_tpu_torch`` and ``chip_smoke.py`` import
+nothing of JAX, flax, optax or the JAX package, and a round run through the
+port leaves no ``jax`` in ``sys.modules``."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "blades_tpu")
+
+
+def _port_files():
+    files = sorted((ROOT / "blades_tpu_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+        elif (
+            isinstance(node, ast.Call)
+            and getattr(node.func, "attr", getattr(node.func, "id", None))
+            in ("import_module", "__import__", "importorskip")
+            and node.args
+            and isinstance(node.args[0], ast.Constant)
+        ):
+            yield str(node.args[0].value).split(".")[0]
+
+
+def test_port_sources_import_no_jax():
+    files = _port_files()
+    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    bad = {
+        str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
+        for f in files
+    }
+    assert {f: mods for f, mods in bad.items() if mods} == {}
+
+
+def test_round_in_subprocess_loads_no_jax(tmp_path):
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch import Simulator\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "ds = Synthetic(num_clients=6, train_size=120, test_size=30, cache=False)\n"
+        "sim = Simulator(ds, attack='alie', num_byzantine=2, aggregator='trimmedmean',\n"
+        f"                device='cpu', log_path={str(tmp_path / 'out')!r})\n"
+        "sim.run(model='mlp', global_rounds=1, train_batch_size=4)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

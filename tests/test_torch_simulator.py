@@ -1,0 +1,136 @@
+"""The port's data path and Simulator facade against the JAX package's.
+
+Datasets are built with ``cache=False`` (or a ``tmp_path`` data root), so no
+partition archive lands in the repository.
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from blades_tpu import Simulator as JaxSimulator
+from blades_tpu.datasets import Synthetic as JaxSynthetic
+from blades_tpu.utils.logging import read_stats as jax_read_stats
+from blades_tpu_torch import Simulator
+from blades_tpu_torch.datasets import FLDataset, Synthetic
+from blades_tpu_torch.utils.logging import read_stats
+
+
+@pytest.mark.parametrize("iid", [True, False])
+def test_partition_matches_jax(iid):
+    kw = dict(num_clients=7, train_size=500, test_size=90, iid=iid, alpha=0.5,
+              seed=3, cache=False)
+    ours = Synthetic(**kw).get_dls("cpu")
+    ref = JaxSynthetic(**kw).get_dls()
+    np.testing.assert_array_equal(ours.train_counts.numpy(), np.asarray(ref.train_counts))
+    np.testing.assert_array_equal(ours.train_x.numpy(), np.asarray(ref.train_x))
+    np.testing.assert_array_equal(ours.train_y.numpy(), np.asarray(ref.train_y))
+    np.testing.assert_array_equal(ours.test_x.numpy(), np.asarray(ref.test_x))
+    np.testing.assert_array_equal(ours.test_y.numpy(), np.asarray(ref.test_y))
+    for a, b in zip(ours.client_test_slices(), ref.client_test_slices()):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_partition_cache_round_trip(tmp_path):
+    kw = dict(num_clients=5, train_size=200, test_size=50, seed=1, data_root=str(tmp_path))
+    first = Synthetic(**kw).get_dls("cpu")
+    assert len(os.listdir(tmp_path)) == 1
+    again = Synthetic(**kw).get_dls("cpu")  # read back from the archive
+    np.testing.assert_array_equal(first.train_x.numpy(), again.train_x.numpy())
+    np.testing.assert_array_equal(first.test_y.numpy(), again.test_y.numpy())
+
+
+def test_sample_round_wraps_and_skips_padding():
+    k, n_max = 3, 6
+    counts = np.array([2, 6, 5])
+    x = np.arange(k * n_max, dtype=np.float32).reshape(k, n_max, 1)
+    y = np.tile(np.arange(n_max), (k, 1))
+    ds = FLDataset(x, y, counts, np.zeros((3, 1), np.float32), np.zeros(3, np.int64))
+    cx, cy = ds.sample_round(torch.Generator().manual_seed(0), local_steps=2, batch_size=4)
+    assert cx.shape == (k, 2, 4, 1) and cy.shape == (k, 2, 4)
+    for i, c in enumerate(counts):
+        drawn = cy[i].reshape(-1).tolist()
+        assert max(drawn) < c  # padding rows are never sampled
+        # without replacement within an epoch, then the epoch wraps around
+        assert sorted(drawn[:c]) == list(range(c))
+        assert all(drawn[j] == drawn[j % c] for j in range(len(drawn)))
+
+
+def _stats_shape(recs):
+    return [(r["_meta"]["type"], sorted(r)) for r in recs]
+
+
+def test_simulator_writes_jax_stats_records(tmp_path):
+    # the mini example's shape: 10 clients, 4 ALIE attackers, MLP
+    kw = dict(num_clients=10, train_size=600, test_size=100, cache=False)
+    run = dict(global_rounds=2, local_steps=2, train_batch_size=8,
+               server_lr=1.0, client_lr=0.1)
+    sim = Simulator(Synthetic(**kw), attack="alie", num_byzantine=4,
+                    aggregator="trimmedmean", seed=1, device="cpu",
+                    log_path=str(tmp_path / "torch"))
+    times = sim.run(model="mlp", **run)
+    ref = JaxSimulator(JaxSynthetic(**kw), attack="alie", num_byzantine=4,
+                       aggregator="trimmedmean", seed=1,
+                       log_path=str(tmp_path / "jax"))
+    ref.run(model="mlp", **run)
+
+    ours = read_stats(str(tmp_path / "torch"))
+    theirs = jax_read_stats(str(tmp_path / "jax"))
+    assert _stats_shape(ours) == _stats_shape(theirs)
+    assert len(times) == 2
+    train = [r for r in ours if r["_meta"]["type"] == "train"]
+    assert all(np.isfinite(r["Loss"]) for r in train)
+    assert sim.engine.device == torch.device("cpu")
+
+
+def test_unknown_kwarg_raises(tmp_path):
+    with pytest.raises(RuntimeError, match="Unknown keyword"):
+        Simulator(Synthetic(num_clients=4, cache=False), device="cpu",
+                  log_path=str(tmp_path), bogus_flag=1)
+
+
+def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    ds = Synthetic(num_clients=4, train_size=100, cache=False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Simulator(ds, log_path=str(tmp_path))
+    assert ds._fl is None  # nothing was built on the CPU instead
+
+
+@pytest.mark.parametrize(
+    "option,value,slice_no",
+    [
+        ("streaming", True, "slice 8"),
+        ("async_config", {"buffer_m": 2}, "slice 9"),
+        ("fault_model", {"dropout_rate": 0.1}, "slice 6"),
+        ("audit_monitor", {}, "slice 10"),
+        ("block_size", 4, "slice 7"),
+        ("checkpoint_path", "ckpt", "slice 5"),
+        ("resume", True, "slice 5"),
+        ("compute_dtype", "bfloat16", "slice 2"),
+        ("round_metrics", True, "slice 10"),
+    ],
+)
+def test_unported_run_options_raise(tmp_path, option, value, slice_no):
+    sim = Simulator(Synthetic(num_clients=4, train_size=100, cache=False),
+                    device="cpu", log_path=str(tmp_path))
+    with pytest.raises(NotImplementedError, match=slice_no):
+        sim.run(model="mlp", **{option: value})
+
+
+def test_unported_choices_raise(tmp_path):
+    ds = Synthetic(num_clients=4, train_size=100, cache=False)
+    with pytest.raises(NotImplementedError, match="slice 12"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
+    with pytest.raises(NotImplementedError, match="slice 6"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="krum")
+    with pytest.raises(NotImplementedError, match="slice 3"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
+                  num_byzantine=1)
+    sim = Simulator(ds, device="cpu", log_path=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        sim.run(model="cct")
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        sim.run(model="mlp", bogus=1)
