@@ -13,35 +13,49 @@
 // main path's K=1000, D=59,850 that is 239 MB, about 71 us at the H100's
 // 3.35 TB/s, and it does a handful of compares per element.
 //
-// Design. The TPU kernel loads a [K, 4096] tile into VMEM and runs 2b full
-// argmax passes over it; a K=1000 tile of any useful width does not fit the
-// 227 KB of shared memory an SM block may use, so that tiling does not carry
-// over. Here one thread owns one column and streams its K rows from device
-// memory; neighbouring threads own neighbouring columns, so every row load
-// of a warp is one coalesced 128-byte line. b is a template parameter, so
-// the candidate lists are fixed-size arrays the compiler keeps in registers.
-//   Pass 1 keeps the b largest entries under (value desc, row asc) and the
-//   2b smallest under (value asc, row asc). Rows arrive in ascending order,
-//   so a new entry that ties an old one ranks after it, and every insert
-//   test is a strict compare. Ties are the rule on the main path, not an
-//   edge case: ALIE writes the same row for every byzantine client.
-//   Between the passes: the top set T is every (x, r) ranking at or above
-//   the b-th top entry; the bottom set S is the first b bottom candidates
-//   that are not in T. Keeping 2b bottom candidates, not b, is what makes
-//   this right when T and the b smallest overlap (a column of equal values:
-//   T = rows 0..b-1, S = rows b..2b-1). S is then every row outside T that
-//   ranks at or below S's last entry.
-//   Pass 2 reads the rows again and sums, in row order, those in neither
-//   set, and divides by K - 2b.
-// This reads the matrix twice; the 239 MB do not fit the 50 MB L2, so the
-// second pass goes to device memory again. A one-pass design (keep each
-// column's rows on chip, or keep a running sum and the removed values) is
-// later work; this kernel is the simple one that is right.
+// Design: one read from device memory, each column spread over a warp.
+//   A block of 8 warps owns a tile of 16 columns and all K rows. It copies
+//   the tile into shared memory once (cp.async of 4 bytes: a row of the
+//   matrix is only 4-byte aligned when D is odd, so neither float4 loads nor
+//   a TMA tensor map, which needs 16-byte strides, can address it), with a
+//   row pitch of 17 floats, so a warp that walks one column reads 32 banks.
+//   At K=1000 the tile is 68 KB and three blocks share an SM. Each warp owns
+//   two of the tile's columns, lane l holding rows l, l+32, ..., and every
+//   later pass reads shared memory only:
+//   1. Each lane takes the max and the min of its rows.
+//   2. theta, the b-th largest lane max, has at least b entries at or above
+//      it, so T (the top b under value desc, row asc) lies there; theta',
+//      the b-th smallest lane min, has at least b at or below it. One pass
+//      gathers both sets into 32-entry lists by ballot compaction, in row
+//      order (at K=1000 each holds about b to 1.4b entries), and adds every entry
+//      in neither list to its lane's sum. The compaction runs only on the
+//      32-row steps where some lane has a candidate.
+//   3. Each lane ranks its list entry against the list: T is the top list's
+//      first b, and when the lists are disjoint (theta' < theta) the bottom
+//      list lies outside T, so S (the first b of value asc, row asc outside
+//      T) is the bottom list's first b. The lists' other entries join the
+//      sum, so only survivors enter it, and a warp reduction finishes it.
+//   A list that overflows takes the b-th of the 32 entries it kept as its
+//   new threshold and the pass runs again; when that is no higher (a tie at
+//   the threshold, as with ALIE's identical rows) it gathers strictly
+//   beyond the threshold instead. A strict list left with fewer than b
+//   entries, or lists that would overlap (a column of equal values), send
+//   the column down the exact general route: bisect the 32-bit ordered keys
+//   for the b-th value (one count pass per step; at a tie the first step
+//   settles it), scan its ties in row order for the row, first for T, then
+//   for S outside T, then sum the survivors in one more pass. The columns
+//   of a block run each pass together, so every pass stays block-uniform.
+// Large K: a tile of K rows fits 227 KB of shared memory up to K = 3297
+// (kMaxTileRows). Above that the same kernel streams each pass through the
+// tile in chunks of 960 rows from device memory: at least two reads of the
+// matrix instead of one.
+// Ties are the rule on the main path, not an edge case: ALIE writes the
+// same row for every byzantine client.
 //
 // Contract: x finite (the round engine applies nan_to_num before it
 // aggregates, blades_tpu/core/engine.py:729); 1 <= b <= 16; 2b < K.
-// Infinities and NaN are outside it: the lists start from +-inf sentinels
-// and NaN fails every compare.
+// Infinities and NaN are outside it: the thresholds use +-inf as "none" and
+// NaN fails every compare.
 
 #include <cuda_runtime.h>
 
@@ -50,118 +64,401 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // one column per thread
-constexpr int kUnroll = 8;     // rows loaded ahead, to keep loads in flight
+constexpr int kCols = 16;               // columns of a block's tile
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kSlots = kCols / kWarps;  // columns of a warp
+constexpr int kPitch = kCols + 1;       // tile row pitch, floats: a column walk hits 32 banks
+constexpr int kCap = 32;                // entries of a candidate list: one a lane
+constexpr int kStreamRows = 960;        // rows of a chunk when K exceeds kMaxTileRows
+constexpr int kMaxSmem = 227 * 1024;    // static + dynamic shared memory of a block
+constexpr int kStaticSmem = kWarps * kSlots * 2 * kCap * (sizeof(float) + sizeof(int));
+constexpr int kMaxTileRows = (kMaxSmem - kStaticSmem) / (kPitch * sizeof(float));
+constexpr unsigned kFull = 0xffffffffu;
 
-// Insert (x, row) into v/idx, sorted by value descending then row ascending.
-// Rows arrive in ascending order, so a tie ranks after the entries it ties.
-template <int N>
-__device__ __forceinline__ void insert_desc(float (&v)[N], int (&idx)[N], float x, int row) {
-  if (!(x > v[N - 1])) return;
+// Order-preserving map of a float's bits to an unsigned key, and back.
+__device__ __forceinline__ uint32_t order_key(float f) {
+  const uint32_t u = __float_as_uint(f);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t k) {
+  return __uint_as_float((k & 0x80000000u) ? (k & 0x7fffffffu) : ~k);
+}
+
+__device__ __forceinline__ bool in_order(bool top, float a, float b) { return top ? a > b : a < b; }
+
+__device__ __forceinline__ bool in_top(float v, int r, float tval, int trow) {
+  return v > tval || (v == tval && r <= trow);
+}
+
+// The k-th largest (1-based) of the warp's 32 values: a bitonic sort,
+// descending across the lanes, then a read of lane k-1.
+__device__ __forceinline__ float warp_kth_largest(float v, int k) {
+  const int lane = threadIdx.x & 31;
 #pragma unroll
-  for (int j = N - 1; j > 0; --j) {
-    const bool shift = x > v[j - 1];
-    const bool here = !shift && x > v[j];
-    v[j] = shift ? v[j - 1] : (here ? x : v[j]);
-    idx[j] = shift ? idx[j - 1] : (here ? row : idx[j]);
+  for (int w = 2; w <= 32; w <<= 1) {
+#pragma unroll
+    for (int j = w >> 1; j > 0; j >>= 1) {
+      const float o = __shfl_xor_sync(kFull, v, j);
+      const bool keep_max = ((lane & j) == 0) == ((lane & w) == 0);
+      v = keep_max ? fmaxf(v, o) : fminf(v, o);
+    }
   }
-  if (x > v[0]) {
-    v[0] = x;
-    idx[0] = row;
+  return __shfl_sync(kFull, v, k - 1);
+}
+
+__device__ __forceinline__ float warp_kth_smallest(float v, int k) {
+  return -warp_kth_largest(-v, k);
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src) : "memory");
+}
+
+struct Tile {
+  const float* x;
+  float* s;  // [R][kPitch]
+  int K;
+  int64_t D;
+  int64_t col0;
+  int ncols;  // columns of the tile inside the matrix
+  int R;      // rows the tile holds: K, or kStreamRows
+};
+
+// Copy rows [r0, r0 + rows) of the tile's columns into shared memory: thread
+// i copies column i % kCols of every (kThreads / kCols)-th row.
+__device__ __forceinline__ void load_rows(const Tile& t, int r0, int rows) {
+  constexpr int kStep = kThreads / kCols;
+  const int c = threadIdx.x % kCols;
+  int r = threadIdx.x / kCols;
+  if (c < t.ncols) {
+    const float* src = t.x + static_cast<int64_t>(r0 + r) * t.D + t.col0 + c;
+    float* dst = t.s + r * kPitch + c;
+    for (; r < rows; r += kStep, src += kStep * t.D, dst += kStep * kPitch) cp_async4(dst, src);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+}
+
+// f(slot, value, row, ok) for the rows of each column the warp owns, in row
+// order, 32 rows a step (ok is false past the last row; every lane calls f,
+// so f may ballot). Every thread of the block calls sweep: a streamed tile
+// reloads its chunks.
+template <class F>
+__device__ __forceinline__ void sweep(const Tile& t, F&& f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int r0 = 0; r0 < t.K; r0 += t.R) {
+    const int rows = min(t.R, t.K - r0);
+    if (t.R < t.K) {
+      __syncthreads();  // the previous chunk is read
+      load_rows(t, r0, rows);
+    }
+    auto step = [&](int i, bool ok) {
+      float v[kSlots];
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) v[s] = ok ? t.s[(i + lane) * kPitch + warp + s * kWarps] : 0.0f;
+#pragma unroll
+      for (int s = 0; s < kSlots; ++s) {
+        if (warp + s * kWarps < t.ncols) f(s, v[s], r0 + i + lane, ok);
+      }
+    };
+    const int full = rows & ~31;
+    for (int i = 0; i < full; i += 32) step(i, true);
+    if (full < rows) step(full, full + lane < rows);
   }
 }
 
-// Insert (x, row) into v/idx, sorted by value ascending then row ascending.
-template <int N>
-__device__ __forceinline__ void insert_asc(float (&v)[N], int (&idx)[N], float x, int row) {
-  if (!(x < v[N - 1])) return;
+__device__ __forceinline__ bool any_slot(const bool (&flag)[kSlots]) {
+  bool a = false;
 #pragma unroll
-  for (int j = N - 1; j > 0; --j) {
-    const bool shift = x < v[j - 1];
-    const bool here = !shift && x < v[j];
-    v[j] = shift ? v[j - 1] : (here ? x : v[j]);
-    idx[j] = shift ? idx[j - 1] : (here ? row : idx[j]);
+  for (int s = 0; s < kSlots; ++s) a = a || flag[s];
+  return a;
+}
+
+// Append (v, r) to a candidate list where pred holds, in row order, keeping
+// the first kCap; n counts every entry offered.
+__device__ __forceinline__ void gather(float* lv, int* lr, int& n, float v, int r, bool pred) {
+  const unsigned m = __ballot_sync(kFull, pred);
+  if (pred) {
+    const int pos = n + __popc(m & ((1u << (threadIdx.x & 31)) - 1u));
+    if (pos < kCap) {
+      lv[pos] = v;
+      lr[pos] = r;
+    }
   }
-  if (x < v[0]) {
-    v[0] = x;
-    idx[0] = row;
+  n += __popc(m);
+}
+
+// The general route, for the slots flagged in `slow`: the B-th entry
+// (val, row) among the eligible ones under the top or bottom order, where
+// `thr` has at least B eligible entries at or beyond it. Bisect the ordered
+// keys for the value (count passes), then scan its ties in row order.
+// Every thread of the block calls it.
+template <int B, bool kTop, class Elig>
+__device__ void select_general(const Tile& t, const bool (&slow)[kSlots],
+                               const float (&thr)[kSlots], Elig eligible,
+                               float (&val)[kSlots], int (&row)[kSlots]) {
+  const int lane = threadIdx.x & 31;
+  // top: lo always has >= B entries at or above it, hi fewer;
+  // bottom: hi always has >= B entries at or below it, lo fewer.
+  uint32_t lo[kSlots], hi[kSlots], mid[kSlots];
+  int edge[kSlots];  // the count at the failing end
+  bool searching[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    lo[s] = kTop ? order_key(thr[s]) : order_key(-INFINITY);
+    hi[s] = kTop ? order_key(INFINITY) : order_key(thr[s]);
+    mid[s] = kTop ? lo[s] + 1 : hi[s] - 1;  // first: is thr itself the value?
+    edge[s] = 0;
+    searching[s] = slow[s] && hi[s] - lo[s] > 1;
   }
+  while (__syncthreads_or(any_slot(searching))) {
+    float probe[kSlots];
+    int count[kSlots];
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      probe[s] = key_value(mid[s]);
+      count[s] = 0;
+    }
+    sweep(t, [&](int s, float v, int r, bool ok) {
+      if (!searching[s]) return;
+      const bool p = ok && eligible(s, v, r) && (v == probe[s] || in_order(kTop, v, probe[s]));
+      count[s] += __popc(__ballot_sync(kFull, p));
+    });
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (!searching[s]) continue;
+      const bool reached = count[s] >= B;
+      if (reached == kTop) {
+        lo[s] = mid[s];
+      } else {
+        hi[s] = mid[s];
+      }
+      if (!reached) edge[s] = count[s];
+      searching[s] = hi[s] - lo[s] > 1;
+      mid[s] = lo[s] + (hi[s] - lo[s]) / 2;
+    }
+  }
+  int need[kSlots];  // which tie in row order
+  bool look[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    if (slow[s]) val[s] = key_value(kTop ? lo[s] : hi[s]);
+    need[s] = B - edge[s];
+    look[s] = slow[s];
+  }
+  sweep(t, [&](int s, float v, int r, bool ok) {
+    if (!look[s]) return;
+    const unsigned m = __ballot_sync(kFull, ok && eligible(s, v, r) && v == val[s]);
+    const int n = __popc(m);
+    if (need[s] <= n) {
+      unsigned mm = m;
+      for (int q = 1; q < need[s]; ++q) mm &= mm - 1;
+      row[s] = r - lane + __ffs(mm) - 1;
+      look[s] = false;
+    } else {
+      need[s] -= n;
+    }
+  });
 }
 
 template <int B>
-__global__ void __launch_bounds__(kThreads)
-    trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out, int K, int64_t D) {
-  const int64_t col = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (col >= D) return;
-  const float* p = x + col;
+__global__ void __launch_bounds__(kThreads, 3)  // three tiles of K=1000 share an SM
+    trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out, int K, int64_t D,
+                        int R) {
+  extern __shared__ float tile_smem[];
+  // candidate lists of each column: [0] top, [1] bottom
+  __shared__ float cand_v[kWarps][kSlots][2][kCap];
+  __shared__ int cand_r[kWarps][kSlots][2][kCap];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t col0 = static_cast<int64_t>(blockIdx.x) * kCols;
+  const Tile t{x, tile_smem, K, D, col0, static_cast<int>(D - col0 < kCols ? D - col0 : kCols), R};
+  if (R >= K) load_rows(t, 0, K);
+  bool active[kSlots];
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) active[s] = warp + s * kWarps < t.ncols;
 
-  float tv[B];  // B largest: value descending, row ascending
-  int ti[B];
-  float bv[2 * B];  // 2B smallest: value ascending, row ascending
-  int bi[2 * B];
+  // 1. lane extremes; the min keeps the last of equal rows, so a lane whose
+  // min is in T has every row in T
+  float lmax[kSlots], lmin[kSlots];
+  int lmin_row[kSlots];
 #pragma unroll
-  for (int j = 0; j < B; ++j) {
-    tv[j] = -INFINITY;
-    ti[j] = -1;
+  for (int s = 0; s < kSlots; ++s) {
+    lmax[s] = -INFINITY;
+    lmin[s] = INFINITY;
+    lmin_row[s] = -1;
   }
-#pragma unroll
-  for (int j = 0; j < 2 * B; ++j) {
-    bv[j] = INFINITY;
-    bi[j] = -1;
-  }
-
-  // pass 1: candidate lists
-  for (int r0 = 0; r0 < K; r0 += kUnroll) {
-    float v[kUnroll];
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      v[u] = (r0 + u < K) ? __ldg(p + static_cast<int64_t>(r0 + u) * D) : 0.0f;
+  sweep(t, [&](int s, float v, int r, bool ok) {
+    if (!ok) return;
+    lmax[s] = fmaxf(lmax[s], v);
+    if (v <= lmin[s]) {
+      lmin[s] = v;
+      lmin_row[s] = r;
     }
+  });
+
+  // 2. one pass gathers the entries at or above theta (>= B of them) and at
+  // or below theta' (>= B lane minima), and sums the entries in neither
+  // list. With the lists disjoint (theta' < theta) the bottom list lies
+  // outside T, so S is its first B. A list past kCap entries takes the B-th
+  // of the entries it kept as its threshold and the pass runs again; if
+  // that is no higher (a tie at the threshold), it gathers strictly beyond
+  // the threshold instead. A strict list left with fewer than B entries, or
+  // lists that overlap, send the column down the general route.
+  float thr_t[kSlots], thr_b[kSlots], acc[kSlots];
+  bool strict_t[kSlots], strict_b[kSlots];
+  int n_t[kSlots] = {}, n_b[kSlots] = {};
+  bool again[kSlots], general[kSlots];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (r0 + u < K) {
-        insert_desc<B>(tv, ti, v[u], r0 + u);
-        insert_asc<2 * B>(bv, bi, v[u], r0 + u);
+  for (int s = 0; s < kSlots; ++s) {
+    thr_t[s] = warp_kth_largest(lmax[s], B);
+    thr_b[s] = warp_kth_smallest(lmin[s], B);
+    strict_t[s] = strict_b[s] = false;
+    again[s] = active[s];
+    general[s] = false;
+    acc[s] = 0.0f;
+  }
+  while (__syncthreads_or(any_slot(again))) {
+    float ge[kSlots], le[kSlots];  // gather v >= ge into the top list, v <= le into the bottom
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (!again[s]) continue;  // a settled column keeps its lists
+      const bool disjoint =
+          thr_b[s] < thr_t[s] || (thr_b[s] == thr_t[s] && (strict_t[s] || strict_b[s]));
+      general[s] = !disjoint;
+      again[s] = disjoint;
+      ge[s] = strict_t[s] ? nextafterf(thr_t[s], INFINITY) : thr_t[s];
+      le[s] = strict_b[s] ? nextafterf(thr_b[s], -INFINITY) : thr_b[s];
+      n_t[s] = n_b[s] = 0;
+      acc[s] = 0.0f;
+    }
+    sweep(t, [&](int s, float v, int r, bool ok) {
+      if (!again[s]) return;
+      const bool pt = ok && v >= ge[s], pb = ok && v <= le[s];
+      if (__any_sync(kFull, pt || pb)) {
+        gather(cand_v[warp][s][0], cand_r[warp][s][0], n_t[s], v, r, pt);
+        gather(cand_v[warp][s][1], cand_r[warp][s][1], n_b[s], v, r, pb);
       }
-    }
-  }
-
-  // T: (value, row) at or above (tval, trow) in the top order
-  const float tval = tv[B - 1];
-  const int trow = ti[B - 1];
-  // S: the first B bottom candidates outside T; (sval, srow) is the last
-  float sval = 0.0f;
-  int srow = -1;
-  int taken = 0;
+      if (ok && !pt && !pb) acc[s] += v;
+    });
+    __syncwarp();
 #pragma unroll
-  for (int j = 0; j < 2 * B; ++j) {
-    const bool in_top = bv[j] > tval || (bv[j] == tval && bi[j] <= trow);
-    if (!in_top) {
-      ++taken;
-      if (taken == B) {
-        sval = bv[j];
-        srow = bi[j];
+    for (int s = 0; s < kSlots; ++s) {
+      if (!again[s]) continue;
+      again[s] = false;
+      if (n_t[s] > kCap) {
+        const float th = warp_kth_largest(cand_v[warp][s][0][lane], B);
+        strict_t[s] = !(th > thr_t[s]);
+        thr_t[s] = th;
+        again[s] = true;
+      } else if (n_t[s] < B) {
+        general[s] = true;
       }
+      if (n_b[s] > kCap) {
+        const float th = warp_kth_smallest(cand_v[warp][s][1][lane], B);
+        strict_b[s] = !(th < thr_b[s]);
+        thr_b[s] = th;
+        again[s] = true;
+      } else if (n_b[s] < B) {
+        general[s] = true;
+      }
+      again[s] = again[s] && !general[s];
     }
+    __syncwarp();
   }
 
-  // pass 2: sum the survivors in row order
-  float acc = 0.0f;
-  for (int r0 = 0; r0 < K; r0 += kUnroll) {
-    float v[kUnroll];
+  // 3. rank the lists: T is the top list's first B, S the bottom list's;
+  // the rest of both lists are survivors
+  float tval[kSlots], sval[kSlots];
+  int trow[kSlots], srow[kSlots];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      v[u] = (r0 + u < K) ? __ldg(p + static_cast<int64_t>(r0 + u) * D) : 0.0f;
+  for (int s = 0; s < kSlots; ++s) {
+    tval[s] = sval[s] = 0.0f;
+    trow[s] = srow[s] = -1;
+    if (!active[s] || general[s]) continue;
+    const float* tv = cand_v[warp][s][0];
+    const float* bv = cand_v[warp][s][1];
+    const float mt = lane < n_t[s] ? tv[lane] : 0.0f;
+    const float mb = lane < n_b[s] ? bv[lane] : 0.0f;
+    int rt = 0, rb = 0;
+    const int n = max(n_t[s], n_b[s]);
+    for (int k = 0; k < n; ++k) {
+      const float wt = tv[k], wb = bv[k];
+      rt += k < n_t[s] && (wt > mt || (wt == mt && k < lane));
+      rb += k < n_b[s] && (wb < mb || (wb == mb && k < lane));
     }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int r = r0 + u;
-      const bool in_top = v[u] > tval || (v[u] == tval && r <= trow);
-      const bool in_bottom = v[u] < sval || (v[u] == sval && r <= srow);
-      if (r < K && !in_top && !in_bottom) acc += v[u];
-    }
+    if (lane < n_t[s] && rt >= B) acc[s] += mt;
+    if (lane < n_b[s] && rb >= B) acc[s] += mb;
+    const unsigned h = __ballot_sync(kFull, lane < n_t[s] && rt == B - 1);
+    tval[s] = tv[__ffs(h) - 1];
+    trow[s] = cand_r[warp][s][0][__ffs(h) - 1];
   }
-  out[col] = acc / static_cast<float>(K - 2 * B);
+
+  // the general route: bisection and tie scans for T, then for S outside
+  // T below theta'' (the B-th lane min whose lane is not all in T), then the
+  // survivors' sum
+  if (__syncthreads_or(any_slot(general))) {
+    select_general<B, true>(t, general, thr_t, [](int, float, int) { return true; }, tval, trow);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (!general[s]) continue;
+      const bool valid = !in_top(lmin[s], lmin_row[s], tval[s], trow[s]);
+      thr_b[s] = warp_kth_smallest(valid ? lmin[s] : INFINITY, B);
+    }
+    auto outside_top = [&](int s, float v, int r) { return !in_top(v, r, tval[s], trow[s]); };
+    select_general<B, false>(t, general, thr_b, outside_top, sval, srow);
+#pragma unroll
+    for (int s = 0; s < kSlots; ++s) {
+      if (general[s]) acc[s] = 0.0f;
+    }
+    sweep(t, [&](int s, float v, int r, bool ok) {
+      const bool survivor = ok && !in_top(v, r, tval[s], trow[s]) &&
+                            !(v < sval[s] || (v == sval[s] && r <= srow[s]));
+      if (general[s] && survivor) acc[s] += v;
+    });
+  }
+
+#pragma unroll
+  for (int s = 0; s < kSlots; ++s) {
+    float a = acc[s];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) a += __shfl_xor_sync(kFull, a, o);
+    if (lane == 0 && active[s]) out[col0 + warp + s * kWarps] = a / static_cast<float>(K - 2 * B);
+  }
+}
+
+// Configure the instantiation once per device: the dynamic shared memory
+// above 48 KB and the largest shared-memory carveout.
+template <int B>
+cudaError_t configure() {
+  static uint64_t done = 0;  // one bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const uint64_t bit = dev < 64 ? (uint64_t{1} << dev) : 0;
+  if (done & bit) return cudaSuccess;
+  e = cudaFuncSetAttribute(trimmed_mean_kernel<B>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kMaxTileRows * kPitch * static_cast<int>(sizeof(float)));
+  if (e == cudaSuccess) {
+    e = cudaFuncSetAttribute(trimmed_mean_kernel<B>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess) done |= bit;
+  return e;
+}
+
+template <int B>
+cudaError_t launch(const float* x, float* out, int K, int64_t d, cudaStream_t s) {
+  const cudaError_t e = configure<B>();
+  if (e != cudaSuccess) return e;
+  const int R = K <= kMaxTileRows ? K : kStreamRows;
+  const size_t smem = static_cast<size_t>(R) * kPitch * sizeof(float);
+  const dim3 grid(static_cast<unsigned>((d + kCols - 1) / kCols));
+  trimmed_mean_kernel<B><<<grid, kThreads, smem, s>>>(x, out, K, d, R);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -172,18 +469,17 @@ __global__ void __launch_bounds__(kThreads)
 // without launching.
 extern "C" int blades_trimmed_mean_f32(const float* x, float* out, int64_t k, int64_t d, int b,
                                        void* stream) {
-  if (k <= 2 * static_cast<int64_t>(b) || k > INT32_MAX || d < 0) {
+  if (k <= 2 * static_cast<int64_t>(b) || k > INT32_MAX || d < 0 ||
+      (d + kCols - 1) / kCols > INT32_MAX) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 0) return 0;
-  const dim3 grid(static_cast<unsigned>((d + kThreads - 1) / kThreads));
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int K = static_cast<int>(k);
   switch (b) {
 #define BLADES_TM_CASE(N) \
   case N:                 \
-    trimmed_mean_kernel<N><<<grid, kThreads, 0, s>>>(x, out, K, d); \
-    break;
+    return static_cast<int>(launch<N>(x, out, K, d, s));
     BLADES_TM_CASE(1)
     BLADES_TM_CASE(2)
     BLADES_TM_CASE(3)
@@ -204,5 +500,10 @@ extern "C" int blades_trimmed_mean_f32(const float* x, float* out, int64_t k, in
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows a block keeps in shared memory at once: K when the whole column
+// tile fits (one read of the matrix), else the chunk the passes stream.
+extern "C" int blades_trimmed_mean_tile_rows(int64_t k) {
+  return k <= kMaxTileRows ? static_cast<int>(k) : kStreamRows;
 }

@@ -6,7 +6,8 @@ interface and is compiled into a shared library for Hopper (``sm_90a``),
 loaded with ``ctypes``; the caller declares each function's ``argtypes``
 (``c_void_p`` for pointers and the stream). A build that includes PyTorch's
 headers (``torch.utils.cpp_extension.load``) takes minutes; this one takes
-seconds (11 to 15 s for ``trimmed_mean.cu`` on an H100 machine).
+seconds (about 33 s for the 16 instantiations of ``trimmed_mean.cu`` on an
+H100 machine).
 
 The library lands in ``build/blades_tpu_torch/`` at the root of the
 checkout, named by a hash of every source under ``csrc/`` and the compiler

@@ -10,28 +10,32 @@ Counterpart: ``blades_tpu/ops/pallas_trimmed.py`` — the Pallas TPU kernel
   ``K - 2b``. The trimmed extremes never enter the sum. It serves CPU
   tensors, and is the reference the kernel is held against on the card.
 - :func:`trimmed_mean_cuda` launches ``csrc/trimmed_mean.cu`` (built on
-  first use by ``ops/_build.py``) and counts each launch in
-  :data:`trimmed_mean_launches`.
+  first use by ``ops/_build.py``, its C functions bound once when the
+  library loads) and counts each launch in :data:`trimmed_mean_launches`.
 - :func:`trimmed_mean` dispatches like ``pallas_trimmed.py:164-190``:
   ``b == 0`` is the mean; ``1 <= b <= 16`` with ``2b < K`` goes to the
   kernel for a CUDA tensor and to the plain version for a CPU tensor; a
   larger b is a sort along the client axis and a slice, as in the JAX
   package. The TPU-only condition ``K * 128 <= _VMEM_BUDGET_FLOATS`` is
-  dropped: it sized a VMEM tile, and the Hopper kernel streams rows through
-  registers, so it takes any K. There is no compile probe and no switch to
-  turn the kernel off: on a CUDA tensor the kernel runs or the call raises.
+  dropped: it sized a VMEM tile; the Hopper kernel keeps a column tile of
+  :func:`kernel_tile_rows` rows in shared memory, all K rows up to a limit
+  and chunks of a larger K streamed through it, so it takes any K. There is
+  no compile probe and no switch to turn the kernel off: on a CUDA tensor
+  the kernel runs or the call raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from blades_tpu_torch.ops import _build
 
-#: b above this takes the sort path (the kernel's candidate lists are
-#: unrolled into registers; same cap as ``pallas_trimmed._MAX_UNROLL_B``)
+#: b above this takes the sort path (b is a template parameter of the
+#: kernel, one instantiation each; same cap as
+#: ``pallas_trimmed._MAX_UNROLL_B``)
 MAX_KERNEL_B = 16
 
 #: launches of the CUDA kernel in this process: incremented by
@@ -72,18 +76,34 @@ def _check_kernel_args(updates: torch.Tensor, b: int) -> None:
         raise ValueError(f"trimmed_mean_cuda needs a CUDA tensor, got {updates.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    """The kernel's library, built and loaded once, its functions bound."""
+    lib = _build.load("trimmed_mean")
+    lib.blades_trimmed_mean_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.blades_trimmed_mean_f32.restype = ctypes.c_int
+    lib.blades_trimmed_mean_tile_rows.argtypes = [ctypes.c_int64]
+    lib.blades_trimmed_mean_tile_rows.restype = ctypes.c_int
+    return lib
+
+
+def kernel_tile_rows(k: int) -> int:
+    """Rows of a column tile the kernel keeps in shared memory at K=k: k
+    itself when the tile fits (the matrix is read once), else the chunk it
+    streams (the matrix is read once per pass)."""
+    return _library().blades_trimmed_mean_tile_rows(k)
+
+
 def trimmed_mean_cuda(updates: torch.Tensor, b: int) -> torch.Tensor:
     """Launch the Hopper kernel on PyTorch's current stream."""
     global trimmed_mean_launches
     _check_kernel_args(updates, b)
     k, d = updates.shape
     out = torch.empty(d, dtype=torch.float32, device=updates.device)
-    fn = _build.load("trimmed_mean").blades_trimmed_mean_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
+    fn = _library().blades_trimmed_mean_f32
     with torch.cuda.device(updates.device):
         stream = torch.cuda.current_stream(updates.device).cuda_stream
         status = fn(updates.data_ptr(), out.data_ptr(), k, d, b, stream)

@@ -4,6 +4,7 @@
 Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-with OTHER.cu   # also time another build
 
 It builds the port's CUDA kernel from ``blades_tpu_torch/csrc`` with
 ``nvcc``, holds the kernel against its plain PyTorch version on the card,
@@ -15,11 +16,19 @@ record, and the last line is ``{"ok": true, "device": {...}}``, printed only
 when every phase passed. Any failure raises and exits non-zero; without
 CUDA it exits non-zero before doing anything.
 
+``--compare-with`` names another source with the same C interface (an
+earlier version of ``csrc/trimmed_mean.cu``); it is built beside the
+kernel, at the same time, and timed in turns with it (other, this, this,
+other) at every timed shape, in the ``kernel_compare`` records.
+
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
 
 from __future__ import annotations
 
+import argparse
+import ctypes
+import hashlib
 import json
 import re
 import subprocess
@@ -33,8 +42,11 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
 
 # [K, D, b]: BASELINE config 1 (K=10, b=5 auto-shrunk to 4), the main path's
-# K=1000 with b=5 and with the largest kernel b=16, and a ragged D
-KERNEL_SHAPES = [(10, 59_850, 4), (1000, 59_850, 5), (1000, 59_850, 16), (33, 257, 3)]
+# K=1000 with b=5 and with the largest kernel b=16, CCT-2's D
+# (docs/performance.md:890), a K the kernel streams in chunks, and a ragged D
+KERNEL_SHAPES = [(10, 59_850, 4), (1000, 59_850, 5), (1000, 59_850, 16), (1000, 283_723, 5),
+                 (8192, 59_850, 5), (33, 257, 3)]
+TIMED_SHAPES = KERNEL_SHAPES[:5]
 MAIN_SHAPE = (1000, 59_850, 5)
 MAIN_CLIENTS, MAIN_BYZANTINE = 1000, 5  # the main path's population and b
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32: only the summation order differs
@@ -87,6 +99,23 @@ def bound_ms(k: int, d: int) -> tuple:
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
 
 
+def profiled_kernel_ms(torch, fn, reps: int = 20):
+    """Device time of one launch of the trimmed-mean kernel from
+    ``torch.profiler`` (no host wrapper cost in it), or None when the
+    profiler saw no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.self_device_time_total for e in prof.key_averages()
+          if e.device_type == torch.autograd.DeviceType.CUDA and "trimmed_mean_kernel" in e.key]
+    return sum(us) / 1e3 / reps if us else None
+
+
 def kernel_cases(torch, dev):
     """(name, [K, D] matrix on the card, b) for every kernel check."""
     g = torch.Generator(device="cpu").manual_seed(0)
@@ -104,10 +133,24 @@ def kernel_cases(torch, dev):
     extremes = torch.randn(10, 65, generator=g)
     extremes[0], extremes[1], extremes[2] = 1e30, -3e38, 3e38
     cases.append(("extremes-b3", extremes, 3))
+    # columns that overflow the kernel's candidate list and take its general
+    # route: equal values, mixed -0.0 and 0.0, every lane's rows above the
+    # next lane's
+    general = torch.randn(1000, 48, generator=g)
+    general[:, 0] = 0.75
+    general[:, 1] = 0.0
+    general[::3, 1] = -0.0
+    rows = torch.arange(1000, dtype=torch.float32)
+    general[:, 2:] = ((rows % 32) * 100 + rows // 32)[:, None] + torch.rand(1, 46, generator=g)
+    for b in (1, 5, 16):
+        cases.append((f"general-route-K1000-b{b}", general, b))
     return [(name, x.to(dev).contiguous(), b) for name, x, b in cases]
 
 
-def phase_kernel(torch, trimmed, dev, card: str) -> dict:
+def phase_kernel(torch, trimmed, dev, card: str, other=None) -> dict:
+    """Every case against the plain version; the timed shapes beside the
+    bound, the plain version, the library yardstick and, with ``other``
+    (a launch function of another build), that build in turns."""
     max_err = 0.0
     timings = {}
     for name, x, b in kernel_cases(torch, dev):
@@ -119,14 +162,23 @@ def phase_kernel(torch, trimmed, dev, card: str) -> dict:
         ok = bool(torch.allclose(got, ref, **TOL))
         rec = {"phase": "kernel_check", "case": name, "max_abs_err": err, "ok": ok}
         k, d = x.shape
-        if (k, d, b) in KERNEL_SHAPES and d == 59_850:
+        if (k, d, b) in TIMED_SHAPES:
             kern = time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20)
             plain = time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1)
             lib = time_ms(lambda: torch.sort(x, 0)[0][b : k - b].mean(0), reps=5, warmup=1)
             bnd, by = bound_ms(k, d)
             timings[(k, d, b)] = dict(ms=kern, plain_ms=plain, library_ms=lib,
                                       bound_ms=bnd, bound_by=by)
-            rec.update(timings[(k, d, b)], card=card)
+            rec.update(timings[(k, d, b)], share_of_bound=bnd / kern,
+                       profiler_ms=profiled_kernel_ms(torch, lambda: trimmed.trimmed_mean_cuda(x, b)),
+                       tile_rows=trimmed.kernel_tile_rows(k), card=card)
+            if other is not None:
+                mine = lambda: trimmed.trimmed_mean_cuda(x, b)  # noqa: E731
+                theirs = lambda: other(x, b)  # noqa: E731
+                turns = [time_ms(f, reps=20) for f in (theirs, mine, mine, theirs)]
+                emit({"phase": "kernel_compare", "case": name, "other_ms": [turns[0], turns[3]],
+                      "ms": [turns[1], turns[2]], "other_max_abs_err": float(
+                          (other(x, b) - ref).abs().max()), "bound_ms": bnd, "card": card})
         emit(rec)
         check(ok, f"{name}: kernel and plain version differ by {err} (tol {TOL})")
         max_err = max(max_err, err)
@@ -174,11 +226,13 @@ def phase_main_path(torch, trimmed, dev, card: str, log_root: Path):
     return launches, sim
 
 
-def phase_profile(torch, sim, card: str) -> None:
+def phase_profile(torch, trimmed, sim, card: str, other=None) -> None:
     """Where one warm main-path round's time goes on the card:
     ``torch.profiler`` device time by kernel beside the round's host wall
     time (synchronised). Device time 0 means the profiler saw no device
-    activity here (not measured)."""
+    activity here (not measured). Then the wall time of 20 warm rounds; with
+    ``other`` (another build's launch function), 10 through each build in
+    turns of 5 (this, other, other, this)."""
     from torch.profiler import ProfilerActivity, profile
 
     from blades_tpu_torch.utils import rng
@@ -207,6 +261,29 @@ def phase_profile(torch, sim, card: str) -> None:
           "top_kernels_ms": [[e.key[:90], e.self_device_time_total / 1e3, e.count]
                              for e in top],
           "card": card})
+
+    def rounds(n):
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            eng.run_round(state, cx, cy, 0.1, 1.0)
+            torch.cuda.synchronize()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    mine, theirs = [], []
+    mine_cuda = trimmed.trimmed_mean_cuda
+    for turn in ("mine", "other", "other", "mine") if other else ("mine",) * 4:
+        trimmed.trimmed_mean_cuda = other if turn == "other" else mine_cuda
+        try:
+            (theirs if turn == "other" else mine).extend(rounds(5))
+        finally:
+            trimmed.trimmed_mean_cuda = mine_cuda
+    rec = {"phase": "warm_rounds", "clients": eng.num_clients, "round_ms": mine,
+           "median_ms": sorted(mine)[len(mine) // 2], "card": card}
+    if other:
+        rec.update(other_round_ms=theirs, other_median_ms=sorted(theirs)[len(theirs) // 2])
+    emit(rec)
 
 
 def phase_card_vs_cpu(torch, dev) -> None:
@@ -273,7 +350,43 @@ def phase_config1(torch, dev, card: str, log_root: Path) -> None:
     check(sim.aggregator._effective_b(10) == 4, "b did not shrink to 4 at K=10")
 
 
+def start_other_build(src: Path, build_dir: Path):
+    """Start ``nvcc`` on another source with the kernel's C interface and
+    flags; returns the process and the library it writes."""
+    from blades_tpu_torch.ops import _build
+
+    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    build_dir.mkdir(parents=True, exist_ok=True)
+    lib = build_dir / f"other-{digest}.so"
+    proc = subprocess.Popen([_build.find_nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, lib
+
+
+def bind_other(torch, proc, lib: Path):
+    """Wait for the other build; a launch function like trimmed_mean_cuda."""
+    log, _ = proc.communicate()
+    check(proc.returncode == 0, f"nvcc failed on the other source:\n{log}")
+    fn = ctypes.CDLL(str(lib)).blades_trimmed_mean_f32
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch(x, b):
+        k, d = x.shape
+        out = torch.empty(d, dtype=torch.float32, device=x.device)
+        status = fn(x.data_ptr(), out.data_ptr(), k, d, b, torch.cuda.current_stream().cuda_stream)
+        check(status == 0, f"other kernel launch failed: cudaError_t {status}")
+        return out
+
+    return launch
+
+
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--compare-with", type=Path, default=None,
+                        help="another trimmed_mean.cu to time in turns with this one")
+    args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -295,17 +408,20 @@ def main() -> int:
           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
 
     t0 = time.perf_counter()
+    other_build = (start_other_build(args.compare_with.resolve(), _build.BUILD_DIR)
+                   if args.compare_with else None)
     built = _build.build("trimmed_mean")
+    other = bind_other(torch, *other_build) if other_build else None
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "nvcc_seconds": built.seconds, "library": built.path.name,
           "ptxas": re.findall(r"(?:Compiling entry function|Used \d+ registers|"
                               r"\d+ bytes stack frame)[^\n]*", built.log)})
 
-    kernel = phase_kernel(torch, trimmed, dev, card)
+    kernel = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
         launches, sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
-        phase_profile(torch, sim, card)
+        phase_profile(torch, trimmed, sim, card, other)
         phase_card_vs_cpu(torch, dev)
         phase_config1(torch, dev, card, Path(tmp))
 

@@ -1,5 +1,5 @@
-"""The port stands alone: ``blades_tpu_torch`` and ``chip_smoke.py`` import
-nothing of JAX, flax, optax or the JAX package, and a round run through the
+"""The port stands alone: ``blades_tpu_torch``, ``chip_smoke.py`` and
+``kernel_stages.py`` import nothing of JAX, flax, optax or the JAX package, and a round run through the
 port leaves no ``jax`` in ``sys.modules``."""
 
 import ast
@@ -15,7 +15,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "blades_tpu")
 
 def _port_files():
     files = sorted((ROOT / "blades_tpu_torch").rglob("*.py"))
-    return files + [ROOT / "chip_smoke.py"]
+    return files + [ROOT / "chip_smoke.py", ROOT / "kernel_stages.py"]
 
 
 def _imported_roots(path: Path):
@@ -38,7 +38,7 @@ def _imported_roots(path: Path):
 
 def test_port_sources_import_no_jax():
     files = _port_files()
-    assert len(files) > 20 and (ROOT / "chip_smoke.py").exists()
+    assert len(files) > 20 and all(f.exists() for f in files[-2:])
     bad = {
         str(f.relative_to(ROOT)): sorted(set(_imported_roots(f)) & set(FORBIDDEN))
         for f in files

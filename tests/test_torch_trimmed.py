@@ -8,6 +8,12 @@ Tolerance: f32 ``rtol=atol=1e-5``, the bar the JAX package holds between its
 own three lowerings (``tests/test_pallas_trimmed.py``); only the summation
 order differs.
 
+The Hopper kernel cannot run on the CPU, so :func:`_model_trimmed_mean`
+models its selection in numpy, step for step (lane extremes, a warp
+threshold, gathered candidates ranked against each other, the general
+route of bisection and tie scan, lane partial sums), and is held to the
+plain version and to the JAX package for every b.
+
 The JAX package is imported inside a fixture so this file also runs where
 only the port is installed (the GPU machine, ``--noconftest``): there the
 parity cases skip and the ``cuda`` cases run the Hopper kernel.
@@ -61,6 +67,155 @@ def _alie_ties(k=20, d=300, f=6):
     u = _randn(k, d, 9, scale=0.01)
     u[:f] = u[0]
     return u
+
+
+# -- a model of the kernel's selection (csrc/trimmed_mean.cu) ----------------
+
+_INF = np.float32(np.inf)
+
+
+def _order_key(v):
+    u = int(np.float32(v).view(np.uint32))
+    return (~u) & 0xFFFFFFFF if u & 0x80000000 else u | 0x80000000
+
+
+def _key_value(k):
+    u = k & 0x7FFFFFFF if k & 0x80000000 else (~k) & 0xFFFFFFFF
+    return np.uint32(u).view(np.float32)
+
+
+def _model_select(x, eligible, b, thr, top):
+    """The kernel's general route: (value, row) of the b-th eligible entry
+    of column x under (value desc, row asc) if top, else (value asc, row
+    asc), given a threshold with at least b eligible entries at or beyond
+    it. Bisect the ordered keys for the value, then scan its ties."""
+
+    def count(k):  # one count pass
+        probe = _key_value(k)
+        return int((eligible & ((x >= probe) if top else (x <= probe))).sum())
+
+    # the first probe asks whether thr itself is the value
+    if top:
+        lo, hi, edge = _order_key(thr), _order_key(_INF), 0
+        mid = lo + 1
+    else:
+        lo, hi, edge = _order_key(-_INF), _order_key(thr), 0
+        mid = hi - 1
+    while hi - lo > 1:
+        c = count(mid)
+        if (c >= b) == top:
+            lo = mid
+        else:
+            hi = mid
+        if c < b:
+            edge = c
+        mid = lo + (hi - lo) // 2
+    value = _key_value(lo if top else hi)
+    ties = np.flatnonzero(eligible & (x == value))  # tie scan in row order
+    return value, int(ties[b - edge - 1])
+
+
+def _first_b(v, b, top):
+    """Indices of the first b of list v under (value, index) order."""
+    order = sorted(range(len(v)), key=lambda i: ((-v[i]) if top else v[i], i))
+    return order[:b]
+
+
+def _model_trimmed_mean(u, b, lanes=32, cap=32, general=False):
+    """The kernel's trimmed mean with `lanes` lanes a column and lists of
+    `cap` entries: lane l holds rows l, l + lanes, ...; theta (the b-th
+    largest lane max) and theta' (the b-th smallest lane min) gather the top
+    and bottom lists in row order; an overflowing list takes the b-th of the
+    entries it kept as its threshold, or gathers strictly beyond it when
+    that is no higher; with the lists disjoint, T is the top list's first b
+    and S the bottom list's, and every entry in neither list survives.
+    Otherwise (or with ``general``) the general route. Lane partial sums,
+    then their sum over K - 2b."""
+    u = np.asarray(u, np.float32)
+    k, d = u.shape
+    rows = np.arange(k)
+    lane = rows % lanes
+    out = np.empty(d, np.float32)
+    for c in range(d):
+        x = u[:, c]
+        lmax = np.full(lanes, -_INF, np.float32)
+        lmin = np.full(lanes, _INF, np.float32)
+        lrow = np.full(lanes, -1)
+        for r in range(k):  # in row order: the last of equal minima stays
+            lmax[lane[r]] = max(lmax[lane[r]], x[r])
+            if x[r] <= lmin[lane[r]]:
+                lmin[lane[r]], lrow[lane[r]] = x[r], r
+        thr_t = np.sort(lmax)[::-1][b - 1]
+        thr_b = np.sort(lmin)[b - 1]
+        strict_t = strict_b = False
+        while not general:
+            if not (thr_b < thr_t or (thr_b == thr_t and (strict_t or strict_b))):
+                general = True  # the lists would overlap
+                break
+            top = np.flatnonzero((x > thr_t) if strict_t else (x >= thr_t))  # row order
+            bot = np.flatnonzero((x < thr_b) if strict_b else (x <= thr_b))
+            again = False
+            if len(top) > cap:  # the b-th of the kept entries, else strictly beyond
+                th = np.sort(x[top[:cap]])[::-1][b - 1]
+                strict_t, thr_t, again = not th > thr_t, th, True
+            elif len(top) < b:
+                general = True
+            if len(bot) > cap:
+                th = np.sort(x[bot[:cap]])[b - 1]
+                strict_b, thr_b, again = not th < thr_b, th, True
+            elif len(bot) < b:
+                general = True
+            if general or not again:
+                break
+        keep = np.ones(k, bool)
+        if not general:
+            keep[top[_first_b(x[top], b, True)]] = False
+            keep[bot[_first_b(x[bot], b, False)]] = False
+        else:
+            tval, trow = _model_select(x, np.ones(k, bool), b, thr_t, True)
+            in_top = (x > tval) | ((x == tval) & (rows <= trow))
+            lmin_in_top = (lmin > tval) | ((lmin == tval) & (lrow <= trow))
+            thr_g = np.sort(np.where(lmin_in_top, _INF, lmin))[b - 1]
+            sval, srow = _model_select(x, ~in_top, b, thr_g, False)
+            in_bottom = ~in_top & ((x < sval) | ((x == sval) & (rows <= srow)))
+            keep = ~in_top & ~in_bottom
+        assert keep.sum() == k - 2 * b
+        part = np.array([x[keep & (lane == l)].sum(dtype=np.float32) for l in range(lanes)],
+                        np.float32)
+        out[c] = part.sum(dtype=np.float32) / np.float32(k - 2 * b)
+    return out
+
+
+def _lane_ordered(k, d, seed):
+    # every lane's rows above the next lane's: the gathered list overflows
+    # and the kernel takes the general route
+    base = (np.arange(k) % 32) * 100.0 + np.arange(k) // 32
+    return (base[:, None] + np.random.RandomState(seed).rand(1, d)).astype(np.float32)
+
+
+def _model_matrix(kind, b):
+    """A matrix for the model tests at this b; K is never a multiple of 32
+    or of 19, the model's two lane counts."""
+    rs = np.random.RandomState(100 + b)
+    if kind == "ties":
+        return np.round(rs.randn(3 * b + 5, 7) * 2).astype(np.float32) / 2
+    if kind == "all_equal":
+        u = rs.randn(2 * b + 1, 5).astype(np.float32)
+        u[:, 1], u[:, 3] = 0.75, 0.0
+        u[::2, 4] = -0.0  # -0.0 and 0.0 compare equal: one tie class
+        u[1::2, 4] = 0.0
+        return u
+    if kind == "alie":
+        u = (rs.randn(4 * b + 3, 6) * 0.01).astype(np.float32)
+        u[: b + 1] = u[0]
+        return u
+    if kind == "extremes":
+        u = rs.randn(2 * b + 9, 5).astype(np.float32)
+        u[0], u[1], u[2] = 1e30, -3e38, 3e38
+        return u
+    if kind == "lane_ordered":
+        return _lane_ordered(70 + b, 3, b)
+    raise ValueError(kind)
 
 
 # every case of tests/test_pallas_trimmed.py (matrix, b, how the JAX side runs)
@@ -167,3 +322,61 @@ def test_cuda_kernel_every_b(cuda_device, b):
         trimmed_mean_plain(x, b).cpu().numpy(),
         **TOL,
     )
+
+
+@pytest.mark.parametrize("kind", ["ties", "all_equal", "alie", "extremes", "lane_ordered"])
+@pytest.mark.parametrize("b", range(1, MAX_KERNEL_B + 1))
+def test_selection_model_matches_plain(b, kind):
+    # as on the card (32 lanes, 32-entry lists), 19 lanes, lists of b
+    # entries that overflow and tighten, and every column down the general
+    # route
+    u = _model_matrix(kind, b)
+    plain = trimmed_mean_plain(torch.from_numpy(u), b).numpy()
+    for lanes, cap, general in ((32, 32, False), (19, 32, False), (32, b, False),
+                                (32, 32, True)):
+        got = _model_trimmed_mean(u, b, lanes=lanes, cap=cap, general=general)
+        assert np.isfinite(got).all()
+        np.testing.assert_allclose(got, plain, **TOL,
+                                   err_msg=f"lanes={lanes} cap={cap} general={general}")
+
+
+@pytest.mark.parametrize("kind", ["ties", "all_equal", "alie", "extremes"])
+def test_selection_model_matches_jax(jax_tm, kind):
+    for b in range(1, MAX_KERNEL_B + 1):
+        u = _model_matrix(kind, b)
+        expect = _jax_reference(jax_tm, u, b, "extract")
+        np.testing.assert_allclose(_model_trimmed_mean(u, b), expect, **TOL, err_msg=f"b={b}")
+
+
+def _card_matrix(k, d, b, device, seed=0):
+    """Seeded normal rows with ALIE-style identical rows 0..b, an all-equal
+    column, a column of mixed -0.0 and 0.0, and a lane-ordered column."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(k, d, generator=g, device=device) * 1e-2
+    x[: b + 1] = x[0]
+    x[:, 0] = 0.75
+    if d > 1:
+        x[:, 1] = 0.0
+        x[::3, 1] = -0.0
+    if d > 2:
+        x[:, 2] = torch.from_numpy(_lane_ordered(k, 1, seed)[:, 0]).to(device)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "k,d,b",
+    [
+        (3, 40, 1), (11, 300, 5), (33, 257, 16),  # K = 2b+1
+        (1000, 1001, 5), (1000, 333, 16),  # K and D off the warp and tile widths
+        (3297, 70, 8), (3298, 70, 8),  # the last K a tile holds, the first it streams
+        (8192, 2049, 5), (8192, 129, 16),  # streamed in chunks
+        (1000, 283_723, 5),  # CCT-2's D
+    ],
+)
+def test_cuda_kernel_shapes(cuda_device, k, d, b):
+    x = _card_matrix(k, d, b, cuda_device)
+    got = trimmed_mean_cuda(x, b)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, trimmed_mean_plain(x, b), **TOL)
