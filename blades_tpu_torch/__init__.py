@@ -6,8 +6,10 @@ entry points run on the card unless the caller asks for the CPU
 (``Simulator(..., device="cpu")``). It imports nothing of ``blades_tpu`` and
 nothing of JAX: what it shares with the JAX package it keeps as its own copy.
 
-Ported so far: the synchronous dense fedsgd round with the MLP, the ALIE
-attack and the mean / trimmed-mean defenses. The coordinate-wise trimmed
+Ported so far: the synchronous dense fedsgd round with the MLP and the CCT
+family (CCT-2 is the headline model; dropout and DropPath masks drawn per
+round, and a bf16 ``compute_dtype``), the ALIE attack and the mean /
+trimmed-mean defenses. The coordinate-wise trimmed
 mean runs on the card through a CUDA kernel written by hand for Hopper
 (``csrc/trimmed_mean.cu``, bound in ``ops/trimmed.py``). What is still to
 port, and in which order, is queue A of ``ROADMAP.md``.

@@ -9,9 +9,12 @@ Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 
   1. local training of all K clients from the shared global params: per
-     local step, one ``torch.func.vmap`` of ``grad_and_value`` over the
-     client axis (the loss clamped to ``[0, loss_clamp]`` before the
-     gradient), then the client optimizer on the ``[K, ...]`` params;
+     local step, the step's dropout and DropPath keep-masks for all K
+     clients at once (one generator per round, ``utils/rng.py:DROPOUT``),
+     then, chunk by chunk, one ``torch.func.vmap`` of ``grad_and_value``
+     over the client axis (the loss clamped to ``[0, loss_clamp]`` before
+     the gradient, the masks vmapped in), then the client optimizer on the
+     ``[K, ...]`` params;
   2. the update matrix ``[K, D]``: ``ravel(theta_after) - ravel(theta_before)``
      in the JAX package's flat order, then ``nan_to_num``;
   3. the attack's ``on_updates`` rewrite;
@@ -26,12 +29,18 @@ persistent per-client optimizer state (``persist=True``, ``ROADMAP.md``
 queue A slice 3), round blocks (slice 7), streaming (slice 8), async
 (slice 9), the fault model (slice 6), audit, diagnostics and the metric pack
 (slice 10), and sharding plans (slice 12).
+
+``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
+is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
+refuses ``torch.utils.checkpoint`` in both its forms (saved-tensor hooks,
+and an ``autograd.Function`` without ``setup_context``). ``client_chunks``
+bounds activation memory instead.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,14 +207,17 @@ def chunk_layout(num_rows: int, num_chunks: int) -> Tuple[int, int]:
 class RoundEngine:
     """Runs federated rounds and evaluation on one device.
 
-    ``train_loss_fn``: ``(params, x, y, generator) -> (loss, {"top1": ...})``;
+    ``train_loss_fn``: ``(params, x, y, noise) -> (loss, {"top1": ...})``;
     ``eval_logits_fn``: ``(params, x) -> logits``; ``layout``: the params'
-    flat order (``ModelSpec.layout``).
+    flat order (``ModelSpec.layout``); ``noise_sites``: ``batch -> {name:
+    (shape, keep)}``, the keep-masks ``train_loss_fn`` takes
+    (``ModelSpec.noise_sites``; None for a model that draws nothing).
 
     ``client_chunks`` splits the K client axis into sequential chunks, each
     trained as one vmapped batch, so activation memory scales with the
-    chunk, not with K. ``keep_updates`` keeps each round's post-attack
-    ``[K, D]`` matrix as ``self.last_updates``.
+    chunk, not with K; the masks are drawn for all K clients before the
+    split, so a round does not depend on it. ``keep_updates`` keeps each
+    round's post-attack ``[K, D]`` matrix as ``self.last_updates``.
     """
 
     def __init__(
@@ -226,6 +238,7 @@ class RoundEngine:
         client_chunks: int = 1,
         keep_updates: bool = True,
         device=None,
+        noise_sites: Optional[Callable[[int], dict]] = None,
     ):
         if client_opt.persist:
             raise NotImplementedError(
@@ -238,6 +251,7 @@ class RoundEngine:
         self.train_loss_fn = train_loss_fn
         self.eval_logits_fn = eval_logits_fn
         self.layout = layout
+        self.noise_sites = noise_sites or (lambda batch: {})
         self.num_clients = int(num_clients)
         self.num_byzantine = int(num_byzantine)
         self.attack = attack or NoAttack()
@@ -260,8 +274,8 @@ class RoundEngine:
         self._client_tx = client_opt.transform()
         self._server_tx = server_opt.transform()
 
-        def clamped_loss(p, x, y):
-            loss, aux = self.train_loss_fn(p, x, y, None)
+        def clamped_loss(p, x, y, noise):
+            loss, aux = self.train_loss_fn(p, x, y, noise)
             # parity: the reference clamps the loss to [0, 1e6] to survive
             # attack-induced blowups
             return torch.clamp(loss, 0.0, self.loss_clamp), aux
@@ -294,43 +308,40 @@ class RoundEngine:
 
     # -- the round -------------------------------------------------------------
 
-    def _train_chunk(self, params, flat0, client_lr, cx, cy, byz, ids):
-        """Local training of one chunk of clients (``_local_update`` with the
-        client axis written out): ``(updates [k, D], losses [k], top1s [k])``."""
-        k = cx.shape[0]
-        p = {n: t.expand(k, *t.shape) for n, t in params.items()}
-        opt_state = self._client_tx.init(p)
-        losses, top1s = [], []
-        for s in range(cx.shape[1]):
-            x, y = self.attack.on_batch(
-                cx[:, s], cy[:, s], byz, num_classes=self.num_classes, client_idx=ids
-            )
-            grads, (loss, aux) = self._grad_fn(p, x, y)
-            grads = self.attack.on_grads(grads, byz, client_idx=ids)
-            u, opt_state = self._client_tx.update(grads, opt_state, p)
-            p = {n: p[n] - client_lr * u[n] for n in p}
-            losses.append(loss)
-            top1s.append(aux.get("top1", torch.full_like(loss, float("nan"))))
-        updates = self._ravel_rows(p) - flat0
-        return updates, torch.stack(losses, 1).mean(1), torch.stack(top1s, 1).mean(1)
-
-    def _train_clients(self, params, client_lr, cx, cy):
-        """``(updates [K, D], losses [K], top1s [K])`` for all K clients,
-        chunk by chunk along the client axis."""
-        flat0 = ravel(params, self.layout)
+    def _train_clients(self, params, client_lr, cx, cy, noise_gen):
+        """Local training of all K clients (``_local_update`` with the client
+        axis written out): ``(updates [K, D], losses [K], top1s [K])``. Each
+        local step draws every client's keep-masks from ``noise_gen`` at
+        once, then trains the chunks in turn on their slices."""
+        k_all, steps, batch = cx.shape[:3]
         ids = torch.arange(self.num_clients, device=self.device)
-        parts: List[Tuple[torch.Tensor, ...]] = []
-        for lo in range(0, self.num_clients, self.chunk_size):
-            rows = slice(lo, lo + self.chunk_size)
-            parts.append(
-                self._train_chunk(
-                    params, flat0, client_lr, cx[rows], cy[rows],
-                    self.byz_mask[rows], ids[rows],
+        chunks = [slice(lo, lo + self.chunk_size) for lo in range(0, k_all, self.chunk_size)]
+        ps = [{n: t.expand(ids[c].numel(), *t.shape) for n, t in params.items()} for c in chunks]
+        opt_states = [self._client_tx.init(p) for p in ps]
+        sites = self.noise_sites(batch)
+        losses, top1s = [], []  # per step, each a list over the chunks
+        for s in range(steps):
+            noise = rng.keep_masks(sites, noise_gen, (k_all,))
+            losses.append([])
+            top1s.append([])
+            for i, rows in enumerate(chunks):
+                p, byz = ps[i], self.byz_mask[rows]
+                x, y = self.attack.on_batch(
+                    cx[rows, s], cy[rows, s], byz, num_classes=self.num_classes,
+                    client_idx=ids[rows],
                 )
-            )
-        if len(parts) == 1:
-            return parts[0]
-        return tuple(torch.cat(col) for col in zip(*parts))
+                grads, (loss, aux) = self._grad_fn(
+                    p, x, y, {n: m[rows] for n, m in noise.items()}
+                )
+                grads = self.attack.on_grads(grads, byz, client_idx=ids[rows])
+                u, opt_states[i] = self._client_tx.update(grads, opt_states[i], p)
+                ps[i] = {n: p[n] - client_lr * u[n] for n in p}
+                losses[-1].append(loss)
+                top1s[-1].append(aux.get("top1", torch.full_like(loss, float("nan"))))
+            del noise
+        updates = torch.cat([self._ravel_rows(p) for p in ps]) - ravel(params, self.layout)
+        over_steps = lambda xs: torch.stack([torch.cat(x) for x in xs], 1).mean(1)  # noqa: E731
+        return updates, over_steps(losses), over_steps(top1s)
 
     @torch.no_grad()
     def run_round(
@@ -343,12 +354,15 @@ class RoundEngine:
         seed: int = 0,
     ) -> Tuple[RoundState, RoundMetrics]:
         """One federated round. ``cx``/``cy``: ``[K, S, B, ...]`` on the
-        engine's device. ``seed`` roots the round's attack and aggregator
-        generators (``utils/rng.py``)."""
+        engine's device. ``seed`` roots the round's dropout, attack and
+        aggregator generators (``utils/rng.py``)."""
         if self.aggregator is None:
             raise ValueError("RoundEngine.run_round needs an aggregator")
         r = state.round_idx
-        updates, losses, top1s = self._train_clients(state.params, client_lr, cx, cy)
+        updates, losses, top1s = self._train_clients(
+            state.params, client_lr, cx, cy,
+            rng.generator(seed, r, rng.DROPOUT, device=self.device),
+        )
 
         # parity: the reference nan_to_num's every uploaded update
         updates = torch.nan_to_num(updates)

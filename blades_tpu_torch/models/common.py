@@ -1,23 +1,32 @@
 """Shared model plumbing: an ``nn.Module`` -> pure-function adapter.
 
-Counterpart: ``blades_tpu/models/common.py:20-107`` (``cross_entropy``,
-``ModelSpec``, ``build_fns``). The round engine consumes
-``train_loss_fn(params, x, y, generator) -> (loss, {"top1": ...})`` and
+Counterpart: ``blades_tpu/models/common.py:20-128`` (``cross_entropy``,
+``ModelSpec``, ``build_fns``, ``DropPath``). The round engine consumes
+``train_loss_fn(params, x, y, noise) -> (loss, {"top1": ...})`` and
 ``eval_logits_fn(params, x)``; here both call the module through
 ``torch.func.functional_call`` with a params dict, so the engine can take
-per-client gradients with ``torch.func.vmap``. The ``compute_dtype`` (bf16)
-option of the JAX package comes with CCT-2 (``ROADMAP.md`` queue A, slice 2).
+per-client gradients with ``torch.func.vmap``.
+
+Randomness in training (dropout, DropPath) comes in pre-drawn: a module that
+draws any declares ``noise_sites(batch) -> {name: (shape, keep)}``, one
+boolean keep-mask per site with the sample axis first, and its
+``forward(x, noise)`` applies them (:func:`dropout`, :func:`drop_path`).
+``noise=None`` is the deterministic (eval) forward. The engine draws every
+client's masks at once (``utils/rng.py:keep_masks``) and vmaps them in, so
+nothing inside ``torch.func.vmap`` touches a global generator. The JAX
+package draws the same Bernoulli masks from ``jax.random`` keys; the bits
+differ, so tests hand both packages the same masks or set the rates to 0.
 
 :func:`params_from_jax` / :func:`params_to_jax` carry parameters between the
 two packages: the JAX side as a nested dict of numpy arrays in flax layout
-(a Dense kernel is ``[in, out]``), this side as a dict of tensors in torch
-layout (``nn.Linear.weight`` is ``[out, in]``).
+(a Dense kernel is ``[in, out]``, a Conv kernel ``[kh, kw, in, out]``), this
+side as a dict of tensors in torch layout (``ops/pytree.py``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +35,9 @@ from torch import nn
 from torch.func import functional_call
 
 from blades_tpu_torch.ops.pytree import FlatLayout, Params, flat_dim, make_layout
+
+#: ``{site name: (mask shape with the sample axis first, keep probability)}``
+NoiseSites = Dict[str, Tuple[Tuple[int, ...], float]]
 
 
 def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -36,11 +48,34 @@ def cross_entropy(logits: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return -logp.gather(-1, y.long()[..., None]).mean()
 
 
+def dropout(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """flax ``nn.Dropout`` with its mask given: kept entries scale by
+    ``1/keep``, dropped ones are 0; no mask (eval) or rate 0 is the identity."""
+    if mask is None or rate == 0.0:
+        return x
+    return torch.where(mask, x / (1.0 - rate), torch.zeros_like(x))
+
+
+def drop_path(x: torch.Tensor, mask: Optional[torch.Tensor], rate: float) -> torch.Tensor:
+    """``DropPath`` (``blades_tpu/models/common.py:110-128``): a ``[B]`` mask
+    keeps or zeroes a whole sample's residual branch, survivors scaled by
+    ``1/keep``."""
+    if mask is not None:
+        mask = mask.reshape(mask.shape + (1,) * (x.ndim - 1))
+    return dropout(x, mask, rate)
+
+
 @dataclasses.dataclass
 class ModelSpec:
     """The pure functions the engine needs, the params' flat layout, and
     ``init(generator) -> params`` (CPU tensors, so one seed gives the same
-    params whatever device the run uses)."""
+    params whatever device the run uses).
+
+    ``noise_sites(batch)``: the keep-masks ``train_loss_fn`` takes for a
+    batch of that size (``{}`` for a model that draws nothing).
+    ``rebuild_ok``: the functions are stock :func:`build_fns` products, so a
+    consumer may rebuild them from ``module`` with other options (e.g.
+    ``compute_dtype``) without losing behaviour."""
 
     module: nn.Module
     init: Callable[[torch.Generator], Params]
@@ -48,24 +83,48 @@ class ModelSpec:
     eval_logits_fn: Callable
     layout: FlatLayout
     param_count: Optional[int] = None
+    noise_sites: Callable[[int], NoiseSites] = lambda batch: {}
+    rebuild_ok: bool = False
 
 
-def build_fns(module: nn.Module, loss: str = "crossentropy") -> ModelSpec:
+def build_fns(
+    module: nn.Module,
+    loss: str = "crossentropy",
+    compute_dtype: Optional[torch.dtype] = None,
+) -> ModelSpec:
     """Adapt a module that defines ``init_params(generator)`` and
-    ``jax_paths()`` (its map ``torch name -> (flax path, transposed)``) to
-    the engine's interface."""
+    ``jax_paths()`` (its map ``torch name -> (flax path, perm)``) to the
+    engine's interface.
+
+    ``compute_dtype`` (e.g. ``torch.bfloat16``): mixed precision. Float
+    params and inputs are cast to it inside the loss, so the forward and
+    backward run in it while the master params and the gradients (through
+    the cast) stay float32; the loss is taken in float32."""
     if loss != "crossentropy":
         raise NotImplementedError(f"loss {loss!r} (reference parity: crossentropy only)")
+    sites = getattr(module, "noise_sites", lambda batch: {})
 
-    def train_loss_fn(params, x, y, generator=None):
-        # no model ported so far draws randomness in training; the generator
-        # is the slot DropPath/dropout take with CCT-2
-        logits = functional_call(module, params, (x,))
+    def cast(t: torch.Tensor) -> torch.Tensor:
+        if compute_dtype is None or not t.is_floating_point():
+            return t
+        return t.to(compute_dtype)
+
+    def forward(params, x, noise):
+        kwargs = {"noise": noise} if noise else {}
+        return functional_call(module, {n: cast(p) for n, p in params.items()}, (cast(x),), kwargs)
+
+    def train_loss_fn(params, x, y, noise=None):
+        if not noise and sites(x.shape[0]):
+            raise ValueError(
+                f"{type(module).__name__} draws {sorted(sites(x.shape[0]))} in "
+                "training; pass their keep-masks as noise"
+            )
+        logits = forward(params, x, noise)
         top1 = (logits.argmax(dim=-1) == y).to(torch.float32).mean()
         return cross_entropy(logits, y), {"top1": top1}
 
     def eval_logits_fn(params, x):
-        return functional_call(module, params, (x,))
+        return forward(params, x, None)
 
     template = {n: p.detach() for n, p in module.named_parameters()}
     return ModelSpec(
@@ -75,15 +134,28 @@ def build_fns(module: nn.Module, loss: str = "crossentropy") -> ModelSpec:
         eval_logits_fn=eval_logits_fn,
         layout=make_layout(template, module.jax_paths()),
         param_count=flat_dim(template),
+        noise_sites=sites,
+        rebuild_ok=True,
     )
+
+
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """flax ``truncated_normal(stddev)``: ``std`` times a standard normal
+    truncated at +-2, not rescaled."""
+    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
 def lecun_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
     """flax's default Dense kernel init (``lecun_normal``: variance
     ``1/fan_in``, truncated at two standard deviations, rescaled so the
     truncated draw keeps that variance)."""
-    std = (1.0 / fan_in) ** 0.5 / 0.87962566103423978
-    return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+    return trunc_normal_(t, (1.0 / fan_in) ** 0.5 / 0.87962566103423978, generator)
+
+
+def kaiming_normal_(t: torch.Tensor, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax ``kaiming_normal``: as :func:`lecun_normal_` with variance
+    ``2/fan_in``."""
+    return trunc_normal_(t, (2.0 / fan_in) ** 0.5 / 0.87962566103423978, generator)
 
 
 def params_from_jax(tree: Dict[str, Any], layout: FlatLayout) -> Params:
@@ -95,7 +167,7 @@ def params_from_jax(tree: Dict[str, Any], layout: FlatLayout) -> Params:
         for key in leaf.jax_path:
             node = node[key]
         arr = np.asarray(node, dtype=np.float32)
-        t = torch.from_numpy(arr.T.copy() if leaf.transposed else arr.copy())
+        t = torch.from_numpy(np.array(arr.transpose(leaf.perm) if leaf.perm else arr, order="C"))
         if tuple(t.shape) != leaf.shape:
             raise ValueError(f"{'/'.join(leaf.jax_path)}: shape {arr.shape} does not fit {leaf.shape}")
         out[leaf.name] = t
@@ -111,5 +183,5 @@ def params_to_jax(params: Params, layout: FlatLayout) -> Dict[str, Any]:
         node = tree
         for key in leaf.jax_path[:-1]:
             node = node.setdefault(key, {})
-        node[leaf.jax_path[-1]] = np.ascontiguousarray(arr.T if leaf.transposed else arr)
+        node[leaf.jax_path[-1]] = np.ascontiguousarray(arr.transpose(leaf.inverse) if leaf.perm else arr)
     return tree

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from blades_tpu_torch.models.common import build_fns, lecun_normal_
+from blades_tpu_torch.ops.pytree import DENSE
 
 
 class MLP(nn.Module):
@@ -39,11 +40,11 @@ class MLP(nn.Module):
             x = F.relu(layer(x))
         return F.log_softmax(self.layers[-1](x), dim=-1)
 
-    def jax_paths(self) -> Dict[str, Tuple[Tuple[str, ...], bool]]:
+    def jax_paths(self) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
         paths = {}
         for i in range(len(self.layers)):
-            paths[f"layers.{i}.weight"] = ((f"Dense_{i}", "kernel"), True)
-            paths[f"layers.{i}.bias"] = ((f"Dense_{i}", "bias"), False)
+            paths[f"layers.{i}.weight"] = ((f"Dense_{i}", "kernel"), DENSE)
+            paths[f"layers.{i}.bias"] = ((f"Dense_{i}", "bias"), ())
         return paths
 
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:

@@ -5,14 +5,16 @@ Counterpart: ``blades_tpu/ops/pytree.py:21-39`` (``ravel``,
 
 The port keeps a model's parameters as a dict of tensors keyed by the torch
 module's parameter names, in torch's layout (``nn.Linear.weight`` is
-``[out, in]``). The ``[K, D]`` update matrix, though, must be laid out
-coordinate for coordinate as the JAX package lays it out, so that attacks and
-aggregators compare row for row. ``ravel_pytree`` walks the flax params dict
-with its keys sorted at every level (``Dense_0/bias`` before
-``Dense_0/kernel``) and flattens each leaf row-major in flax's layout (a
-Dense kernel is ``[in, out]``). A :class:`FlatLayout` records that walk once
-per model: the torch name of each leaf in flat order, its torch shape, and
-whether it is stored transposed relative to flax.
+``[out, in]``, ``nn.Conv2d.weight`` is ``[out, in, kh, kw]``). The ``[K, D]``
+update matrix, though, must be laid out coordinate for coordinate as the JAX
+package lays it out, so that attacks and aggregators compare row for row.
+``ravel_pytree`` walks the flax params dict with its keys sorted at every
+level (``Dense_0/bias`` before ``Dense_0/kernel``) and flattens each leaf
+row-major in flax's layout (a Dense kernel is ``[in, out]``, a Conv kernel
+``[kh, kw, in, out]``). A :class:`FlatLayout` records that walk once per
+model: the torch name of each leaf in flat order, its torch shape, and the
+permutation that takes the flax leaf to the torch one (:data:`DENSE`,
+:data:`CONV2D`, or ``()`` where the two layouts agree).
 """
 
 from __future__ import annotations
@@ -25,17 +27,31 @@ import torch
 
 Params = Dict[str, torch.Tensor]
 
+#: torch ``[out, in]`` from flax's Dense kernel ``[in, out]``
+DENSE = (1, 0)
+#: torch OIHW ``[out, in, kh, kw]`` from flax's Conv kernel HWIO ``[kh, kw, in, out]``
+CONV2D = (3, 2, 0, 1)
+
 
 @dataclasses.dataclass(frozen=True)
 class LeafSpec:
     name: str  # torch parameter name
     jax_path: Tuple[str, ...]  # path in the flax params dict
     shape: Tuple[int, ...]  # torch shape
-    transposed: bool  # torch stores the flax leaf transposed ([out, in])
+    perm: Tuple[int, ...] = ()  # torch leaf = flax leaf permuted by perm; () = same layout
 
     @property
     def size(self) -> int:
         return math.prod(self.shape)
+
+    @property
+    def inverse(self) -> Tuple[int, ...]:
+        """The permutation that takes the torch leaf back to flax's layout."""
+        return tuple(sorted(range(len(self.perm)), key=self.perm.__getitem__))
+
+    @property
+    def flax_shape(self) -> Tuple[int, ...]:
+        return tuple(self.shape[i] for i in self.inverse) if self.perm else self.shape
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,19 +67,21 @@ class FlatLayout:
 
 def make_layout(
     params: Mapping[str, torch.Tensor],
-    jax_paths: Mapping[str, Tuple[Tuple[str, ...], bool]],
+    jax_paths: Mapping[str, Tuple[Tuple[str, ...], Tuple[int, ...]]],
 ) -> FlatLayout:
     """Layout from a template params dict and the model's map
-    ``torch name -> (flax path, transposed)``. Sorting the flax paths as
-    tuples of strings reproduces the sorted-keys walk of nested dicts."""
+    ``torch name -> (flax path, perm)``. Sorting the flax paths as tuples of
+    strings reproduces the sorted-keys walk of nested dicts."""
     if set(params) != set(jax_paths):
         raise ValueError(
             f"params {sorted(params)} and flax map {sorted(jax_paths)} differ"
         )
-    leaves = [
-        LeafSpec(name, tuple(path), tuple(params[name].shape), bool(tr))
-        for name, (path, tr) in jax_paths.items()
-    ]
+    leaves = []
+    for name, (path, perm) in jax_paths.items():
+        shape, perm = tuple(params[name].shape), tuple(perm)
+        if perm and sorted(perm) != list(range(len(shape))):
+            raise ValueError(f"{name}: {perm} is not a permutation of a {len(shape)}-d leaf")
+        leaves.append(LeafSpec(name, tuple(path), shape, perm))
     return FlatLayout(tuple(sorted(leaves, key=lambda leaf: leaf.jax_path)))
 
 
@@ -71,7 +89,7 @@ def ravel(params: Mapping[str, torch.Tensor], layout: FlatLayout) -> torch.Tenso
     """Flatten a params dict into one ``[D]`` vector in the JAX flat order."""
     return torch.cat(
         [
-            (params[leaf.name].t() if leaf.transposed else params[leaf.name]).reshape(-1)
+            (params[leaf.name].permute(leaf.inverse) if leaf.perm else params[leaf.name]).reshape(-1)
             for leaf in layout.leaves
         ]
     )
@@ -81,7 +99,7 @@ def make_unraveler(
     template: Mapping[str, torch.Tensor], layout: FlatLayout
 ) -> Tuple[int, Callable[[torch.Tensor], Params]]:
     """``(D, unravel)``: ``unravel`` maps a ``[D]`` vector back to a params
-    dict in torch layout (transposed leaves come back as views)."""
+    dict in torch layout (permuted leaves come back as views)."""
     if flat_dim(template) != layout.dim:
         raise ValueError(f"template has {flat_dim(template)} scalars, layout {layout.dim}")
 
@@ -90,8 +108,8 @@ def make_unraveler(
         for leaf in layout.leaves:
             seg = flat[off : off + leaf.size]
             off += leaf.size
-            if leaf.transposed:
-                out[leaf.name] = seg.reshape(leaf.shape[::-1]).t()
+            if leaf.perm:
+                out[leaf.name] = seg.reshape(leaf.flax_shape).permute(leaf.perm)
             else:
                 out[leaf.name] = seg.reshape(leaf.shape)
         return out

@@ -50,8 +50,7 @@ _IGNORED_KWARGS = ("num_actors", "num_trainers", "gpu_per_actor", "mode", "use_c
 #: run() options of the JAX Simulator whose path is not ported yet:
 #: name -> (the value that leaves it off, the ROADMAP.md queue-A slice)
 _UNPORTED_RUN_OPTIONS = {
-    "compute_dtype": (None, "slice 2 (CCT-2 and the bf16 option)"),
-    "remat": (False, "slice 2 (CCT-2)"),
+    "remat": (False, "slice 2b (remat under torch.func)"),
     "checkpoint_path": (None, "slice 5 (checkpoint and resume)"),
     "checkpoint_interval": (0, "slice 5 (checkpoint and resume)"),
     "resume": (False, "slice 5 (checkpoint and resume)"),
@@ -66,6 +65,17 @@ _UNPORTED_RUN_OPTIONS = {
     "round_metrics": (None, "slice 10 (audit, metrics, telemetry)"),
     "profile_dir": (None, "slice 10 (audit, metrics, telemetry)"),
 }
+
+
+def _torch_dtype(name) -> Optional[torch.dtype]:
+    """``None``, a ``torch.dtype`` or its name (``"bfloat16"``) as a float
+    ``torch.dtype``."""
+    if name is None or isinstance(name, torch.dtype):
+        return name
+    dtype = getattr(torch, str(name), None)
+    if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
+        raise ValueError(f"compute_dtype {name!r} is not a float dtype")
+    return dtype
 
 
 def _unported(what: str, slice_name: str) -> NotImplementedError:
@@ -195,9 +205,26 @@ class Simulator:
                 return cls(name=name)
         raise ValueError(f"Unsupported optimizer {opt!r} (use 'SGD', 'Adam', or a spec)")
 
-    def _model_spec(self, model, loss) -> ModelSpec:
+    def _model_spec(self, model, loss, compute_dtype=None) -> ModelSpec:
+        """A :class:`ModelSpec` from a registry name, a module or a spec
+        (``blades_tpu/simulator.py:1194-1240``). A prebuilt spec asked for a
+        ``compute_dtype`` is rebuilt around its module, keeping its ``init``,
+        but only when its functions are stock ``build_fns`` products: a
+        rebuild would drop a custom loss or eval function."""
+        dtype = _torch_dtype(compute_dtype)
         if isinstance(model, ModelSpec):
-            return model
+            if dtype is None:
+                return model
+            if not model.rebuild_ok:
+                raise ValueError(
+                    "compute_dtype was requested but this ModelSpec carries "
+                    "custom train/eval functions that a rebuild would "
+                    "discard; build the spec with the desired compute_dtype "
+                    "instead (build_fns(..., compute_dtype=...))"
+                )
+            rebuilt = build_fns(model.module, loss=loss or "crossentropy", compute_dtype=dtype)
+            rebuilt.init = model.init
+            return rebuilt
         if isinstance(model, str):
             model = create_model(
                 model,
@@ -205,7 +232,7 @@ class Simulator:
                 sample_shape=tuple(self.dataset.train_x.shape[2:]),
             )
         if isinstance(model, nn.Module):
-            return build_fns(model, loss=loss or "crossentropy")
+            return build_fns(model, loss=loss or "crossentropy", compute_dtype=dtype)
         raise TypeError(f"model must be a registry name, an nn.Module or a ModelSpec, got {model!r}")
 
     def run(
@@ -226,6 +253,7 @@ class Simulator:
         retain_updates: bool = False,
         client_chunks: int = 1,
         on_round_end: Optional[Callable] = None,
+        compute_dtype: Optional[Union[str, torch.dtype]] = None,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -237,6 +265,9 @@ class Simulator:
         memory scales with the chunk). ``on_round_end(round, state,
         metrics)``: called after every round; the round's post-attack
         ``[K, D]`` matrix is ``self.engine.last_updates``.
+        ``compute_dtype``: ``"bfloat16"`` runs local training's forward and
+        backward in bf16; params, gradients, the loss and the update matrix
+        stay float32.
         """
         for name, value in options.items():
             if name not in _UNPORTED_RUN_OPTIONS:
@@ -246,7 +277,7 @@ class Simulator:
             if not is_off:
                 raise _unported(f"run({name}={value!r})", slice_name)
 
-        spec = self._model_spec(model, loss)
+        spec = self._model_spec(model, loss, compute_dtype)
         batch_size = train_batch_size or self._train_bs
         params = spec.init(rng.generator(self.seed, 0, rng.INIT))
         trusted = torch.tensor([c.is_trusted() for c in self.get_clients()], dtype=torch.bool)
@@ -266,6 +297,7 @@ class Simulator:
             client_chunks=client_chunks,
             keep_updates=retain_updates or on_round_end is not None,
             device=self.device,
+            noise_sites=spec.noise_sites,
         )
         state = self.engine.init(params)
         self.server = BladesServer(self.engine, state, self.aggregator)

@@ -3,7 +3,7 @@ purpose[, client]).
 
 Counterpart: ``blades_tpu/utils/rng.py:26-61``, a ``fold_in`` key tree:
 
-    root(seed) -> round -> purpose (DATA, AUGMENT, ATTACK, ...)
+    root(seed) -> round -> purpose (DATA, AUGMENT, ATTACK, ..., DROPOUT)
                         -> CLIENTS -> client_id
 
 Here every node is a fresh generator seeded from a hash of its path, so any
@@ -32,6 +32,9 @@ CLIENTS = 5
 AGG = 6
 FAULT = 7
 ARRIVAL = 8
+# local training's dropout and DropPath masks (the JAX package folds the
+# client's step key instead: ``blades_tpu/core/engine.py:580``)
+DROPOUT = 9
 
 
 def generator(
@@ -48,3 +51,14 @@ def generator(
     path += [CLIENTS, int(client)] if client is not None else [int(purpose)]
     state = np.random.SeedSequence(path).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
+
+
+def keep_masks(sites, generator: torch.Generator, lead=()) -> dict:
+    """One boolean keep-mask per noise site (``{name: (shape, keep)}``, as a
+    model's ``noise_sites`` gives them), of shape ``lead + shape``, each entry
+    True with probability ``keep``, drawn in the sites' order."""
+    return {
+        name: torch.empty(tuple(lead) + tuple(shape), dtype=torch.bool,
+                          device=generator.device).bernoulli_(keep, generator=generator)
+        for name, (shape, keep) in sites.items()
+    }

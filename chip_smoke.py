@@ -8,13 +8,19 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card:
 
 It builds the port's CUDA kernel from ``blades_tpu_torch/csrc`` with
 ``nvcc``, holds the kernel against its plain PyTorch version on the card,
-times both beside the card's bound and a one-call PyTorch yardstick, drives
-the port's main path (``Simulator(...).run``: the synchronous MLP round with
-ALIE and trimmed mean at K=1000 clients) and checks what comes out. Each
-phase prints one JSON line. The line before the last is the ``kernels``
-record, and the last line is ``{"ok": true, "device": {...}}``, printed only
-when every phase passed. Any failure raises and exits non-zero; without
-CUDA it exits non-zero before doing anything.
+times both beside the card's bound and a one-call PyTorch yardstick, and
+drives the port's paths through ``Simulator(...).run``, each with the
+kernel's launch count set to 0 just before it and read just after: the
+synchronous MLP round with ALIE and trimmed mean at K=1000 clients,
+BASELINE config 1's shape, and the main path, CCT-2 (D = 283,723) on
+CIFAR-shaped data at K=1000 in f32 and in bf16 (the kernel is also held
+against its plain version on that round's own update matrix). Each path's
+warm round is profiled, and one round of the MLP and one of CCT-2 run on
+the card and on the CPU from the same inputs and are compared. Each phase
+prints one JSON line. The line before the last is the ``kernels`` record,
+and the last line is ``{"ok": true, "device": {...}}``, printed only when
+every phase passed. Any failure raises and exits non-zero; without CUDA it
+exits non-zero before doing anything.
 
 ``--compare-with`` names another source with the same C interface (an
 earlier version of ``csrc/trimmed_mean.cu``); it is built beside the
@@ -30,6 +36,7 @@ import argparse
 import ctypes
 import hashlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -47,13 +54,21 @@ F32_FLOPS = 67e12
 KERNEL_SHAPES = [(10, 59_850, 4), (1000, 59_850, 5), (1000, 59_850, 16), (1000, 283_723, 5),
                  (8192, 59_850, 5), (33, 257, 3)]
 TIMED_SHAPES = KERNEL_SHAPES[:5]
-MAIN_SHAPE = (1000, 59_850, 5)
 MAIN_CLIENTS, MAIN_BYZANTINE = 1000, 5  # the main path's population and b
 TOL = dict(rtol=1e-5, atol=1e-5)  # f32: only the summation order differs
 # card vs CPU round: the same f32 math, with matmuls and reductions summed in
 # other orders (TF32 off on both backends)
 ROUND_TOL = dict(rtol=1e-4, atol=1e-5)
 MAX_KINK_ROWS = 5  # of the main path's 1000 client rows (see phase_card_vs_cpu)
+# CCT-2 (D = 283,723) on CIFAR-shaped data: the population, the rounds in
+# f32 and in bf16, the client chunks that bound activation memory
+CCT2_SHAPE = (1000, 283_723, 5)
+CCT2_ROUNDS_F32, CCT2_ROUNDS_BF16, CCT2_CHUNKS = 3, 2, 4
+# card vs CPU at CCT-2's full width: K=16, f=2, b=2, and at most this many
+# update rows outside ROUND_TOL (a ReLU pre-activation within rounding of 0,
+# or a max-pool window whose two largest entries are equal in exact
+# arithmetic, takes the other branch on the other backend)
+CCT2_CPU_CLIENTS, CCT2_CPU_BYZANTINE, CCT2_MAX_KINK_ROWS = 16, 2, 2
 
 
 def emit(record: dict) -> None:
@@ -182,7 +197,7 @@ def phase_kernel(torch, trimmed, dev, card: str, other=None) -> dict:
         emit(rec)
         check(ok, f"{name}: kernel and plain version differ by {err} (tol {TOL})")
         max_err = max(max_err, err)
-    return {"max_abs_err": max_err, **timings[MAIN_SHAPE]}
+    return max_err, timings
 
 
 def phase_main_path(torch, trimmed, dev, card: str, log_root: Path):
@@ -329,7 +344,7 @@ def phase_card_vs_cpu(torch, dev) -> None:
     check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), "new params differ")
 
 
-def phase_config1(torch, dev, card: str, log_root: Path) -> None:
+def phase_config1(torch, trimmed, dev, card: str, log_root: Path) -> int:
     """BASELINE config 1's shape: MNIST-sized MLP, K=10, f=4, ALIE + trimmed
     mean (b=5 auto-shrunk to 4), the README quick start's run parameters."""
     from blades_tpu_torch import Simulator
@@ -342,12 +357,299 @@ def phase_config1(torch, dev, card: str, log_root: Path) -> None:
         device=dev, log_path=str(log_root / "config1"),
     )
     torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
     times = sim.run(model="mlp", global_rounds=2, local_steps=50, server_lr=1.0, client_lr=0.1)
     torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
     emit({"phase": "config1", "clients": 10, "byzantine": 4, "b": 4, "rounds": 2,
-          "local_steps": 50, "round_s": times, "rounds_per_s": len(times) / sum(times),
+          "local_steps": 50, "kernel_launches": launches, "round_s": times,
+          "rounds_per_s": len(times) / sum(times),
           "peak_mem_bytes": torch.cuda.max_memory_allocated(), "card": card})
     check(sim.aggregator._effective_b(10) == 4, "b did not shrink to 4 at K=10")
+    check(launches == 2, f"kernel launched {launches} times in 2 rounds, want 2")
+    return launches
+
+
+def cct2_simulator(torch, log_root: Path):
+    """CCT-2's headline population on CIFAR-shaped synthetic data (50,000 /
+    10,000 samples; CIFAR-10's files are not in the repo): K=1000, f=5
+    ALIE, trimmed mean b=5. No ``device=``: the port's default is the card."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.datasets import Synthetic
+
+    k, _, b = CCT2_SHAPE
+    sim = Simulator(
+        dataset=Synthetic(num_clients=k, sample_shape=(32, 32, 3), train_bs=32,
+                          train_size=50_000, test_size=10_000, cache=False),
+        attack="alie", num_byzantine=b, aggregator="trimmedmean",
+        aggregator_kws={"num_byzantine": b}, seed=1, log_path=str(log_root / "cct2_path"),
+    )
+    check(sim.device == torch.device("cuda"), f"the default device is {sim.device}")
+    return sim
+
+
+def phase_cct2_path(torch, trimmed, sim, card: str) -> dict:
+    """CCT-2 through Simulator.run: CCT2_ROUNDS_F32 rounds in f32, then
+    CCT2_ROUNDS_BF16 with compute_dtype="bfloat16", 1 local step of batch
+    32, CCT2_CHUNKS client chunks. Each run's kernel launches are counted
+    alone; the last round's own [K, D] matrix is then handed to the kernel
+    and its plain version (those launches are not counted). Returns, per
+    dtype, the engine, its state, the launches and that error."""
+    from blades_tpu_torch.utils.logging import read_stats
+
+    k, d, b = CCT2_SHAPE
+    out = {}
+    for dtype, rounds in (("float32", CCT2_ROUNDS_F32), ("bfloat16", CCT2_ROUNDS_BF16)):
+        seen = []
+
+        def on_round_end(rnd, state, m):
+            u = sim.engine.last_updates
+            seen.append(dict(shape=tuple(u.shape), device=u.device.type, dtype=u.dtype,
+                             loss=float(m.train_loss), top1=float(m.train_top1),
+                             agg_norm=float(m.agg_norm), variance=float(m.update_variance)))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trimmed.trimmed_mean_launches = 0
+        times = sim.run(model="cct_2_3x2_32", global_rounds=rounds, local_steps=1,
+                        server_lr=1.0, client_lr=0.1, validate_interval=rounds,
+                        client_chunks=CCT2_CHUNKS, on_round_end=on_round_end,
+                        compute_dtype=None if dtype == "float32" else dtype)
+        torch.cuda.synchronize()
+        launches = trimmed.trimmed_mean_launches
+        peak = torch.cuda.max_memory_allocated()
+        u = sim.engine.last_updates
+        got = trimmed.trimmed_mean_cuda(u, b)
+        ref = trimmed.trimmed_mean_plain(u, b)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        test = [r for r in read_stats(sim.log_path) if r["_meta"]["type"] == "test"][-1]
+        emit({"phase": "cct2_path", "dtype": dtype, "clients": k, "byzantine": b, "b": b,
+              "rounds": rounds, "client_chunks": CCT2_CHUNKS, "kernel_launches": launches,
+              "updates_shape": list(seen[0]["shape"]), "updates_dtype": str(seen[0]["dtype"]),
+              "train_loss": [r["loss"] for r in seen], "train_top1": [r["top1"] for r in seen],
+              "agg_norm": [r["agg_norm"] for r in seen],
+              "update_variance": [r["variance"] for r in seen],
+              "test_loss": test["Loss"], "test_top1": test["top1"],
+              "round_s": times, "note": "the last round_s includes the 10,000-sample eval",
+              "peak_mem_bytes": peak, "last_round_kernel_vs_plain_max_abs_err": err,
+              "card": card})
+        check(launches == rounds, f"{dtype}: kernel launched {launches} times in {rounds} rounds")
+        check(all(r["shape"] == (k, d) and r["device"] == "cuda" and r["dtype"] == torch.float32
+                  for r in seen), f"{dtype}: update matrices {seen}")
+        numbers = [v for r in seen for v in (r["loss"], r["agg_norm"], r["variance"])]
+        check(all(map(math.isfinite, numbers + [test["Loss"]])), f"{dtype}: non-finite {numbers}")
+        check(bool(torch.allclose(got, ref, **TOL)),
+              f"{dtype}: kernel and plain version differ by {err} on the round's matrix")
+        check(math.isclose(float(torch.linalg.vector_norm(got)), seen[-1]["agg_norm"],
+                           rel_tol=1e-6), f"{dtype}: the round applied another aggregate")
+        out[dtype] = dict(engine=sim.engine, state=sim.server.state, launches=launches,
+                          max_abs_err=err)
+    return out
+
+
+def _union_ms(spans) -> float:
+    """Length of the union of [start, end] intervals (us), in ms."""
+    total, start, end = 0.0, None, None
+    for lo, hi in sorted(spans):
+        if end is None or lo > end:
+            total += 0.0 if end is None else end - start
+            start, end = lo, hi
+        else:
+            end = max(end, hi)
+    return (total + (0.0 if end is None else end - start)) / 1e3
+
+
+def device_kernels(torch, prof) -> list:
+    """The kernel (device) events of a profiled window."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def conv_kernel_names(torch, eng, state, cx, dtype) -> tuple:
+    """(forward, all) names of the kernels that the tokenizer's two convs
+    launch at one client chunk's shapes, found by profiling those convs
+    alone: vmapped over the chunk with batched weights as in the round,
+    forward only, then forward and backward (both weights' gradients and
+    the second conv's input gradient, as the round takes them)."""
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    cast = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    k = eng.chunk_size
+    w = [state.params[f"tokenizer.convs.{i}.weight"].to(cast).expand(k, -1, -1, -1, -1)
+         for i in (0, 1)]
+    x = cx[:k, 0].to(cast)
+
+    def convs(w0, w1, xb):
+        h = F.max_pool2d(F.relu(F.conv2d(xb.permute(0, 3, 1, 2), w0, padding=1)), 3, 2, 1)
+        return F.conv2d(h, w1, padding=1).float().sum()
+
+    names = []
+    for fn in (torch.func.vmap(convs),
+               torch.func.vmap(torch.func.grad(convs, argnums=(0, 1)))):
+        fn(*w, x)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn(*w, x)
+            torch.cuda.synchronize()
+        # PyTorch's own kernels (copies, relu, max-pool) and memsets are not
+        # the conv's
+        names.append({e.name for e in device_kernels(torch, prof)
+                      if "at::native::" not in e.name and not e.name.startswith("Mem")})
+    return names[0], names[0] | names[1]
+
+
+def device_breakdown(torch, prof, conv_forward: set, conv_all: set) -> dict:
+    """Device time of a profiled window from its kernel events (cuDNN runs
+    a grouped conv's per-group kernels on several streams, so kernels
+    overlap): busy time is the union of their intervals; each class gets
+    the union and the sum of its kernels' intervals. Classes: conv forward
+    and backward (kernel names from conv_kernel_names; a name the forward
+    launches counts as forward wherever it runs), GEMM (cuBLAS and CUTLASS
+    kernel names), max-pool, the trimmed-mean kernel, and the rest
+    (elementwise work, copies, reductions, layer norm, softmax), whose
+    largest kernels are listed."""
+    kernels = device_kernels(torch, prof)
+
+    def cls(name):
+        if "trimmed_mean_kernel" in name:
+            return "trimmed_mean_kernel"
+        if name in conv_forward:
+            return "conv_forward"
+        if name in conv_all:
+            return "conv_backward"
+        if any(tag in name.lower() for tag in ("gemm", "nvjet", "cutlass", "xmma")):
+            return "gemm"
+        if "max_pool" in name:
+            return "max_pool"
+        return "other"
+
+    spans, other = {}, {}
+    for e in kernels:
+        c, span = cls(e.name), (e.time_range.start, e.time_range.end)
+        spans.setdefault(c, []).append(span)
+        if c == "other":
+            other[e.name] = other.get(e.name, 0.0) + (span[1] - span[0]) / 1e3
+    classes = ("conv_forward", "conv_backward", "gemm", "max_pool", "trimmed_mean_kernel",
+               "other")
+    return {"busy_ms": _union_ms([sp for v in spans.values() for sp in v]),
+            "kernel_sum_ms": sum(hi - lo for v in spans.values() for lo, hi in v) / 1e3,
+            "streams": len({e.device_resource_id for e in kernels}),
+            "by_class_union_ms": {c: _union_ms(spans.get(c, [])) for c in classes},
+            "by_class_sum_ms": {c: sum(hi - lo for lo, hi in spans.get(c, [])) / 1e3
+                                for c in classes},
+            "other_top_ms": [[n[:110], ms] for n, ms in
+                             sorted(other.items(), key=lambda kv: kv[1], reverse=True)[:8]]}
+
+
+def phase_cct2_profile(torch, sim, runs: dict, card: str) -> None:
+    """One warm CCT-2 round per dtype under torch.profiler: wall and device
+    busy time, the busy share, device time by class (see device_breakdown),
+    the top kernels by name and the conv kernels named; then the wall time
+    of 3 warm rounds without the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch.utils import rng
+
+    for dtype, run in runs.items():
+        eng, state = run["engine"], run["state"]
+        cx, cy = sim.dataset.sample_round(
+            rng.generator(sim.seed, 99, rng.DATA, device=eng.device), 1, 32)
+        conv_fwd, conv_all = conv_kernel_names(torch, eng, state, cx, dtype)
+        eng.run_round(state, cx, cy, 0.1, 1.0)  # warm
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.run_round(state, cx, cy, 0.1, 1.0)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        dev = device_breakdown(torch, prof, conv_fwd, conv_all)
+        busy = dev["busy_ms"]
+        by_name = {}
+        for e in device_kernels(torch, prof):
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+        top = sorted(by_name.items(), key=lambda kv: kv[1][0], reverse=True)
+        emit({"phase": "cct2_profile", "dtype": dtype, "clients": eng.num_clients,
+              "client_chunks": eng.client_chunks, "wall_ms": wall_ms,
+              "device_busy_share": busy / wall_ms, **dev,
+              "class_union_share_of_busy": {c: v / busy for c, v in
+                                            dev["by_class_union_ms"].items()} if busy else None,
+              "top_kernels_ms": [[name[:110], ms, n] for name, (ms, n) in top[:12]],
+              "conv_kernels_ms": [["forward" if name in conv_fwd else "backward", name[:300],
+                                   ms, n] for name, (ms, n) in top if name in conv_all],
+              "peak_mem_bytes": peak, "card": card})
+        check(busy == 0 or dev["by_class_union_ms"]["trimmed_mean_kernel"] > 0,
+              f"{dtype}: the profiled round shows no trimmed-mean kernel")
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            eng.run_round(state, cx, cy, 0.1, 1.0)
+            torch.cuda.synchronize()
+            warm.append((time.perf_counter() - t0) * 1e3)
+        emit({"phase": "cct2_warm_rounds", "dtype": dtype, "round_ms": warm,
+              "median_ms": sorted(warm)[1], "card": card})
+
+
+def phase_cct2_card_vs_cpu(torch, dev) -> None:
+    """One CCT-2 round (full width, attention dropout and DropPath at their
+    default rates) on the card and on the CPU from the same params, the
+    same batches and the same keep-masks: the masks are drawn once on the
+    CPU and handed to both engines in place of their own draw, since CUDA
+    and CPU generators give different streams. The aggregate and the new
+    params within ROUND_TOL; every update row within ROUND_TOL but for at
+    most CCT2_MAX_KINK_ROWS, which are reported."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.attackers import Alie
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.datasets import Synthetic
+    from blades_tpu_torch.models import build_fns, create_model
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.utils import rng
+
+    k, f = CCT2_CPU_CLIENTS, CCT2_CPU_BYZANTINE
+    spec = build_fns(create_model("cct_2_3x2_32", sample_shape=(32, 32, 3)))
+    params = spec.init(torch.Generator().manual_seed(21))
+    ds = Synthetic(num_clients=k, sample_shape=(32, 32, 3), train_bs=32, train_size=2_000,
+                   test_size=100, cache=False).get_dls("cpu")
+    cx, cy = ds.sample_round(torch.Generator().manual_seed(22), 1, 32)
+    masks = rng.keep_masks(spec.noise_sites(32), torch.Generator().manual_seed(23), (k,))
+    drawn = rng.keep_masks
+
+    def same_masks(sites, generator, lead=()):
+        check(list(sites) == list(masks) and tuple(lead) == (k,), f"mask sites {list(sites)}")
+        return {n: m.to(generator.device) for n, m in masks.items()}
+
+    out = {}
+    rng.keep_masks = same_masks
+    try:
+        for where in ("cpu", dev):
+            eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                              num_clients=k, num_byzantine=f,
+                              attack=Alie(num_clients=k, num_byzantine=f),
+                              aggregator=Trimmedmean(num_byzantine=f), device=where,
+                              noise_sites=spec.noise_sites)
+            state, _ = eng.run_round(eng.init(params), cx.to(where), cy.to(where), 0.1, 1.0)
+            agg, _ = eng.aggregator.aggregate(eng.last_updates)  # what the round applied
+            out[str(where)] = (eng.last_updates.cpu(), agg.cpu(),
+                               ravel(state.params, spec.layout).cpu())
+    finally:
+        rng.keep_masks = drawn
+    (u_cpu, a_cpu, p_cpu), (u_gpu, a_gpu, p_gpu) = out["cpu"], out[str(dev)]
+    row_ok = torch.isclose(u_gpu, u_cpu, **ROUND_TOL).all(dim=1)
+    emit({"phase": "cct2_card_vs_cpu_round", "clients": k, "byzantine": f, "b": f,
+          "dim": u_cpu.shape[1], "tol": ROUND_TOL, "mask_sites": list(masks),
+          "updates_max_abs_err": float((u_gpu - u_cpu).abs().max()),
+          "updates_max_abs": float(u_cpu.abs().max()),
+          "update_rows_outside_tol": torch.nonzero(~row_ok).flatten().tolist(),
+          "agg_max_abs_err": float((a_gpu - a_cpu).abs().max()),
+          "params_max_abs_err": float((p_gpu - p_cpu).abs().max())})
+    check(int((~row_ok).sum()) <= CCT2_MAX_KINK_ROWS,
+          f"{int((~row_ok).sum())} update rows differ (allowed {CCT2_MAX_KINK_ROWS})")
+    check(torch.allclose(a_gpu, a_cpu, **ROUND_TOL), "CCT-2 aggregates differ")
+    check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), "CCT-2 new params differ")
 
 
 def start_other_build(src: Path, build_dir: Path):
@@ -417,26 +719,37 @@ def main() -> int:
           "ptxas": re.findall(r"(?:Compiling entry function|Used \d+ registers|"
                               r"\d+ bytes stack frame)[^\n]*", built.log)})
 
-    kernel = phase_kernel(torch, trimmed, dev, card, other)
+    max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
-        launches, sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
+        launches = {}
+        launches["mlp_k1000"], sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
         phase_profile(torch, trimmed, sim, card, other)
         phase_card_vs_cpu(torch, dev)
-        phase_config1(torch, dev, card, Path(tmp))
+        launches["config1"] = phase_config1(torch, trimmed, dev, card, Path(tmp))
+        del sim
+        sim = cct2_simulator(torch, Path(tmp))
+        runs = phase_cct2_path(torch, trimmed, sim, card)
+        phase_cct2_profile(torch, sim, runs, card)
+        del sim, runs["float32"]["engine"], runs["bfloat16"]["engine"]
+        phase_cct2_card_vs_cpu(torch, dev)
+    for dtype, run in runs.items():
+        launches[f"cct2_{dtype}"] = run["launches"]
+        max_err = max(max_err, run["max_abs_err"])
+    check(all(launches.values()), f"a path ran without the kernel: {launches}")
 
+    # the slice's main path is the CCT-2 round: its launches, and the kernel
+    # timed at its [K, D, b]
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
-        "launches": launches,
-        "max_abs_err": kernel["max_abs_err"],
-        "ms": kernel["ms"],
-        "plain_ms": kernel["plain_ms"],
-        "bound_ms": kernel["bound_ms"],
-        "bound_by": kernel["bound_by"],
-        "library_ms": kernel["library_ms"],
+        "launches": launches["cct2_float32"] + launches["cct2_bfloat16"],
+        "launches_by_path": launches,
+        "shape_kdb": list(CCT2_SHAPE),
+        "max_abs_err": max_err,
+        **timings[CCT2_SHAPE],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -1,4 +1,5 @@
-"""One MLP round of the port against ``blades_tpu.core.RoundEngine``.
+"""One MLP round, and one CCT-2 round, of the port against
+``blades_tpu.core.RoundEngine``.
 
 BASELINE config 1's shape: K=10 clients, f=4 byzantine, ALIE + trimmed mean
 (b=5 shrunk to 4), plain SGD. The initial params (the JAX package's init,
@@ -25,11 +26,13 @@ from jax.flatten_util import ravel_pytree
 from blades_tpu.aggregators.trimmedmean import Trimmedmean as JaxTrimmedmean
 from blades_tpu.attackers.alie import Alie as JaxAlie
 from blades_tpu.core import RoundEngine as JaxRoundEngine
+from blades_tpu.models import build_fns as jax_build_fns
+from blades_tpu.models import cct as jax_cct
 from blades_tpu.models.mlp import create_mnist_model as jax_mlp
 from blades_tpu_torch.aggregators import Trimmedmean
 from blades_tpu_torch.attackers import Alie
 from blades_tpu_torch.core import RoundEngine, RoundMetrics
-from blades_tpu_torch.models import create_mnist_model, params_from_jax
+from blades_tpu_torch.models import build_fns, cct, create_mnist_model, params_from_jax
 from blades_tpu_torch.ops.pytree import ravel
 
 K, F, S, B = 10, 4, 2, 8
@@ -127,3 +130,77 @@ def test_three_round_trajectory_matches_jax(jax_params):
         _check_metrics(jm, tm, rtol=TOL_3["rtol"])
     np.testing.assert_allclose(*_flat_params(j[1], t[1], t[2]), **TOL_3)
     assert np.isfinite(float(tm.train_loss))
+
+
+# -- CCT-2 ---------------------------------------------------------------------
+
+CCT_K, CCT_F, CCT_S, CCT_B = 6, 2, 1, 4
+NO_NOISE = dict(attention_dropout=0.0, stochastic_depth=0.0)
+
+
+def _cct_batches(seed):
+    rng = np.random.RandomState(seed)
+    cx = rng.randn(CCT_K, CCT_S, CCT_B, 32, 32, 3).astype(np.float32)
+    cy = rng.randint(0, 10, (CCT_K, CCT_S, CCT_B)).astype(np.int32)
+    return cx, cy
+
+
+def _cct_engine(spec, params, client_chunks=1):
+    return RoundEngine(
+        spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+        num_clients=CCT_K, num_byzantine=CCT_F,
+        attack=Alie(num_clients=CCT_K, num_byzantine=CCT_F),
+        aggregator=Trimmedmean(num_byzantine=2), client_chunks=client_chunks,
+        keep_updates=True, device="cpu", noise_sites=spec.noise_sites,
+    )
+
+
+def test_cct2_round_matches_jax():
+    """One CCT-2 round (D = 283,723), ALIE + trimmed mean b=2, with
+    attention dropout and stochastic depth at 0 on both sides (the two
+    packages draw different bits), within the file's ``TOL``."""
+    jspec = jax_build_fns(jax_cct.cct_2_3x2_32(**NO_NOISE), (32, 32, 3))
+    jparams = jax.tree_util.tree_map(np.asarray, jspec.init(jax.random.PRNGKey(0)))
+    tspec = build_fns(cct.cct_2_3x2_32(**NO_NOISE))
+    jeng = JaxRoundEngine(
+        jspec.train_loss_fn, jspec.eval_logits_fn, jparams,
+        num_clients=CCT_K, num_byzantine=CCT_F,
+        attack=JaxAlie(num_clients=CCT_K, num_byzantine=CCT_F),
+        aggregator=JaxTrimmedmean(num_byzantine=2), plan=None, keep_updates=True,
+    )
+    tparams = params_from_jax(jparams, tspec.layout)
+    teng = _cct_engine(tspec, tparams)
+    cx, cy = _cct_batches(200)
+    jstate, jm = jeng.run_round(jeng.init(jparams), jnp.asarray(cx), jnp.asarray(cy),
+                                CLIENT_LR, SERVER_LR, jax.random.PRNGKey(7))
+    tstate, tm = teng.run_round(teng.init(tparams), torch.from_numpy(cx),
+                                torch.from_numpy(cy), CLIENT_LR, SERVER_LR)
+    tu = teng.last_updates
+    assert tu.shape == (CCT_K, 283_723)
+    np.testing.assert_allclose(tu.numpy(), np.asarray(jeng.last_updates), **TOL)
+    np.testing.assert_allclose(*_flat_params(jstate, tstate, tspec.layout), **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])
+
+
+def test_cct2_round_at_default_rates_does_not_depend_on_chunks():
+    """At CCT-2's default rates the masks are drawn for all K clients before
+    the chunk split, so 1 and 3 chunks run the same round: the same masks,
+    and the same math up to the batch size of the vmapped calls (f32,
+    ``rtol=1e-5, atol=1e-7``)."""
+    spec = build_fns(cct.cct_2_3x2_32())
+    assert spec.noise_sites(CCT_B)  # the round draws masks
+    params = spec.init(torch.Generator().manual_seed(4))
+    cx, cy = (torch.from_numpy(a) for a in _cct_batches(201))
+    out = []
+    for chunks in (1, 3):
+        eng = _cct_engine(spec, params, client_chunks=chunks)
+        state, m = eng.run_round(eng.init(params), cx, cy, CLIENT_LR, SERVER_LR, seed=3)
+        out.append((eng.last_updates, ravel(state.params, spec.layout), float(m.train_loss)))
+    (u1, p1, l1), (u3, p3, l3) = out
+    torch.testing.assert_close(u3, u1, rtol=1e-5, atol=1e-7)
+    torch.testing.assert_close(p3, p1, rtol=1e-5, atol=1e-7)
+    assert l3 == pytest.approx(l1, rel=1e-6)
+    # another seed draws other masks
+    eng = _cct_engine(spec, params)
+    eng.run_round(eng.init(params), cx, cy, CLIENT_LR, SERVER_LR, seed=4)
+    assert not torch.allclose(eng.last_updates, u1, rtol=1e-3, atol=1e-5)

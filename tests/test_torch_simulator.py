@@ -109,7 +109,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
         ("block_size", 4, "slice 7"),
         ("checkpoint_path", "ckpt", "slice 5"),
         ("resume", True, "slice 5"),
-        ("compute_dtype", "bfloat16", "slice 2"),
+        ("remat", True, "slice 2b"),
         ("round_metrics", True, "slice 10"),
     ],
 )
@@ -130,7 +130,50 @@ def test_unported_choices_raise(tmp_path):
         Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
                   num_byzantine=1)
     sim = Simulator(ds, device="cpu", log_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        sim.run(model="cct")
+    with pytest.raises(NotImplementedError, match="slice 11"):
+        sim.run(model="resnet18")
     with pytest.raises(TypeError, match="unexpected keyword"):
         sim.run(model="mlp", bogus=1)
+
+
+def _cifar_sim(tmp_path, name):
+    ds = Synthetic(num_clients=6, sample_shape=(32, 32, 3), train_size=120, test_size=30,
+                   cache=False)
+    return Simulator(ds, attack="alie", num_byzantine=2, aggregator="trimmedmean",
+                     aggregator_kws={"num_byzantine": 2}, seed=1, device="cpu",
+                     log_path=str(tmp_path / name))
+
+
+def test_cct2_bf16_round_runs(tmp_path):
+    sim = _cifar_sim(tmp_path, "bf16")
+    times = sim.run(model="cct_2_3x2_32", global_rounds=1, train_batch_size=4,
+                    compute_dtype="bfloat16", retain_updates=True)
+    assert len(times) == 1
+    u = sim.engine.last_updates
+    assert u.shape == (6, 283_723) and u.dtype == torch.float32
+    assert bool(torch.isfinite(u).all()) and float(u.abs().max()) > 0
+    assert all(p.dtype == torch.float32 for p in sim.server.state.params.values())
+    recs = read_stats(str(tmp_path / "bf16"))
+    assert all(np.isfinite(r["Loss"]) for r in recs if r["_meta"]["type"] in ("train", "test"))
+
+
+def test_cct2_remat_still_raises(tmp_path):
+    sim = _cifar_sim(tmp_path, "remat")
+    with pytest.raises(NotImplementedError, match="slice 2b"):
+        sim.run(model="cct_2_3x2_32", remat=True)
+
+
+def test_compute_dtype_rebuilds_stock_specs_only(tmp_path):
+    from blades_tpu_torch.models import build_fns, create_model
+
+    sim = _cifar_sim(tmp_path, "spec")
+    spec = build_fns(create_model("cct_2_3x2_32"))
+    spec.init = lambda g: {"marker": g}
+    rebuilt = sim._model_spec(spec, "crossentropy", "bfloat16")
+    assert rebuilt is not spec and rebuilt.init is spec.init and rebuilt.rebuild_ok
+    assert sim._model_spec(spec, "crossentropy", None) is spec
+    spec.rebuild_ok = False
+    with pytest.raises(ValueError, match="custom train/eval"):
+        sim._model_spec(spec, "crossentropy", "bfloat16")
+    with pytest.raises(ValueError, match="not a float dtype"):
+        sim._model_spec("cct_2_3x2_32", "crossentropy", "int32")
