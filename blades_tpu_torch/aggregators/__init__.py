@@ -1,30 +1,52 @@
 """Robust-aggregator registry.
 
 Counterpart: ``blades_tpu/aggregators/__init__.py:40-86`` (``AGGREGATORS``,
-``get_aggregator``). Ported so far: ``mean`` and ``trimmedmean``. The other
-names of the JAX registry raise and name the ``ROADMAP.md`` slice that
-brings them.
+``get_aggregator``). Every dense defense of the reference's catalog and of
+BASELINE.md is ported. The names in :data:`UNPORTED` raise and name the
+``ROADMAP.md`` slice that brings them.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Dict, Type, Union
 
+from blades_tpu_torch.aggregators.autogm import Autogm
 from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.centeredclipping import Centeredclipping
+from blades_tpu_torch.aggregators.clippedclustering import Clippedclustering
+from blades_tpu_torch.aggregators.clustering import Clustering
+from blades_tpu_torch.aggregators.dnc import Dnc
+from blades_tpu_torch.aggregators.fltrust import Fltrust
+from blades_tpu_torch.aggregators.geomed import Geomed
+from blades_tpu_torch.aggregators.krum import Krum, Multikrum
 from blades_tpu_torch.aggregators.mean import Mean
+from blades_tpu_torch.aggregators.median import Median
 from blades_tpu_torch.aggregators.trimmedmean import Trimmedmean
 
 AGGREGATORS: Dict[str, Type[Aggregator]] = {
     "mean": Mean,
+    "median": Median,
     "trimmedmean": Trimmedmean,
+    "krum": Krum,
+    "multikrum": Multikrum,
+    "geomed": Geomed,
+    "autogm": Autogm,
+    "centeredclipping": Centeredclipping,
+    "clustering": Clustering,
+    "clippedclustering": Clippedclustering,
+    "fltrust": Fltrust,
+    "dnc": Dnc,
 }
 
-#: names of the JAX registry still to port (ROADMAP.md queue A, slice 6)
-UNPORTED = (
-    "median", "krum", "multikrum", "geomed", "autogm", "centeredclipping",
-    "clustering", "clippedclustering", "fltrust", "byzantinesgd", "dnc",
-    "signguard", "asyncmean", "asynccenteredclipping",
-)
+#: names of the JAX registry still to port, each with its ROADMAP.md
+#: queue-A slice: the extras outside the reference's catalog (6b) and the
+#: asynchronous aggregators (9)
+UNPORTED = {
+    "byzantinesgd": "slice 6b (defense extras)",
+    "signguard": "slice 6b (defense extras)",
+    "asyncmean": "slice 9 (async)",
+    "asynccenteredclipping": "slice 9 (async)",
+}
 
 
 def get_aggregator(name_or_fn: Union[str, Aggregator, Callable], **kwargs) -> Aggregator:
@@ -36,7 +58,7 @@ def get_aggregator(name_or_fn: Union[str, Aggregator, Callable], **kwargs) -> Ag
     if name_or_fn in UNPORTED:
         raise NotImplementedError(
             f"aggregator {name_or_fn!r} is not ported to blades_tpu_torch yet "
-            "(ROADMAP.md queue A, slice 6)"
+            f"(ROADMAP.md queue A, {UNPORTED[name_or_fn]})"
         )
     try:
         cls = AGGREGATORS[name_or_fn]
@@ -60,4 +82,8 @@ def _wrap_callable(fn: Callable) -> Aggregator:
     return _Custom()
 
 
-__all__ = ["AGGREGATORS", "Aggregator", "Mean", "Trimmedmean", "get_aggregator"]
+__all__ = [
+    "AGGREGATORS", "Aggregator", "Autogm", "Centeredclipping", "Clippedclustering",
+    "Clustering", "Dnc", "Fltrust", "Geomed", "Krum", "Mean", "Median", "Multikrum",
+    "Trimmedmean", "get_aggregator",
+]

@@ -1,0 +1,70 @@
+"""Auto-weighted geometric median (Li et al., IEEE IoT-J 2021).
+
+Counterpart: ``blades_tpu/aggregators/autogm.py`` (``_aggregate_impl`` :52,
+its outer ``while_loop`` :122 around ``weiszfeld``). The outer loop
+re-solves the client weights ``alpha`` from the sorted distances through
+the ``eta`` threshold search (the paper's sorted form, as the JAX package
+implements it), the inner loop is a Weiszfeld solve; it stops on the
+penalised objective ``sum_i a_i |z - x_i| + lamb |alpha|^2 / 2`` by the
+same rule as ``geomed.weiszfeld``, tested on the host once per outer and
+once per inner iteration.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.geomed import weiszfeld
+
+
+class Autogm(Aggregator):
+    def __init__(
+        self,
+        lamb: float = None,
+        maxiter: int = 100,
+        eps: float = 1e-6,
+        ftol: float = 1e-10,
+        inner_maxiter: int = 100,
+    ):
+        self.lamb = lamb
+        self.maxiter = maxiter
+        self.eps = eps
+        self.ftol = ftol
+        self.inner_maxiter = inner_maxiter
+        #: (outer iterations, inner Weiszfeld iterations summed) of the last
+        #: call (host-side record)
+        self.last_iterations = (0, 0)
+
+    def aggregate(self, updates, state=(), **ctx):
+        k = updates.shape[0]
+        lamb = float(k) if self.lamb is None else self.lamb
+        inner = 0
+
+        def solve(alpha):
+            nonlocal inner
+            z, d, it = weiszfeld(updates, init_weights=alpha, maxiter=self.inner_maxiter,
+                                 eps=self.eps, ftol=self.ftol)
+            inner += it
+            return z, d, (alpha * d).sum() + lamb * (alpha**2).sum() / 2.0
+
+        alpha = torch.full((k,), 1.0 / k, dtype=updates.dtype, device=updates.device)
+        z, d, obj = solve(alpha)
+        prev = torch.full_like(obj, float("inf"))
+        p1 = torch.arange(1, k + 1, dtype=updates.dtype, device=updates.device)
+        i = 0
+        while i < self.maxiter and bool(torch.abs(prev - obj) >= self.ftol * obj):
+            d_sorted = torch.sort(d).values
+            # eta_p = (sum of the p+1 smallest distances + lamb) / (p + 1);
+            # the optimum is the last eta of the longest prefix with
+            # eta_p >= d_(p)
+            etas = (torch.cumsum(d_sorted, 0) + lamb) / p1
+            count = torch.cumprod((etas - d_sorted >= 0).to(torch.int32), 0).sum()
+            last = etas.index_select(0, torch.clamp_min(count - 1, 0).view(1))[0]
+            eta_opt = torch.where(count > 0, last, 1e16)
+            alpha = torch.clamp_min(eta_opt - d, 0.0) / lamb
+            prev = obj
+            z, d, obj = solve(alpha)
+            i += 1
+        self.last_iterations = (i, inner)
+        return z, state

@@ -9,9 +9,12 @@ with any cross-round state threaded explicitly. ``__call__`` is the
 convenience wrapper with reference-call parity (a stacked matrix, a list of
 vectors, or a list of client handles) that keeps the state itself.
 
-Not ported yet, and raising when called: the mask-aware path
-(``aggregate_masked``, ``ROADMAP.md`` queue A slice 6) and the streaming
-protocol (slice 8).
+The context an aggregator may read: ``byz_mask``, ``trusted_mask``
+(FLTrust), ``params_flat``, ``generator`` (the round's ``utils/rng.py:AGG``
+generator, where the JAX package passes ``key``; DnC draws from it) and
+``weights`` (GeoMed's initial client weights). Not ported yet, and raising
+when called: the mask-aware path (``aggregate_masked``, ``ROADMAP.md``
+queue A slice 6b) and the streaming protocol (slice 8).
 """
 
 from __future__ import annotations
@@ -51,13 +54,14 @@ class Aggregator:
         trusted_mask: Optional[torch.Tensor] = None,
         params_flat: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        weights: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Any]:
         raise NotImplementedError
 
     def aggregate_masked(self, updates, state=(), *, mask=None, **ctx):
         raise NotImplementedError(
             f"{type(self).__name__}: mask-aware aggregation is not ported to "
-            "blades_tpu_torch yet (ROADMAP.md queue A, slice 6)"
+            "blades_tpu_torch yet (ROADMAP.md queue A, slice 6b)"
         )
 
     def supports_streaming(self) -> bool:

@@ -1,0 +1,40 @@
+"""Clustering defense (Sattler et al., 2020).
+
+Counterpart: ``blades_tpu/aggregators/clustering.py`` (``_matrix`` :63,
+``aggregate`` :80): complete-linkage clustering into two groups over the
+``[K, K]`` cosine matrix (``ops/clustering.py``), then the mean of the
+larger group. ``metric='similarity'`` (the default) feeds the similarity
+matrix, diagonal 1 and -1 where a row is zero, to the linkage as a
+distance, as the reference does; ``metric='distance'`` uses the cosine
+distance, diagonal 0 and 2 where a row is zero.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.ops.clustering import complete_linkage_two_clusters, majority_cluster_mean
+from blades_tpu_torch.ops.distances import pairwise_cosine_similarity
+
+
+class Clustering(Aggregator):
+    def __init__(self, metric: str = "similarity"):
+        if metric not in ("similarity", "distance"):
+            raise ValueError(metric)
+        self.metric = metric
+
+    def _matrix(self, updates):
+        sim = pairwise_cosine_similarity(updates)
+        # a zero row has no cosine: the reference's scipy path gives NaN
+        # there, mapped to -1 similarity / 2 distance
+        zero = torch.linalg.vector_norm(updates, dim=-1) == 0.0
+        undef = zero[:, None] | zero[None, :]
+        eye = torch.eye(sim.shape[0], dtype=torch.bool, device=sim.device)
+        if self.metric == "similarity":
+            return torch.where(eye, 1.0, torch.where(undef, -1.0, sim))
+        return torch.where(eye, 0.0, torch.where(undef, 2.0, 1.0 - sim))
+
+    def aggregate(self, updates, state=(), **ctx):
+        labels = complete_linkage_two_clusters(self._matrix(updates))
+        return majority_cluster_mean(updates, labels), state

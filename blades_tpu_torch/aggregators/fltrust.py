@@ -1,0 +1,46 @@
+"""FLTrust (Cao et al., NDSS 2021).
+
+Counterpart: ``blades_tpu/aggregators/fltrust.py`` (the host guard in
+``__call__`` :46, ``_trust_scores`` :54, ``aggregate`` :67). Exactly one
+client is trusted (``trusted_mask``, set through
+``Simulator.set_trusted_clients``); every other client's trust is
+``relu(cos(trusted, u_i))`` (cosine eps 1e-6), every update is rescaled to
+the trusted update's norm, and the result is the trust-weighted average;
+all trust 0 gives the zero vector. The rescale is folded into the weights,
+so the average is one matrix-vector product.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from blades_tpu_torch.aggregators.base import Aggregator
+
+
+class Fltrust(Aggregator):
+    def __call__(self, inputs, **ctx):
+        # host-side guard, the reference's `assert len(trusted) == 1`
+        mask = ctx.get("trusted_mask")
+        if mask is not None and int(torch.as_tensor(mask).sum()) != 1:
+            raise ValueError("fltrust requires exactly one trusted client")
+        return super().__call__(inputs, **ctx)
+
+    @staticmethod
+    def _trust_scores(updates, trusted_mask):
+        """``(ts, t_norm, norms)``: the relu'd cosine trust of each client (0
+        for the trusted one), the trusted update's norm, every norm."""
+        trusted_mask = torch.as_tensor(trusted_mask, device=updates.device).to(torch.bool)
+        first = torch.argmax(trusted_mask.to(torch.int32)).view(1)
+        trusted = updates.index_select(0, first)[0]
+        t_norm = torch.sqrt((trusted * trusted).sum())
+        norms = torch.linalg.vector_norm(updates, dim=1)
+        cos = (updates @ trusted) / torch.clamp_min(norms * t_norm, 1e-6)
+        ts = torch.clamp_min(cos, 0.0) * (~trusted_mask)
+        return ts, t_norm, norms
+
+    def aggregate(self, updates, state=(), *, trusted_mask=None, **ctx):
+        if trusted_mask is None:
+            raise ValueError("fltrust requires a trusted_mask (set_trusted_clients)")
+        ts, t_norm, norms = self._trust_scores(updates, trusted_mask)
+        w = ts * (t_norm / torch.clamp_min(norms, 1e-24))
+        return (w @ updates) / torch.clamp_min(ts.sum(), 1e-12), state

@@ -1,0 +1,71 @@
+"""Geometric median via smoothed Weiszfeld (Chen et al., 2017).
+
+Counterpart: ``blades_tpu/aggregators/geomed.py`` (``weiszfeld`` :22, its
+``while_loop`` :76; ``Geomed.aggregate`` :99 with the ``weights=`` context).
+From the mean, iterate ``w_i <- max(eps, a_i / max(eps, |z - x_i|))``
+(normalised), ``z <- sum_i w_i x_i`` while the weighted objective still
+moves by at least ``ftol`` of itself, at most ``maxiter`` times.
+
+The stopping rule is the JAX package's, tested on the host: each iteration
+reads one 0-d comparison from the device (one sync), so the loop stops
+where the JAX ``while_loop`` stops and does no work past it. The distances
+to the new iterate, which the objective needs, are kept for the next
+iteration's weights instead of being computed again.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from blades_tpu_torch.aggregators.base import Aggregator
+
+
+def _dists(updates: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    return torch.linalg.vector_norm(updates - z, dim=1)
+
+
+def weiszfeld(
+    updates: torch.Tensor,
+    init_weights: Optional[torch.Tensor] = None,
+    maxiter: int = 100,
+    eps: float = 1e-6,
+    ftol: float = 1e-10,
+) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """``argmin_z sum_i a_i |z - x_i|`` over the rows of ``updates``:
+    ``(z [D], |z - x_i| [K], iterations)``."""
+    k = updates.shape[0]
+    if init_weights is None:
+        alphas = torch.full((k,), 1.0 / k, dtype=updates.dtype, device=updates.device)
+    else:
+        alphas = init_weights.to(updates.device, updates.dtype)
+    z = updates.mean(dim=0)
+    d = _dists(updates, z)
+    obj = (alphas * d).sum()
+    prev = torch.full_like(obj, float("inf"))
+    i = 0
+    while i < maxiter and bool(torch.abs(prev - obj) >= ftol * obj):
+        w = torch.clamp_min(alphas / torch.clamp_min(d, eps), eps)
+        w = w / w.sum()
+        z = w @ updates
+        d = _dists(updates, z)
+        prev, obj, alphas = obj, (w * d).sum(), w
+        i += 1
+    return z, d, i
+
+
+class Geomed(Aggregator):
+    def __init__(self, maxiter: int = 100, eps: float = 1e-6, ftol: float = 1e-10):
+        self.maxiter = maxiter
+        self.eps = eps
+        self.ftol = ftol
+        #: Weiszfeld iterations of the last call (host-side record)
+        self.last_iterations = 0
+
+    def aggregate(self, updates, state=(), *, weights=None, **ctx):
+        z, _, self.last_iterations = weiszfeld(
+            updates, init_weights=weights, maxiter=self.maxiter, eps=self.eps,
+            ftol=self.ftol,
+        )
+        return z, state

@@ -1,9 +1,10 @@
 """Byzantine attack registry.
 
 Counterpart: ``blades_tpu/attackers/__init__.py:37-61`` (``ATTACKS``,
-``get_attack``). Ported so far: ``alie`` and ``None`` (no attack). The other
-names of the JAX registry raise and name the ``ROADMAP.md`` slice that
-brings them.
+``get_attack``): every name of the JAX registry resolves here, and ``None``
+is no attack. The JAX Simulator's per-client composites
+(``register_attackers``) are still to port (``ROADMAP.md`` queue A, slice
+3b).
 """
 
 from __future__ import annotations
@@ -12,13 +13,21 @@ from typing import Dict, Type, Union
 
 from blades_tpu_torch.attackers.alie import Alie
 from blades_tpu_torch.attackers.base import Attack, NoAttack, honest_stats
+from blades_tpu_torch.attackers.ipm import Ipm
+from blades_tpu_torch.attackers.labelflipping import Labelflipping
+from blades_tpu_torch.attackers.minmax import Minmax, Minsum
+from blades_tpu_torch.attackers.noise import Noise
+from blades_tpu_torch.attackers.signflipping import Signflipping
 
 ATTACKS: Dict[str, Type[Attack]] = {
+    "noise": Noise,
+    "labelflipping": Labelflipping,
+    "signflipping": Signflipping,
     "alie": Alie,
+    "ipm": Ipm,
+    "minmax": Minmax,
+    "minsum": Minsum,
 }
-
-#: names of the JAX registry still to port (ROADMAP.md queue A, slice 3)
-UNPORTED = ("noise", "labelflipping", "signflipping", "ipm", "minmax", "minsum")
 
 
 def get_attack(name: Union[str, Attack, None], **kwargs) -> Attack:
@@ -28,11 +37,6 @@ def get_attack(name: Union[str, Attack, None], **kwargs) -> Attack:
         return NoAttack()
     if isinstance(name, Attack):
         return name
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"attack {name!r} is not ported to blades_tpu_torch yet "
-            "(ROADMAP.md queue A, slice 3)"
-        )
     try:
         cls = ATTACKS[name]
     except KeyError:
@@ -42,4 +46,7 @@ def get_attack(name: Union[str, Attack, None], **kwargs) -> Attack:
     return cls(**kwargs)
 
 
-__all__ = ["ATTACKS", "Alie", "Attack", "NoAttack", "get_attack", "honest_stats"]
+__all__ = [
+    "ATTACKS", "Alie", "Attack", "Ipm", "Labelflipping", "Minmax", "Minsum",
+    "NoAttack", "Noise", "Signflipping", "get_attack", "honest_stats",
+]

@@ -17,8 +17,11 @@ One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
      ``[K, ...]`` params;
   2. the update matrix ``[K, D]``: ``ravel(theta_after) - ravel(theta_before)``
      in the JAX package's flat order, then ``nan_to_num``;
-  3. the attack's ``on_updates`` rewrite;
-  4. the aggregator (trimmed mean: the Hopper kernel on a CUDA tensor);
+  3. the attack's ``on_updates`` rewrite (``on_batch`` and ``on_grads``
+     run inside step 1, per chunk);
+  4. the aggregator (trimmed mean: the Hopper kernel on a CUDA tensor),
+     with the trusted mask, the flat params and the round's ``AGG``
+     generator as context;
   5. the server step with the aggregate as pseudo-gradient, ``grad := -agg``.
 
 The optimizers port optax's chains literally — ``add_decayed_weights``, then
@@ -26,8 +29,8 @@ The optimizers port optax's chains literally — ``add_decayed_weights``, then
 ``p -= lr * u`` itself; ``torch.optim`` orders weight decay and momentum
 differently. Not ported yet, each raising where it would be selected:
 persistent per-client optimizer state (``persist=True``, ``ROADMAP.md``
-queue A slice 3), round blocks (slice 7), streaming (slice 8), async
-(slice 9), the fault model (slice 6), audit, diagnostics and the metric pack
+queue A slice 3b), round blocks (slice 7), streaming (slice 8), async
+(slice 9), the fault model (slice 6b), audit, diagnostics and the metric pack
 (slice 10), and sharding plans (slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
@@ -243,7 +246,7 @@ class RoundEngine:
         if client_opt.persist:
             raise NotImplementedError(
                 "persistent per-client optimizer state (persist=True) is not "
-                "ported to blades_tpu_torch yet (ROADMAP.md queue A, slice 3)"
+                "ported to blades_tpu_torch yet (ROADMAP.md queue A, slice 3b)"
             )
         if int(client_chunks) < 1:
             raise ValueError(f"client_chunks must be >= 1, got {client_chunks}")

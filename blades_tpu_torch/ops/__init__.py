@@ -1,2 +1,3 @@
 """Array primitives (counterpart: ``blades_tpu/ops/``): the flat parameter
-layout and the trimmed-mean kernel with its plain version."""
+layout, the trimmed-mean kernel with its plain version, pairwise distances
+and complete-linkage clustering."""

@@ -1,13 +1,13 @@
 """Simulator: the public orchestrator, reference-API compatible.
 
 Counterpart: ``blades_tpu/simulator.py`` — the constructor
-(:152-242, with the strict unknown-kwarg error and the ALIE auto-fill at
-:194-196), ``run`` for the per-round synchronous dense loop (:297-1046:
-model spec, ``engine.init``, ``sample_round`` -> ``run_round`` ->
-``log_train`` / ``log_variance``, periodic ``evaluate``), the stats records
-(:1240-1260) and ``evaluate`` (:1396-1437). It writes the same ``stats``
-records (``train``, ``variance``, ``client_validation``, ``test``) with the
-same keys.
+(:152-242, with the strict unknown-kwarg error and the ALIE and label
+flipping auto-fills at :194-198), ``run`` for the per-round synchronous
+dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
+``run_round`` -> ``log_train`` / ``log_variance``, periodic ``evaluate``),
+the stats records (:1240-1260) and ``evaluate`` (:1396-1437). It writes
+the same ``stats`` records (``train``, ``variance``, ``client_validation``,
+``test``) with the same keys.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
@@ -54,7 +54,7 @@ _UNPORTED_RUN_OPTIONS = {
     "checkpoint_path": (None, "slice 5 (checkpoint and resume)"),
     "checkpoint_interval": (0, "slice 5 (checkpoint and resume)"),
     "resume": (False, "slice 5 (checkpoint and resume)"),
-    "fault_model": (None, "slice 6 (defenses, masked path, faults)"),
+    "fault_model": (None, "slice 6b (masked path, faults)"),
     "block_size": (1, "slice 7 (multi-round execution)"),
     "donate_batches": (False, "slice 7 (multi-round execution)"),
     "engine_cache": (None, "slice 7 (multi-round execution)"),
@@ -130,12 +130,15 @@ class Simulator:
         self.num_byzantine = int(num_byzantine) if attack is not None else 0
 
         # auto-filled population hyperparameters the reference makes callers
-        # pass by hand (ALIE's num_clients / num_byzantine)
+        # pass by hand (ALIE's num_clients / num_byzantine, label flipping's
+        # num_classes)
         attack_kws = dict(attack_kws or {})
         k = self.dataset.num_clients
         if attack == "alie":
             attack_kws.setdefault("num_clients", k)
             attack_kws.setdefault("num_byzantine", self.num_byzantine)
+        if attack == "labelflipping":
+            attack_kws.setdefault("num_classes", self._num_classes)
         self.attack = get_attack(attack, **attack_kws)
 
         initialize_logger(log_path)
@@ -181,7 +184,7 @@ class Simulator:
             self._clients[u].trust()
 
     def register_attackers(self, clients: List[ByzantineClient]) -> None:
-        raise _unported("register_attackers (custom per-client attacks)", "slice 3 (attacks)")
+        raise _unported("register_attackers (custom per-client attacks)", "slice 3b (composite attacks)")
 
     # -- run ------------------------------------------------------------------
 

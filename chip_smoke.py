@@ -16,11 +16,22 @@ BASELINE config 1's shape, and the main path, CCT-2 (D = 283,723) on
 CIFAR-shaped data at K=1000 in f32 and in bf16 (the kernel is also held
 against its plain version on that round's own update matrix). Each path's
 warm round is profiled, and one round of the MLP and one of CCT-2 run on
-the card and on the CPU from the same inputs and are compared. Each phase
-prints one JSON line. The line before the last is the ``kernels`` record,
-and the last line is ``{"ok": true, "device": {...}}``, printed only when
-every phase passed. Any failure raises and exits non-zero; without CUDA it
-exits non-zero before doing anything.
+the card and on the CPU from the same inputs and are compared.
+
+Then the attack and defense catalog on the same CCT-2 round at K=1000 in
+bf16, 2 rounds each through ``Simulator.run``: every attack other than ALIE
+with trimmed mean (b=5), so the kernel launches under each attack and its
+count joins the path's; every dense aggregator other than mean and trimmed
+mean under ALIE (f=5). Each record gives the warm round, the attack's or
+aggregator's own time on that run's ``[1000, 283723]`` matrix, its host
+syncs per call, its loop iterations and its peak memory. Every attack and
+aggregator is then run on the card and on the CPU on the first 100 rows
+and 16,384 columns of a round's matrix, with the same draws, and compared.
+
+Each phase prints one JSON line. The line before the last is the
+``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
+printed only when every phase passed. Any failure raises and exits
+non-zero; without CUDA it exits non-zero before doing anything.
 
 ``--compare-with`` names another source with the same C interface (an
 earlier version of ``csrc/trimmed_mean.cu``); it is built beside the
@@ -34,6 +45,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import hashlib
 import json
 import math
@@ -69,6 +81,17 @@ CCT2_ROUNDS_F32, CCT2_ROUNDS_BF16, CCT2_CHUNKS = 3, 2, 4
 # or a max-pool window whose two largest entries are equal in exact
 # arithmetic, takes the other branch on the other backend)
 CCT2_CPU_CLIENTS, CCT2_CPU_BYZANTINE, CCT2_MAX_KINK_ROWS = 16, 2, 2
+# the attack and defense catalog on the CCT-2 round, in bf16: the attacks run
+# with trimmed mean (b=5), the aggregators under ALIE (f=5)
+CATALOG_ATTACKS = ("ipm", "signflipping", "labelflipping", "noise", "minmax", "minsum")
+CATALOG_AGGREGATORS = ("median", "krum", "multikrum", "geomed", "autogm", "centeredclipping",
+                       "clustering", "clippedclustering", "fltrust", "dnc")
+CATALOG_ROUNDS = 2
+# card vs CPU: the first rows and columns of a CCT-2 round's update matrix;
+# f32 TOL, and for GeoMed and AutoGM (loops that compound rounding) LOOP_TOL,
+# as in the CPU tests
+CATALOG_CPU_SHAPE = (100, 16_384)
+LOOP_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
 def emit(record: dict) -> None:
@@ -652,6 +675,316 @@ def phase_cct2_card_vs_cpu(torch, dev) -> None:
     check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), "CCT-2 new params differ")
 
 
+def catalog_kwargs(aggregator: str) -> dict:
+    """Constructor arguments of a catalog aggregator: f=5 where it takes f."""
+    return {"num_byzantine": MAIN_BYZANTINE} if aggregator in ("krum", "multikrum", "dnc") else {}
+
+
+def host_syncs(torch, fn) -> dict:
+    """The synchronizing CUDA calls one call of ``fn`` makes, counted by
+    PyTorch's sync debug mode (one warning each; the mode's own one-time
+    notice that it is a prototype is not one): ``{"file:line": n}`` of the
+    Python lines that made them."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "called a synchronizing CUDA operation" in str(w.message):
+            site = f"{Path(w.filename).name}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def call_cost(torch, fn) -> dict:
+    """One function's cost on the card: device time per call (CUDA events;
+    1 call if it takes over 50 ms, else the mean of 10 after 2 more), host
+    syncs per call and where they happen, and the peak memory it allocates
+    above what was allocated before it."""
+    sites = host_syncs(torch, fn)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ms = time_ms(fn, reps=1, warmup=0)
+    extra = torch.cuda.max_memory_allocated() - base
+    if ms < 50.0:
+        ms = time_ms(fn, reps=10, warmup=2)
+    return {"ms": ms, "host_syncs": sum(sites.values()), "host_sync_sites": sites,
+            "peak_extra_bytes": extra}
+
+
+def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str) -> dict:
+    """CATALOG_ROUNDS of the CCT-2 round at K=1000 in bf16 through
+    Simulator.run (4 client chunks, no evaluation), the kernel's launches
+    counted alone; returns the simulator, its per-round metrics, the round
+    times, the launches and the peak memory."""
+    from blades_tpu_torch import Simulator
+
+    # an engine holds itself in a reference cycle (its loss closure), so a
+    # deleted run's [K, D] matrix lingers until the collector runs; collect
+    # it, so that this run's peak memory is its own
+    gc.collect()
+    k, d, f = CCT2_SHAPE
+    name = f"{attack}+{aggregator}"
+    agg_kws = catalog_kwargs(aggregator) if aggregator != "trimmedmean" else {"num_byzantine": f}
+    sim = Simulator(dataset=fl, attack=attack, num_byzantine=f, aggregator=aggregator,
+                    aggregator_kws=agg_kws, seed=1,
+                    log_path=str(log_root / f"catalog_{attack}_{aggregator}"))
+    check(sim.device.type == fl.device.type, f"{name}: the simulator runs on {sim.device}")
+    if aggregator == "fltrust":
+        sim.set_trusted_clients([sim.get_clients()[-1].id()])
+    seen = []
+
+    def on_round_end(rnd, state, m):
+        u = sim.engine.last_updates
+        seen.append(dict(shape=tuple(u.shape), device=u.device.type, dtype=u.dtype,
+                         loss=float(m.train_loss), agg_norm=float(m.agg_norm),
+                         variance=float(m.update_variance)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
+    times = sim.run(model="cct_2_3x2_32", global_rounds=CATALOG_ROUNDS, local_steps=1,
+                    server_lr=1.0, client_lr=0.1, validate_interval=CATALOG_ROUNDS + 1,
+                    client_chunks=CCT2_CHUNKS, on_round_end=on_round_end,
+                    compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(len(seen) == CATALOG_ROUNDS, f"{name}: {len(seen)} rounds")
+    check(all(r["shape"] == (k, d) and r["device"] == sim.device.type
+              and r["dtype"] == torch.float32 for r in seen), f"{name}: update matrices {seen}")
+    numbers = [v for r in seen for v in (r["loss"], r["agg_norm"], r["variance"])]
+    check(all(map(math.isfinite, numbers)), f"{name}: non-finite {numbers}")
+    return dict(sim=sim, seen=seen, round_s=times, launches=launches, peak=peak)
+
+
+def phase_catalog_attacks(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """Each catalog attack with trimmed mean (b=5): CATALOG_ROUNDS bf16
+    CCT-2 rounds at K=1000, then the attack's own hook timed at the round's
+    shapes: on_updates on the round's [K, D] matrix; on_grads on one client
+    chunk's gradients (a round calls it once per chunk and local step);
+    on_batch on one chunk's batch. Returns the kernel's launches per run."""
+    from blades_tpu_torch.utils import rng
+
+    k, d, f = CCT2_SHAPE
+    launches = {}
+    for attack in CATALOG_ATTACKS:
+        run = catalog_run(torch, trimmed, fl, log_root, attack, "trimmedmean")
+        sim = run["sim"]
+        eng = sim.engine
+        chunk = eng.chunk_size
+        byz = eng.byz_mask
+        if attack == "signflipping":
+            grads = {n: torch.randn(chunk, *p.shape, device=eng.device)
+                     for n, p in sim.server.state.params.items()}
+            hook = "on_grads"
+            cost = call_cost(torch, lambda: sim.attack.on_grads(grads, byz[:chunk]))
+            del grads
+        elif attack == "labelflipping":
+            cx, cy = fl.sample_round(rng.generator(sim.seed, 99, rng.DATA, device=eng.device),
+                                     1, 32)
+            hook = "on_batch"
+            cost = call_cost(torch, lambda: sim.attack.on_batch(
+                cx[:chunk, 0], cy[:chunk, 0], byz[:chunk], num_classes=eng.num_classes))
+            del cx, cy
+        else:
+            u = eng.last_updates
+            hook = "on_updates"
+            cost = call_cost(torch, lambda: sim.attack.on_updates(
+                u, byz, rng.generator(sim.seed, 99, rng.ATTACK, device=eng.device)))
+            del u
+        calls = eng.client_chunks if hook != "on_updates" else 1
+        emit({"phase": "catalog_attack", "attack": attack, "aggregator": "trimmedmean",
+              "dtype": "bfloat16", "clients": k, "byzantine": f, "b": f,
+              "rounds": CATALOG_ROUNDS, "client_chunks": eng.client_chunks,
+              "kernel_launches": run["launches"], "round_s": run["round_s"],
+              "warm_round_s": run["round_s"][-1],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "agg_norm": [r["agg_norm"] for r in run["seen"]],
+              "peak_mem_bytes": run["peak"], "hook": hook, "hook_calls_per_round": calls,
+              "hook_shape": [chunk] if hook != "on_updates" else [k, d],
+              **{f"hook_{n}": v for n, v in cost.items()}, "card": card})
+        check(run["launches"] == CATALOG_ROUNDS,
+              f"{attack}: kernel launched {run['launches']} times in {CATALOG_ROUNDS} rounds")
+        launches[f"cct2_bf16_{attack}"] = run["launches"]
+        del run, sim, eng
+    return launches
+
+
+def phase_catalog_aggregators(torch, trimmed, fl, card: str, log_root: Path):
+    """Each catalog aggregator under ALIE (f=5): CATALOG_ROUNDS bf16 CCT-2
+    rounds at K=1000, then the aggregator timed alone on the run's own
+    [1000, 283723] matrix with the run's state; for a stateless one, the
+    aggregate of the last round is recomputed from that matrix and held to
+    the round's agg_norm. Returns the first CATALOG_CPU_SHAPE of the last
+    run's matrix, on the CPU, for the card-vs-CPU phase."""
+    from blades_tpu_torch.utils import rng
+
+    k, d, f = CCT2_SHAPE
+    rows, cols = CATALOG_CPU_SHAPE
+    sample = None
+    for aggregator in CATALOG_AGGREGATORS:
+        run = catalog_run(torch, trimmed, fl, log_root, "alie", aggregator)
+        sim = run["sim"]
+        eng, agg = sim.engine, sim.aggregator
+        u, state = eng.last_updates, sim.server.state.agg_state
+        round_iters = getattr(agg, "last_iterations", None)
+        ctx = dict(trusted_mask=eng.trusted_mask)
+        applied = None
+        if not agg.stateful:
+            # what the last round applied: the same matrix, state and generator
+            again, _ = agg.aggregate(u, (), generator=rng.generator(
+                sim.seed, CATALOG_ROUNDS - 1, rng.AGG, device=eng.device), **ctx)
+            applied = float(torch.linalg.vector_norm(again))
+        cost = call_cost(torch, lambda: agg.aggregate(u, state, generator=rng.generator(
+            sim.seed, 99, rng.AGG, device=eng.device), **ctx))
+        emit({"phase": "catalog_aggregator", "aggregator": aggregator,
+              "kwargs": catalog_kwargs(aggregator), "attack": "alie", "dtype": "bfloat16",
+              "clients": k, "byzantine": f, "rounds": CATALOG_ROUNDS,
+              "client_chunks": eng.client_chunks, "kernel_launches": run["launches"],
+              "round_s": run["round_s"], "warm_round_s": run["round_s"][-1],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "agg_norm": [r["agg_norm"] for r in run["seen"]],
+              "recomputed_agg_norm": applied, "peak_mem_bytes": run["peak"],
+              "iterations_last_round": round_iters,
+              "iterations_timed_call": getattr(agg, "last_iterations", None),
+              "trusted_clients": int(eng.trusted_mask.sum()),
+              **{f"aggregate_{n}": v for n, v in cost.items()}, "card": card})
+        if applied is not None:
+            check(math.isclose(applied, run["seen"][-1]["agg_norm"], rel_tol=1e-5),
+                  f"{aggregator}: the round applied another aggregate")
+        if aggregator == "fltrust":
+            check(int(eng.trusted_mask.sum()) == 1, "fltrust: no trusted client reached it")
+        if aggregator == "geomed":
+            # the counter sees the stopping rule's one read per test
+            check(cost["host_syncs"] == agg.last_iterations + 1,
+                  f"geomed: {cost['host_syncs']} syncs in {agg.last_iterations} iterations")
+        sample = u[:rows, :cols].cpu()
+        del run, sim, eng, agg, u, state
+    return sample
+
+
+def _compare(torch, name: str, got, ref, tol: dict, **extra) -> None:
+    err = float((got - ref).abs().max())
+    ok = bool(torch.allclose(got, ref, **tol))
+    emit({"phase": "catalog_card_vs_cpu", "module": name, "max_abs_err": err,
+          "max_abs": float(ref.abs().max()), "tol": tol, "ok": ok, **extra})
+    check(ok, f"{name}: card and CPU differ by {err} (tol {tol})")
+
+
+def phase_catalog_card_vs_cpu(torch, x_cpu, dev) -> None:
+    """Every catalog attack and aggregator on the card and on the CPU, on
+    the same [100, 16384] matrix (the first rows and columns of a CCT-2
+    round's; its first 5 rows are ALIE's one vector) with the same draws
+    (one CPU generator per side, seeded alike: the port draws on the
+    generator's device). Tolerances: TOL, and LOOP_TOL for GeoMed and
+    AutoGM. Tie rules: Krum may pick another row among rows that are
+    identical (equal scores up to rounding), so the selected rows must be
+    equal in content; Min-Max and Min-Sum may take another branch at a
+    bisection step whose comparison is within rounding, which moves gamma
+    by at most 2 * gamma_init / 2^n_bisect, and their byzantine rows by that
+    times |dev|; clustering's partitions must be identical when both sides
+    link the same matrix, and the aggregates within TOL."""
+    from blades_tpu_torch.aggregators import get_aggregator
+    from blades_tpu_torch.attackers import get_attack
+    from blades_tpu_torch.ops.clustering import complete_linkage_two_clusters
+
+    rows, cols = x_cpu.shape
+    f = MAIN_BYZANTINE
+    sides = {"cpu": x_cpu, "cuda": x_cpu.to(dev)}
+    byz = {w: (torch.arange(rows) < f).to(x.device) for w, x in sides.items()}
+    shape = dict(rows=rows, cols=cols, byzantine=f)
+
+    for name in ("ipm", "noise", "minmax", "minsum"):
+        attack = get_attack(name)
+        out = {w: attack.on_updates(x, byz[w], torch.Generator().manual_seed(31))[0].cpu()
+               for w, x in sides.items()}
+        if name in ("minmax", "minsum"):
+            g = {w: attack.gamma(x, byz[w]) for w, x in sides.items()}
+            gamma = {w: float(v[0]) for w, v in g.items()}
+            allowed = 2 * attack.gamma_init / 2**attack.n_bisect
+            dgamma = abs(gamma["cuda"] - gamma["cpu"])
+            dev_row = g["cpu"][2].abs()
+            slack = TOL["atol"] + TOL["rtol"] * out["cpu"].abs() + dgamma * dev_row
+            ok = dgamma <= allowed and bool(((out["cuda"] - out["cpu"]).abs() <= slack).all())
+            emit({"phase": "catalog_card_vs_cpu", "module": name, "gamma": gamma,
+                  "gamma_allowance": allowed, "ok": ok,
+                  "max_abs_err": float((out["cuda"] - out["cpu"]).abs().max()), **shape})
+            check(ok, f"{name}: gamma {gamma} (allowance {allowed})")
+        else:
+            _compare(torch, name, out["cuda"], out["cpu"], TOL, **shape)
+
+    grads = {"w": x_cpu[:, :64].reshape(rows, 8, 8), "b": x_cpu[:, 64:72]}
+    flipped = {w: get_attack("signflipping").on_grads(
+        {n: g.to(x.device) for n, g in grads.items()}, byz[w]) for w, x in sides.items()}
+    for n in grads:
+        _compare(torch, f"signflipping.{n}", flipped["cuda"][n].cpu(), flipped["cpu"][n],
+                 dict(rtol=0.0, atol=0.0), **shape)
+    labels = (x_cpu[:, :32].abs() * 1e4).long() % 10
+    flips = {w: get_attack("labelflipping").on_batch(x, labels.to(x.device), byz[w],
+                                                      num_classes=10)[1].cpu()
+             for w, x in sides.items()}
+    _compare(torch, "labelflipping", flips["cuda"], flips["cpu"], dict(rtol=0.0, atol=0.0),
+             **shape)
+
+    trusted = {w: torch.arange(rows, device=x.device) == rows - 1 for w, x in sides.items()}
+    for name in CATALOG_AGGREGATORS:
+        kws = catalog_kwargs(name)
+        aggs = {w: get_aggregator(name, **kws) for w in sides}
+        if aggs["cpu"].stateful:
+            # three rounds, the last two scaled so that rows reach and pass
+            # the default clip radius (10); the state is compared after each
+            med = float(torch.linalg.vector_norm(x_cpu, dim=1).median())
+            scales = (1.0, 10.0 / med, 30.0 / med)
+            states = {w: a.init_state(rows, cols) for w, a in aggs.items()}
+            for rnd, scale in enumerate(scales):
+                res = {w: aggs[w].aggregate(x * scale, states[w]) for w, x in sides.items()}
+                states = {w: r[1] for w, r in res.items()}
+                _compare(torch, f"{name}.round{rnd}", res["cuda"][0].cpu(), res["cpu"][0], TOL,
+                         **shape)
+                if name == "centeredclipping":
+                    _compare(torch, f"{name}.state{rnd}", states["cuda"].cpu(), states["cpu"],
+                             TOL, **shape)
+                else:
+                    _compare(torch, f"{name}.norms{rnd}", states["cuda"]["norms"].cpu(),
+                             states["cpu"]["norms"], TOL, **shape)
+                    check(all(int(states["cuda"][key]) == int(states["cpu"][key])
+                              for key in ("pos", "count")), f"{name}: ring pointers differ")
+            continue
+        out = {w: aggs[w].aggregate(x, (), trusted_mask=trusted[w],
+                                    generator=torch.Generator().manual_seed(41))[0].cpu()
+               for w, x in sides.items()}
+        extra = dict(shape)
+        if name in ("krum", "multikrum"):
+            sel = {w: aggs[w]._select(x)[1].cpu() for w, x in sides.items()}
+            same_rows = torch.equal(x_cpu[sel["cuda"]], x_cpu[sel["cpu"]])
+            extra.update(selected={w: s.tolist() for w, s in sel.items()},
+                         selected_rows_equal=same_rows)
+            check(same_rows, f"{name}: selected rows differ in content {sel}")
+        if name == "clustering":
+            m_cpu = aggs["cpu"]._matrix(x_cpu)
+            lab = {w: complete_linkage_two_clusters(m_cpu.to(x.device)).cpu()
+                   for w, x in sides.items()}
+            own = {w: complete_linkage_two_clusters(aggs[w]._matrix(x)).cpu()
+                   for w, x in sides.items()}
+            extra.update(same_matrix_partition_equal=torch.equal(lab["cuda"], lab["cpu"]),
+                         own_matrix_partition_equal=torch.equal(own["cuda"], own["cpu"]),
+                         cluster_sizes=[int((own["cpu"] == c).sum()) for c in (0, 1)])
+            check(torch.equal(lab["cuda"], lab["cpu"]), "clustering: linkage partitions differ")
+        if name in ("geomed", "autogm"):
+            extra.update(iterations={w: aggs[w].last_iterations for w in sides})
+        _compare(torch, name, out["cuda"], out["cpu"],
+                 LOOP_TOL if name in ("geomed", "autogm") else TOL, **extra)
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -731,21 +1064,27 @@ def main() -> int:
         sim = cct2_simulator(torch, Path(tmp))
         runs = phase_cct2_path(torch, trimmed, sim, card)
         phase_cct2_profile(torch, sim, runs, card)
+        fl = sim.dataset  # the CIFAR-shaped store, already on the card
         del sim, runs["float32"]["engine"], runs["bfloat16"]["engine"]
+        launches.update(phase_catalog_attacks(torch, trimmed, fl, card, Path(tmp)))
+        sample = phase_catalog_aggregators(torch, trimmed, fl, card, Path(tmp))
+        del fl
         phase_cct2_card_vs_cpu(torch, dev)
+        phase_catalog_card_vs_cpu(torch, sample, dev)
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
 
-    # the slice's main path is the CCT-2 round: its launches, and the kernel
+    # the slice's main path is the CCT-2 round, under ALIE in f32 and bf16
+    # and under each catalog attack in bf16: its launches, and the kernel
     # timed at its [K, D, b]
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
-        "launches": launches["cct2_float32"] + launches["cct2_bfloat16"],
+        "launches": sum(n for path, n in launches.items() if path.startswith("cct2")),
         "launches_by_path": launches,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,

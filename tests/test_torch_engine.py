@@ -1,6 +1,13 @@
 """One MLP round, and one CCT-2 round, of the port against
 ``blades_tpu.core.RoundEngine``.
 
+Every attack and dense aggregator of the catalog runs one K=10 MLP round
+against the JAX engine: each new attack with trimmed mean, each new
+aggregator with ALIE (f=4). The noise attack's normals and DnC's draws are
+the port's, handed to the JAX package by patching ``jax.random.normal`` and
+``jax.random.choice``; for DnC the JAX round then runs eagerly
+(``jax.disable_jit``) so that each DnC iteration takes its own draw.
+
 BASELINE config 1's shape: K=10 clients, f=4 byzantine, ALIE + trimmed mean
 (b=5 shrunk to 4), plain SGD. The initial params (the JAX package's init,
 carried over) and every round's ``[K, S, B, ...]`` batches are drawn once
@@ -23,17 +30,22 @@ import pytest
 import torch
 from jax.flatten_util import ravel_pytree
 
+from blades_tpu.aggregators import get_aggregator as jax_get_aggregator
 from blades_tpu.aggregators.trimmedmean import Trimmedmean as JaxTrimmedmean
+from blades_tpu.attackers import get_attack as jax_get_attack
 from blades_tpu.attackers.alie import Alie as JaxAlie
 from blades_tpu.core import RoundEngine as JaxRoundEngine
 from blades_tpu.models import build_fns as jax_build_fns
 from blades_tpu.models import cct as jax_cct
 from blades_tpu.models.mlp import create_mnist_model as jax_mlp
-from blades_tpu_torch.aggregators import Trimmedmean
-from blades_tpu_torch.attackers import Alie
+from blades_tpu_torch.aggregators import Trimmedmean, get_aggregator
+from blades_tpu_torch.aggregators.dnc import draw_subspaces
+from blades_tpu_torch.attackers import Alie, get_attack
+from blades_tpu_torch.attackers.noise import draw_normals
 from blades_tpu_torch.core import RoundEngine, RoundMetrics
 from blades_tpu_torch.models import build_fns, cct, create_mnist_model, params_from_jax
 from blades_tpu_torch.ops.pytree import ravel
+from blades_tpu_torch.utils import rng as port_rng
 
 K, F, S, B = 10, 4, 2, 8
 CLIENT_LR, SERVER_LR = 0.1, 1.0
@@ -53,21 +65,32 @@ def jax_params():
     return jax.tree_util.tree_map(np.asarray, jax_mlp().init(jax.random.PRNGKey(0)))
 
 
-def _engines(jax_params, client_chunks):
+def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=None):
+    """The two engines; ``attack`` / ``aggregator``: ``(name, kwargs)`` for
+    both registries (default ALIE and trimmed mean b=5)."""
     jspec, tspec = jax_mlp(), create_mnist_model()
+    if attack is None:
+        jattack, tattack = JaxAlie(num_clients=K, num_byzantine=F), Alie(num_clients=K,
+                                                                           num_byzantine=F)
+    else:
+        jattack, tattack = jax_get_attack(*attack[:1], **attack[1]), get_attack(
+            *attack[:1], **attack[1])
+    if aggregator is None:
+        jagg, tagg = JaxTrimmedmean(num_byzantine=5), Trimmedmean(num_byzantine=5)
+    else:
+        jagg = jax_get_aggregator(aggregator[0], **aggregator[1])
+        tagg = get_aggregator(aggregator[0], **aggregator[1])
     jeng = JaxRoundEngine(
         jspec.train_loss_fn, jspec.eval_logits_fn, jax_params,
-        num_clients=K, num_byzantine=F,
-        attack=JaxAlie(num_clients=K, num_byzantine=F),
-        aggregator=JaxTrimmedmean(num_byzantine=5),
+        num_clients=K, num_byzantine=F, attack=jattack, aggregator=jagg,
+        trusted_mask=None if trusted is None else jnp.asarray(trusted),
         plan=None, client_chunks=client_chunks, keep_updates=True,
     )
     tparams = params_from_jax(jax_params, tspec.layout)
     teng = RoundEngine(
         tspec.train_loss_fn, tspec.eval_logits_fn, tparams, tspec.layout,
-        num_clients=K, num_byzantine=F,
-        attack=Alie(num_clients=K, num_byzantine=F),
-        aggregator=Trimmedmean(num_byzantine=5),
+        num_clients=K, num_byzantine=F, attack=tattack, aggregator=tagg,
+        trusted_mask=None if trusted is None else torch.from_numpy(trusted),
         client_chunks=client_chunks, keep_updates=True, device="cpu",
     )
     jstate = jeng.init(jax_params)
@@ -132,6 +155,85 @@ def test_three_round_trajectory_matches_jax(jax_params):
     assert np.isfinite(float(tm.train_loss))
 
 
+# -- the attack and defense catalog -------------------------------------------
+
+ATTACK_CASES = [("ipm", {}), ("signflipping", {}), ("labelflipping", {"num_classes": 10}),
+                ("noise", {}), ("minmax", {}), ("minsum", {})]
+AGG_CASES = [("median", {}), ("krum", {"num_byzantine": F}),
+             ("multikrum", {"num_byzantine": F, "num_selected": 3}), ("geomed", {}),
+             ("autogm", {}), ("centeredclipping", {}), ("clustering", {}),
+             ("clustering", {"metric": "distance"}), ("clippedclustering", {}), ("fltrust", {}),
+             ("dnc", {"num_byzantine": F})]
+
+
+def _catalog_id(case):
+    kind, (name, kw) = case
+    return "-".join([kind, name, *(f"{a}{b}" for a, b in kw.items() if a != "num_byzantine")])
+
+
+@pytest.mark.parametrize("case", [("attack", c) for c in ATTACK_CASES]
+                         + [("aggregator", c) for c in AGG_CASES], ids=_catalog_id)
+def test_one_round_per_attack_and_aggregator_matches_jax(jax_params, monkeypatch, case):
+    kind, (name, kw) = case
+    trusted = (np.arange(K) == K - 1) if name == "fltrust" else None
+    j, t = _engines(jax_params, 1, attack=(name, kw) if kind == "attack" else None,
+                    aggregator=(name, kw) if kind == "aggregator" else None, trusted=trusted)
+    (jeng, jstate), (teng, tstate, layout) = j, t
+    # the port's draws (root seed 0, round 0), handed to the JAX package
+    draws = []
+    if name == "noise":
+        draws = [draw_normals((K, 59_850), port_rng.generator(0, 0, port_rng.ATTACK), "cpu")]
+    if name == "dnc":
+        draws = [a for pair in draw_subspaces(port_rng.generator(0, 0, port_rng.AGG),
+                                              teng.aggregator.num_iters, 59_850,
+                                              teng.aggregator.sub_dim, "cpu") for a in pair]
+    queue = [d.numpy() for d in draws]
+
+    def take(*args, **kwargs):
+        return jnp.asarray(queue.pop(0))
+
+    if draws:
+        monkeypatch.setattr(jax.random, "normal", take)
+        monkeypatch.setattr(jax.random, "choice", take)
+    if name == "dnc":
+        with jax.disable_jit():
+            j, t, jm, tm = _round(j, t, 0)
+    else:
+        j, t, jm, tm = _round(j, t, 0)
+    assert queue == []  # the JAX side took every draw
+    (jeng, jstate), (teng, tstate, layout) = j, t
+    ju, tu = np.asarray(jeng.last_updates), teng.last_updates
+    np.testing.assert_allclose(tu.numpy(), ju, **TOL)
+    if name in ("ipm", "minmax", "minsum"):
+        # one malicious vector in every byzantine row
+        np.testing.assert_array_equal(tu[:F].numpy(), np.repeat(tu[:1].numpy(), F, 0))
+    np.testing.assert_allclose(*_flat_params(jstate, tstate, layout), **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])
+    if kind == "aggregator" and name in ("centeredclipping", "clippedclustering"):
+        jst, tst = jstate.agg_state, tstate.agg_state
+        if name == "centeredclipping":
+            np.testing.assert_allclose(tst.numpy(), np.asarray(jst), **TOL)
+        else:
+            np.testing.assert_allclose(tst["norms"].numpy(), np.asarray(jst["norms"]), **TOL)
+            assert int(tst["count"]) == int(jst["count"]) == K
+
+
+def test_dishonest_training_attacks_change_only_byzantine_rows(jax_params):
+    """Sign and label flipping act inside local training, on the byzantine
+    clients' rows alone: against the same round without an attack, the
+    honest rows are unchanged and the byzantine rows moved."""
+    _, (plain, pstate, _) = _engines(jax_params, 1, attack=(None, {}))
+    cx, cy = (torch.from_numpy(a) for a in _batches(0))
+    plain.run_round(pstate, cx, cy, CLIENT_LR, SERVER_LR)
+    for name in ("signflipping", "labelflipping"):
+        _, (eng, state, _) = _engines(jax_params, 2, attack=(name, {}))
+        eng.run_round(state, cx, cy, CLIENT_LR, SERVER_LR)
+        honest = ~eng.byz_mask
+        torch.testing.assert_close(eng.last_updates[honest], plain.last_updates[honest],
+                                   rtol=1e-6, atol=1e-7)
+        assert not torch.allclose(eng.last_updates[:F], plain.last_updates[:F])
+
+
 # -- CCT-2 ---------------------------------------------------------------------
 
 CCT_K, CCT_F, CCT_S, CCT_B = 6, 2, 1, 4
@@ -145,31 +247,39 @@ def _cct_batches(seed):
     return cx, cy
 
 
-def _cct_engine(spec, params, client_chunks=1):
+def _cct_engine(spec, params, client_chunks=1, attack=None, aggregator=None):
     return RoundEngine(
         spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
         num_clients=CCT_K, num_byzantine=CCT_F,
-        attack=Alie(num_clients=CCT_K, num_byzantine=CCT_F),
-        aggregator=Trimmedmean(num_byzantine=2), client_chunks=client_chunks,
+        attack=attack or Alie(num_clients=CCT_K, num_byzantine=CCT_F),
+        aggregator=aggregator or Trimmedmean(num_byzantine=2), client_chunks=client_chunks,
         keep_updates=True, device="cpu", noise_sites=spec.noise_sites,
     )
 
 
-def test_cct2_round_matches_jax():
-    """One CCT-2 round (D = 283,723), ALIE + trimmed mean b=2, with
-    attention dropout and stochastic depth at 0 on both sides (the two
-    packages draw different bits), within the file's ``TOL``."""
+@pytest.mark.parametrize("attack,aggregator", [
+    ("alie", ("trimmedmean", {"num_byzantine": 2})),
+    ("signflipping", ("median", {})),
+])
+def test_cct2_round_matches_jax(attack, aggregator):
+    """One CCT-2 round (D = 283,723), ALIE + trimmed mean b=2 and sign
+    flipping + median, with attention dropout and stochastic depth at 0 on
+    both sides (the two packages draw different bits), within the file's
+    ``TOL``."""
     jspec = jax_build_fns(jax_cct.cct_2_3x2_32(**NO_NOISE), (32, 32, 3))
     jparams = jax.tree_util.tree_map(np.asarray, jspec.init(jax.random.PRNGKey(0)))
     tspec = build_fns(cct.cct_2_3x2_32(**NO_NOISE))
+    attack_kws = dict(num_clients=CCT_K, num_byzantine=CCT_F) if attack == "alie" else {}
     jeng = JaxRoundEngine(
         jspec.train_loss_fn, jspec.eval_logits_fn, jparams,
         num_clients=CCT_K, num_byzantine=CCT_F,
-        attack=JaxAlie(num_clients=CCT_K, num_byzantine=CCT_F),
-        aggregator=JaxTrimmedmean(num_byzantine=2), plan=None, keep_updates=True,
+        attack=jax_get_attack(attack, **attack_kws),
+        aggregator=jax_get_aggregator(aggregator[0], **aggregator[1]), plan=None,
+        keep_updates=True,
     )
     tparams = params_from_jax(jparams, tspec.layout)
-    teng = _cct_engine(tspec, tparams)
+    teng = _cct_engine(tspec, tparams, attack=get_attack(attack, **attack_kws),
+                       aggregator=get_aggregator(aggregator[0], **aggregator[1]))
     cx, cy = _cct_batches(200)
     jstate, jm = jeng.run_round(jeng.init(jparams), jnp.asarray(cx), jnp.asarray(cy),
                                 CLIENT_LR, SERVER_LR, jax.random.PRNGKey(7))

@@ -124,12 +124,12 @@ def test_unported_choices_raise(tmp_path):
     ds = Synthetic(num_clients=4, train_size=100, cache=False)
     with pytest.raises(NotImplementedError, match="slice 12"):
         Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match="slice 6"):
-        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="krum")
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
-                  num_byzantine=1)
-    sim = Simulator(ds, device="cpu", log_path=str(tmp_path))
+    with pytest.raises(NotImplementedError, match="slice 6b"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="signguard")
+    sim = Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
+                    num_byzantine=1)
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        sim.register_attackers(sim.get_clients()[:1])
     with pytest.raises(NotImplementedError, match="slice 11"):
         sim.run(model="resnet18")
     with pytest.raises(TypeError, match="unexpected keyword"):
@@ -177,3 +177,41 @@ def test_compute_dtype_rebuilds_stock_specs_only(tmp_path):
         sim._model_spec(spec, "crossentropy", "bfloat16")
     with pytest.raises(ValueError, match="not a float dtype"):
         sim._model_spec("cct_2_3x2_32", "crossentropy", "int32")
+
+
+CATALOG = [("attack", n) for n in ("ipm", "signflipping", "labelflipping", "noise", "minmax",
+                                   "minsum")] + [
+    ("aggregator", n) for n in ("median", "krum", "multikrum", "geomed", "autogm",
+                                "centeredclipping", "clustering", "clippedclustering",
+                                "fltrust", "dnc")]
+
+
+@pytest.mark.parametrize("kind,name", CATALOG, ids=[n for _, n in CATALOG])
+def test_catalog_runs_through_simulator(tmp_path, kind, name):
+    """Every new attack (with trimmed mean) and aggregator (with ALIE, f=2)
+    through ``Simulator(..., device="cpu").run``: two MLP rounds, finite
+    stats, the aggregator's state carried from round to round."""
+    k, f = 8, 2
+    ds = Synthetic(num_clients=k, train_size=160, test_size=40, cache=False)
+    agg_kws = {"num_byzantine": f} if name in ("krum", "multikrum", "dnc") else {}
+    sim = Simulator(ds, attack=name if kind == "attack" else "alie", num_byzantine=f,
+                    aggregator=name if kind == "aggregator" else "trimmedmean",
+                    aggregator_kws=agg_kws if kind == "aggregator" else {"num_byzantine": f},
+                    seed=2, device="cpu", log_path=str(tmp_path))
+    if name == "fltrust":
+        sim.set_trusted_clients([sim.get_clients()[-1].id()])
+    states = []
+    sim.run(model="mlp", global_rounds=2, train_batch_size=4,
+            on_round_end=lambda rnd, state, m: states.append(state.agg_state))
+    assert sim.engine.device == torch.device("cpu")
+    recs = read_stats(str(tmp_path))
+    assert [r["Round"] for r in recs if r["_meta"]["type"] == "train"] == [1, 2]
+    assert all(np.isfinite(r["Loss"]) for r in recs if r["_meta"]["type"] in ("train", "test"))
+    if name == "fltrust":
+        assert sim.engine.trusted_mask.tolist() == [False] * (k - 1) + [True]
+    if name == "labelflipping":
+        assert sim.attack.num_classes == sim._num_classes == 10
+    if name == "centeredclipping":
+        assert not torch.equal(states[0], states[1])
+    if name == "clippedclustering":
+        assert [int(s["count"]) for s in states] == [k, 2 * k]
