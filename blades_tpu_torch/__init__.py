@@ -9,13 +9,16 @@ nothing of JAX: what it shares with the JAX package it keeps as its own copy.
 Ported so far: the synchronous dense fedsgd round with the MLP and the CCT
 family (CCT-2 is the headline model; dropout and DropPath masks drawn per
 round, and a bf16 ``compute_dtype``), every attack of the JAX registry, and
-the dense defenses of the reference's catalog and BASELINE.md (mean,
-trimmed mean, median, Krum, Multi-Krum, GeoMed, AutoGM, centered clipping,
-clustering, clipped clustering, FLTrust, DnC). The coordinate-wise trimmed
-mean runs on the card through a CUDA kernel written by hand for Hopper
-(``csrc/trimmed_mean.cu``, bound in ``ops/trimmed.py``); the other
-defenses are stock torch ops, as the JAX package leaves them to XLA. What
-is still to port, and in which order, is queue A of ``ROADMAP.md``.
+the defenses of the reference's catalog and BASELINE.md (mean, trimmed
+mean, median, Krum, Multi-Krum, GeoMed, AutoGM, centered clipping,
+clustering, clipped clustering, FLTrust, DnC) with ByzantineSGD, SignGuard
+and the gossip aggregators, and partial participation: the fault model
+(``faults/``) and every registered defense's masked form. The
+coordinate-wise trimmed mean runs on the card through a CUDA kernel
+written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
+``ops/trimmed.py``); the other defenses and the masked trimmed mean are
+stock torch ops, as the JAX package leaves them to XLA. What is still to
+port, and in which order, is queue A of ``ROADMAP.md``.
 
 Top-level names resolve lazily (PEP 562), as in ``blades_tpu/__init__.py:54``,
 so importing a subpackage stays light.

@@ -1,9 +1,12 @@
 """Robust-aggregator registry.
 
 Counterpart: ``blades_tpu/aggregators/__init__.py:40-86`` (``AGGREGATORS``,
-``get_aggregator``). Every dense defense of the reference's catalog and of
-BASELINE.md is ported. The names in :data:`UNPORTED` raise and name the
-``ROADMAP.md`` slice that brings them.
+``get_aggregator``). Every defense of the reference's catalog and of
+BASELINE.md is ported, with ByzantineSGD and SignGuard, each in its dense
+and its masked form; so are the gossip aggregators of
+``decentralized.py``, which the JAX registry does not list either. The
+names in :data:`UNPORTED` raise and name the ``ROADMAP.md`` slice that
+brings them.
 """
 
 from __future__ import annotations
@@ -12,15 +15,25 @@ from typing import Callable, Dict, Type, Union
 
 from blades_tpu_torch.aggregators.autogm import Autogm
 from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.byzantinesgd import Byzantinesgd
 from blades_tpu_torch.aggregators.centeredclipping import Centeredclipping
 from blades_tpu_torch.aggregators.clippedclustering import Clippedclustering
 from blades_tpu_torch.aggregators.clustering import Clustering
+from blades_tpu_torch.aggregators.decentralized import (
+    AnchorClipping,
+    DecentralizedMixing,
+    fully_connected_adjacency,
+    metropolis_weights,
+    ring_adjacency,
+    torus_adjacency,
+)
 from blades_tpu_torch.aggregators.dnc import Dnc
 from blades_tpu_torch.aggregators.fltrust import Fltrust
 from blades_tpu_torch.aggregators.geomed import Geomed
 from blades_tpu_torch.aggregators.krum import Krum, Multikrum
 from blades_tpu_torch.aggregators.mean import Mean
 from blades_tpu_torch.aggregators.median import Median
+from blades_tpu_torch.aggregators.signguard import Signguard
 from blades_tpu_torch.aggregators.trimmedmean import Trimmedmean
 
 AGGREGATORS: Dict[str, Type[Aggregator]] = {
@@ -35,15 +48,14 @@ AGGREGATORS: Dict[str, Type[Aggregator]] = {
     "clustering": Clustering,
     "clippedclustering": Clippedclustering,
     "fltrust": Fltrust,
+    "byzantinesgd": Byzantinesgd,
     "dnc": Dnc,
+    "signguard": Signguard,
 }
 
 #: names of the JAX registry still to port, each with its ROADMAP.md
-#: queue-A slice: the extras outside the reference's catalog (6b) and the
-#: asynchronous aggregators (9)
+#: queue-A slice: the asynchronous aggregators (9)
 UNPORTED = {
-    "byzantinesgd": "slice 6b (defense extras)",
-    "signguard": "slice 6b (defense extras)",
     "asyncmean": "slice 9 (async)",
     "asynccenteredclipping": "slice 9 (async)",
 }
@@ -83,7 +95,9 @@ def _wrap_callable(fn: Callable) -> Aggregator:
 
 
 __all__ = [
-    "AGGREGATORS", "Aggregator", "Autogm", "Centeredclipping", "Clippedclustering",
-    "Clustering", "Dnc", "Fltrust", "Geomed", "Krum", "Mean", "Median", "Multikrum",
-    "Trimmedmean", "get_aggregator",
+    "AGGREGATORS", "Aggregator", "AnchorClipping", "Autogm", "Byzantinesgd",
+    "Centeredclipping", "Clippedclustering", "Clustering", "DecentralizedMixing", "Dnc",
+    "Fltrust", "Geomed", "Krum", "Mean", "Median", "Multikrum", "Signguard", "Trimmedmean",
+    "fully_connected_adjacency", "get_aggregator", "metropolis_weights", "ring_adjacency",
+    "torus_adjacency",
 ]

@@ -8,6 +8,12 @@ implements it), the inner loop is a Weiszfeld solve; it stops on the
 penalised objective ``sum_i a_i |z - x_i| + lamb |alpha|^2 / 2`` by the
 same rule as ``geomed.weiszfeld``, tested on the host once per outer and
 once per inner iteration.
+
+The masked form (JAX ``_masked_aggregate`` :49) restricts the weight
+search and every Weiszfeld solve to the participating rows: absent rows
+sort past the participants and are left out of the ``eta`` prefix sums,
+and their weights stay 0. ``lamb`` stays K-scaled under dropout, as in the
+JAX package.
 """
 
 from __future__ import annotations
@@ -37,34 +43,53 @@ class Autogm(Aggregator):
         self.last_iterations = (0, 0)
 
     def aggregate(self, updates, state=(), **ctx):
+        return self._aggregate_impl(updates, None), state
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        z = self._aggregate_impl(updates, mask)
+        return torch.where(mask.any(), z, torch.zeros_like(z)), state
+
+    def _aggregate_impl(self, updates, mask):
         k = updates.shape[0]
         lamb = float(k) if self.lamb is None else self.lamb
+        msk = None if mask is None else mask.to(updates.dtype)
         inner = 0
 
         def solve(alpha):
             nonlocal inner
             z, d, it = weiszfeld(updates, init_weights=alpha, maxiter=self.inner_maxiter,
-                                 eps=self.eps, ftol=self.ftol)
+                                 eps=self.eps, ftol=self.ftol, mask=mask)
             inner += it
             return z, d, (alpha * d).sum() + lamb * (alpha**2).sum() / 2.0
 
-        alpha = torch.full((k,), 1.0 / k, dtype=updates.dtype, device=updates.device)
+        if msk is None:
+            alpha = torch.full((k,), 1.0 / k, dtype=updates.dtype, device=updates.device)
+        else:
+            alpha = msk / torch.clamp_min(msk.sum(), 1.0)
         z, d, obj = solve(alpha)
         prev = torch.full_like(obj, float("inf"))
-        p1 = torch.arange(1, k + 1, dtype=updates.dtype, device=updates.device)
+        slots = torch.arange(k, device=updates.device)
+        p1 = (slots + 1).to(updates.dtype)
         i = 0
         while i < self.maxiter and bool(torch.abs(prev - obj) >= self.ftol * obj):
-            d_sorted = torch.sort(d).values
+            if msk is None:
+                d_sorted = summable = torch.sort(d).values
+            else:
+                # absent rows sort last; their +inf fails the eta test below
+                d_sorted = torch.sort(torch.where(mask, d, float("inf"))).values
+                summable = torch.where(slots < mask.sum(), d_sorted, 0.0)
             # eta_p = (sum of the p+1 smallest distances + lamb) / (p + 1);
             # the optimum is the last eta of the longest prefix with
             # eta_p >= d_(p)
-            etas = (torch.cumsum(d_sorted, 0) + lamb) / p1
+            etas = (torch.cumsum(summable, 0) + lamb) / p1
             count = torch.cumprod((etas - d_sorted >= 0).to(torch.int32), 0).sum()
             last = etas.index_select(0, torch.clamp_min(count - 1, 0).view(1))[0]
             eta_opt = torch.where(count > 0, last, 1e16)
             alpha = torch.clamp_min(eta_opt - d, 0.0) / lamb
+            if msk is not None:
+                alpha = alpha * msk
             prev = obj
             z, d, obj = solve(alpha)
             i += 1
         self.last_iterations = (i, inner)
-        return z, state
+        return z

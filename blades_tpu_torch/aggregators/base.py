@@ -10,11 +10,15 @@ convenience wrapper with reference-call parity (a stacked matrix, a list of
 vectors, or a list of client handles) that keeps the state itself.
 
 The context an aggregator may read: ``byz_mask``, ``trusted_mask``
-(FLTrust), ``params_flat``, ``generator`` (the round's ``utils/rng.py:AGG``
-generator, where the JAX package passes ``key``; DnC draws from it) and
-``weights`` (GeoMed's initial client weights). Not ported yet, and raising
-when called: the mask-aware path (``aggregate_masked``, ``ROADMAP.md``
-queue A slice 6b) and the streaming protocol (slice 8).
+(FLTrust), ``params_flat`` (ByzantineSGD), ``generator`` (the round's
+``utils/rng.py:AGG`` generator, where the JAX package passes ``key``; DnC
+draws from it) and ``weights`` (GeoMed's initial client weights).
+
+The mask-aware path (``aggregate_masked``, JAX ``:89-137``) aggregates over
+the participating clients of a ``[K]`` mask (``blades_tpu_torch.faults``);
+each registered aggregator implements ``_masked_aggregate``. Not ported
+yet: its diagnostics variant (``ROADMAP.md`` queue A slice 10) and the
+streaming protocol (slice 8), which raises when called.
 """
 
 from __future__ import annotations
@@ -58,10 +62,38 @@ class Aggregator:
     ) -> Tuple[torch.Tensor, Any]:
         raise NotImplementedError
 
-    def aggregate_masked(self, updates, state=(), *, mask=None, **ctx):
+    # -- partial participation ---------------------------------------------------
+
+    def aggregate_masked(
+        self, updates: torch.Tensor, state: Any = (), *,
+        mask: Optional[torch.Tensor] = None, **ctx,
+    ) -> Tuple[torch.Tensor, Any]:
+        """:meth:`aggregate` over the clients that ``mask`` (boolean ``[K]``)
+        marks as participating. A masked-out row cannot influence the
+        result: its payload may be stale, NaN or Inf, and it is zeroed before
+        :meth:`_masked_aggregate` sees it. ``mask=None`` is :meth:`aggregate`
+        itself."""
+        if mask is None:
+            return self.aggregate(updates, state, **ctx)
+        mask, safe = self._sanitize(updates, mask)
+        return self._masked_aggregate(safe, state, mask=mask, **ctx)
+
+    @staticmethod
+    def _sanitize(updates, mask):
+        """The mask as bool on the updates' device, and the updates with
+        masked-out rows set to 0 by ``where``: multiplying by the mask would
+        keep a NaN row NaN (``NaN * 0`` is NaN)."""
+        mask = torch.as_tensor(mask).to(updates.device, torch.bool)
+        return mask, torch.where(mask[:, None], updates, 0.0)
+
+    def _masked_aggregate(
+        self, updates: torch.Tensor, state: Any, *, mask: torch.Tensor, **ctx
+    ) -> Tuple[torch.Tensor, Any]:
+        """The mask-aware core; ``updates`` arrives with masked-out rows
+        zeroed. Every registered aggregator overrides it."""
         raise NotImplementedError(
-            f"{type(self).__name__}: mask-aware aggregation is not ported to "
-            "blades_tpu_torch yet (ROADMAP.md queue A, slice 6b)"
+            f"{type(self).__name__} does not implement mask-aware "
+            "aggregation (_masked_aggregate)"
         )
 
     def supports_streaming(self) -> bool:

@@ -7,6 +7,11 @@ larger group. ``metric='similarity'`` (the default) feeds the similarity
 matrix, diagonal 1 and -1 where a row is zero, to the linkage as a
 distance, as the reference does; ``metric='distance'`` uses the cosine
 distance, diagonal 0 and 2 where a row is zero.
+
+The masked form (JAX ``:84``) gives every pair with an absent row the
+metric's least value (-1 similarity, 0 distance): absent rows merge into
+some cluster at no linkage cost, which leaves complete linkage's maxima
+unchanged, and the majority and the mean count participants only.
 """
 
 from __future__ import annotations
@@ -38,3 +43,17 @@ class Clustering(Aggregator):
     def aggregate(self, updates, state=(), **ctx):
         labels = complete_linkage_two_clusters(self._matrix(updates))
         return majority_cluster_mean(updates, labels), state
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        k = updates.shape[0]
+        least = -1.0 if self.metric == "similarity" else 0.0
+        eye = torch.eye(k, dtype=torch.bool, device=updates.device)
+        out_pair = (~mask[:, None] | ~mask[None, :]) & ~eye
+        labels = complete_linkage_two_clusters(torch.where(out_pair, least, self._matrix(updates)))
+        # the participants of the cluster holding more of them (a tie goes
+        # to cluster 0); the zero vector when none participate
+        mf = mask.to(updates.dtype)
+        size1 = (mf * labels).sum()
+        majority = (size1 > mf.sum() - size1).to(labels.dtype)
+        sel = (labels == majority).to(updates.dtype) * mf
+        return (sel @ updates) / torch.clamp_min(sel.sum(), 1.0), state

@@ -11,6 +11,12 @@ The random coordinates and the power iteration's start vectors come from
 :func:`draw_subspaces` on the round's ``AGG`` generator, where the JAX
 package draws ``jax.random.choice`` and ``jax.random.normal``; torch cannot
 reproduce those bits, so tests hand both packages the same draws.
+
+In the masked form (JAX ``_aggregate_impl`` :67 with a mask) the principal
+direction and the scores are computed over the participants (absent rows
+are 0 in the centred submatrix), absent rows score ``-inf``, so the
+``filter_frac * f`` removals still take the largest participant scores,
+and only participants can survive.
 """
 
 from __future__ import annotations
@@ -66,20 +72,35 @@ class Dnc(Aggregator):
         self.power_iters = power_iters
 
     def aggregate(self, updates, state=(), *, generator=None, **ctx):
+        return self._aggregate_impl(updates, generator, None), state
+
+    def _masked_aggregate(self, updates, state, *, mask, generator=None, **ctx):
+        return self._aggregate_impl(updates, generator, mask), state
+
+    def _aggregate_impl(self, updates, generator, mask):
         k, d = updates.shape
         sub_dim = min(self.sub_dim, d)
         n_remove = min(int(self.filter_frac * self.f), k - 1)
-        good = torch.ones(k, dtype=torch.bool, device=updates.device)
+        if mask is None:
+            good = torch.ones(k, dtype=torch.bool, device=updates.device)
+        else:
+            good, m = mask, mask.to(updates.dtype)
         for idx, v0 in draw_subspaces(generator, self.num_iters, d, sub_dim, updates.device):
             sub = updates.index_select(1, idx)
-            centered = sub - sub.mean(dim=0)
+            if mask is None:
+                centered = sub - sub.mean(dim=0)
+            else:
+                mean = (sub * m[:, None]).sum(dim=0) / torch.clamp_min(m.sum(), 1.0)
+                centered = torch.where(mask[:, None], sub - mean, 0.0)
             v = _top_singular_dir(centered, self.power_iters, v0.to(updates.dtype))
             scores = (centered @ v) ** 2
+            if mask is not None:
+                scores = torch.where(mask, scores, float("-inf"))
             # keep everyone except the n_remove largest scores
             cutoff = torch.sort(scores).values[k - n_remove - 1]
             good = good & (scores <= cutoff)
         w = good.to(updates.dtype)
-        return (w @ updates) / torch.clamp_min(w.sum(), 1.0), state
+        return (w @ updates) / torch.clamp_min(w.sum(), 1.0)
 
     def __repr__(self):
         return f"DnC (f={self.f}, iters={self.num_iters})"

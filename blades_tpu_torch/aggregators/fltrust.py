@@ -7,7 +7,10 @@ client is trusted (``trusted_mask``, set through
 ``relu(cos(trusted, u_i))`` (cosine eps 1e-6), every update is rescaled to
 the trusted update's norm, and the result is the trust-weighted average;
 all trust 0 gives the zero vector. The rescale is folded into the weights,
-so the average is one matrix-vector product.
+so the average is one matrix-vector product. In the masked form (JAX
+``:80``) an absent client earns no trust; when the trusted client itself
+is absent its zeroed row zeroes every cosine, and the round is the zero
+update.
 """
 
 from __future__ import annotations
@@ -41,6 +44,17 @@ class Fltrust(Aggregator):
     def aggregate(self, updates, state=(), *, trusted_mask=None, **ctx):
         if trusted_mask is None:
             raise ValueError("fltrust requires a trusted_mask (set_trusted_clients)")
+        return self._weighted(updates, *self._trust_scores(updates, trusted_mask)), state
+
+    def _masked_aggregate(self, updates, state, *, mask, trusted_mask=None, **ctx):
+        if trusted_mask is None:
+            raise ValueError("fltrust requires a trusted_mask (set_trusted_clients)")
         ts, t_norm, norms = self._trust_scores(updates, trusted_mask)
+        return self._weighted(updates, ts * mask.to(updates.dtype), t_norm, norms), state
+
+    @staticmethod
+    def _weighted(updates, ts, t_norm, norms):
+        """The trust-weighted average of the updates rescaled to the trusted
+        norm."""
         w = ts * (t_norm / torch.clamp_min(norms, 1e-24))
-        return (w @ updates) / torch.clamp_min(ts.sum(), 1e-12), state
+        return (w @ updates) / torch.clamp_min(ts.sum(), 1e-12)

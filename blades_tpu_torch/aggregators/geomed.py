@@ -6,6 +6,10 @@ From the mean, iterate ``w_i <- max(eps, a_i / max(eps, |z - x_i|))``
 (normalised), ``z <- sum_i w_i x_i`` while the weighted objective still
 moves by at least ``ftol`` of itself, at most ``maxiter`` times.
 
+With ``mask`` (the masked form, JAX ``:109``) the solve runs over the
+participating rows: absent rows start at weight 0, and the ``eps`` weight
+floor, which would bring them back, is masked again each iteration.
+
 The stopping rule is the JAX package's, tested on the host: each iteration
 reads one 0-d comparison from the device (one sync), so the loop stops
 where the JAX ``while_loop`` stops and does no work past it. The distances
@@ -32,21 +36,33 @@ def weiszfeld(
     maxiter: int = 100,
     eps: float = 1e-6,
     ftol: float = 1e-10,
+    mask: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """``argmin_z sum_i a_i |z - x_i|`` over the rows of ``updates``:
-    ``(z [D], |z - x_i| [K], iterations)``."""
+    """``argmin_z sum_i a_i |z - x_i|`` over the rows of ``updates`` (the
+    participating ones, with ``mask``): ``(z [D], |z - x_i| [K],
+    iterations)``."""
     k = updates.shape[0]
-    if init_weights is None:
+    msk = None if mask is None else mask.to(updates.dtype)
+    if init_weights is not None:
+        alphas = init_weights.to(updates.device, updates.dtype)
+        if msk is not None:
+            alphas = alphas * msk
+    elif msk is None:
         alphas = torch.full((k,), 1.0 / k, dtype=updates.dtype, device=updates.device)
     else:
-        alphas = init_weights.to(updates.device, updates.dtype)
-    z = updates.mean(dim=0)
+        alphas = msk / torch.clamp_min(msk.sum(), 1.0)
+    if msk is None:
+        z = updates.mean(dim=0)
+    else:
+        z = (updates * msk[:, None]).sum(dim=0) / torch.clamp_min(msk.sum(), 1.0)
     d = _dists(updates, z)
     obj = (alphas * d).sum()
     prev = torch.full_like(obj, float("inf"))
     i = 0
     while i < maxiter and bool(torch.abs(prev - obj) >= ftol * obj):
         w = torch.clamp_min(alphas / torch.clamp_min(d, eps), eps)
+        if msk is not None:
+            w = w * msk
         w = w / w.sum()
         z = w @ updates
         d = _dists(updates, z)
@@ -69,3 +85,10 @@ class Geomed(Aggregator):
             ftol=self.ftol,
         )
         return z, state
+
+    def _masked_aggregate(self, updates, state, *, mask, weights=None, **ctx):
+        z, _, self.last_iterations = weiszfeld(
+            updates, init_weights=weights, maxiter=self.maxiter, eps=self.eps,
+            ftol=self.ftol, mask=mask,
+        )
+        return torch.where(mask.any(), z, torch.zeros_like(z)), state

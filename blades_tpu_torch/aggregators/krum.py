@@ -7,6 +7,14 @@ again, the reference's accidental behaviour); the ``m`` lowest scores are
 averaged. The distance matrix is one GEMM (``ops/distances.py``), and the
 ranking is a stable ``argsort``, as ``jnp.argsort`` is: equal scores keep
 the lower client index.
+
+The masked form (``_masked_scores`` :80, ``_masked_aggregate`` :110) scores
+participants against participants only: pairs with an absent row sit at
+``+inf``, each participant sums its ``max(n - f - 2, 1)`` nearest finite
+distances, and absent rows score ``+inf``, so selection never picks one.
+With fewer participants than ``m`` only the first ``m_eff = min(m, n)``
+selected rows are weighted, and the mean is rescaled by ``m / m_eff``; ``n``
+and ``m_eff`` stay device tensors.
 """
 
 from __future__ import annotations
@@ -53,6 +61,35 @@ class Krum(Aggregator):
         # the mean of the m selected rows (the Multi-Krum paper; the
         # reference only runs m=1, where sum and mean agree)
         return updates.index_select(0, top_m).mean(dim=0), state
+
+    def _masked_scores(self, updates, mask):
+        """``(scores [K], n)``: Krum scores over the participating subset,
+        absent rows at ``+inf``; ``n`` the participant count (0-d)."""
+        k = updates.shape[0]
+        if 2 * self.f + 2 > k:
+            raise ValueError(f"Too many Byzantine workers: 2*{self.f}+2 > {k}")
+        n = mask.to(torch.int32).sum(dtype=torch.int32)
+        d2 = pairwise_sq_euclidean(updates)
+        if self.distance_power == 4:
+            d2 = d2 * d2
+        eye = torch.eye(k, dtype=torch.bool, device=updates.device)
+        pair_ok = mask[:, None] & mask[None, :] & ~eye
+        s = torch.sort(torch.where(pair_ok, d2, float("inf")), dim=1).values
+        nn = torch.clamp_min(n - self.f - 2, 1)
+        # the +inf sentinels leave the sum as well as the ranks past nn, so a
+        # participant with fewer than nn real neighbours keeps a finite score
+        # below every absent row's
+        keep = (torch.arange(k, device=updates.device)[None, :] < nn) & torch.isfinite(s)
+        scores = torch.where(keep, s, 0.0).sum(dim=1)
+        return torch.where(mask, scores, float("inf")), n
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        scores, n = self._masked_scores(updates, mask)
+        top_m = torch.argsort(scores, stable=True)[: self.m]
+        m_eff = torch.clamp(torch.clamp_min(n, 1), max=self.m)
+        w = (torch.arange(top_m.numel(), device=updates.device) < m_eff).to(updates.dtype)
+        sel = updates.index_select(0, top_m) * w[:, None]
+        return sel.mean(dim=0) * (self.m / m_eff.to(updates.dtype)), state
 
     def __repr__(self):
         return f"Krum (m={self.m})"

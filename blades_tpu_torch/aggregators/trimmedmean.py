@@ -3,13 +3,17 @@
 Counterpart: ``blades_tpu/aggregators/trimmedmean.py:20-40``: drop the b
 largest and b smallest values per coordinate and average the rest, with b
 shrunk until ``K - 2b > 0``. On a CUDA tensor the selection runs in the
-Hopper kernel behind ``ops/trimmed.py``. The trim-mask ``diagnostics`` come
-with the forensics of ``ROADMAP.md`` queue A, slice 10.
+Hopper kernel behind ``ops/trimmed.py``. The masked form (JAX ``:42-47``)
+is ``ops/masked.py:masked_trimmed_mean``, stock torch ops: under partial
+participation the kernel does not run, as the JAX package leaves its
+masked trim to XLA. The trim-mask ``diagnostics`` come with the forensics
+of ``ROADMAP.md`` queue A, slice 10.
 """
 
 from __future__ import annotations
 
 from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.ops.masked import masked_trimmed_mean
 from blades_tpu_torch.ops.trimmed import trimmed_mean
 
 
@@ -28,6 +32,10 @@ class Trimmedmean(Aggregator):
 
     def aggregate(self, updates, state=(), **ctx):
         return trimmed_mean(updates, self._effective_b(updates.shape[0])), state
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        # b is further clamped to the participant count inside
+        return masked_trimmed_mean(updates, mask, self._effective_b(updates.shape[0])), state
 
     def __repr__(self):
         return f"Trimmed Mean (b={self.b})"

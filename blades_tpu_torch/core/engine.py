@@ -3,8 +3,9 @@
 Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 ``ServerOptSpec`` (:67-122), ``RoundState`` / ``RoundMetrics`` (:125-153),
 ``RoundEngine.init`` (:456), ``_local_update`` (:569-625),
-``_train_clients`` (:638-712), ``_round_dense`` (:714-874), ``run_round``
-(:1113), ``evaluate_per_sample`` (:1344) and ``multistep_lr`` (:1374).
+``_train_clients`` (:638-712), ``_round_dense`` (:714-874, its fault branch
+:749-797), ``run_round`` (:1113), ``evaluate_per_sample`` (:1344) and
+``multistep_lr`` (:1374).
 
 One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 
@@ -19,10 +20,15 @@ One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
      in the JAX package's flat order, then ``nan_to_num``;
   3. the attack's ``on_updates`` rewrite (``on_batch`` and ``on_grads``
      run inside step 1, per chunk);
-  4. the aggregator (trimmed mean: the Hopper kernel on a CUDA tensor),
+  4. with a fault model (``blades_tpu_torch.faults``), its ``apply`` on the
+     post-attack matrix, drawing from the round's ``FAULT`` generator: the
+     matrix the server received and the participation mask;
+  5. the aggregator (trimmed mean: the Hopper kernel on a CUDA tensor),
      with the trusted mask, the flat params and the round's ``AGG``
-     generator as context;
-  5. the server step with the aggregate as pseudo-gradient, ``grad := -agg``.
+     generator as context; under a fault model its masked form
+     (``aggregate_masked``; for trimmed mean stock torch ops, not the
+     kernel), and the zero update when no client participated;
+  6. the server step with the aggregate as pseudo-gradient, ``grad := -agg``.
 
 The optimizers port optax's chains literally — ``add_decayed_weights``, then
 ``trace`` (momentum) or ``scale_by_adam`` — and the engine applies
@@ -30,8 +36,8 @@ The optimizers port optax's chains literally — ``add_decayed_weights``, then
 differently. Not ported yet, each raising where it would be selected:
 persistent per-client optimizer state (``persist=True``, ``ROADMAP.md``
 queue A slice 3b), round blocks (slice 7), streaming (slice 8), async
-(slice 9), the fault model (slice 6b), audit, diagnostics and the metric pack
-(slice 10), and sharding plans (slice 12).
+(slice 9), audit, diagnostics and the metric pack (slice 10), and sharding
+plans (slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
 is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
@@ -51,6 +57,7 @@ from torch.func import grad_and_value, vmap
 
 from blades_tpu_torch.aggregators.base import Aggregator
 from blades_tpu_torch.attackers.base import Attack, NoAttack
+from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.ops.pytree import FlatLayout, Params, make_unraveler, ravel
 from blades_tpu_torch.utils import rng
 
@@ -186,6 +193,8 @@ class RoundState(NamedTuple):
     agg_state: Any
     attack_state: Any
     round_idx: int
+    # the fault model's straggler buffer and fill; () without a fault model
+    fault_state: Any = ()
 
 
 class RoundMetrics(NamedTuple):
@@ -220,7 +229,12 @@ class RoundEngine:
     trained as one vmapped batch, so activation memory scales with the
     chunk, not with K; the masks are drawn for all K clients before the
     split, so a round does not depend on it. ``keep_updates`` keeps each
-    round's post-attack ``[K, D]`` matrix as ``self.last_updates``.
+    round's post-attack ``[K, D]`` matrix as ``self.last_updates`` (under a
+    fault model, the matrix the server received). ``fault_model``: a
+    :class:`~blades_tpu_torch.faults.FaultModel` injecting dropout,
+    straggler replays and payload corruption; each round's counters are
+    then ``self.last_fault_diag`` (None without one, and the round is the
+    same code path as before the fault model existed).
     """
 
     def __init__(
@@ -242,6 +256,7 @@ class RoundEngine:
         keep_updates: bool = True,
         device=None,
         noise_sites: Optional[Callable[[int], dict]] = None,
+        fault_model: Optional[FaultModel] = None,
     ):
         if client_opt.persist:
             raise NotImplementedError(
@@ -268,6 +283,8 @@ class RoundEngine:
         )
         self.keep_updates = bool(keep_updates)
         self.last_updates: Optional[torch.Tensor] = None
+        self.fault_model = fault_model
+        self.last_fault_diag: Optional[dict] = None
         self.dim, self.unravel = make_unraveler(params_template, layout)
         # reference convention: the FIRST num_byzantine client ids are byzantine
         self.byz_mask = torch.arange(self.num_clients, device=self.device) < self.num_byzantine
@@ -307,6 +324,11 @@ class RoundEngine:
             agg_state=agg_state,
             attack_state=self.attack.init_state(self.num_clients, self.dim),
             round_idx=0,
+            fault_state=(
+                self.fault_model.init_state(self.num_clients, self.dim, device=self.device)
+                if self.fault_model is not None
+                else ()
+            ),
         )
 
     # -- the round -------------------------------------------------------------
@@ -373,13 +395,27 @@ class RoundEngine:
             updates, self.byz_mask, rng.generator(seed, r, rng.ATTACK, device=self.device),
             state.attack_state,
         )
-        agg, agg_state = self.aggregator.aggregate(
-            updates,
-            state.agg_state,
+        # the variance metrics stay on the matrix the clients sent
+        sent_updates = updates
+        fault_state, part_mask, fault_diag = state.fault_state, None, None
+        if self.fault_model is not None:
+            updates, part_mask, fault_state, fault_diag = self.fault_model.apply(
+                updates, state.fault_state,
+                rng.generator(seed, r, rng.FAULT, device=self.device), r,
+            )
+        agg_ctx = dict(
             trusted_mask=self.trusted_mask,
             params_flat=ravel(state.params, self.layout),
             generator=rng.generator(seed, r, rng.AGG, device=self.device),
         )
+        if part_mask is None:
+            agg, agg_state = self.aggregator.aggregate(updates, state.agg_state, **agg_ctx)
+        else:
+            agg, agg_state = self.aggregator.aggregate_masked(
+                updates, state.agg_state, mask=part_mask, **agg_ctx
+            )
+            # a round with no participant applies the zero update
+            agg = torch.where(part_mask.any(), agg, torch.zeros_like(agg))
 
         # server pseudo-gradient step: grad := -agg
         server_updates, server_opt_state = self._server_tx.update(
@@ -392,7 +428,7 @@ class RoundEngine:
         honest = (~self.byz_mask).to(losses.dtype)
         n_honest = torch.clamp_min(honest.sum(), 1.0)
         # population variance (ddof 0), as jnp.var: torch.var defaults to ddof 1
-        var = updates.var(dim=0, correction=0)
+        var = sent_updates.var(dim=0, correction=0)
         metrics = RoundMetrics(
             train_loss=(losses * honest).sum() / n_honest,
             train_loss_all=losses.mean(),
@@ -402,6 +438,7 @@ class RoundEngine:
             agg_norm=torch.linalg.vector_norm(agg),
         )
         self.last_updates = updates if self.keep_updates else None
+        self.last_fault_diag = fault_diag
         new_state = RoundState(
             params=params,
             server_opt_state=server_opt_state,
@@ -409,6 +446,7 @@ class RoundEngine:
             agg_state=agg_state,
             attack_state=attack_state,
             round_idx=r + 1,
+            fault_state=fault_state,
         )
         return new_state, metrics
 

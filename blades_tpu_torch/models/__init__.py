@@ -29,6 +29,7 @@ from blades_tpu_torch.models.common import (
     cross_entropy,
     params_from_jax,
     params_to_jax,
+    state_from_jax,
 )
 from blades_tpu_torch.models.mlp import MLP, create_mnist_model
 
@@ -83,5 +84,6 @@ __all__ = [
     "cvt_7_4_32",
     "params_from_jax",
     "params_to_jax",
+    "state_from_jax",
     "vit_lite_7_4_32",
 ]

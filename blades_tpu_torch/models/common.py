@@ -174,6 +174,19 @@ def params_from_jax(tree: Dict[str, Any], layout: FlatLayout) -> Params:
     return out
 
 
+def state_from_jax(tree: Any) -> Any:
+    """The JAX package's cross-round state (a fault model's straggler
+    buffer, a stateful aggregator's state: a pytree of dicts, lists and
+    tuples of arrays) as this package's: the same nesting, each array a CPU
+    tensor of its dtype. ``[K, D]`` leaves keep their order, the flat order
+    of the update matrix that both packages share."""
+    if isinstance(tree, dict):
+        return {k: state_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(state_from_jax(v) for v in tree)
+    return torch.from_numpy(np.array(tree))
+
+
 def params_to_jax(params: Params, layout: FlatLayout) -> Dict[str, Any]:
     """Inverse of :func:`params_from_jax`: a nested dict of numpy arrays in
     flax layout."""

@@ -4,7 +4,8 @@ Counterpart: ``blades_tpu/simulator.py`` — the constructor
 (:152-242, with the strict unknown-kwarg error and the ALIE and label
 flipping auto-fills at :194-198), ``run`` for the per-round synchronous
 dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
-``run_round`` -> ``log_train`` / ``log_variance``, periodic ``evaluate``),
+``run_round`` -> ``log_train`` / ``log_variance``, periodic ``evaluate``;
+``fault_model`` as a ``FaultModel`` or its kwargs, :466-467),
 the stats records (:1240-1260) and ``evaluate`` (:1396-1437). It writes
 the same ``stats`` records (``train``, ``variance``, ``client_validation``,
 ``test``) with the same keys.
@@ -12,8 +13,9 @@ the same ``stats`` records (``train``, ``variance``, ``client_validation``,
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
 yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice (queue A)
-that brings it; the JAX package's telemetry trace, run ledger and
-supervision hooks come with slice 10 and are not written.
+that brings it; the JAX package's telemetry trace (with its per-round
+``faults`` records: ``engine.last_fault_diag`` holds the counters), run
+ledger and supervision hooks come with slice 10 and are not written.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from blades_tpu_torch.core.engine import (
 )
 from blades_tpu_torch.datasets.base import BaseDataset
 from blades_tpu_torch.datasets.fl import FLDataset
+from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.models import create_model
 from blades_tpu_torch.models.common import ModelSpec, build_fns
 from blades_tpu_torch.server import BladesServer
@@ -54,7 +57,6 @@ _UNPORTED_RUN_OPTIONS = {
     "checkpoint_path": (None, "slice 5 (checkpoint and resume)"),
     "checkpoint_interval": (0, "slice 5 (checkpoint and resume)"),
     "resume": (False, "slice 5 (checkpoint and resume)"),
-    "fault_model": (None, "slice 6b (masked path, faults)"),
     "block_size": (1, "slice 7 (multi-round execution)"),
     "donate_batches": (False, "slice 7 (multi-round execution)"),
     "engine_cache": (None, "slice 7 (multi-round execution)"),
@@ -257,6 +259,7 @@ class Simulator:
         client_chunks: int = 1,
         on_round_end: Optional[Callable] = None,
         compute_dtype: Optional[Union[str, torch.dtype]] = None,
+        fault_model: Optional[Union[FaultModel, Dict]] = None,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -271,6 +274,11 @@ class Simulator:
         ``compute_dtype``: ``"bfloat16"`` runs local training's forward and
         backward in bf16; params, gradients, the loss and the update matrix
         stay float32.
+        ``fault_model``: a :class:`~blades_tpu_torch.faults.FaultModel`, or
+        the keyword arguments of one, injecting client dropout, straggler
+        replays and payload corruption into every round; the defense then
+        aggregates over the clients that delivered, and each round's fault
+        counters are ``self.engine.last_fault_diag``.
         """
         for name, value in options.items():
             if name not in _UNPORTED_RUN_OPTIONS:
@@ -280,6 +288,8 @@ class Simulator:
             if not is_off:
                 raise _unported(f"run({name}={value!r})", slice_name)
 
+        if isinstance(fault_model, dict):
+            fault_model = FaultModel(**fault_model)
         spec = self._model_spec(model, loss, compute_dtype)
         batch_size = train_batch_size or self._train_bs
         params = spec.init(rng.generator(self.seed, 0, rng.INIT))
@@ -301,6 +311,7 @@ class Simulator:
             keep_updates=retain_updates or on_round_end is not None,
             device=self.device,
             noise_sites=spec.noise_sites,
+            fault_model=fault_model,
         )
         state = self.engine.init(params)
         self.server = BladesServer(self.engine, state, self.aggregator)

@@ -28,6 +28,18 @@ syncs per call, its loop iterations and its peak memory. Every attack and
 aggregator is then run on the card and on the CPU on the first 100 rows
 and 16,384 columns of a round's matrix, with the same draws, and compared.
 
+Then partial participation on the same bf16 CCT-2 round at K=1000 under
+ALIE (f=5), with a fault model of 10% dropout, 5% stragglers (staleness
+bound 1) and clients 10 and 11 corrupt: 3 rounds with NaN corruption and
+trimmed mean (b=5), whose masked form replaces the kernel, each round's
+fault counts checked against the received matrix, and 2 rounds with
+bit-flip corruption (a ``[1000, 283723]`` draw); then 2 rounds with every
+other registered aggregator in its masked form, each timed alone on the
+round's received matrix and mask beside its dense form on the same matrix,
+and the gossip aggregators on that matrix. Every masked form and the fault
+model are then run on the card and on the CPU on ``[100, 16384]`` of a
+round's matrix with the same mask and draws, and compared.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -92,6 +104,14 @@ CATALOG_ROUNDS = 2
 # as in the CPU tests
 CATALOG_CPU_SHAPE = (100, 16_384)
 LOOP_TOL = dict(rtol=1e-4, atol=1e-6)
+# partial participation on the CCT-2 round, in bf16 under ALIE (f=5): the
+# fault model, its rounds with NaN and with bit-flip corruption (trimmed
+# mean b=5), and the rounds of each other registered aggregator
+FAULTS = dict(dropout_rate=0.1, straggler_rate=0.05, max_staleness=1, corrupt_clients=(10, 11))
+FAULT_ROUNDS, FAULT_BITFLIP_ROUNDS, FAULT_AGG_ROUNDS = 3, 2, 2
+FAULT_AGGREGATORS = ("mean", "median", "krum", "multikrum", "geomed", "autogm",
+                     "centeredclipping", "clustering", "clippedclustering", "fltrust",
+                     "byzantinesgd", "dnc", "signguard")
 
 
 def emit(record: dict) -> None:
@@ -720,11 +740,13 @@ def call_cost(torch, fn) -> dict:
             "peak_extra_bytes": extra}
 
 
-def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str) -> dict:
-    """CATALOG_ROUNDS of the CCT-2 round at K=1000 in bf16 through
-    Simulator.run (4 client chunks, no evaluation), the kernel's launches
-    counted alone; returns the simulator, its per-round metrics, the round
-    times, the launches and the peak memory."""
+def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str,
+                rounds: int = CATALOG_ROUNDS, fault_model=None) -> dict:
+    """``rounds`` of the CCT-2 round at K=1000 in bf16 through Simulator.run
+    (4 client chunks, no evaluation; with ``fault_model``, under it), the
+    kernel's launches counted alone; returns the simulator, its per-round
+    metrics (and fault counters), the round times, the launches and the
+    peak memory."""
     from blades_tpu_torch import Simulator
 
     # an engine holds itself in a reference cycle (its loss closure), so a
@@ -732,11 +754,12 @@ def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str
     # it, so that this run's peak memory is its own
     gc.collect()
     k, d, f = CCT2_SHAPE
-    name = f"{attack}+{aggregator}"
+    name = f"{attack}+{aggregator}" + ("" if fault_model is None else "+faults")
     agg_kws = catalog_kwargs(aggregator) if aggregator != "trimmedmean" else {"num_byzantine": f}
     sim = Simulator(dataset=fl, attack=attack, num_byzantine=f, aggregator=aggregator,
                     aggregator_kws=agg_kws, seed=1,
-                    log_path=str(log_root / f"catalog_{attack}_{aggregator}"))
+                    log_path=str(log_root / (f"catalog_{attack}_{aggregator}" + (
+                        "" if fault_model is None else f"_faults_{fault_model.corrupt_mode}"))))
     check(sim.device.type == fl.device.type, f"{name}: the simulator runs on {sim.device}")
     if aggregator == "fltrust":
         sim.set_trusted_clients([sim.get_clients()[-1].id()])
@@ -747,18 +770,23 @@ def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str
         seen.append(dict(shape=tuple(u.shape), device=u.device.type, dtype=u.dtype,
                          loss=float(m.train_loss), agg_norm=float(m.agg_norm),
                          variance=float(m.update_variance)))
+        if fault_model is not None:
+            seen[-1]["faults"] = {n: int(v) for n, v in sim.engine.last_fault_diag.items()}
+            # corrupt clients whose row arrived non-finite: those that delivered
+            seen[-1]["nonfinite_corrupt_rows"] = sum(
+                not bool(torch.isfinite(u[c]).all()) for c in fault_model.corrupt_clients)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     trimmed.trimmed_mean_launches = 0
-    times = sim.run(model="cct_2_3x2_32", global_rounds=CATALOG_ROUNDS, local_steps=1,
-                    server_lr=1.0, client_lr=0.1, validate_interval=CATALOG_ROUNDS + 1,
+    times = sim.run(model="cct_2_3x2_32", global_rounds=rounds, local_steps=1,
+                    server_lr=1.0, client_lr=0.1, validate_interval=rounds + 1,
                     client_chunks=CCT2_CHUNKS, on_round_end=on_round_end,
-                    compute_dtype="bfloat16")
+                    compute_dtype="bfloat16", fault_model=fault_model)
     torch.cuda.synchronize()
     launches = trimmed.trimmed_mean_launches
     peak = torch.cuda.max_memory_allocated()
-    check(len(seen) == CATALOG_ROUNDS, f"{name}: {len(seen)} rounds")
+    check(len(seen) == rounds, f"{name}: {len(seen)} rounds")
     check(all(r["shape"] == (k, d) and r["device"] == sim.device.type
               and r["dtype"] == torch.float32 for r in seen), f"{name}: update matrices {seen}")
     numbers = [v for r in seen for v in (r["loss"], r["agg_norm"], r["variance"])]
@@ -872,10 +900,11 @@ def phase_catalog_aggregators(torch, trimmed, fl, card: str, log_root: Path):
     return sample
 
 
-def _compare(torch, name: str, got, ref, tol: dict, **extra) -> None:
+def _compare(torch, name: str, got, ref, tol: dict, phase: str = "catalog_card_vs_cpu",
+             **extra) -> None:
     err = float((got - ref).abs().max())
     ok = bool(torch.allclose(got, ref, **tol))
-    emit({"phase": "catalog_card_vs_cpu", "module": name, "max_abs_err": err,
+    emit({"phase": phase, "module": name, "max_abs_err": err,
           "max_abs": float(ref.abs().max()), "tol": tol, "ok": ok, **extra})
     check(ok, f"{name}: card and CPU differ by {err} (tol {tol})")
 
@@ -985,6 +1014,275 @@ def phase_catalog_card_vs_cpu(torch, x_cpu, dev) -> None:
                  LOOP_TOL if name in ("geomed", "autogm") else TOL, **extra)
 
 
+def recording_fault_model(**kw):
+    """A FaultModel that keeps its last participation mask as
+    ``last_mask``: the engine reports only the counters, and the phases
+    time each defense on the round's own matrix and mask."""
+    from blades_tpu_torch.faults import FaultModel
+
+    class Recording(FaultModel):
+        def apply(self, *args, **kwargs):
+            out = super().apply(*args, **kwargs)
+            self.__dict__["last_mask"] = out[1]
+            return out
+
+    return Recording(**kw)
+
+
+def rank_form_trimmed_mean(torch, updates, mask, b: int):
+    """The JAX package's masked trimmed mean as written there
+    (``blades_tpu/ops/masked.py:57``): each row's rank per column from two
+    stable argsorts of the sentinel matrix, the survivors summed in row
+    order. Timed beside the port's one-sort form and held to it."""
+    n = mask.sum()
+    b_eff = torch.clamp(torch.clamp_min((n - 1) // 2, 0), max=b)
+    sentinel = torch.where(mask[:, None], updates, float("inf"))
+    ranks = torch.argsort(torch.argsort(sentinel, dim=0, stable=True), dim=0, stable=True)
+    keep = (ranks >= b_eff) & (ranks < n - b_eff)
+    return torch.where(keep, updates, 0.0).sum(dim=0) / torch.clamp_min(n - 2 * b_eff, 1)
+
+
+def check_fault_run(torch, run, name: str, mode: str) -> list:
+    """Each round's fault counters; the in-program checks of a fault run:
+    finite params, the non-finite guard excluding exactly the corrupt
+    clients that delivered (NaN mode) or nothing (bit-flip mode)."""
+    from blades_tpu_torch.ops.pytree import ravel
+
+    eng = run["sim"].engine
+    faults = [dict(r["faults"], nonfinite_corrupt_rows=r["nonfinite_corrupt_rows"])
+              for r in run["seen"]]
+    params = ravel(run["sim"].server.state.params, eng.layout)
+    check(bool(torch.isfinite(params).all()), f"{name}: non-finite params")
+    for rnd, f in enumerate(faults):
+        expect = f["nonfinite_corrupt_rows"] if mode == "nan" else 0
+        check(f["excluded_nonfinite"] == expect, f"{name} round {rnd}: {f}")
+        check(f["corrupted"] == f["nonfinite_corrupt_rows"] if mode == "nan"
+              else f["nonfinite_corrupt_rows"] == 0, f"{name} round {rnd}: {f}")
+        check(f["participants"] + f["dropped"] + f["stragglers_expired"]
+              + f["excluded_nonfinite"] == eng.num_clients, f"{name} round {rnd}: {f}")
+    return faults
+
+
+def phase_fault_round(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """Trimmed mean (b=5) under the fault model: FAULT_ROUNDS bf16 CCT-2
+    rounds at K=1000 with NaN corruption, then FAULT_BITFLIP_ROUNDS with
+    bit-flip corruption. Checks: a straggler replays in a round after the
+    first, the guard excludes the corrupt clients that delivered, the
+    params stay finite, the kernel does not launch (the masked form
+    replaces it), and the round applied the masked trimmed mean. Times, on
+    the NaN run's last received matrix and mask: the masked trimmed mean
+    (the port's one-sort form and the JAX package's two-argsort form,
+    held to each other), the kernel on the same matrix with masked-out rows
+    zeroed, and FaultModel.apply. Returns the kernel's launches per run."""
+    from blades_tpu_torch.aggregators import get_aggregator
+    from blades_tpu_torch.ops.masked import masked_trimmed_mean
+    from blades_tpu_torch.utils import rng
+
+    k, d, b = CCT2_SHAPE
+    launches = {}
+    for mode, rounds in (("nan", FAULT_ROUNDS), ("bitflip", FAULT_BITFLIP_ROUNDS)):
+        fm = recording_fault_model(**FAULTS, corrupt_mode=mode)
+        run = catalog_run(torch, trimmed, fl, log_root, "alie", "trimmedmean", rounds=rounds,
+                          fault_model=fm)
+        sim = run["sim"]
+        eng = sim.engine
+        name = f"fault_round[{mode}]"
+        faults = check_fault_run(torch, run, name, mode)
+        launches[f"cct2_bf16_faults_{mode}"] = run["launches"]
+        rec = {"phase": "fault_round", "corrupt_mode": mode, "fault_model": repr(fm),
+               "aggregator": "trimmedmean", "attack": "alie", "dtype": "bfloat16",
+               "clients": k, "byzantine": b, "b": b, "rounds": rounds,
+               "client_chunks": eng.client_chunks, "kernel_launches": run["launches"],
+               "faults_by_round": faults, "round_s": run["round_s"],
+               "warm_round_s": run["round_s"][-1],
+               "train_loss": [r["loss"] for r in run["seen"]],
+               "agg_norm": [r["agg_norm"] for r in run["seen"]],
+               "peak_mem_bytes": run["peak"]}
+        check(run["launches"] == 0, f"{name}: the kernel launched {run['launches']} times")
+        if mode == "nan":
+            check(any(f["stale_replayed"] > 0 for f in faults[1:]),
+                  f"{name}: no straggler replayed after the first round: {faults}")
+            u, mask = eng.last_updates, fm.last_mask
+            agg = get_aggregator("trimmedmean", num_byzantine=b)
+            applied, _ = agg.aggregate_masked(u, (), mask=mask)
+            check(math.isclose(float(torch.linalg.vector_norm(applied)),
+                               run["seen"][-1]["agg_norm"], rel_tol=1e-6),
+                  f"{name}: the round applied another aggregate")
+            safe = torch.where(mask[:, None], u, 0.0)
+            slot = masked_trimmed_mean(safe, mask, b)
+            rank = rank_form_trimmed_mean(torch, safe, mask, b)
+            torch.cuda.synchronize()
+            err = float((slot - rank).abs().max())
+            check(bool(torch.allclose(slot, rank, **TOL)),
+                  f"{name}: the one-sort and the two-argsort forms differ by {err}")
+            state = sim.server.state.fault_state
+            costs = {
+                "masked_trimmed_mean": call_cost(torch, lambda: agg.aggregate_masked(
+                    u, (), mask=mask)),
+                "masked_trimmed_mean_rank_form": call_cost(
+                    torch, lambda: rank_form_trimmed_mean(torch, safe, mask, b)),
+                "kernel_on_zeroed_matrix": call_cost(
+                    torch, lambda: trimmed.trimmed_mean_cuda(safe, b)),
+                "fault_apply": call_cost(torch, lambda: fm.apply(
+                    safe, state, rng.generator(sim.seed, 99, rng.FAULT, device=eng.device),
+                    99)),
+            }
+            for what in ("masked_trimmed_mean", "fault_apply"):
+                check(costs[what]["host_syncs"] == 0, f"{name}: {what} syncs {costs[what]}")
+            rec.update(participants_last_round=int(mask.sum()), slot_vs_rank_max_abs_err=err,
+                       **{f"{w}_{n}": v for w, c in costs.items() for n, v in c.items()})
+            del u, mask, safe, state, slot, rank
+        else:
+            check(sum(f["corrupted"] for f in faults) > 0, f"{name}: nothing was corrupted")
+        emit(dict(rec, card=card))
+        del run, sim, eng
+    return launches
+
+
+def phase_fault_aggregators(torch, trimmed, fl, card: str, log_root: Path):
+    """Each other registered aggregator under ALIE (f=5) and the fault model
+    (NaN corruption): FAULT_AGG_ROUNDS bf16 CCT-2 rounds at K=1000, then
+    its masked form timed alone on the last round's received matrix and
+    mask with the run's state, beside its dense form on the same matrix
+    with the masked-out rows zeroed; host syncs, iterations and extra peak
+    memory of each. A stateless one's last aggregate is recomputed and held
+    to the round's agg_norm. Then DecentralizedMixing and AnchorClipping
+    (ring, Metropolis weights) alone on that matrix. Returns the first
+    CATALOG_CPU_SHAPE of the last run's zeroed matrix and its mask's first
+    rows, on the CPU, for fault_card_vs_cpu."""
+    from blades_tpu_torch.aggregators import decentralized
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.utils import rng
+
+    k, d, f = CCT2_SHAPE
+    rows, cols = CATALOG_CPU_SHAPE
+    sample = None
+    for aggregator in FAULT_AGGREGATORS:
+        fm = recording_fault_model(**FAULTS)
+        run = catalog_run(torch, trimmed, fl, log_root, "alie", aggregator,
+                          rounds=FAULT_AGG_ROUNDS, fault_model=fm)
+        sim = run["sim"]
+        eng, agg = sim.engine, sim.aggregator
+        faults = check_fault_run(torch, run, f"fault_aggregator[{aggregator}]", "nan")
+        u, mask, state = eng.last_updates, fm.last_mask, sim.server.state.agg_state
+        safe = torch.where(mask[:, None], u, 0.0)
+        round_iters = getattr(agg, "last_iterations", None)
+        ctx = dict(trusted_mask=eng.trusted_mask,
+                   params_flat=ravel(sim.server.state.params, eng.layout))
+        applied = None
+        if not agg.stateful:
+            again, _ = agg.aggregate_masked(u, (), mask=mask, generator=rng.generator(
+                sim.seed, FAULT_AGG_ROUNDS - 1, rng.AGG, device=eng.device), **ctx)
+            applied = float(torch.linalg.vector_norm(again))
+
+        def gen():
+            return rng.generator(sim.seed, 99, rng.AGG, device=eng.device)
+
+        masked = call_cost(torch, lambda: agg.aggregate_masked(u, state, mask=mask,
+                                                               generator=gen(), **ctx))
+        masked_iters = getattr(agg, "last_iterations", None)
+        dense = call_cost(torch, lambda: agg.aggregate(safe, state, generator=gen(), **ctx))
+        emit({"phase": "fault_aggregator", "aggregator": aggregator,
+              "kwargs": catalog_kwargs(aggregator), "attack": "alie", "dtype": "bfloat16",
+              "fault_model": repr(fm), "clients": k, "byzantine": f, "rounds": FAULT_AGG_ROUNDS,
+              "client_chunks": eng.client_chunks, "kernel_launches": run["launches"],
+              "faults_by_round": faults, "participants_last_round": int(mask.sum()),
+              "round_s": run["round_s"], "warm_round_s": run["round_s"][-1],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "agg_norm": [r["agg_norm"] for r in run["seen"]],
+              "recomputed_agg_norm": applied, "peak_mem_bytes": run["peak"],
+              "iterations_last_round": round_iters, "iterations_timed_masked": masked_iters,
+              "iterations_timed_dense": getattr(agg, "last_iterations", None),
+              **{f"masked_{n}": v for n, v in masked.items()},
+              **{f"dense_{n}": v for n, v in dense.items()}, "card": card})
+        if applied is not None:
+            check(math.isclose(applied, run["seen"][-1]["agg_norm"], rel_tol=1e-5),
+                  f"{aggregator}: the round applied another aggregate")
+        if aggregator not in ("geomed", "autogm"):
+            check(masked["host_syncs"] == 0, f"{aggregator}: masked form syncs {masked}")
+        if aggregator == "geomed":
+            check(masked["host_syncs"] == masked_iters + 1,
+                  f"geomed: {masked['host_syncs']} syncs in {masked_iters} iterations")
+        if aggregator == "signguard":
+            # the gossip aggregators, alone on this round's zeroed matrix
+            w = decentralized.metropolis_weights(decentralized.ring_adjacency(k))
+            mixing = decentralized.DecentralizedMixing(w)
+            anchor = decentralized.AnchorClipping(w)
+            # the first calls copy the mixing matrix to the card, once
+            mixing.mix(safe)
+            anchors = anchor.aggregate(safe, anchor.init_state(k, d))[1]
+            for gossip, fn in (("DecentralizedMixing", lambda: mixing.mix(safe)),
+                               ("AnchorClipping", lambda: anchor.aggregate(safe, anchors))):
+                cost = call_cost(torch, fn)
+                emit({"phase": "fault_gossip", "module": gossip, "topology": "ring",
+                      "clients": k, "dim": d, **cost, "card": card})
+                check(cost["host_syncs"] == 0, f"{gossip}: syncs {cost}")
+            del anchors
+        sample = (safe[:rows, :cols].cpu(), mask[:rows].cpu())
+        del run, sim, eng, agg, u, mask, state, safe
+    return sample
+
+
+def phase_fault_card_vs_cpu(torch, x_cpu, mask_cpu, dev) -> None:
+    """Every registered aggregator's masked form and FaultModel.apply on the
+    card and on the CPU, on the same [100, 16384] matrix (a fault round's,
+    masked-out rows zeroed; its first 5 rows are ALIE's one vector) and the
+    same mask (that round's first 100 entries), with the same draws: one
+    CPU generator per side for DnC, and the fault draws made once on the
+    CPU and handed to both. Tolerances: TOL, LOOP_TOL for GeoMed and AutoGM;
+    the fault model's received matrix, mask, counters and straggler buffer
+    bit for bit, over 2 rounds in each corruption mode."""
+    from blades_tpu_torch.aggregators import AGGREGATORS, get_aggregator
+    from blades_tpu_torch.faults import FaultModel, draw_faults
+
+    rows, cols = x_cpu.shape
+    check(0 < int(mask_cpu.sum()) < rows, f"mask has {int(mask_cpu.sum())} of {rows}")
+    sides = {"cpu": (x_cpu, mask_cpu), "cuda": (x_cpu.to(dev), mask_cpu.to(dev))}
+    params = torch.randn(cols, generator=torch.Generator().manual_seed(51))
+    trusted = int(torch.nonzero(mask_cpu).max())  # FLTrust's: the last participant
+    shape = dict(rows=rows, cols=cols, participants=int(mask_cpu.sum()))
+    for name in sorted(AGGREGATORS):
+        aggs = {w: get_aggregator(name, **catalog_kwargs(name)) for w in sides}
+        out, states = {}, {}
+        for w, (x, m) in sides.items():
+            got, states[w] = aggs[w].aggregate_masked(
+                x, aggs[w].init_state(rows, cols), mask=m,
+                trusted_mask=torch.arange(rows, device=x.device) == trusted,
+                params_flat=params.to(x.device), generator=torch.Generator().manual_seed(41))
+            out[w] = got.cpu()
+        tol = LOOP_TOL if name in ("geomed", "autogm") else TOL
+        _compare(torch, name, out["cuda"], out["cpu"], tol, phase="fault_card_vs_cpu", **shape)
+        if aggs["cpu"].stateful:
+            lt = torch.utils._pytree.tree_leaves
+            for i, (a, b) in enumerate(zip(lt(states["cuda"]), lt(states["cpu"]))):
+                a = a.cpu()
+                if a.dtype.is_floating_point:
+                    _compare(torch, f"{name}.state{i}", a, b, TOL, phase="fault_card_vs_cpu",
+                             **shape)
+                else:
+                    check(torch.equal(a, b), f"{name}: state leaf {i} differs")
+
+    for mode in ("nan", "inf", "bitflip"):
+        fm = FaultModel(**dict(FAULTS, dropout_rate=0.2, straggler_rate=0.3), corrupt_mode=mode)
+        states = {w: fm.init_state(rows, cols, device=x.device) for w, (x, _) in sides.items()}
+        for rnd in range(2):
+            draws = draw_faults(fm, rows, cols, torch.Generator().manual_seed(61 + rnd))
+            res = {}
+            for w, (x, _) in sides.items():
+                out, m, states[w], diag = fm.apply(x * (1 + rnd), states[w], None, rnd,
+                                                   draws=draws)
+                res[w] = (out.cpu(), m.cpu(), {n: int(v) for n, v in diag.items()})
+            same_out = bool((res["cuda"][0] == res["cpu"][0]).logical_or(
+                res["cuda"][0].isnan() & res["cpu"][0].isnan()).all())
+            same_state = all(torch.equal(states["cuda"][n].cpu(), states["cpu"][n])
+                             for n in ("stale", "age", "has"))
+            ok = (same_out and same_state and torch.equal(res["cuda"][1], res["cpu"][1])
+                  and res["cuda"][2] == res["cpu"][2])
+            emit({"phase": "fault_card_vs_cpu", "module": f"FaultModel.apply[{mode}]",
+                  "round": rnd, "faults": res["cpu"][2], "ok": ok, **shape})
+            check(ok, f"FaultModel.apply[{mode}] round {rnd}: card and CPU differ")
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -1068,9 +1366,12 @@ def main() -> int:
         del sim, runs["float32"]["engine"], runs["bfloat16"]["engine"]
         launches.update(phase_catalog_attacks(torch, trimmed, fl, card, Path(tmp)))
         sample = phase_catalog_aggregators(torch, trimmed, fl, card, Path(tmp))
+        fault_launches = phase_fault_round(torch, trimmed, fl, card, Path(tmp))
+        fault_sample = phase_fault_aggregators(torch, trimmed, fl, card, Path(tmp))
         del fl
         phase_cct2_card_vs_cpu(torch, dev)
         phase_catalog_card_vs_cpu(torch, sample, dev)
+        phase_fault_card_vs_cpu(torch, *fault_sample, dev)
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
@@ -1086,6 +1387,8 @@ def main() -> int:
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items() if path.startswith("cct2")),
         "launches_by_path": launches,
+        # under a fault model the masked trimmed mean replaces the kernel
+        "launches_under_fault_model": fault_launches,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

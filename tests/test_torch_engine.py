@@ -8,6 +8,14 @@ the port's, handed to the JAX package by patching ``jax.random.normal`` and
 ``jax.random.choice``; for DnC the JAX round then runs eagerly
 (``jax.disable_jit``) so that each DnC iteration takes its own draw.
 
+Under a fault model (dropout, stragglers, NaN clients) each registered
+aggregator runs two K=10 MLP rounds, the second replaying a straggler, and
+one K=6 CCT-2 round runs under dropout with trimmed mean. The fault draws
+are the port's (``faults.draw_faults`` on the round's ``FAULT``
+generator), handed to ``jax.random.bernoulli`` in call order; each round
+builds a fresh JAX engine, so its jitted round traces again and takes that
+round's draws.
+
 BASELINE config 1's shape: K=10 clients, f=4 byzantine, ALIE + trimmed mean
 (b=5 shrunk to 4), plain SGD. The initial params (the JAX package's init,
 carried over) and every round's ``[K, S, B, ...]`` batches are drawn once
@@ -35,6 +43,7 @@ from blades_tpu.aggregators.trimmedmean import Trimmedmean as JaxTrimmedmean
 from blades_tpu.attackers import get_attack as jax_get_attack
 from blades_tpu.attackers.alie import Alie as JaxAlie
 from blades_tpu.core import RoundEngine as JaxRoundEngine
+from blades_tpu.faults import FaultModel as JaxFaultModel
 from blades_tpu.models import build_fns as jax_build_fns
 from blades_tpu.models import cct as jax_cct
 from blades_tpu.models.mlp import create_mnist_model as jax_mlp
@@ -43,6 +52,7 @@ from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.attackers import Alie, get_attack
 from blades_tpu_torch.attackers.noise import draw_normals
 from blades_tpu_torch.core import RoundEngine, RoundMetrics
+from blades_tpu_torch.faults import FaultModel, draw_faults
 from blades_tpu_torch.models import build_fns, cct, create_mnist_model, params_from_jax
 from blades_tpu_torch.ops.pytree import ravel
 from blades_tpu_torch.utils import rng as port_rng
@@ -65,9 +75,11 @@ def jax_params():
     return jax.tree_util.tree_map(np.asarray, jax_mlp().init(jax.random.PRNGKey(0)))
 
 
-def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=None):
+def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=None,
+             faults=None):
     """The two engines; ``attack`` / ``aggregator``: ``(name, kwargs)`` for
-    both registries (default ALIE and trimmed mean b=5)."""
+    both registries (default ALIE and trimmed mean b=5); ``faults``: the
+    kwargs of a fault model for both."""
     jspec, tspec = jax_mlp(), create_mnist_model()
     if attack is None:
         jattack, tattack = JaxAlie(num_clients=K, num_byzantine=F), Alie(num_clients=K,
@@ -85,6 +97,7 @@ def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=No
         num_clients=K, num_byzantine=F, attack=jattack, aggregator=jagg,
         trusted_mask=None if trusted is None else jnp.asarray(trusted),
         plan=None, client_chunks=client_chunks, keep_updates=True,
+        fault_model=None if faults is None else JaxFaultModel(**faults),
     )
     tparams = params_from_jax(jax_params, tspec.layout)
     teng = RoundEngine(
@@ -92,13 +105,14 @@ def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=No
         num_clients=K, num_byzantine=F, attack=tattack, aggregator=tagg,
         trusted_mask=None if trusted is None else torch.from_numpy(trusted),
         client_chunks=client_chunks, keep_updates=True, device="cpu",
+        fault_model=None if faults is None else FaultModel(**faults),
     )
     jstate = jeng.init(jax_params)
     tstate = teng.init(tparams)
     return (jeng, jstate), (teng, tstate, tspec.layout)
 
 
-def _round(jax_side, torch_side, rnd):
+def _round(jax_side, torch_side, rnd, seed=0):
     (jeng, jstate), (teng, tstate, layout) = jax_side, torch_side
     cx, cy = _batches(rnd)
     jstate, jm = jeng.run_round(
@@ -106,7 +120,7 @@ def _round(jax_side, torch_side, rnd):
         jax.random.PRNGKey(7),
     )
     tstate, tm = teng.run_round(
-        tstate, torch.from_numpy(cx), torch.from_numpy(cy), CLIENT_LR, SERVER_LR
+        tstate, torch.from_numpy(cx), torch.from_numpy(cy), CLIENT_LR, SERVER_LR, seed=seed
     )
     return (jeng, jstate), (teng, tstate, layout), jm, tm
 
@@ -144,6 +158,8 @@ def test_one_round_matches_jax(jax_params, client_chunks):
     np.testing.assert_allclose(*_flat_params(jstate, tstate, layout), **TOL)
     _check_metrics(jm, tm, rtol=TOL["rtol"])
     assert tstate.round_idx == int(jstate.round_idx) == 1
+    # without a fault model the round is the dense one
+    assert teng.last_fault_diag is None and tstate.fault_state == ()
 
 
 def test_three_round_trajectory_matches_jax(jax_params):
@@ -314,3 +330,119 @@ def test_cct2_round_at_default_rates_does_not_depend_on_chunks():
     eng = _cct_engine(spec, params)
     eng.run_round(eng.init(params), cx, cy, CLIENT_LR, SERVER_LR, seed=4)
     assert not torch.allclose(eng.last_updates, u1, rtol=1e-3, atol=1e-5)
+
+
+# -- fault rounds --------------------------------------------------------------
+
+FAULTS = dict(dropout_rate=0.3, straggler_rate=0.2, corrupt_clients=(1, 2))
+FAULT_SEED = 3  # the port's root seed: round 2 replays client 5's round-1 update
+FAULT_AGGS = [("mean", {}), ("trimmedmean", {"num_byzantine": 5}), ("median", {}),
+              ("krum", {"num_byzantine": F}),
+              ("multikrum", {"num_byzantine": F, "num_selected": 3}), ("geomed", {}),
+              ("autogm", {}), ("centeredclipping", {}), ("clustering", {}),
+              ("clippedclustering", {}), ("fltrust", {}), ("byzantinesgd", {}),
+              ("dnc", {"num_byzantine": F}), ("signguard", {})]
+
+
+def _queue_fault_draws(monkeypatch, fm, dim, seed, rnd):
+    """The port's fault draws of round ``rnd``, queued for the JAX package's
+    ``jax.random.bernoulli``; returns the queue (empty once taken)."""
+    draws = draw_faults(fm, K if dim == 59_850 else CCT_K, dim,
+                        port_rng.generator(seed, rnd, port_rng.FAULT))
+    queue = [draws[n].numpy() for n in ("drop", "straggle", "corrupt", "bitflip")
+             if draws[n] is not None]
+
+    def bernoulli(key, p=0.5, shape=None):
+        arr = queue.pop(0)
+        assert arr.shape == tuple(shape)
+        return jnp.asarray(arr)
+
+    monkeypatch.setattr(jax.random, "bernoulli", bernoulli)
+    return queue
+
+
+def _check_fault_round(jeng, jstate, teng, tstate, layout, jm, tm):
+    ju, tu = np.asarray(jeng.last_updates), teng.last_updates
+    np.testing.assert_allclose(tu.numpy(), ju, **TOL)  # NaN rows in both
+    assert {n: int(v) for n, v in teng.last_fault_diag.items()} == {
+        n: int(v) for n, v in jeng.last_fault_diag.items()}
+    np.testing.assert_allclose(*_flat_params(jstate, tstate, layout), **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])
+    for n in ("stale", "age", "has"):
+        np.testing.assert_allclose(tstate.fault_state[n].numpy(),
+                                   np.asarray(jstate.fault_state[n]), **TOL)
+
+
+@pytest.mark.parametrize("name,kw", FAULT_AGGS,
+                         ids=[_catalog_id(("aggregator", c)) for c in FAULT_AGGS])
+def test_fault_rounds_per_aggregator_match_jax(jax_params, monkeypatch, name, kw):
+    """Two K=10 MLP rounds, ALIE f=4, under dropout 0.3, stragglers 0.2 and
+    NaN clients 1 and 2, each aggregator in its masked form: the received
+    matrix, the fault counters, the params, the metrics, the straggler
+    buffer and the aggregator's state agree with the JAX engine."""
+    trusted = (np.arange(K) == K - 1) if name == "fltrust" else None
+    fm = FaultModel(**FAULTS)
+    j, t = _engines(jax_params, 1, aggregator=(name, kw), trusted=trusted, faults=FAULTS)
+    jstate = j[1]
+    replayed = []
+    for rnd in range(2):
+        # a fresh JAX engine: its round traces again and takes this round's draws
+        (jeng, _), _ = _engines(jax_params, 1, aggregator=(name, kw), trusted=trusted,
+                                faults=FAULTS)
+        queue = _queue_fault_draws(monkeypatch, fm, 59_850, FAULT_SEED, rnd)
+        agg_queue = []
+        if name == "dnc":
+            agg_queue = [a.numpy() for pair in draw_subspaces(
+                port_rng.generator(FAULT_SEED, rnd, port_rng.AGG), t[0].aggregator.num_iters,
+                59_850, t[0].aggregator.sub_dim, "cpu") for a in pair]
+            take = lambda *args, **kwargs: jnp.asarray(agg_queue.pop(0))  # noqa: E731
+            monkeypatch.setattr(jax.random, "normal", take)
+            monkeypatch.setattr(jax.random, "choice", take)
+            with jax.disable_jit():
+                (jeng, jstate), t, jm, tm = _round((jeng, jstate), t, rnd, seed=FAULT_SEED)
+        else:
+            (jeng, jstate), t, jm, tm = _round((jeng, jstate), t, rnd, seed=FAULT_SEED)
+        assert queue == [] and agg_queue == []
+        teng, tstate, layout = t
+        _check_fault_round(jeng, jstate, teng, tstate, layout, jm, tm)
+        replayed.append(int(teng.last_fault_diag["stale_replayed"]))
+        if teng.aggregator.stateful:
+            jst = jax.tree_util.tree_leaves(jstate.agg_state)
+            tst = jax.tree_util.tree_leaves(tstate.agg_state)
+            assert len(jst) == len(tst)
+            for a, b in zip(tst, jst):
+                np.testing.assert_allclose(a.numpy(), np.asarray(b), **TOL)
+    assert replayed == [0, 1]
+    assert int(teng.last_fault_diag["participants"]) < K
+
+
+def test_cct2_fault_round_matches_jax(monkeypatch):
+    """One K=6 CCT-2 round (D = 283,723) under dropout 0.3 with trimmed mean
+    b=2: the masked trimmed mean against the JAX engine's."""
+    faults = dict(dropout_rate=0.3)
+    jspec = jax_build_fns(jax_cct.cct_2_3x2_32(**NO_NOISE), (32, 32, 3))
+    jparams = jax.tree_util.tree_map(np.asarray, jspec.init(jax.random.PRNGKey(0)))
+    tspec = build_fns(cct.cct_2_3x2_32(**NO_NOISE))
+    jeng = JaxRoundEngine(
+        jspec.train_loss_fn, jspec.eval_logits_fn, jparams,
+        num_clients=CCT_K, num_byzantine=CCT_F,
+        attack=JaxAlie(num_clients=CCT_K, num_byzantine=CCT_F),
+        aggregator=JaxTrimmedmean(num_byzantine=2), plan=None, keep_updates=True,
+        fault_model=JaxFaultModel(**faults),
+    )
+    tparams = params_from_jax(jparams, tspec.layout)
+    teng = _cct_engine(tspec, tparams)
+    teng.fault_model = FaultModel(**faults)
+    queue = _queue_fault_draws(monkeypatch, teng.fault_model, 283_723, 0, 0)
+    cx, cy = _cct_batches(202)
+    jstate, jm = jeng.run_round(jeng.init(jparams), jnp.asarray(cx), jnp.asarray(cy),
+                                CLIENT_LR, SERVER_LR, jax.random.PRNGKey(7))
+    tstate, tm = teng.run_round(teng.init(tparams), torch.from_numpy(cx),
+                                torch.from_numpy(cy), CLIENT_LR, SERVER_LR)
+    assert queue == []
+    diag = {n: int(v) for n, v in teng.last_fault_diag.items()}
+    assert diag == {n: int(v) for n, v in jeng.last_fault_diag.items()}
+    assert 0 < diag["dropped"] < CCT_K
+    np.testing.assert_allclose(teng.last_updates.numpy(), np.asarray(jeng.last_updates), **TOL)
+    np.testing.assert_allclose(*_flat_params(jstate, tstate, tspec.layout), **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])

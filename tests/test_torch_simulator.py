@@ -83,6 +83,9 @@ def test_simulator_writes_jax_stats_records(tmp_path):
     train = [r for r in ours if r["_meta"]["type"] == "train"]
     assert all(np.isfinite(r["Loss"]) for r in train)
     assert sim.engine.device == torch.device("cpu")
+    # without a fault model the rounds are the dense ones
+    assert sim.engine.fault_model is None and sim.engine.last_fault_diag is None
+    assert sim.server.state.fault_state == ()
 
 
 def test_unknown_kwarg_raises(tmp_path):
@@ -104,7 +107,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
     [
         ("streaming", True, "slice 8"),
         ("async_config", {"buffer_m": 2}, "slice 9"),
-        ("fault_model", {"dropout_rate": 0.1}, "slice 6"),
+        ("collect_diagnostics", True, "slice 10"),
         ("audit_monitor", {}, "slice 10"),
         ("block_size", 4, "slice 7"),
         ("checkpoint_path", "ckpt", "slice 5"),
@@ -124,8 +127,8 @@ def test_unported_choices_raise(tmp_path):
     ds = Synthetic(num_clients=4, train_size=100, cache=False)
     with pytest.raises(NotImplementedError, match="slice 12"):
         Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match="slice 6b"):
-        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="signguard")
+    with pytest.raises(NotImplementedError, match="slice 9"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="asyncmean")
     sim = Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
                     num_byzantine=1)
     with pytest.raises(NotImplementedError, match="slice 3b"):
@@ -215,3 +218,56 @@ def test_catalog_runs_through_simulator(tmp_path, kind, name):
         assert not torch.equal(states[0], states[1])
     if name == "clippedclustering":
         assert [int(s["count"]) for s in states] == [k, 2 * k]
+
+
+# -- fault models ---------------------------------------------------------------
+
+FAULTS = dict(dropout_rate=0.3, corrupt_clients=(0, 1), corrupt_mode="nan")
+
+
+@pytest.mark.parametrize("agg_name,agg_kws", [
+    ("krum", {"num_byzantine": 2}),
+    ("median", {}),
+    ("trimmedmean", {"num_byzantine": 2}),
+])
+def test_simulation_survives_dropout_and_nan_clients(tmp_path, agg_name, agg_kws):
+    """The JAX package's acceptance scenario (``tests/test_faults.py``):
+    30% dropout and 2 NaN-injecting clients; every round finishes, the
+    params and the test loss stay finite, and the NaN clients are excluded
+    whenever they participate."""
+    from blades_tpu_torch.faults import FaultModel
+    from blades_tpu_torch.ops.pytree import ravel
+
+    ds = Synthetic(num_clients=8, train_size=400, test_size=80, noise=0.3, cache=False)
+    sim = Simulator(ds, aggregator=agg_name, aggregator_kws=agg_kws, device="cpu",
+                    log_path=str(tmp_path))
+    diags = []
+    times = sim.run("mlp", global_rounds=3, local_steps=1, train_batch_size=8,
+                    validate_interval=3, fault_model=FaultModel(**FAULTS),
+                    on_round_end=lambda rnd, state, m: diags.append(
+                        {n: int(v) for n, v in sim.engine.last_fault_diag.items()}))
+    assert len(times) == 3 and len(diags) == 3
+    assert np.isfinite(sim.evaluate(3, 64)["Loss"])
+    params = ravel(sim.server.state.params, sim.engine.layout)
+    assert bool(torch.isfinite(params).all())
+    assert all(d["excluded_nonfinite"] == d["corrupted"] <= 2 for d in diags)
+    assert any(d["excluded_nonfinite"] > 0 for d in diags)
+    assert any(d["dropped"] > 0 for d in diags)
+    recs = read_stats(str(tmp_path))
+    assert all(np.isfinite(r["Loss"]) for r in recs if r["_meta"]["type"] in ("train", "test"))
+
+
+def test_fault_run_accepts_kwargs_dict(tmp_path):
+    ds = Synthetic(num_clients=6, train_size=120, test_size=30, cache=False)
+    sim = Simulator(ds, aggregator="mean", device="cpu", log_path=str(tmp_path))
+    sim.run("mlp", global_rounds=2, train_batch_size=4,
+            fault_model=dict(dropout_rate=0.5, straggler_rate=0.3))
+    fm = sim.engine.fault_model
+    assert fm.dropout_rate == 0.5 and fm.has_stragglers
+    diag = sim.engine.last_fault_diag
+    assert set(diag) == {"participants", "dropped", "stale_replayed", "stragglers_expired",
+                         "corrupted", "excluded_nonfinite"}
+    assert int(diag["participants"]) + int(diag["dropped"]) <= 6
+    state = sim.server.state.fault_state
+    assert state["stale"].shape == (6, 59_850) and state["stale"].dtype == torch.float32
+    assert state["stale"].device == torch.device("cpu")
