@@ -13,7 +13,9 @@ the defenses of the reference's catalog and BASELINE.md (mean, trimmed
 mean, median, Krum, Multi-Krum, GeoMed, AutoGM, centered clipping,
 clustering, clipped clustering, FLTrust, DnC) with ByzantineSGD, SignGuard
 and the gossip aggregators, and partial participation: the fault model
-(``faults/``) and every registered defense's masked form. The
+(``faults/``) and every registered defense's masked form; and the
+streaming round (``Simulator.run(streaming=True)``), which feeds the
+update matrix to the defense one ``[chunk, D]`` slab at a time. The
 coordinate-wise trimmed mean runs on the card through a CUDA kernel
 written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
 ``ops/trimmed.py``); the other defenses and the masked trimmed mean are

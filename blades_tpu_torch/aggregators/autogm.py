@@ -13,18 +13,20 @@ The masked form (JAX ``_masked_aggregate`` :49) restricts the weight
 search and every Weiszfeld solve to the participating rows: absent rows
 sort past the participants and are left out of the ``eta`` prefix sums,
 and their weights stay 0. ``lamb`` stays K-scaled under dropout, as in the
-JAX package.
+JAX package. The streaming form (JAX ``:25-31``) is two-level: the masked
+solve within each chunk (``lamb`` from the chunk's rows), then over the
+chunk aggregates; ``last_iterations`` then records the last level's solve.
 """
 
 from __future__ import annotations
 
 import torch
 
-from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.aggregators.geomed import weiszfeld
 
 
-class Autogm(Aggregator):
+class Autogm(TwoLevelStreaming, Aggregator):
     def __init__(
         self,
         lamb: float = None,

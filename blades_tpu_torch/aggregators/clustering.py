@@ -11,19 +11,22 @@ distance, diagonal 0 and 2 where a row is zero.
 The masked form (JAX ``:84``) gives every pair with an absent row the
 metric's least value (-1 similarity, 0 distance): absent rows merge into
 some cluster at no linkage cost, which leaves complete linkage's maxima
-unchanged, and the majority and the mean count participants only.
+unchanged, and the majority and the mean count participants only. The
+streaming form (JAX ``:24-30``) is two-level: the masked form within each
+chunk, then over the chunk aggregates, so each linkage is ``chunk^2`` or
+``num_chunks^2``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.clustering import complete_linkage_two_clusters, majority_cluster_mean
 from blades_tpu_torch.ops.distances import pairwise_cosine_similarity
 
 
-class Clustering(Aggregator):
+class Clustering(TwoLevelStreaming, Aggregator):
     def __init__(self, metric: str = "similarity"):
         if metric not in ("similarity", "distance"):
             raise ValueError(metric)

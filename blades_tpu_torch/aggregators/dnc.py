@@ -57,6 +57,14 @@ def _top_singular_dir(x: torch.Tensor, iters: int, v0: torch.Tensor) -> torch.Te
 
 
 class Dnc(Aggregator):
+    # no streaming form (JAX ``dnc.py:40-45``)
+    streaming_optouts = {
+        "streaming": "outlier scores project every row onto a population-"
+                     "level principal direction known only after the full "
+                     "pass; each of num_iters rounds needs a fresh "
+                     "two-pass sweep",
+    }
+
     def __init__(
         self,
         num_byzantine: int = 5,

@@ -21,6 +21,13 @@ from blades_tpu_torch.aggregators.base import Aggregator
 
 
 class Fltrust(Aggregator):
+    # no streaming form (JAX ``fltrust.py:40-44``)
+    streaming_optouts = {
+        "streaming": "trust reweighting pairs every row with the trusted "
+                     "update, which may arrive in any chunk; a single pass "
+                     "cannot revisit rows delivered before it",
+    }
+
     def __call__(self, inputs, **ctx):
         # host-side guard, the reference's `assert len(trusted) == 1`
         mask = ctx.get("trusted_mask")

@@ -15,6 +15,12 @@ reads one 0-d comparison from the device (one sync), so the loop stops
 where the JAX ``while_loop`` stops and does no work past it. The distances
 to the new iterate, which the objective needs, are kept for the next
 iteration's weights instead of being computed again.
+
+The streaming form (JAX ``Geomed`` :82-135) is two-level: the masked solve
+within each chunk, then a Weiszfeld solve over the chunk medians that
+starts from their participant counts as weights (``_combine_chunk_aggs``),
+so unequal participation does not skew it; ``last_iterations`` records the
+last solve.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 
 
 def _dists(updates: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
@@ -71,7 +77,7 @@ def weiszfeld(
     return z, d, i
 
 
-class Geomed(Aggregator):
+class Geomed(TwoLevelStreaming, Aggregator):
     def __init__(self, maxiter: int = 100, eps: float = 1e-6, ftol: float = 1e-10):
         self.maxiter = maxiter
         self.eps = eps
@@ -92,3 +98,12 @@ class Geomed(Aggregator):
             ftol=self.ftol, mask=mask,
         )
         return torch.where(mask.any(), z, torch.zeros_like(z)), state
+
+    def _combine_chunk_aggs(self, aggs, counts, state, **ctx):
+        w = counts.to(aggs.dtype)
+        total = w.sum()
+        z, _, self.last_iterations = weiszfeld(
+            aggs, init_weights=w / torch.clamp_min(total, 1.0), maxiter=self.maxiter,
+            eps=self.eps, ftol=self.ftol, mask=counts > 0,
+        )
+        return torch.where(total > 0, z, torch.zeros_like(z)), state

@@ -15,17 +15,22 @@ distances, and absent rows score ``+inf``, so selection never picks one.
 With fewer participants than ``m`` only the first ``m_eff = min(m, n)``
 selected rows are weighted, and the mean is rescaled by ``m / m_eff``; ``n``
 and ``m_eff`` stay device tensors.
+
+The streaming form (JAX ``Krum`` :25-31, ``_level_clone`` :124-146) is
+two-level: Krum within each chunk, then over the chunk winners, each level
+with ``f`` and ``m`` shrunk to fit its rows (``2f + 2 <= rows``, ``m <=
+rows``; a chunk's rows include the final chunk's padding).
 """
 
 from __future__ import annotations
 
 import torch
 
-from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.distances import pairwise_sq_euclidean
 
 
-class Krum(Aggregator):
+class Krum(TwoLevelStreaming, Aggregator):
     def __init__(
         self,
         num_clients: int = None,
@@ -90,6 +95,22 @@ class Krum(Aggregator):
         w = (torch.arange(top_m.numel(), device=updates.device) < m_eff).to(updates.dtype)
         sel = updates.index_select(0, top_m) * w[:, None]
         return sel.mean(dim=0) * (self.m / m_eff.to(updates.dtype)), state
+
+    def _level_clone(self, k: int) -> "Krum":
+        """This Krum with ``f`` and ``m`` shrunk to fit a ``k``-row level."""
+        f = min(self.f, max((k - 2) // 2, 0))
+        m = min(self.m, k)
+        if (f, m) == (self.f, self.m):
+            return self
+        return Krum(num_byzantine=f, num_selected=m, distance_power=self.distance_power)
+
+    def _chunk_aggregate(self, slab, *, chunk_mask, **ctx):
+        agg, _ = self._level_clone(slab.shape[0])._masked_aggregate(slab, (), mask=chunk_mask)
+        return agg
+
+    def _combine_chunk_aggs(self, aggs, counts, state, **ctx):
+        agg, _ = self._level_clone(aggs.shape[0])._masked_aggregate(aggs, (), mask=counts > 0)
+        return torch.where(counts.sum() > 0, agg, torch.zeros_like(agg)), state
 
     def __repr__(self):
         return f"Krum (m={self.m})"

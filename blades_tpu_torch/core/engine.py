@@ -1,21 +1,24 @@
-"""The federated round engine, dense synchronous path.
+"""The federated round engine: the dense synchronous round and the
+streaming round.
 
 Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 ``ServerOptSpec`` (:67-122), ``RoundState`` / ``RoundMetrics`` (:125-153),
+``_validate_streaming`` (:399-434), ``peak_update_bytes`` (:436-452),
 ``RoundEngine.init`` (:456), ``_local_update`` (:569-625),
 ``_train_clients`` (:638-712), ``_round_dense`` (:714-874, its fault branch
-:749-797), ``run_round`` (:1113), ``evaluate_per_sample`` (:1344) and
-``multistep_lr`` (:1374).
+:749-797), ``_round_streaming`` (:876-1100), ``run_round`` (:1113),
+``evaluate_per_sample`` (:1344) and ``multistep_lr`` (:1374).
 
 One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 
-  1. local training of all K clients from the shared global params: per
-     local step, the step's dropout and DropPath keep-masks for all K
-     clients at once (one generator per round, ``utils/rng.py:DROPOUT``),
-     then, chunk by chunk, one ``torch.func.vmap`` of ``grad_and_value``
-     over the client axis (the loss clamped to ``[0, loss_clamp]`` before
-     the gradient, the masks vmapped in), then the client optimizer on the
-     ``[K, ...]`` params;
+  1. local training of all K clients from the shared global params: first
+     every local step's dropout and DropPath keep-masks for all K clients,
+     step after step (one generator per round, ``utils/rng.py:DROPOUT``),
+     then, chunk by chunk, the chunk's local steps, each one
+     ``torch.func.vmap`` of ``grad_and_value`` over the chunk's clients (the
+     loss clamped to ``[0, loss_clamp]`` before the gradient, the chunk's
+     rows of the masks vmapped in) and the client optimizer on the
+     ``[chunk, ...]`` params;
   2. the update matrix ``[K, D]``: ``ravel(theta_after) - ravel(theta_before)``
      in the JAX package's flat order, then ``nan_to_num``;
   3. the attack's ``on_updates`` rewrite (``on_batch`` and ``on_grads``
@@ -33,11 +36,25 @@ One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 The optimizers port optax's chains literally — ``add_decayed_weights``, then
 ``trace`` (momentum) or ``scale_by_adam`` — and the engine applies
 ``p -= lr * u`` itself; ``torch.optim`` orders weight decay and momentum
-differently. Not ported yet, each raising where it would be selected:
-persistent per-client optimizer state (``persist=True``, ``ROADMAP.md``
-queue A slice 3b), round blocks (slice 7), streaming (slice 8), async
-(slice 9), audit, diagnostics and the metric pack (slice 10), and sharding
-plans (slice 12).
+differently.
+
+With ``streaming=True`` the round never holds the ``[K, D]`` update
+matrix: each chunk is trained, padded with zero rows to ``chunk_size`` if it
+is the final, short one, and taken through ``nan_to_num``, the attack's
+``on_updates`` (on the chunk, with the chunk's own ``ATTACK`` generator), the
+running moments of what the clients sent, the fault model's
+``corrupt_chunk``, the non-finite guard and ``_sanitize``, into the
+aggregator's ``streaming_update``; then ``streaming_finalize``, the zero
+update when no client participated, and the server step. The fault model's
+``[K]`` decisions come first, from ``plan_streaming``. The losses are exact;
+the variance metrics come from the one-pass moments. Local training is the
+dense round's, mask for mask, so the exact forms (``mean``, centered
+clipping with ``n_iter=1``) give the dense round's result.
+
+Not ported yet, each raising where it would be selected: persistent
+per-client optimizer state (``persist=True``, ``ROADMAP.md`` queue A slice
+3b), round blocks (slice 7), async (slice 9), audit, diagnostics and the
+metric pack (slice 10), and sharding plans (slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
 is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
@@ -59,6 +76,12 @@ from blades_tpu_torch.aggregators.base import Aggregator
 from blades_tpu_torch.attackers.base import Attack, NoAttack
 from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.ops.pytree import FlatLayout, Params, make_unraveler, ravel
+from blades_tpu_torch.ops.streaming import (
+    chunk_layout,
+    moments_init,
+    moments_update,
+    moments_var,
+)
 from blades_tpu_torch.utils import rng
 
 
@@ -206,16 +229,6 @@ class RoundMetrics(NamedTuple):
     agg_norm: torch.Tensor  # L2 norm of the aggregated update
 
 
-def chunk_layout(num_rows: int, num_chunks: int) -> Tuple[int, int]:
-    """``(num_chunks, chunk_size)``: the chunk count clamps to the
-    population, chunks are ceil-sized and the count is renormalized so no
-    chunk is empty (``blades_tpu/ops/streaming.py:49``). The final chunk may
-    be short: an eager loop needs no padding to keep one compiled shape."""
-    c = max(1, min(int(num_chunks), int(num_rows)))
-    chunk = -(-int(num_rows) // c)
-    return -(-int(num_rows) // chunk), chunk
-
-
 class RoundEngine:
     """Runs federated rounds and evaluation on one device.
 
@@ -225,16 +238,26 @@ class RoundEngine:
     (shape, keep)}``, the keep-masks ``train_loss_fn`` takes
     (``ModelSpec.noise_sites``; None for a model that draws nothing).
 
-    ``client_chunks`` splits the K client axis into sequential chunks, each
-    trained as one vmapped batch, so activation memory scales with the
-    chunk, not with K; the masks are drawn for all K clients before the
-    split, so a round does not depend on it. ``keep_updates`` keeps each
-    round's post-attack ``[K, D]`` matrix as ``self.last_updates`` (under a
-    fault model, the matrix the server received). ``fault_model``: a
+    ``client_chunks`` splits the K client axis into sequential chunks
+    (``ops/streaming.py:chunk_layout``), each trained as one vmapped batch,
+    so activation memory scales with the chunk, not with K; the masks are
+    drawn for all K clients before the split, so a round does not depend on
+    it. ``keep_updates`` keeps each round's post-attack ``[K, D]`` matrix as
+    ``self.last_updates`` (under a fault model, the matrix the server
+    received). ``fault_model``: a
     :class:`~blades_tpu_torch.faults.FaultModel` injecting dropout,
     straggler replays and payload corruption; each round's counters are
     then ``self.last_fault_diag`` (None without one, and the round is the
     same code path as before the fault model existed).
+
+    ``streaming``: run the streaming round (module docstring), whose update
+    memory is one ``[chunk_size, D]`` slab; ``keep_updates`` is then off.
+    The build raises where a part has no streaming form: an aggregator
+    without one (its ``streaming_optouts`` reason), an attack whose
+    ``on_updates`` reads the whole population (``update_locality !=
+    "row"``), a fault model with stragglers. Diagnostics and the audit
+    monitor, which the JAX package also rejects in streaming, are not
+    ported (``Simulator.run`` raises for them, slice 10).
     """
 
     def __init__(
@@ -257,6 +280,7 @@ class RoundEngine:
         device=None,
         noise_sites: Optional[Callable[[int], dict]] = None,
         fault_model: Optional[FaultModel] = None,
+        streaming: bool = False,
     ):
         if client_opt.persist:
             raise NotImplementedError(
@@ -278,13 +302,17 @@ class RoundEngine:
         self.server_opt = server_opt
         self.num_classes = int(num_classes)
         self.loss_clamp = float(loss_clamp)
-        self.client_chunks, self.chunk_size = chunk_layout(
+        self.client_chunks, self.chunk_size, self._pad = chunk_layout(
             self.num_clients, int(client_chunks)
         )
-        self.keep_updates = bool(keep_updates)
+        self.streaming = bool(streaming)
+        # a streaming round has no [K, D] matrix to keep
+        self.keep_updates = bool(keep_updates) and not self.streaming
         self.last_updates: Optional[torch.Tensor] = None
         self.fault_model = fault_model
         self.last_fault_diag: Optional[dict] = None
+        if self.streaming:
+            self._validate_streaming()
         self.dim, self.unravel = make_unraveler(params_template, layout)
         # reference convention: the FIRST num_byzantine client ids are byzantine
         self.byz_mask = torch.arange(self.num_clients, device=self.device) < self.num_byzantine
@@ -303,6 +331,36 @@ class RoundEngine:
         # one client's (grads, (loss, aux)), mapped over the client axis
         self._grad_fn = vmap(grad_and_value(clamped_loss, has_aux=True))
         self._ravel_rows = vmap(lambda p: ravel(p, self.layout))
+
+    def _validate_streaming(self) -> None:
+        """Raise at build time where a configured part has no streaming form."""
+        if self.aggregator is None or not self.aggregator.supports_streaming():
+            raise ValueError(
+                "streaming=True requires an aggregator" if self.aggregator is None
+                else self.aggregator._no_streaming_msg()
+            )
+        if getattr(self.attack, "update_locality", "row") != "row":
+            raise ValueError(
+                f"streaming=True: attack {self.attack!r} rewrites updates from "
+                f"full-population statistics (update_locality="
+                f"{self.attack.update_locality!r}); the streaming round never "
+                "holds the [K, D] matrix it needs"
+            )
+        if self.fault_model is not None and self.fault_model.has_stragglers:
+            raise ValueError(
+                "streaming=True: straggler replay buffers are [K, D] fault state; "
+                "streaming supports participation/corruption faults only "
+                "(straggler_rate=0)"
+            )
+
+    @property
+    def peak_update_bytes(self) -> int:
+        """The largest update-matrix-shaped float32 buffer of a round: the
+        ``[K, D]`` matrix, or one ``[chunk_size, D]`` slab when streaming
+        (JAX counts the padded ``K``; the port's dense matrix has no
+        padding)."""
+        rows = self.chunk_size if self.streaming else self.num_clients
+        return int(rows) * int(self.dim) * 4
 
     # -- state ---------------------------------------------------------------
 
@@ -333,40 +391,48 @@ class RoundEngine:
 
     # -- the round -------------------------------------------------------------
 
-    def _train_clients(self, params, client_lr, cx, cy, noise_gen):
-        """Local training of all K clients (``_local_update`` with the client
-        axis written out): ``(updates [K, D], losses [K], top1s [K])``. Each
-        local step draws every client's keep-masks from ``noise_gen`` at
-        once, then trains the chunks in turn on their slices."""
-        k_all, steps, batch = cx.shape[:3]
-        ids = torch.arange(self.num_clients, device=self.device)
-        chunks = [slice(lo, lo + self.chunk_size) for lo in range(0, k_all, self.chunk_size)]
-        ps = [{n: t.expand(ids[c].numel(), *t.shape) for n, t in params.items()} for c in chunks]
-        opt_states = [self._client_tx.init(p) for p in ps]
+    def _chunk_rows(self):
+        """The client rows of each chunk; the final chunk may be short."""
+        k, cs = self.num_clients, self.chunk_size
+        return [slice(lo, min(lo + cs, k)) for lo in range(0, k, cs)]
+
+    def _draw_noise(self, noise_gen, steps: int, batch: int) -> list:
+        """Every local step's keep-masks for all K clients, step after step
+        from ``noise_gen``, so that no chunking changes which client gets
+        which mask."""
         sites = self.noise_sites(batch)
-        losses, top1s = [], []  # per step, each a list over the chunks
-        for s in range(steps):
-            noise = rng.keep_masks(sites, noise_gen, (k_all,))
-            losses.append([])
-            top1s.append([])
-            for i, rows in enumerate(chunks):
-                p, byz = ps[i], self.byz_mask[rows]
-                x, y = self.attack.on_batch(
-                    cx[rows, s], cy[rows, s], byz, num_classes=self.num_classes,
-                    client_idx=ids[rows],
-                )
-                grads, (loss, aux) = self._grad_fn(
-                    p, x, y, {n: m[rows] for n, m in noise.items()}
-                )
-                grads = self.attack.on_grads(grads, byz, client_idx=ids[rows])
-                u, opt_states[i] = self._client_tx.update(grads, opt_states[i], p)
-                ps[i] = {n: p[n] - client_lr * u[n] for n in p}
-                losses[-1].append(loss)
-                top1s[-1].append(aux.get("top1", torch.full_like(loss, float("nan"))))
-            del noise
-        updates = torch.cat([self._ravel_rows(p) for p in ps]) - ravel(params, self.layout)
-        over_steps = lambda xs: torch.stack([torch.cat(x) for x in xs], 1).mean(1)  # noqa: E731
-        return updates, over_steps(losses), over_steps(top1s)
+        return [rng.keep_masks(sites, noise_gen, (self.num_clients,)) for _ in range(steps)]
+
+    def _train_chunk(self, params, flat0, client_lr, cx, cy, rows, noise):
+        """Local training of the clients ``rows`` (``_local_update`` with the
+        chunk's client axis written out): ``(updates [n, D], losses [n],
+        top1s [n])``; ``noise`` holds each step's masks for all K."""
+        ids = torch.arange(self.num_clients, device=self.device)[rows]
+        byz = self.byz_mask[rows]
+        p = {n: t.expand(ids.numel(), *t.shape) for n, t in params.items()}
+        opt_state = self._client_tx.init(p)
+        losses, top1s = [], []
+        for s, masks in enumerate(noise):
+            x, y = self.attack.on_batch(
+                cx[rows, s], cy[rows, s], byz, num_classes=self.num_classes, client_idx=ids,
+            )
+            grads, (loss, aux) = self._grad_fn(p, x, y, {n: m[rows] for n, m in masks.items()})
+            grads = self.attack.on_grads(grads, byz, client_idx=ids)
+            u, opt_state = self._client_tx.update(grads, opt_state, p)
+            p = {n: p[n] - client_lr * u[n] for n in p}
+            losses.append(loss)
+            top1s.append(aux.get("top1", torch.full_like(loss, float("nan"))))
+        over_steps = lambda xs: torch.stack(xs, 1).mean(1)  # noqa: E731
+        return self._ravel_rows(p) - flat0, over_steps(losses), over_steps(top1s)
+
+    def _train_clients(self, params, client_lr, cx, cy, noise_gen):
+        """Local training of all K clients, chunk by chunk: ``(updates [K,
+        D], losses [K], top1s [K])``."""
+        noise = self._draw_noise(noise_gen, cx.shape[1], cx.shape[2])
+        flat0 = ravel(params, self.layout)
+        out = [self._train_chunk(params, flat0, client_lr, cx, cy, rows, noise)
+               for rows in self._chunk_rows()]
+        return tuple(torch.cat(parts) for parts in zip(*out))
 
     @torch.no_grad()
     def run_round(
@@ -383,6 +449,8 @@ class RoundEngine:
         aggregator generators (``utils/rng.py``)."""
         if self.aggregator is None:
             raise ValueError("RoundEngine.run_round needs an aggregator")
+        if self.streaming:
+            return self._round_streaming(state, cx, cy, client_lr, server_lr, seed)
         r = state.round_idx
         updates, losses, top1s = self._train_clients(
             state.params, client_lr, cx, cy,
@@ -417,18 +485,105 @@ class RoundEngine:
             # a round with no participant applies the zero update
             agg = torch.where(part_mask.any(), agg, torch.zeros_like(agg))
 
-        # server pseudo-gradient step: grad := -agg
+        # population variance (ddof 0), as jnp.var: torch.var defaults to ddof 1
+        var = sent_updates.var(dim=0, correction=0)
+        self.last_updates = updates if self.keep_updates else None
+        self.last_fault_diag = fault_diag
+        return self._finish_round(state, server_lr, agg, agg_state, attack_state, fault_state,
+                                  losses, top1s, var)
+
+    def _round_streaming(self, state, cx, cy, client_lr, server_lr, seed):
+        """The streaming round (module docstring): one ``[chunk_size, D]``
+        slab at a time, in the JAX chunk body's order. Counts stay device
+        tensors; the chunk loop itself is a host loop."""
+        r, k, dev = state.round_idx, self.num_clients, self.device
+        fm = self.fault_model
+
+        def padded(mask):  # a [K] mask, False on the final chunk's padding
+            return torch.cat([mask, mask.new_zeros(self._pad)])
+
+        valid = padded(torch.ones(k, dtype=torch.bool, device=dev))
+        byz = padded(self.byz_mask)
+        part0, corrupt, fill, fault_diag = valid, None, None, None
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        n_part, n_excl, n_dropped = zero, zero, zero
+        if fm is not None:
+            # the [K] decisions, from the draws the dense round takes
+            part0, drop, corrupt = fm.plan_streaming(
+                k, rng.generator(seed, r, rng.FAULT, device=dev), r)
+            part0, corrupt = padded(part0), padded(corrupt)
+            if fm.value_corruption:
+                fill = state.fault_state["fill"]
+            n_dropped = drop.to(torch.int32).sum(dtype=torch.int32)
+
+        flat0 = ravel(state.params, self.layout)
+        sctx = dict(params_flat=flat0, generator=rng.generator(seed, r, rng.AGG, device=dev))
+        agg_ss = self.aggregator.streaming_init(
+            k, self.client_chunks, self.chunk_size, self.dim, state.agg_state, device=dev)
+        noise = self._draw_noise(rng.generator(seed, r, rng.DROPOUT, device=dev),
+                                 cx.shape[1], cx.shape[2])
+        mom = moments_init(self.dim, device=dev)
+        attack_state, losses, top1s = state.attack_state, [], []
+        for j, rows in enumerate(self._chunk_rows()):
+            upd, loss, top1 = self._train_chunk(state.params, flat0, client_lr, cx, cy, rows,
+                                                noise)
+            losses.append(loss)
+            top1s.append(top1)
+            if upd.shape[0] < self.chunk_size:  # the final chunk's padding: zero rows
+                upd = torch.cat([upd, upd.new_zeros(self.chunk_size - upd.shape[0], self.dim)])
+            sl = slice(j * self.chunk_size, (j + 1) * self.chunk_size)
+            upd = torch.nan_to_num(upd)
+            upd, attack_state = self.attack.on_updates(
+                upd, byz[sl], rng.generator(seed, r, rng.ATTACK, device=dev, chunk=j),
+                attack_state,
+            )
+            # the variance metrics stay on what the clients sent
+            mom = moments_update(mom, upd, valid[sl])
+            part = valid[sl]
+            if fm is not None:
+                upd = fm.corrupt_chunk(
+                    upd, corrupt[sl], rng.generator(seed, r, rng.FAULT, device=dev, chunk=j),
+                    fill=fill)
+                part = part0[sl]
+                if fm.guard_nonfinite:
+                    finite = torch.isfinite(upd).all(dim=1)
+                    n_excl = n_excl + (part & ~finite).to(torch.int32).sum(dtype=torch.int32)
+                    part = part & finite
+            mask, safe = Aggregator._sanitize(upd, part)
+            del upd
+            n_part = n_part + mask.to(torch.int32).sum(dtype=torch.int32)
+            agg_ss = self.aggregator.streaming_update(agg_ss, safe, chunk_mask=mask,
+                                                      chunk_index=j, **sctx)
+            del safe
+        del noise
+        agg, agg_state = self.aggregator.streaming_finalize(agg_ss, state.agg_state, **sctx)
+        # a round with no participant applies the zero update
+        agg = torch.where(n_part > 0, agg, torch.zeros_like(agg))
+        if fm is not None:
+            fault_diag = {
+                "participants": n_part, "dropped": n_dropped,
+                "stale_replayed": zero, "stragglers_expired": zero,
+                "corrupted": corrupt.to(torch.int32).sum(dtype=torch.int32),
+                "excluded_nonfinite": n_excl,
+            }
+        self.last_updates = None
+        self.last_fault_diag = fault_diag
+        return self._finish_round(state, server_lr, agg, agg_state, attack_state,
+                                  state.fault_state, torch.cat(losses), torch.cat(top1s),
+                                  moments_var(mom))
+
+    def _finish_round(self, state, server_lr, agg, agg_state, attack_state, fault_state,
+                      losses, top1s, var):
+        """The server step with ``agg`` as pseudo-gradient (``grad :=
+        -agg``), the round's metrics, and the next state."""
         server_updates, server_opt_state = self._server_tx.update(
             self.unravel(-agg), state.server_opt_state, state.params
         )
         params = {
             n: p - server_lr * server_updates[n] for n, p in state.params.items()
         }
-
         honest = (~self.byz_mask).to(losses.dtype)
         n_honest = torch.clamp_min(honest.sum(), 1.0)
-        # population variance (ddof 0), as jnp.var: torch.var defaults to ddof 1
-        var = sent_updates.var(dim=0, correction=0)
         metrics = RoundMetrics(
             train_loss=(losses * honest).sum() / n_honest,
             train_loss_all=losses.mean(),
@@ -437,15 +592,13 @@ class RoundEngine:
             update_variance_norm=torch.linalg.vector_norm(var),
             agg_norm=torch.linalg.vector_norm(agg),
         )
-        self.last_updates = updates if self.keep_updates else None
-        self.last_fault_diag = fault_diag
         new_state = RoundState(
             params=params,
             server_opt_state=server_opt_state,
             client_opt_state=(),
             agg_state=agg_state,
             attack_state=attack_state,
-            round_idx=r + 1,
+            round_idx=state.round_idx + 1,
             fault_state=fault_state,
         )
         return new_state, metrics

@@ -1,8 +1,9 @@
 """Seeded system-fault injection for the federated round.
 
-Counterpart: ``blades_tpu/faults/model.py:33-247`` (``FaultModel``: its
+Counterpart: ``blades_tpu/faults/model.py:33-326`` (``FaultModel``: its
 validation, ``has_stragglers``, ``value_corruption``, ``init_state``,
-``static_fingerprint``, ``apply`` and ``__repr__``). A fault model turns the
+``static_fingerprint``, ``apply``, ``plan_streaming``, ``corrupt_chunk`` and
+``__repr__``). A fault model turns the
 post-attack ``[K, D]`` update matrix into the matrix the server received
 and a boolean ``[K]`` mask of the clients it aggregates: dropped clients
 are masked out, a straggler re-sends its last fresh update while that is at
@@ -18,8 +19,15 @@ test can hand the same draws to ``jax.random.bernoulli`` in call order.
 :meth:`FaultModel.apply` is torch ops on the updates' device with no
 error path and no read of the device; its counters are 0-d int32 tensors.
 The straggler buffer stays float32 whatever the model's compute dtype.
-The chunked streaming forms (``plan_streaming``, ``corrupt_chunk``) come
-with ``ROADMAP.md`` queue A, slice 8.
+
+The streaming round (JAX ``:249-309``) splits the pass in two:
+:meth:`FaultModel.plan_streaming` makes the ``[K]`` decisions (who dropped,
+who is corrupt) from the same draws, in the same order, as ``apply``, so a
+streaming round's counters equal the dense round's on the same seed; and
+:meth:`FaultModel.corrupt_chunk` corrupts one ``[chunk, D]`` slab, drawing
+the bit-flip pattern per chunk from the chunk's own generator, as the JAX
+package draws it from ``fold_in(corrupt_key, chunk)``. Stragglers have no
+streaming form: their replay buffer is ``[K, D]`` state.
 """
 
 from __future__ import annotations
@@ -37,13 +45,15 @@ def _bernoulli(p: float, shape, generator: torch.Generator) -> torch.Tensor:
 
 
 def draw_faults(
-    fm: "FaultModel", num_clients: int, dim: int, generator: torch.Generator
+    fm: "FaultModel", num_clients: int, dim: Optional[int], generator: torch.Generator
 ) -> Dict[str, Optional[torch.Tensor]]:
     """The round's random draws on ``generator``'s device: ``drop`` (``[K]``,
     with a positive ``dropout_rate`` and no schedule), ``straggle``
     (``[K]``, with stragglers), ``corrupt`` (``[K]``, with a positive
     ``corrupt_rate``) and ``bitflip`` (``[K, D]``, in ``bitflip`` mode), in
-    that order; None where the JAX package draws nothing."""
+    that order; None where the JAX package draws nothing. ``dim=None``
+    leaves the ``[K, D]`` draw out (the streaming round draws it per
+    chunk)."""
     k = num_clients
     return {
         "drop": (_bernoulli(fm.dropout_rate, (k,), generator)
@@ -53,7 +63,7 @@ def draw_faults(
         "corrupt": (_bernoulli(fm.corrupt_rate, (k,), generator)
                     if fm.corrupt_rate > 0.0 else None),
         "bitflip": (_bernoulli(fm.bitflip_frac, (k, dim), generator)
-                    if fm.corrupt_mode == "bitflip" else None),
+                    if fm.corrupt_mode == "bitflip" and dim is not None else None),
     }
 
 
@@ -170,13 +180,7 @@ class FaultModel:
             draws = draw_faults(self, k, d, generator)
         draws = {n: None if t is None else t.to(dev) for n, t in draws.items()}
         zeros = torch.zeros(k, dtype=torch.bool, device=dev)
-
-        if self.participation_schedule is not None:
-            drop = ~self._schedule_row(round_idx, dev)
-        elif self.dropout_rate > 0.0:
-            drop = draws["drop"]
-        else:
-            drop = zeros
+        drop, corrupt = self._decisions(draws, k, round_idx, dev)
 
         if self.has_stragglers:
             st = {n: t.to(dev) for n, t in state.items()}
@@ -201,13 +205,6 @@ class FaultModel:
             new_state = state
             n_stale = n_expired = _count(zeros)
 
-        corrupt = zeros
-        if self.corrupt_rate > 0.0:
-            corrupt = corrupt | draws["corrupt"]
-        if self.corrupt_clients:
-            rows = torch.arange(k, device=dev)
-            for c in self.corrupt_clients:  # an id outside 0..K-1 matches no row
-                corrupt = corrupt | (rows == c)
         corrupt = corrupt & part  # only delivered payloads arrive corrupted
         if self.value_corruption:
             fill = state["fill"].to(dev) if isinstance(state, dict) and "fill" in state else (
@@ -233,6 +230,60 @@ class FaultModel:
             "excluded_nonfinite": _count(excluded),
         }
         return out, part, new_state, diag
+
+    # -- the streaming round's fault pass --------------------------------------
+
+    def _decisions(self, draws, k: int, round_idx: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(dropped, corrupt)``, ``[K]`` each, from the round's draws (on
+        ``dev``), the schedule and the corrupt client ids; corruption not
+        yet restricted to the rows delivered."""
+        zeros = torch.zeros(k, dtype=torch.bool, device=dev)
+        if self.participation_schedule is not None:
+            drop = ~self._schedule_row(round_idx, dev)
+        elif self.dropout_rate > 0.0:
+            drop = draws["drop"]
+        else:
+            drop = zeros
+        corrupt = zeros
+        if self.corrupt_rate > 0.0:
+            corrupt = corrupt | draws["corrupt"]
+        if self.corrupt_clients:
+            rows = torch.arange(k, device=dev)
+            for c in self.corrupt_clients:  # an id outside 0..K-1 matches no row
+                corrupt = corrupt | (rows == c)
+        return drop, corrupt
+
+    def plan_streaming(
+        self, num_clients: int, generator: torch.Generator, round_idx: int,
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """The streaming round's ``[K]`` decisions on the generator's device,
+        ``(participation, dropped, corrupt)``, from the draws ``apply``
+        takes (:func:`draw_faults` with ``dim=None``). Raises with
+        stragglers."""
+        if self.has_stragglers:
+            raise ValueError(
+                "straggler replay buffers are [K, D] state; the streaming "
+                "round supports participation/corruption faults only"
+            )
+        draws = draw_faults(self, num_clients, None, generator)
+        drop, corrupt = self._decisions(draws, num_clients, round_idx, generator.device)
+        return ~drop, drop, corrupt & ~drop
+
+    def corrupt_chunk(
+        self, slab: torch.Tensor, corrupt: torch.Tensor, generator: torch.Generator,
+        fill: Optional[torch.Tensor] = None,
+    ) -> torch.Tensor:
+        """One ``[chunk, D]`` slab with its corrupt rows (``corrupt``, the
+        chunk's slice of the planned mask) overwritten by ``fill`` (the fault
+        state's, or the mode's constant) in NaN/Inf mode, or bit-flipped in
+        ``bitflip`` mode on a pattern drawn from ``generator``, which is
+        drawn whether or not a row of the chunk is corrupt, as in JAX."""
+        if self.corrupt_mode in ("nan", "inf"):
+            value = (torch.full((), self._fill_value, dtype=torch.float32, device=slab.device)
+                     if fill is None else fill.to(slab.device))
+            return torch.where(corrupt[:, None], value.to(slab.dtype), slab)
+        flip = _bernoulli(self.bitflip_frac, slab.shape, generator).to(slab.device)
+        return torch.where(flip & corrupt[:, None], -self.bitflip_scale * slab, slab)
 
     def _schedule_row(self, round_idx: int, device) -> torch.Tensor:
         """Round ``round_idx``'s row of the schedule on ``device``. The

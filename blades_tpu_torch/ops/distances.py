@@ -13,9 +13,14 @@ import torch
 def pairwise_sq_euclidean(x: torch.Tensor) -> torch.Tensor:
     """``[K, D] -> [K, K]`` squared Euclidean distances from
     ``|a-b|^2 = |a|^2 + |b|^2 - 2 a.b``, with the tiny negatives that
-    cancellation leaves clamped to 0."""
+    cancellation leaves clamped to 0. The upper triangle is mirrored onto
+    the lower one: a GEMM need not give ``a.b`` and ``b.a`` the same
+    rounding, and a Krum score that ties in exact arithmetic (two rows each
+    other's nearest neighbour) must tie in floating point too, so that the
+    stable ranking keeps the lower index, as the JAX package's does."""
     sq = (x * x).sum(dim=-1)
     d2 = sq[:, None] + sq[None, :] - 2.0 * (x @ x.T)
+    d2 = torch.triu(d2) + torch.triu(d2, diagonal=1).T
     return torch.clamp_min(d2, 0.0)
 
 

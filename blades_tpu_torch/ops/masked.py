@@ -9,13 +9,17 @@ sort past every participant, and the participant count ``n`` stays a 0-d
 device tensor. Every index that depends on ``n`` is a tensor index
 (``index_select``), so no reduction here waits for the device.
 
-The masked trimmed mean keeps the JAX package's survivors (per column, the
-participants ranked ``b_eff <= rank < n - b_eff``) but takes them from one
-sentinel sort by their sorted slots, where the JAX package ranks with two
-argsorts and sums in row order. The survivors are the same values (tied
-values are equal whichever row holds them), so the two agree up to the
-order of the sum; the slot form needs one sort instead of two and no int64
-rank matrix.
+The masked trimmed mean takes the JAX package's survivors: per column, the
+participants ranked ``b_eff <= rank < n - b_eff`` by a stable sort of the
+sentinel matrix, ties (and the ``+inf`` sentinels against real ``+inf``
+participants) broken by row index, as JAX's stable argsort breaks them.
+A NaN participant sorts past the sentinels, so with more NaN participants
+than ``b_eff`` a kept slot holds a masked-out row; the JAX package then
+adds that row, which ``Aggregator._sanitize`` has set to 0, and so does
+this one: the sort's indices pick out such slots (the ``[K]`` mask gathered
+through them), and they add 0. Where the JAX package ranks with two
+argsorts and sums in row order, this sums the sorted values, so the two
+agree up to the order of the sum.
 """
 
 from __future__ import annotations
@@ -67,14 +71,16 @@ def masked_trimmed_mean(updates: torch.Tensor, mask: torch.Tensor, b: int) -> to
     max((n - 1) // 2, 0))``, so that ``n - 2 b_eff >= 1`` whenever ``n >= 1``:
     under heavy dropout the trim narrows toward the masked median. The
     survivors are the sorted slots ``b_eff <= j < n - b_eff`` of the
-    sentinel sort; the slots at and past ``n`` hold the ``+inf`` sentinels
-    and are never kept.
+    stable sentinel sort; a kept slot that holds a masked-out row adds 0,
+    that row's value once sanitized.
     """
     k = updates.shape[0]
     n = participant_count(mask)
     b_eff = torch.clamp(torch.clamp_min((n - 1) // 2, 0), max=int(b))
-    s = torch.sort(torch.where(mask[:, None], updates, float("inf")), dim=0).values
+    s, idx = torch.sort(torch.where(mask[:, None], updates, float("inf")), dim=0, stable=True)
+    absent = ~mask[idx]
+    del idx
     slots = torch.arange(k, device=updates.device)
     drop = (slots < b_eff) | (slots >= n - b_eff)
     denom = torch.clamp_min(n - 2 * b_eff, 1).to(updates.dtype)
-    return s.masked_fill_(drop[:, None], 0.0).sum(dim=0) / denom
+    return s.masked_fill_(absent | drop[:, None], 0.0).sum(dim=0) / denom

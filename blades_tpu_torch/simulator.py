@@ -5,7 +5,8 @@ Counterpart: ``blades_tpu/simulator.py`` — the constructor
 flipping auto-fills at :194-198), ``run`` for the per-round synchronous
 dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
 ``run_round`` -> ``log_train`` / ``log_variance``, periodic ``evaluate``;
-``fault_model`` as a ``FaultModel`` or its kwargs, :466-467),
+``fault_model`` as a ``FaultModel`` or its kwargs, :466-467; ``streaming``
+and its guard against ``retain_updates`` / ``on_round_end``, :475-479),
 the stats records (:1240-1260) and ``evaluate`` (:1396-1437). It writes
 the same ``stats`` records (``train``, ``variance``, ``client_validation``,
 ``test``) with the same keys.
@@ -60,7 +61,6 @@ _UNPORTED_RUN_OPTIONS = {
     "block_size": (1, "slice 7 (multi-round execution)"),
     "donate_batches": (False, "slice 7 (multi-round execution)"),
     "engine_cache": (None, "slice 7 (multi-round execution)"),
-    "streaming": (False, "slice 8 (streaming)"),
     "async_config": (None, "slice 9 (async)"),
     "audit_monitor": (None, "slice 10 (audit, metrics, telemetry)"),
     "collect_diagnostics": (None, "slice 10 (audit, metrics, telemetry)"),
@@ -260,6 +260,7 @@ class Simulator:
         on_round_end: Optional[Callable] = None,
         compute_dtype: Optional[Union[str, torch.dtype]] = None,
         fault_model: Optional[Union[FaultModel, Dict]] = None,
+        streaming: bool = False,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -279,6 +280,12 @@ class Simulator:
         replays and payload corruption into every round; the defense then
         aggregates over the clients that delivered, and each round's fault
         counters are ``self.engine.last_fault_diag``.
+        ``streaming``: run the streaming round (``RoundEngine`` with
+        ``streaming=True``): the defense consumes the ``[K, D]`` update
+        matrix one ``[chunk, D]`` slab of ``client_chunks`` at a time, so it
+        never exists; a defense, attack or fault model without a streaming
+        form raises, and so do ``retain_updates`` and ``on_round_end``,
+        which read that matrix.
         """
         for name, value in options.items():
             if name not in _UNPORTED_RUN_OPTIONS:
@@ -290,6 +297,11 @@ class Simulator:
 
         if isinstance(fault_model, dict):
             fault_model = FaultModel(**fault_model)
+        if streaming and (retain_updates or on_round_end is not None):
+            raise ValueError(
+                "streaming=True never materializes the [K, D] update matrix "
+                "that retain_updates/on_round_end read; run dense for those"
+            )
         spec = self._model_spec(model, loss, compute_dtype)
         batch_size = train_batch_size or self._train_bs
         params = spec.init(rng.generator(self.seed, 0, rng.INIT))
@@ -312,6 +324,7 @@ class Simulator:
             device=self.device,
             noise_sites=spec.noise_sites,
             fault_model=fault_model,
+            streaming=streaming,
         )
         state = self.engine.init(params)
         self.server = BladesServer(self.engine, state, self.aggregator)

@@ -6,6 +6,9 @@ Counterpart: ``blades_tpu/utils/rng.py:26-61``, a ``fold_in`` key tree:
     root(seed) -> round -> purpose (DATA, AUGMENT, ATTACK, ..., DROPOUT)
                         -> CLIENTS -> client_id
 
+and, for the streaming round's per-chunk draws (the JAX package's
+``fold_in(purpose_key, chunk)``), ``round -> purpose -> CHUNKS -> chunk``.
+
 Here every node is a fresh generator seeded from a hash of its path, so any
 round's streams are a pure function of (seed, round, purpose, client) and a
 round is reproducible in isolation. The bits differ from JAX's threefry
@@ -35,6 +38,10 @@ ARRIVAL = 8
 # local training's dropout and DropPath masks (the JAX package folds the
 # client's step key instead: ``blades_tpu/core/engine.py:580``)
 DROPOUT = 9
+# a purpose stream's per-chunk children (the streaming round's attack and
+# bit-flip draws); the tag is nonzero, so a chunk stream never shares its
+# path with its parent
+CHUNKS = 10
 
 
 def generator(
@@ -43,12 +50,16 @@ def generator(
     purpose: int,
     client: Optional[int] = None,
     device="cpu",
+    chunk: Optional[int] = None,
 ) -> torch.Generator:
     """The generator at ``root(seed) -> round -> purpose`` or, with
     ``client``, at ``root(seed) -> round -> CLIENTS -> client`` (``purpose``
-    is then ignored, as the JAX tree has no purpose below a client)."""
+    is then ignored, as the JAX tree has no purpose below a client); with
+    ``chunk``, at ``... -> purpose -> CHUNKS -> chunk``."""
     path = [int(seed), int(round_idx)]
     path += [CLIENTS, int(client)] if client is not None else [int(purpose)]
+    if chunk is not None:
+        path += [CHUNKS, int(chunk)]
     state = np.random.SeedSequence(path).generate_state(1, np.uint64)[0]
     return torch.Generator(device=device).manual_seed(int(state) >> 1)
 

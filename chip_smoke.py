@@ -40,6 +40,20 @@ and the gossip aggregators on that matrix. Every masked form and the fault
 model are then run on the card and on the CPU on ``[100, 16384]`` of a
 round's matrix with the same mask and draws, and compared.
 
+Then the streaming round (``run(streaming=True)``), whose update memory
+is one ``[chunk, D]`` slab: the same bf16 CCT-2 round at K=1000 in 4 chunks
+under sign flipping (f=5) with trimmed mean (b=5), streaming and dense, 3
+rounds each, with a profiled warm round of each (the kernel launches in the
+dense round only: the streaming chunks take the masked trimmed mean); the
+mean's streaming round held to its dense round; 2 streaming rounds with
+each streaming defense, its ``streaming_update`` timed on one chunk and its
+``streaming_finalize`` alone, and the host syncs of a whole round counted;
+a streaming round under dropout and NaN corruption whose fault counters
+equal the dense round's; the streaming and the dense round at K=4000 in
+chunks of 250, for peak memory; and each streaming defense's
+``aggregate_streaming`` on ``[100, 16384]`` in 3 chunks on the card and on
+the CPU.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -112,6 +126,15 @@ FAULT_ROUNDS, FAULT_BITFLIP_ROUNDS, FAULT_AGG_ROUNDS = 3, 2, 2
 FAULT_AGGREGATORS = ("mean", "median", "krum", "multikrum", "geomed", "autogm",
                      "centeredclipping", "clustering", "clippedclustering", "fltrust",
                      "byzantinesgd", "dnc", "signguard")
+# the streaming round on CCT-2 in bf16 under sign flipping (f=5, row-local):
+# its rounds, the streaming defenses, the fault model of stream_fault, and
+# the scale point (K=4000 in chunks of 250, the K=1000 round's chunk size)
+STREAM_ROUNDS, STREAM_AGG_ROUNDS = 3, 2
+STREAM_AGGREGATORS = ("mean", "trimmedmean", "median", "krum", "multikrum", "geomed",
+                      "autogm", "centeredclipping", "clustering", "clippedclustering",
+                      "signguard")
+STREAM_FAULTS = dict(dropout_rate=0.1, corrupt_rate=0.02, corrupt_mode="nan")
+STREAM_SCALE_CLIENTS, STREAM_SCALE_CHUNKS, STREAM_SCALE_ROUNDS = 4000, 16, 2
 
 
 def emit(record: dict) -> None:
@@ -696,7 +719,8 @@ def phase_cct2_card_vs_cpu(torch, dev) -> None:
 
 
 def catalog_kwargs(aggregator: str) -> dict:
-    """Constructor arguments of a catalog aggregator: f=5 where it takes f."""
+    """Constructor arguments of a catalog aggregator: f=5 where it takes f
+    (trimmed mean's default b is 5)."""
     return {"num_byzantine": MAIN_BYZANTINE} if aggregator in ("krum", "multikrum", "dnc") else {}
 
 
@@ -755,9 +779,8 @@ def catalog_run(torch, trimmed, fl, log_root: Path, attack: str, aggregator: str
     gc.collect()
     k, d, f = CCT2_SHAPE
     name = f"{attack}+{aggregator}" + ("" if fault_model is None else "+faults")
-    agg_kws = catalog_kwargs(aggregator) if aggregator != "trimmedmean" else {"num_byzantine": f}
     sim = Simulator(dataset=fl, attack=attack, num_byzantine=f, aggregator=aggregator,
-                    aggregator_kws=agg_kws, seed=1,
+                    aggregator_kws=catalog_kwargs(aggregator), seed=1,
                     log_path=str(log_root / (f"catalog_{attack}_{aggregator}" + (
                         "" if fault_model is None else f"_faults_{fault_model.corrupt_mode}"))))
     check(sim.device.type == fl.device.type, f"{name}: the simulator runs on {sim.device}")
@@ -1283,6 +1306,346 @@ def phase_fault_card_vs_cpu(torch, x_cpu, mask_cpu, dev) -> None:
             check(ok, f"FaultModel.apply[{mode}] round {rnd}: card and CPU differ")
 
 
+def stream_run(torch, trimmed, fl, log_root: Path, aggregator: str, rounds: int,
+               streaming: bool, fault_model=None, chunks: int = CCT2_CHUNKS) -> dict:
+    """``rounds`` bf16 CCT-2 rounds through Simulator.run on the store
+    ``fl`` (its K), sign flipping f=5, in ``chunks`` client chunks,
+    streaming or dense, no evaluation. ``run(streaming=True)`` refuses
+    ``on_round_end``, so each round's metrics (and fault counters) are read
+    where the simulator logs them. Returns the simulator, the per-round
+    records, the round times, the kernel's launches and the peak memory."""
+    from blades_tpu_torch import Simulator
+
+    gc.collect()
+    f = MAIN_BYZANTINE
+    mode = "stream" if streaming else "dense"
+    sim = Simulator(dataset=fl, attack="signflipping", num_byzantine=f, aggregator=aggregator,
+                    aggregator_kws=catalog_kwargs(aggregator), seed=1,
+                    log_path=str(log_root / f"{mode}_{aggregator}_{fl.num_clients}"))
+    check(sim.device.type == fl.device.type, f"{aggregator}: the simulator runs on {sim.device}")
+    seen, log_train = [], sim.log_train
+
+    def record(rnd, local_steps, m):
+        log_train(rnd, local_steps, m)
+        seen.append(dict(loss=float(m.train_loss), agg_norm=float(m.agg_norm),
+                         variance=float(m.update_variance)))
+        if fault_model is not None:
+            seen[-1]["faults"] = {n: int(v) for n, v in sim.engine.last_fault_diag.items()}
+
+    sim.log_train = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
+    times = sim.run(model="cct_2_3x2_32", global_rounds=rounds, local_steps=1, server_lr=1.0,
+                    client_lr=0.1, validate_interval=rounds + 1, client_chunks=chunks,
+                    compute_dtype="bfloat16", fault_model=fault_model, streaming=streaming)
+    torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(sim.engine.streaming == streaming and sim.engine.last_updates is None,
+          f"{aggregator}: the engine's streaming is {sim.engine.streaming}")
+    check(len(seen) == rounds, f"{aggregator}: {len(seen)} rounds")
+    numbers = [v for r in seen for v in (r["loss"], r["agg_norm"], r["variance"])]
+    check(all(map(math.isfinite, numbers)), f"{mode} {aggregator}: non-finite {numbers}")
+    return dict(sim=sim, seen=seen, round_s=times, launches=launches, peak=peak)
+
+
+def warm_round(torch, sim, profiled: bool = False) -> dict:
+    """Rounds of ``sim``'s engine from its state (not applied), on a fresh
+    sample, after one to warm up: the wall times of 3, the host syncs of
+    one, and under torch.profiler one's device busy time (union of kernel
+    intervals) and busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch.utils import rng
+
+    eng, state = sim.engine, sim.server.state
+    cx, cy = sim.dataset.sample_round(rng.generator(sim.seed, 99, rng.DATA, device=eng.device),
+                                      1, 32)
+
+    def one():
+        return eng.run_round(state, cx, cy, 0.1, 1.0, seed=sim.seed)
+
+    one()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    sites = host_syncs(torch, one)
+    out = {"warm_round_ms": walls, "round_host_syncs": sum(sites.values()),
+           "round_host_sync_sites": sites}
+    if profiled:
+        # the first round after the sync-debug window ran about 70 ms slow
+        # on an H100: warm again before the profiled one
+        one()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = device_breakdown(torch, prof, set(), set())
+        out.update(profiled_wall_ms=wall, device_busy_ms=dev["busy_ms"],
+                   device_busy_share=dev["busy_ms"] / wall,
+                   trimmed_mean_kernel_ms=dev["by_class_union_ms"]["trimmed_mean_kernel"],
+                   other_top_ms=dev["other_top_ms"][:5])
+    return out
+
+
+def phase_stream_round(torch, trimmed, fl, card: str, log_root: Path) -> tuple:
+    """The slice's main path: STREAM_ROUNDS bf16 CCT-2 rounds at K=1000 in 4
+    chunks, sign flipping f=5 and trimmed mean b=5, dense and streaming;
+    per mode the round times, a profiled warm round (wall, device busy
+    share), its host syncs, peak memory and peak_update_bytes. The kernel
+    launches once a round in the dense run and never in the streaming run.
+    Returns (the dense run's launches, the streaming run's launches)."""
+    k, d, b = CCT2_SHAPE
+    launches = {}
+    for streaming in (False, True):
+        mode = "streaming" if streaming else "dense"
+        run = stream_run(torch, trimmed, fl, log_root, "trimmedmean", STREAM_ROUNDS, streaming)
+        sim = run["sim"]
+        eng = sim.engine
+        trimmed.trimmed_mean_launches = 0
+        warm = warm_round(torch, sim, profiled=True)
+        emit({"phase": "stream_round", "mode": mode, "attack": "signflipping",
+              "aggregator": "trimmedmean", "dtype": "bfloat16", "clients": k,
+              "byzantine": b, "b": b, "rounds": STREAM_ROUNDS,
+              "client_chunks": eng.client_chunks, "chunk_size": eng.chunk_size,
+              "kernel_launches": run["launches"], "round_s": run["round_s"],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "agg_norm": [r["agg_norm"] for r in run["seen"]],
+              "peak_mem_bytes": run["peak"], "peak_update_bytes": eng.peak_update_bytes,
+              **warm, "card": card})
+        want = 0 if streaming else STREAM_ROUNDS
+        check(run["launches"] == want, f"{mode}: the kernel launched {run['launches']} times")
+        check(eng.peak_update_bytes == (eng.chunk_size if streaming else k) * d * 4,
+              f"{mode}: peak_update_bytes {eng.peak_update_bytes}")
+        check(streaming or warm["trimmed_mean_kernel_ms"] > 0,
+              "dense: the profiled round shows no trimmed-mean kernel")
+        check(not streaming or warm["trimmed_mean_kernel_ms"] == 0,
+              "streaming: the profiled round shows the trimmed-mean kernel")
+        launches[mode] = run["launches"]
+        del run, sim, eng
+    return launches["dense"], launches["streaming"]
+
+
+def phase_stream_exact(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """The mean's streaming round against its dense round, one bf16 CCT-2
+    round at K=1000 from the same seed: the new params, the loss and the
+    aggregate's norm within ROUND_TOL. Returns the streaming launches."""
+    from blades_tpu_torch.ops.pytree import ravel
+
+    out = {}
+    for streaming in (False, True):
+        run = stream_run(torch, trimmed, fl, log_root, "mean", 1, streaming)
+        eng = run["sim"].engine
+        out[streaming] = (ravel(run["sim"].server.state.params, eng.layout), run["seen"][-1],
+                          run["launches"])
+        del run, eng
+    (p_dense, m_dense, _), (p_stream, m_stream, launches) = out[False], out[True]
+    err = float((p_stream - p_dense).abs().max())
+    ok = bool(torch.allclose(p_stream, p_dense, **ROUND_TOL))
+    emit({"phase": "stream_exact", "aggregator": "mean", "clients": CCT2_SHAPE[0],
+          "params_max_abs_err": err, "tol": ROUND_TOL, "ok": ok, "dense": m_dense,
+          "streaming": m_stream, "card": card})
+    check(ok, f"the mean's streaming and dense rounds differ by {err}")
+    for key in ("loss", "agg_norm"):
+        check(math.isclose(m_stream[key], m_dense[key], rel_tol=ROUND_TOL["rtol"]),
+              f"stream_exact: {key} {m_stream[key]} against {m_dense[key]}")
+    return launches
+
+
+class _Recorder:
+    """Keeps the arguments of an aggregator's last streaming_update of a
+    chunk ``chunk`` and of its last streaming_finalize (instance
+    attributes shadow the class's methods)."""
+
+    def __init__(self, agg, chunk: int = 0):
+        self.agg, self.chunk, self.update, self.finalize = agg, chunk, None, None
+        update, finalize = agg.streaming_update, agg.streaming_finalize
+
+        def on_update(sstate, slab, *, chunk_mask, chunk_index, **ctx):
+            if chunk_index == self.chunk:
+                self.update = (slab, chunk_mask, ctx)
+            return update(sstate, slab, chunk_mask=chunk_mask, chunk_index=chunk_index, **ctx)
+
+        def on_finalize(sstate, state=(), **ctx):
+            self.finalize = (sstate, state, ctx)
+            return finalize(sstate, state, **ctx)
+
+        agg.streaming_update, agg.streaming_finalize = on_update, on_finalize
+
+    def remove(self):
+        del self.agg.streaming_update, self.agg.streaming_finalize
+
+
+def phase_stream_aggregators(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """Each streaming defense: STREAM_AGG_ROUNDS bf16 CCT-2 streaming rounds
+    at K=1000 (4 chunks of 250) under sign flipping, then one warm round
+    (its wall time and its host syncs) recording chunk 0's sanitized slab
+    and the finalize's stream state; then streaming_update timed on that
+    slab (into a fresh stream state) and streaming_finalize on
+    that state, with their host syncs and extra peak memory. Host syncs: a
+    round of each defense but GeoMed and AutoGM (whose stopping rules read
+    the device) makes as many as the mean's round. Returns the kernel's
+    launches per run (0 each)."""
+    k, d, f = CCT2_SHAPE
+    launches, base_syncs = {}, None
+    for aggregator in STREAM_AGGREGATORS:
+        run = stream_run(torch, trimmed, fl, log_root, aggregator, STREAM_AGG_ROUNDS, True)
+        sim = run["sim"]
+        eng, agg = sim.engine, sim.aggregator
+        rec = _Recorder(agg)
+        warm = warm_round(torch, sim)
+        rec.remove()
+        (slab, mask, ctx), (sstate, state, fctx) = rec.update, rec.finalize
+        c, cs = eng.client_chunks, eng.chunk_size
+
+        fresh = agg.streaming_init(k, c, cs, d, sim.server.state.agg_state, device=eng.device)
+        up = call_cost(torch, lambda: agg.streaming_update(fresh, slab, chunk_mask=mask,
+                                                           chunk_index=0, **ctx))
+        up_iters = getattr(agg, "last_iterations", None)
+        fin = call_cost(torch, lambda: agg.streaming_finalize(sstate, state, **fctx))
+        emit({"phase": "stream_aggregator", "aggregator": aggregator,
+              "kwargs": catalog_kwargs(aggregator), "attack": "signflipping",
+              "dtype": "bfloat16", "clients": k, "byzantine": f, "rounds": STREAM_AGG_ROUNDS,
+              "client_chunks": c, "chunk_size": cs, "kernel_launches": run["launches"],
+              "round_s": run["round_s"], "warm_round_s": run["round_s"][-1],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "agg_norm": [r["agg_norm"] for r in run["seen"]],
+              "peak_mem_bytes": run["peak"], "participants_chunk0": int(mask.sum()),
+              "iterations_timed_update": up_iters,
+              "iterations_timed_finalize": getattr(agg, "last_iterations", None),
+              **warm, **{f"update_{n}": v for n, v in up.items()},
+              **{f"finalize_{n}": v for n, v in fin.items()},
+              "own_ms_per_round": up["ms"] * c + fin["ms"], "card": card})
+        check(run["launches"] == 0, f"{aggregator}: the kernel launched {run['launches']} times")
+        if aggregator == "mean":
+            base_syncs = warm["round_host_syncs"]
+        elif aggregator not in ("geomed", "autogm"):
+            check(warm["round_host_syncs"] == base_syncs,
+                  f"{aggregator}: {warm['round_host_syncs']} host syncs a round, the mean's "
+                  f"{base_syncs}: {warm['round_host_sync_sites']}")
+        launches[f"stream_{aggregator}"] = run["launches"]
+        del run, sim, eng, agg, rec, slab, mask, sstate, state, fresh
+    return launches
+
+
+def phase_stream_fault(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """Trimmed mean (b=5) under STREAM_FAULTS (the guard on), 3 bf16 CCT-2
+    rounds at K=1000, dense and streaming from the same seed: every
+    round's fault counters equal, the guard excluding every corrupt row;
+    then the masked trimmed mean timed on one recorded chunk slab of the
+    streaming run (the chunk level of its streaming form). Returns the
+    streaming run's launches."""
+    from blades_tpu_torch.faults import FaultModel
+    from blades_tpu_torch.ops.masked import masked_trimmed_mean
+
+    k, d, b = CCT2_SHAPE
+    counters, out = {}, {}
+    for streaming in (False, True):
+        run = stream_run(torch, trimmed, fl, log_root, "trimmedmean", STREAM_ROUNDS, streaming,
+                         fault_model=FaultModel(**STREAM_FAULTS))
+        counters[streaming] = [r["faults"] for r in run["seen"]]
+        out[streaming] = run
+        if streaming:
+            sim = run["sim"]
+            rec = _Recorder(sim.aggregator)
+            warm = warm_round(torch, sim)
+            rec.remove()
+            slab, mask, _ = rec.update
+            chunk_b = sim.aggregator._effective_b(slab.shape[0])
+            cost = call_cost(torch, lambda: masked_trimmed_mean(slab, mask, chunk_b))
+            del rec
+        del run
+    same = counters[True] == counters[False]
+    emit({"phase": "stream_fault", "fault_model": STREAM_FAULTS, "aggregator": "trimmedmean",
+          "attack": "signflipping", "dtype": "bfloat16", "clients": k, "b": b,
+          "rounds": STREAM_ROUNDS, "faults_by_round": counters[True],
+          "dense_faults_by_round": counters[False], "counters_equal": same,
+          "round_s": out[True]["round_s"], "dense_round_s": out[False]["round_s"],
+          "kernel_launches": out[True]["launches"],
+          "dense_kernel_launches": out[False]["launches"],
+          "peak_mem_bytes": out[True]["peak"], "dense_peak_mem_bytes": out[False]["peak"],
+          **warm, "chunk_slab_shape": list(slab.shape), "chunk_participants": int(mask.sum()),
+          "chunk_b": chunk_b, **{f"masked_trimmed_mean_chunk_{n}": v for n, v in cost.items()},
+          "card": card})
+    check(same, f"stream_fault: counters differ: {counters}")
+    for f in counters[True]:
+        check(f["excluded_nonfinite"] == f["corrupted"] and f["stale_replayed"] == 0
+              and f["participants"] + f["dropped"] + f["excluded_nonfinite"] == k,
+              f"stream_fault: {f}")
+    check(sum(f["corrupted"] for f in counters[True]) > 0, "stream_fault: nothing corrupted")
+    check(out[True]["launches"] == 0 and out[False]["launches"] == 0,
+          "stream_fault: the kernel launched under the fault model")
+    return out[True]["launches"]
+
+
+def phase_stream_scale(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """The streaming and the dense round at K=STREAM_SCALE_CLIENTS in chunks
+    of 250 (CIFAR-shaped store of 50,000 samples, about 12 a client; a
+    client's batches wrap around its samples), trimmed mean b=5 and sign
+    flipping f=5, STREAM_SCALE_ROUNDS bf16 CCT-2 rounds each: peak memory
+    and round times. Returns (dense launches, streaming launches)."""
+    from blades_tpu_torch.datasets import Synthetic
+
+    k = STREAM_SCALE_CLIENTS
+    fl = Synthetic(num_clients=k, sample_shape=(32, 32, 3), train_bs=32, train_size=50_000,
+                   test_size=10_000, cache=False).get_dls(dev)
+    launches = {}
+    for streaming in (True, False):
+        mode = "streaming" if streaming else "dense"
+        run = stream_run(torch, trimmed, fl, log_root, "trimmedmean", STREAM_SCALE_ROUNDS,
+                         streaming, chunks=STREAM_SCALE_CHUNKS)
+        eng = run["sim"].engine
+        emit({"phase": "stream_scale", "mode": mode, "clients": k,
+              "client_chunks": eng.client_chunks, "chunk_size": eng.chunk_size,
+              "min_client_samples": int(fl.train_counts.min()),
+              "rounds": STREAM_SCALE_ROUNDS, "round_s": run["round_s"],
+              "train_loss": [r["loss"] for r in run["seen"]],
+              "kernel_launches": run["launches"], "peak_mem_bytes": run["peak"],
+              "peak_update_bytes": eng.peak_update_bytes, "card": card})
+        check(run["launches"] == (0 if streaming else STREAM_SCALE_ROUNDS),
+              f"stream_scale {mode}: the kernel launched {run['launches']} times")
+        launches[mode] = run["launches"]
+        del run, eng
+    del fl
+    return launches["dense"], launches["streaming"]
+
+
+def phase_stream_card_vs_cpu(torch, x_cpu, mask_cpu, dev) -> None:
+    """Each streaming defense's aggregate_streaming on the card and on the
+    CPU, on the same [100, 16384] matrix and mask as fault_card_vs_cpu, in
+    3 chunks of 34 (the final one padded with 2 rows): TOL, LOOP_TOL for
+    GeoMed and AutoGM; the cross-round state too."""
+    from blades_tpu_torch.aggregators import get_aggregator
+
+    rows, cols = x_cpu.shape
+    sides = {"cpu": (x_cpu, mask_cpu), "cuda": (x_cpu.to(dev), mask_cpu.to(dev))}
+    shape = dict(rows=rows, cols=cols, participants=int(mask_cpu.sum()), chunks=3)
+    for name in STREAM_AGGREGATORS:
+        out, states = {}, {}
+        for w, (x, m) in sides.items():
+            agg = get_aggregator(name, **catalog_kwargs(name))
+            got, states[w] = agg.aggregate_streaming(x, agg.init_state(rows, cols),
+                                                     num_chunks=3, mask=m)
+            out[w] = got.cpu()
+        tol = LOOP_TOL if name in ("geomed", "autogm") else TOL
+        _compare(torch, name, out["cuda"], out["cpu"], tol, phase="stream_card_vs_cpu", **shape)
+        lt = torch.utils._pytree.tree_leaves
+        for i, (a, b) in enumerate(zip(lt(states["cuda"]), lt(states["cpu"]))):
+            a = a.cpu()
+            if a.dtype.is_floating_point:
+                _compare(torch, f"{name}.state{i}", a, b, TOL, phase="stream_card_vs_cpu",
+                         **shape)
+            else:
+                check(torch.equal(a, b), f"{name}: state leaf {i} differs")
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -1368,14 +1731,26 @@ def main() -> int:
         sample = phase_catalog_aggregators(torch, trimmed, fl, card, Path(tmp))
         fault_launches = phase_fault_round(torch, trimmed, fl, card, Path(tmp))
         fault_sample = phase_fault_aggregators(torch, trimmed, fl, card, Path(tmp))
+        # the streaming round: the dense paths launch the kernel, the
+        # streaming ones never do
+        stream_launches = {}
+        launches["cct2_bf16_stream_round_dense"], stream_launches["stream_round"] = (
+            phase_stream_round(torch, trimmed, fl, card, Path(tmp)))
+        stream_launches["stream_exact"] = phase_stream_exact(torch, trimmed, fl, card, Path(tmp))
+        stream_launches.update(phase_stream_aggregators(torch, trimmed, fl, card, Path(tmp)))
+        stream_launches["stream_fault"] = phase_stream_fault(torch, trimmed, fl, card, Path(tmp))
         del fl
+        launches["cct2_bf16_k4000_dense"], stream_launches["stream_scale"] = (
+            phase_stream_scale(torch, trimmed, dev, card, Path(tmp)))
         phase_cct2_card_vs_cpu(torch, dev)
         phase_catalog_card_vs_cpu(torch, sample, dev)
         phase_fault_card_vs_cpu(torch, *fault_sample, dev)
+        phase_stream_card_vs_cpu(torch, *fault_sample, dev)
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
+    check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
 
     # the slice's main path is the CCT-2 round, under ALIE in f32 and bf16
     # and under each catalog attack in bf16: its launches, and the kernel
@@ -1389,6 +1764,9 @@ def main() -> int:
         "launches_by_path": launches,
         # under a fault model the masked trimmed mean replaces the kernel
         "launches_under_fault_model": fault_launches,
+        # the streaming round's chunks take the masked trimmed mean, as the
+        # JAX package's streaming round never reaches its Pallas kernel
+        "launches_under_streaming": stream_launches,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

@@ -271,5 +271,9 @@ def test_registry_resolves_the_catalog():
     for name, where in (("asyncmean", "slice 9"), ("asynccenteredclipping", "slice 9")):
         with pytest.raises(NotImplementedError, match=where):
             get_aggregator(name)
-    with pytest.raises(NotImplementedError, match="slice 8"):
-        get_aggregator("median").streaming_update({}, torch.zeros(3, 2))
+    # streaming is ported: a defense without a streaming form names its reason
+    assert get_aggregator("median").supports_streaming()
+    with pytest.raises(NotImplementedError, match="per-client B accumulators"):
+        get_aggregator("byzantinesgd").streaming_update({}, torch.zeros(3, 2),
+                                                        chunk_mask=torch.ones(3, dtype=bool),
+                                                        chunk_index=0)

@@ -446,3 +446,27 @@ def test_cct2_fault_round_matches_jax(monkeypatch):
     np.testing.assert_allclose(teng.last_updates.numpy(), np.asarray(jeng.last_updates), **TOL)
     np.testing.assert_allclose(*_flat_params(jstate, tstate, tspec.layout), **TOL)
     _check_metrics(jm, tm, rtol=TOL["rtol"])
+
+
+def test_unguarded_nan_fault_round_with_trimmed_mean_matches_jax(jax_params):
+    """One K=10 MLP round with the non-finite guard off, client 6 scheduled
+    out and clients 5, 7 and 8 delivering NaN rows, under trimmed mean b=2:
+    more NaN participants than b, so a kept slot of the masked trim holds
+    the masked-out row (sanitized to 0). The port's round equals the JAX
+    engine's, and its params stay finite."""
+    sched = np.ones((1, K), bool)
+    sched[0, 6] = False
+    faults = dict(participation_schedule=sched, corrupt_clients=(5, 7, 8),
+                  guard_nonfinite=False)
+    j, t = _engines(jax_params, 1, aggregator=("trimmedmean", {"num_byzantine": 2}),
+                    faults=faults)
+    (jeng, jstate), (teng, tstate, layout), jm, tm = _round(j, t, 0)
+    diag = {n: int(v) for n, v in teng.last_fault_diag.items()}
+    assert diag == {n: int(v) for n, v in jeng.last_fault_diag.items()}
+    assert diag["participants"] == K - 1 and diag["excluded_nonfinite"] == 0
+    assert diag["corrupted"] == 3
+    np.testing.assert_allclose(teng.last_updates.numpy(), np.asarray(jeng.last_updates), **TOL)
+    tp, jp = _flat_params(jstate, tstate, layout)
+    assert np.isfinite(tp).all()
+    np.testing.assert_allclose(tp, jp, **TOL)
+    _check_metrics(jm, tm, rtol=TOL["rtol"])

@@ -332,6 +332,71 @@ def test_masked_trimmed_mean_b_clamps_under_heavy_dropout():
                                np.median(x[:3], axis=0), rtol=1e-5)
 
 
+# -- the masked trimmed mean with non-finite participants ----------------------
+#
+# NaN sorts past the +inf sentinels of masked-out rows, so with more NaN
+# participants than b_eff a sentinel's slot is kept: the JAX package then adds
+# that row's sanitized 0 (it sums the real rows at the kept ranks), and the
+# port must too. +inf participants tie with the sentinels and the tie breaks
+# by row index, as JAX's stable argsort breaks it.
+
+
+def _c1_case(fill, n_bad, off=(6,), k=10, d=5, seed=0):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(k, d).astype(np.float32)
+    m = np.ones(k, bool)
+    m[list(off)] = False
+    x[:n_bad] = fill
+    return np.where(m[:, None], x, 0.0).astype(np.float32), m
+
+
+@pytest.mark.parametrize("n_bad", [1, 2, 3, 4])
+@pytest.mark.parametrize("fill", [np.nan, np.inf, -np.inf], ids=["nan", "inf", "-inf"])
+def test_masked_trimmed_mean_nonfinite_participants_match_jax(fill, n_bad):
+    """K=10, row 6 masked out, b=2 and 1-4 NaN, +Inf or -Inf participants,
+    through ``Trimmedmean.aggregate_masked`` and the op itself: the port's
+    result equals the JAX package's, NaN for NaN and Inf for Inf."""
+    x, m = _c1_case(fill, n_bad)
+    got = masked.masked_trimmed_mean(torch.from_numpy(x), torch.from_numpy(m), 2).numpy()
+    expect = np.asarray(jax_masked.masked_trimmed_mean(jnp.asarray(x), jnp.asarray(m), 2))
+    np.testing.assert_allclose(got, expect, equal_nan=True, **TOL)
+    agg, _ = get_aggregator("trimmedmean", num_byzantine=2).aggregate_masked(
+        torch.from_numpy(x), (), mask=torch.from_numpy(m))
+    ref, _ = jax_get_aggregator("trimmedmean", num_byzantine=2).aggregate_masked(
+        jnp.asarray(x), (), mask=jnp.asarray(m))
+    np.testing.assert_allclose(agg.numpy(), np.asarray(ref), equal_nan=True, **TOL)
+    if fill != fill and n_bad == 3:
+        # the case the sorted-value sum got wrong: three NaN participants
+        # past b_eff = 2 leave the masked-out row's 0 in a kept slot
+        assert np.isfinite(got).all()
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_masked_trimmed_mean_random_nonfinite_cases_match_jax(seed):
+    """50 seeded cases a seed: K from 3 to 13, rounded values (ties), NaN,
+    +Inf and -Inf participants, masked-out rows sanitized to 0, b from 0 to
+    3 (shrunk as the aggregator shrinks it)."""
+    rng = np.random.default_rng(100 + seed)
+    for _ in range(50):
+        k = int(rng.integers(3, 14))
+        x = rng.normal(size=(k, 6)).astype(np.float32)
+        if rng.random() < 0.5:
+            x = np.round(x)
+        m = rng.random(k) < 0.7
+        for i, r in enumerate(rng.random(k)):
+            if r < 0.15:
+                x[i] = np.nan
+            elif r < 0.25:
+                x[i] = np.inf
+            elif r < 0.3:
+                x[i] = -np.inf
+        x = np.where(m[:, None], x, 0.0).astype(np.float32)
+        b = min(int(rng.integers(0, 4)), (k - 1) // 2)
+        got = masked.masked_trimmed_mean(torch.from_numpy(x), torch.from_numpy(m), b).numpy()
+        expect = np.asarray(jax_masked.masked_trimmed_mean(jnp.asarray(x), jnp.asarray(m), b))
+        np.testing.assert_allclose(got, expect, equal_nan=True, err_msg=f"k={k} b={b}", **TOL)
+
+
 def test_masked_krum_selects_among_participants_only():
     rng = np.random.default_rng(7)
     benign = rng.normal(size=(6, 4)).astype(np.float32) * 0.1

@@ -68,3 +68,32 @@ def test_round_in_subprocess_loads_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_streaming_module_is_covered_and_a_streaming_round_loads_no_jax(tmp_path):
+    """``ops/streaming.py`` is among the checked sources, and a streaming
+    round run through the port leaves no ``jax`` in ``sys.modules``."""
+    assert ROOT / "blades_tpu_torch" / "ops" / "streaming.py" in _port_files()
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch import Simulator\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "ds = Synthetic(num_clients=7, train_size=140, test_size=30, cache=False)\n"
+        "sim = Simulator(ds, attack='noise', num_byzantine=2, aggregator='trimmedmean',\n"
+        "                aggregator_kws={'num_byzantine': 2}, device='cpu',\n"
+        f"                log_path={str(tmp_path / 'out')!r})\n"
+        "sim.run(model='mlp', global_rounds=1, train_batch_size=4, streaming=True,\n"
+        "        client_chunks=2, fault_model={'corrupt_rate': 0.3, 'corrupt_mode': 'bitflip'})\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

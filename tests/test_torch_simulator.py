@@ -14,6 +14,7 @@ from blades_tpu import Simulator as JaxSimulator
 from blades_tpu.datasets import Synthetic as JaxSynthetic
 from blades_tpu.utils.logging import read_stats as jax_read_stats
 from blades_tpu_torch import Simulator
+from blades_tpu_torch.core import ClientOptSpec
 from blades_tpu_torch.datasets import FLDataset, Synthetic
 from blades_tpu_torch.utils.logging import read_stats
 
@@ -105,7 +106,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "option,value,slice_no",
     [
-        ("streaming", True, "slice 8"),
+        ("donate_batches", True, "slice 7"),
         ("async_config", {"buffer_m": 2}, "slice 9"),
         ("collect_diagnostics", True, "slice 10"),
         ("audit_monitor", {}, "slice 10"),
@@ -121,6 +122,57 @@ def test_unported_run_options_raise(tmp_path, option, value, slice_no):
                     device="cpu", log_path=str(tmp_path))
     with pytest.raises(NotImplementedError, match=slice_no):
         sim.run(model="mlp", **{option: value})
+
+
+def test_streaming_run_on_cpu(tmp_path):
+    """``run(streaming=True)`` with a padded final chunk and a fault model:
+    the engine streams, keeps no update matrix, and the records are the
+    dense run's records."""
+    kw = dict(num_clients=7, train_size=300, test_size=70, cache=False)
+    run = dict(global_rounds=2, local_steps=2, train_batch_size=8, client_chunks=2)
+    sim = Simulator(Synthetic(**kw), attack="signflipping", num_byzantine=2,
+                    aggregator="trimmedmean", aggregator_kws={"num_byzantine": 2}, seed=1,
+                    device="cpu", log_path=str(tmp_path / "stream"))
+    times = sim.run(model="mlp", streaming=True, fault_model={"dropout_rate": 0.3}, **run)
+    assert len(times) == 2
+    assert sim.engine.streaming and sim.engine.last_updates is None
+    assert (sim.engine.client_chunks, sim.engine.chunk_size) == (2, 4)
+    assert int(sim.engine.last_fault_diag["participants"]) <= 7
+    dense = Simulator(Synthetic(**kw), attack="signflipping", num_byzantine=2,
+                      aggregator="trimmedmean", aggregator_kws={"num_byzantine": 2}, seed=1,
+                      device="cpu", log_path=str(tmp_path / "dense"))
+    dense.run(model="mlp", fault_model={"dropout_rate": 0.3}, **run)
+    ours, theirs = read_stats(str(tmp_path / "stream")), read_stats(str(tmp_path / "dense"))
+    assert _stats_shape(ours) == _stats_shape(theirs)
+    assert all(np.isfinite(r["Loss"]) for r in ours if r["_meta"]["type"] == "train")
+
+
+@pytest.mark.parametrize("option", ["retain_updates", "on_round_end"])
+def test_streaming_refuses_options_that_read_the_matrix(tmp_path, option):
+    sim = Simulator(Synthetic(num_clients=4, train_size=100, cache=False),
+                    device="cpu", log_path=str(tmp_path))
+    value = True if option == "retain_updates" else (lambda *a: None)
+    with pytest.raises(ValueError, match="never materializes"):
+        sim.run(model="mlp", streaming=True, **{option: value})
+
+
+def test_streaming_refuses_parts_without_a_streaming_form(tmp_path):
+    ds = Synthetic(num_clients=6, train_size=120, cache=False)
+    sim = Simulator(ds, aggregator="dnc", device="cpu", log_path=str(tmp_path))
+    with pytest.raises(ValueError, match="does not implement streaming"):
+        sim.run(model="mlp", streaming=True, client_chunks=2)
+    sim = Simulator(ds, attack="alie", num_byzantine=2, aggregator="median", device="cpu",
+                    log_path=str(tmp_path))
+    with pytest.raises(ValueError, match="full-population"):
+        sim.run(model="mlp", streaming=True, client_chunks=2)
+    sim = Simulator(ds, aggregator="median", device="cpu", log_path=str(tmp_path))
+    with pytest.raises(ValueError, match="straggler"):
+        sim.run(model="mlp", streaming=True, fault_model={"straggler_rate": 0.1})
+    for option, value in (("collect_diagnostics", True), ("audit_monitor", {})):
+        with pytest.raises(NotImplementedError, match="slice 10"):
+            sim.run(model="mlp", streaming=True, **{option: value})
+    with pytest.raises(NotImplementedError, match="slice 3b"):
+        sim.run(model="mlp", streaming=True, client_optimizer=ClientOptSpec(persist=True))
 
 
 def test_unported_choices_raise(tmp_path):
