@@ -11,11 +11,15 @@ family (CCT-2 is the headline model; dropout and DropPath masks drawn per
 round, and a bf16 ``compute_dtype``), every attack of the JAX registry, and
 the defenses of the reference's catalog and BASELINE.md (mean, trimmed
 mean, median, Krum, Multi-Krum, GeoMed, AutoGM, centered clipping,
-clustering, clipped clustering, FLTrust, DnC) with ByzantineSGD, SignGuard
-and the gossip aggregators, and partial participation: the fault model
-(``faults/``) and every registered defense's masked form; and the
-streaming round (``Simulator.run(streaming=True)``), which feeds the
-update matrix to the defense one ``[chunk, D]`` slab at a time. The
+clustering, clipped clustering, FLTrust, DnC) with ByzantineSGD, SignGuard,
+the async pair and the gossip aggregators, and partial participation: the fault model
+(``faults/``) and every registered defense's masked form; the streaming
+round (``Simulator.run(streaming=True)``), which feeds the update matrix
+to the defense one ``[chunk, D]`` slab at a time; mixed attacker
+populations (``Simulator.register_attackers``) and client optimizer state
+kept across rounds (``ClientOptSpec(persist=True)``); and the
+buffered-asynchronous round (``Simulator.run(async_config=...)``,
+``asyncfl/``) with the async aggregators. The
 coordinate-wise trimmed mean runs on the card through a CUDA kernel
 written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
 ``ops/trimmed.py``); the other defenses and the masked trimmed mean are

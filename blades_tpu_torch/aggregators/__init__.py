@@ -2,11 +2,12 @@
 
 Counterpart: ``blades_tpu/aggregators/__init__.py:40-86`` (``AGGREGATORS``,
 ``get_aggregator``). Every defense of the reference's catalog and of
-BASELINE.md is ported, with ByzantineSGD and SignGuard, each in its dense
-and its masked form; so are the gossip aggregators of
-``decentralized.py``, which the JAX registry does not list either. The
-names in :data:`UNPORTED` raise and name the ``ROADMAP.md`` slice that
-brings them.
+BASELINE.md is ported, with ByzantineSGD, SignGuard and the asynchronous
+pair (``asyncmean``, ``asynccenteredclipping``), each in its dense and its
+masked form: the whole JAX registry. So are the gossip aggregators of
+``decentralized.py``, which the JAX registry does not list. A name in
+:data:`UNPORTED` would raise and name the ``ROADMAP.md`` slice that brings
+it; none is left.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ from blades_tpu_torch.aggregators.clippedclustering import Clippedclustering
 from blades_tpu_torch.aggregators.clustering import Clustering
 from blades_tpu_torch.aggregators.decentralized import (
     AnchorClipping,
+    Asynccenteredclipping,
+    Asyncmean,
     DecentralizedMixing,
     fully_connected_adjacency,
     metropolis_weights,
@@ -51,14 +54,13 @@ AGGREGATORS: Dict[str, Type[Aggregator]] = {
     "byzantinesgd": Byzantinesgd,
     "dnc": Dnc,
     "signguard": Signguard,
+    "asyncmean": Asyncmean,
+    "asynccenteredclipping": Asynccenteredclipping,
 }
 
 #: names of the JAX registry still to port, each with its ROADMAP.md
-#: queue-A slice: the asynchronous aggregators (9)
-UNPORTED = {
-    "asyncmean": "slice 9 (async)",
-    "asynccenteredclipping": "slice 9 (async)",
-}
+#: queue-A slice (none)
+UNPORTED: Dict[str, str] = {}
 
 
 def get_aggregator(name_or_fn: Union[str, Aggregator, Callable], **kwargs) -> Aggregator:
@@ -95,7 +97,8 @@ def _wrap_callable(fn: Callable) -> Aggregator:
 
 
 __all__ = [
-    "AGGREGATORS", "Aggregator", "AnchorClipping", "Autogm", "Byzantinesgd",
+    "AGGREGATORS", "Aggregator", "AnchorClipping", "Asynccenteredclipping", "Asyncmean",
+    "Autogm", "Byzantinesgd",
     "Centeredclipping", "Clippedclustering", "Clustering", "DecentralizedMixing", "Dnc",
     "Fltrust", "Geomed", "Krum", "Mean", "Median", "Multikrum", "Signguard", "Trimmedmean",
     "fully_connected_adjacency", "get_aggregator", "metropolis_weights", "ring_adjacency",

@@ -1,23 +1,28 @@
 """Decentralized (gossip) aggregation: mixing matrices, gossip mixing and
-anchor clipping.
+anchor clipping; and the asynchronous aggregators.
 
-Counterpart: ``blades_tpu/aggregators/decentralized.py:37-160``
+Counterpart: ``blades_tpu/aggregators/decentralized.py:37-336``
 (``ring_adjacency``, ``torus_adjacency``, ``fully_connected_adjacency``,
-``metropolis_weights``, ``DecentralizedMixing``, ``AnchorClipping``). One
+``metropolis_weights``, ``DecentralizedMixing``, ``AnchorClipping``,
+``Asyncmean``, ``Asynccenteredclipping``). One
 gossip step for every node at once is one mixing product ``W @ U``
 (``[K, K] x [K, D]``); anchor clipping folds each receiver's clip scales
 into the mixing weights through the Gram identity, so nothing of size
 ``K^2 D`` is formed. The products are ``torch.matmul``, as the JAX package
 leaves them to XLA. The mixing matrices are made on the host with numpy.
 
-The asynchronous aggregators of the same JAX module (``Asyncmean``,
-``Asynccenteredclipping``) come with ``ROADMAP.md`` queue A, slice 9; the
-registry names them as unported.
+The asynchronous aggregators (JAX ``:163-336``) damp absent workers by
+1/K: an absent row adds zero but stays in the denominator. Under the
+buffered-asynchronous round (``blades_tpu_torch/asyncfl``) the
+participation mask is the buffer's occupancy, so a fire fed by n of K
+clients moves the model n/K as far. Both have exact streaming forms: a
+running sum over a fixed K (centered clipping only with ``n_iter == 1``,
+where the clip depends on the round-start momentum alone).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -143,3 +148,127 @@ class AnchorClipping(DecentralizedMixing):
 
     def __repr__(self):
         return f"AnchorClipping(tau={self.tau})"
+
+
+# -- asynchronous aggregators ---------------------------------------------------
+
+
+class Asyncmean(Aggregator):
+    """Async mean (the reference's ``_AsyncMean``): ``sum(present rows) /
+    K``; without ``present`` the plain mean. Under the async round it is the
+    constant-weighted FedBuff server mean with 1/K damping."""
+
+    audit_optouts = {
+        "resilience": "breakdown point 0: one unbounded byzantine row moves "
+                      "the (async) average arbitrarily far",
+    }
+    streaming_exact = True
+
+    def aggregate(self, updates, state=(), *, present: Optional[torch.Tensor] = None, **ctx):
+        if present is None:
+            return updates.mean(dim=0), state
+        u = torch.where(present.to(updates.device)[:, None], updates, 0.0)
+        return u.sum(dim=0) / updates.shape[0], state
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        # the participation mask is the async present mask; the masked-out
+        # rows arrive zeroed, and the 1/K damping is kept
+        return updates.sum(dim=0) / updates.shape[0], state
+
+    def streaming_init(self, num_clients, num_chunks, chunk_size, dim, state=(), *,
+                       device="cpu"):
+        # K is the population, not the padded chunk total
+        return {"sum": torch.zeros(dim, dtype=torch.float32, device=device),
+                "k": torch.full((), float(num_clients), dtype=torch.float32, device=device)}
+
+    def streaming_update(self, sstate, chunk_updates, *, chunk_mask, chunk_index, **ctx):
+        w = chunk_mask.to(chunk_updates.dtype)
+        return {"sum": sstate["sum"] + (chunk_updates * w[:, None]).sum(dim=0),
+                "k": sstate["k"]}
+
+    def streaming_finalize(self, sstate, state=(), **ctx):
+        return sstate["sum"] / sstate["k"], state
+
+    def __repr__(self):
+        return "Asyncmean"
+
+
+class Asynccenteredclipping(Aggregator):
+    """Async centered clipping (the reference's ``_AsyncCenteredClipping``):
+    a momentum center carried across rounds, ``n_iter`` steps ``v <- v +
+    sum_present clip(u_i - v, tau) / K``."""
+
+    stateful = True
+    audit_optouts = {
+        "translation": "single clipping step around the origin-anchored "
+                       "momentum; the 1/K-damped under-step does not "
+                       "translate with the updates",
+    }
+
+    def __init__(self, tau: float = 10.0, n_iter: int = 1):
+        self.tau = float(tau)
+        self.n_iter = int(n_iter)
+
+    def init_state(self, num_clients: int, dim: int):
+        # made on the CPU; the first aggregate moves it to the updates' device
+        return torch.zeros(dim, dtype=torch.float32)
+
+    def _clip(self, diff):
+        norm = torch.linalg.vector_norm(diff, dim=1, keepdim=True)
+        return diff * torch.clamp_max(self.tau / torch.clamp_min(norm, 1e-12), 1.0)
+
+    def aggregate(self, updates, state=(), *, present: Optional[torch.Tensor] = None, **ctx):
+        momentum = state.to(updates.device, updates.dtype)
+        k = updates.shape[0]
+        if present is None:
+            present = torch.ones(k, dtype=torch.bool, device=updates.device)
+        present = present.to(updates.device)
+        for _ in range(self.n_iter):
+            clipped = torch.where(present[:, None], self._clip(updates - momentum[None, :]), 0.0)
+            momentum = momentum + clipped.sum(dim=0) / k
+        return momentum, momentum
+
+    def _masked_aggregate(self, updates, state, *, mask, **ctx):
+        # the participation mask is the async present mask (1/K damping kept)
+        return self.aggregate(updates, state, present=mask)
+
+    @property
+    def streaming_exact(self):  # type: ignore[override]
+        return self.n_iter == 1
+
+    def supports_streaming(self) -> bool:  # type: ignore[override]
+        # the single-pass form exists only for n_iter == 1
+        return self.n_iter == 1
+
+    @property
+    def streaming_optouts(self):  # type: ignore[override]
+        if self.n_iter == 1:
+            return {}
+        return {
+            "streaming": "n_iter>1 re-clips every row against a mid-pass "
+                         "center; only the n_iter=1 running clipped sum "
+                         "is a single-pass form",
+        }
+
+    def streaming_init(self, num_clients, num_chunks, chunk_size, dim, state=(), *,
+                       device="cpu"):
+        if self.n_iter != 1:
+            raise NotImplementedError(self._no_streaming_msg())
+        v0 = (torch.zeros(dim, dtype=torch.float32) if isinstance(state, tuple) and state == ()
+              else state)
+        return {"v0": v0.to(device, torch.float32),
+                "clip_sum": torch.zeros(dim, dtype=torch.float32, device=device),
+                "k": torch.full((), float(num_clients), dtype=torch.float32, device=device)}
+
+    def streaming_update(self, sstate, chunk_updates, *, chunk_mask, chunk_index, **ctx):
+        clipped = torch.where(chunk_mask[:, None],
+                              self._clip(chunk_updates - sstate["v0"][None, :]), 0.0)
+        return {"v0": sstate["v0"], "clip_sum": sstate["clip_sum"] + clipped.sum(dim=0),
+                "k": sstate["k"]}
+
+    def streaming_finalize(self, sstate, state=(), **ctx):
+        momentum = sstate["v0"] + sstate["clip_sum"] / sstate["k"]
+        return momentum, momentum
+
+    def __repr__(self):
+        return f"Asynccenteredclipping(tau={self.tau}, n_iter={self.n_iter})"

@@ -2,9 +2,8 @@
 
 Counterpart: ``blades_tpu/attackers/__init__.py:37-61`` (``ATTACKS``,
 ``get_attack``): every name of the JAX registry resolves here, and ``None``
-is no attack. The JAX Simulator's per-client composites
-(``register_attackers``) are still to port (``ROADMAP.md`` queue A, slice
-3b).
+is no attack. Per-client composites of several attacks are
+``Simulator.register_attackers`` (``simulator.py:_CompositeAttack``).
 """
 
 from __future__ import annotations

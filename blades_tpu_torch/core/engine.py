@@ -7,7 +7,8 @@ Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 ``RoundEngine.init`` (:456), ``_local_update`` (:569-625),
 ``_train_clients`` (:638-712), ``_round_dense`` (:714-874, its fault branch
 :749-797), ``_round_streaming`` (:876-1100), ``run_round`` (:1113),
-``evaluate_per_sample`` (:1344) and ``multistep_lr`` (:1374).
+``evaluate_per_sample`` (:1344) and ``multistep_lr`` (:1374); the async
+build checks (:341-363), dispatched to ``blades_tpu_torch/asyncfl/engine.py``.
 
 One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 
@@ -51,10 +52,23 @@ the variance metrics come from the one-pass moments. Local training is the
 dense round's, mask for mask, so the exact forms (``mean``, centered
 clipping with ``n_iter=1``) give the dense round's result.
 
-Not ported yet, each raising where it would be selected: persistent
-per-client optimizer state (``persist=True``, ``ROADMAP.md`` queue A slice
-3b), round blocks (slice 7), async (slice 9), audit, diagnostics and the
-metric pack (slice 10), and sharding plans (slice 12).
+``ClientOptSpec(persist=True)`` keeps each client's optimizer state (Adam's
+moments and count, momentum's trace) across rounds as stacked ``[K, ...]``
+tensors in ``RoundState.client_opt_state`` (JAX ``:66-99``, ``:487-500``):
+each chunk trains from its rows of it, in the dense and the streaming round,
+and the chunks' new rows are concatenated back.
+
+With ``async_config`` (``blades_tpu_torch.asyncfl.AsyncConfig``) a round is
+one tick of the buffered-asynchronous (FedBuff) server,
+``asyncfl/engine.py:async_round``: clients arrive on a seeded schedule and
+train from the model version they downloaded, their updates wait in a
+``[K, D]`` buffer in ``RoundState.async_state``, and the server fires once
+``buffer_m`` have arrived, each update weighted by its staleness; the tick's
+counters are ``self.last_async_diag``.
+
+Not ported yet, each raising where it would be selected: round blocks
+(``ROADMAP.md`` queue A, slice 7), audit, diagnostics and the metric pack
+(slice 10), and sharding plans (slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
 is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
@@ -71,6 +85,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
+from torch.utils._pytree import tree_map
 
 from blades_tpu_torch.aggregators.base import Aggregator
 from blades_tpu_torch.attackers.base import Attack, NoAttack
@@ -100,11 +115,15 @@ def resolve_device(device=None) -> torch.device:
 # -- optimizers: optax's chains, literally -------------------------------------
 
 
+# Each transform's ``init(params, lead)`` takes the params' leading batch
+# shape: ``()`` for the server, ``(n,)`` for n stacked clients.
+
+
 class _AddDecayedWeights:
     def __init__(self, weight_decay: float):
         self.wd = weight_decay
 
-    def init(self, params):
+    def init(self, params, lead=()):
         return ()
 
     def update(self, grads, state, params):
@@ -117,7 +136,7 @@ class _Trace:
     def __init__(self, decay: float):
         self.decay = decay
 
-    def init(self, params):
+    def init(self, params, lead=()):
         return {n: torch.zeros_like(p) for n, p in params.items()}
 
     def update(self, grads, state, params):
@@ -126,24 +145,33 @@ class _Trace:
 
 
 class _ScaleByAdam:
-    """``optax.scale_by_adam`` with ``eps_root=0``."""
+    """``optax.scale_by_adam`` with ``eps_root=0``. The count is an int32
+    tensor of the leading shape, one per client as optax keeps it under
+    ``vmap``, and the bias corrections ``1 - b**count`` are float32, as
+    optax computes them."""
 
     def __init__(self, b1: float, b2: float, eps: float):
         self.b1, self.b2, self.eps = b1, b2, eps
 
-    def init(self, params):
+    def init(self, params, lead=()):
         zeros = lambda: {n: torch.zeros_like(p) for n, p in params.items()}  # noqa: E731
-        return (0, zeros(), zeros())
+        dev = next(iter(params.values())).device
+        return (torch.zeros(lead, dtype=torch.int32, device=dev), zeros(), zeros())
 
     def update(self, grads, state, params):
         count, mu, nu = state
         mu = {n: (1 - self.b1) * g + self.b1 * mu[n] for n, g in grads.items()}
         nu = {n: (1 - self.b2) * g * g + self.b2 * nu[n] for n, g in grads.items()}
-        count += 1
-        c1 = 1 - self.b1**count
-        c2 = 1 - self.b2**count
+        count = count + 1
+        c1 = 1 - torch.pow(self.b1, count.to(torch.float32))
+        c2 = 1 - torch.pow(self.b2, count.to(torch.float32))
+
+        def per_row(c, g):  # a [n] correction against an [n, ...] leaf
+            return c.view(c.shape + (1,) * (g.dim() - c.dim()))
+
         updates = {
-            n: (mu[n] / c1) / (torch.sqrt(nu[n] / c2) + self.eps) for n in grads
+            n: (mu[n] / per_row(c1, g)) / (torch.sqrt(nu[n] / per_row(c2, g)) + self.eps)
+            for n, g in grads.items()
         }
         return updates, (count, mu, nu)
 
@@ -152,8 +180,8 @@ class _Chain:
     def __init__(self, parts):
         self.parts = parts
 
-    def init(self, params):
-        return tuple(p.init(params) for p in self.parts)
+    def init(self, params, lead=()):
+        return tuple(p.init(params, lead) for p in self.parts)
 
     def update(self, grads, state, params):
         new_state = []
@@ -212,12 +240,15 @@ class RoundState(NamedTuple):
 
     params: Params
     server_opt_state: Any
-    client_opt_state: Any  # () while per-client state is not persisted
+    client_opt_state: Any  # stacked [K, ...] with persist=True, else ()
     agg_state: Any
     attack_state: Any
     round_idx: int
     # the fault model's straggler buffer and fill; () without a fault model
     fault_state: Any = ()
+    # the async server's buffer and per-client bookkeeping
+    # (asyncfl/buffer.py:AsyncConfig.init_state); () for a sync engine
+    async_state: Any = ()
 
 
 class RoundMetrics(NamedTuple):
@@ -258,6 +289,14 @@ class RoundEngine:
     "row"``), a fault model with stragglers. Diagnostics and the audit
     monitor, which the JAX package also rejects in streaming, are not
     ported (``Simulator.run`` raises for them, slice 10).
+
+    ``async_config``: an :class:`~blades_tpu_torch.asyncfl.AsyncConfig`;
+    each round is then one buffered-asynchronous tick (module docstring),
+    and its 10 counters are ``self.last_async_diag`` (0-d tensors).
+    ``buffer_m`` is clamped into ``[1, K]`` (``self.async_buffer_m``). It
+    needs an aggregator, and refuses ``streaming=True`` (the buffer is
+    ``[K, D]`` state) and a fault model with stragglers (arrival staleness
+    replaces their replay), as the JAX engine does.
     """
 
     def __init__(
@@ -281,12 +320,8 @@ class RoundEngine:
         noise_sites: Optional[Callable[[int], dict]] = None,
         fault_model: Optional[FaultModel] = None,
         streaming: bool = False,
+        async_config=None,
     ):
-        if client_opt.persist:
-            raise NotImplementedError(
-                "persistent per-client optimizer state (persist=True) is not "
-                "ported to blades_tpu_torch yet (ROADMAP.md queue A, slice 3b)"
-            )
         if int(client_chunks) < 1:
             raise ValueError(f"client_chunks must be >= 1, got {client_chunks}")
         self.device = resolve_device(device)
@@ -311,6 +346,25 @@ class RoundEngine:
         self.last_updates: Optional[torch.Tensor] = None
         self.fault_model = fault_model
         self.last_fault_diag: Optional[dict] = None
+        self.async_config = async_config
+        self.last_async_diag: Optional[dict] = None
+        self.async_buffer_m = 0
+        if async_config is not None:
+            if self.streaming:
+                raise ValueError(
+                    "async_config is incompatible with streaming=True: the server buffer "
+                    "is [K, D] state, the memory the streaming round exists to avoid"
+                )
+            if aggregator is None:
+                raise ValueError("async_config requires an aggregator")
+            if fault_model is not None and fault_model.has_stragglers:
+                raise ValueError(
+                    "async_config replaces the sync straggler-replay semantics with real "
+                    "arrival staleness; configure the fault model without stragglers "
+                    "(straggler_rate=0)"
+                )
+            # buffer slots are per client, so K bounds the first-M threshold
+            self.async_buffer_m = max(1, min(int(async_config.buffer_m), self.num_clients))
         if self.streaming:
             self._validate_streaming()
         self.dim, self.unravel = make_unraveler(params_template, layout)
@@ -331,6 +385,7 @@ class RoundEngine:
         # one client's (grads, (loss, aux)), mapped over the client axis
         self._grad_fn = vmap(grad_and_value(clamped_loss, has_aux=True))
         self._ravel_rows = vmap(lambda p: ravel(p, self.layout))
+        self._unravel_rows = vmap(self.unravel)
 
     def _validate_streaming(self) -> None:
         """Raise at build time where a configured part has no streaming form."""
@@ -375,16 +430,27 @@ class RoundEngine:
             if self.aggregator is not None
             else ()
         )
+        client_opt_state = ()
+        if self.client_opt.persist:
+            # the stacked [K, ...] state of one client's init (JAX :487-493)
+            k = self.num_clients
+            client_opt_state = self._client_tx.init(
+                {n: t.expand(k, *t.shape) for n, t in params.items()}, lead=(k,))
         return RoundState(
             params=params,
             server_opt_state=self._server_tx.init(params),
-            client_opt_state=(),
+            client_opt_state=client_opt_state,
             agg_state=agg_state,
             attack_state=self.attack.init_state(self.num_clients, self.dim),
             round_idx=0,
             fault_state=(
                 self.fault_model.init_state(self.num_clients, self.dim, device=self.device)
                 if self.fault_model is not None
+                else ()
+            ),
+            async_state=(
+                self.async_config.init_state(self.num_clients, self.dim, device=self.device)
+                if self.async_config is not None
                 else ()
             ),
         )
@@ -403,14 +469,23 @@ class RoundEngine:
         sites = self.noise_sites(batch)
         return [rng.keep_masks(sites, noise_gen, (self.num_clients,)) for _ in range(steps)]
 
-    def _train_chunk(self, params, flat0, client_lr, cx, cy, rows, noise):
+    def _train_chunk(self, params, flat0, client_lr, cx, cy, rows, noise, opt_state=(),
+                     start=None):
         """Local training of the clients ``rows`` (``_local_update`` with the
         chunk's client axis written out): ``(updates [n, D], losses [n],
-        top1s [n])``; ``noise`` holds each step's masks for all K."""
+        top1s [n], opt_state)``; ``noise`` holds each step's masks for all K.
+        ``opt_state``: the chunk's rows of the persistent client state
+        (``persist=True``), else ``()`` and each client starts from a fresh
+        one. ``start``: the chunk's ``[n, D]`` flat start params (the async
+        round's version lag), else every client starts from ``params``."""
         ids = torch.arange(self.num_clients, device=self.device)[rows]
         byz = self.byz_mask[rows]
-        p = {n: t.expand(ids.numel(), *t.shape) for n, t in params.items()}
-        opt_state = self._client_tx.init(p)
+        if start is None:
+            p = {n: t.expand(ids.numel(), *t.shape) for n, t in params.items()}
+        else:
+            p, flat0 = self._unravel_rows(start), start
+        if not self.client_opt.persist:
+            opt_state = self._client_tx.init(p, lead=(ids.numel(),))
         losses, top1s = [], []
         for s, masks in enumerate(noise):
             x, y = self.attack.on_batch(
@@ -423,16 +498,33 @@ class RoundEngine:
             losses.append(loss)
             top1s.append(aux.get("top1", torch.full_like(loss, float("nan"))))
         over_steps = lambda xs: torch.stack(xs, 1).mean(1)  # noqa: E731
-        return self._ravel_rows(p) - flat0, over_steps(losses), over_steps(top1s)
+        return (self._ravel_rows(p) - flat0, over_steps(losses), over_steps(top1s),
+                opt_state if self.client_opt.persist else ())
 
-    def _train_clients(self, params, client_lr, cx, cy, noise_gen):
+    def _train_clients(self, params, client_opt_state, client_lr, cx, cy, noise_gen,
+                       lag=None):
         """Local training of all K clients, chunk by chunk: ``(updates [K,
-        D], losses [K], top1s [K])``."""
+        D], losses [K], top1s [K], client_opt_state)``, the last the
+        chunks' new persistent rows concatenated (``()`` without
+        ``persist``). ``lag``: ``(hist [h, D], slot [K])``, each client's
+        start params the ring row ``hist[slot]``, gathered per chunk (the
+        async round); None trains every client from ``params``."""
         noise = self._draw_noise(noise_gen, cx.shape[1], cx.shape[2])
         flat0 = ravel(params, self.layout)
-        out = [self._train_chunk(params, flat0, client_lr, cx, cy, rows, noise)
-               for rows in self._chunk_rows()]
-        return tuple(torch.cat(parts) for parts in zip(*out))
+        out = []
+        for rows in self._chunk_rows():
+            opt = tree_map(lambda t: t[rows], client_opt_state)
+            start = None if lag is None else lag[0][lag[1][rows]]
+            out.append(self._train_chunk(params, flat0, client_lr, cx, cy, rows, noise, opt,
+                                         start))
+        updates, losses, top1s = (torch.cat(parts) for parts in list(zip(*out))[:3])
+        return updates, losses, top1s, self._cat_opt_states([o[3] for o in out])
+
+    def _cat_opt_states(self, states):
+        """The chunks' persistent client states, concatenated along K."""
+        if not self.client_opt.persist:
+            return ()
+        return tree_map(lambda *rows: torch.cat(rows), *states)
 
     @torch.no_grad()
     def run_round(
@@ -449,11 +541,15 @@ class RoundEngine:
         aggregator generators (``utils/rng.py``)."""
         if self.aggregator is None:
             raise ValueError("RoundEngine.run_round needs an aggregator")
+        if self.async_config is not None:
+            from blades_tpu_torch.asyncfl.engine import async_round
+
+            return async_round(self, state, cx, cy, client_lr, server_lr, seed)
         if self.streaming:
             return self._round_streaming(state, cx, cy, client_lr, server_lr, seed)
         r = state.round_idx
-        updates, losses, top1s = self._train_clients(
-            state.params, client_lr, cx, cy,
+        updates, losses, top1s, client_opt_state = self._train_clients(
+            state.params, state.client_opt_state, client_lr, cx, cy,
             rng.generator(seed, r, rng.DROPOUT, device=self.device),
         )
 
@@ -490,7 +586,7 @@ class RoundEngine:
         self.last_updates = updates if self.keep_updates else None
         self.last_fault_diag = fault_diag
         return self._finish_round(state, server_lr, agg, agg_state, attack_state, fault_state,
-                                  losses, top1s, var)
+                                  losses, top1s, var, client_opt_state)
 
     def _round_streaming(self, state, cx, cy, client_lr, server_lr, seed):
         """The streaming round (module docstring): one ``[chunk_size, D]``
@@ -523,12 +619,14 @@ class RoundEngine:
         noise = self._draw_noise(rng.generator(seed, r, rng.DROPOUT, device=dev),
                                  cx.shape[1], cx.shape[2])
         mom = moments_init(self.dim, device=dev)
-        attack_state, losses, top1s = state.attack_state, [], []
+        attack_state, losses, top1s, opt_states = state.attack_state, [], [], []
         for j, rows in enumerate(self._chunk_rows()):
-            upd, loss, top1 = self._train_chunk(state.params, flat0, client_lr, cx, cy, rows,
-                                                noise)
+            upd, loss, top1, opt = self._train_chunk(
+                state.params, flat0, client_lr, cx, cy, rows, noise,
+                tree_map(lambda t: t[rows], state.client_opt_state))
             losses.append(loss)
             top1s.append(top1)
+            opt_states.append(opt)
             if upd.shape[0] < self.chunk_size:  # the final chunk's padding: zero rows
                 upd = torch.cat([upd, upd.new_zeros(self.chunk_size - upd.shape[0], self.dim)])
             sl = slice(j * self.chunk_size, (j + 1) * self.chunk_size)
@@ -570,21 +668,23 @@ class RoundEngine:
         self.last_fault_diag = fault_diag
         return self._finish_round(state, server_lr, agg, agg_state, attack_state,
                                   state.fault_state, torch.cat(losses), torch.cat(top1s),
-                                  moments_var(mom))
+                                  moments_var(mom), self._cat_opt_states(opt_states))
 
-    def _finish_round(self, state, server_lr, agg, agg_state, attack_state, fault_state,
-                      losses, top1s, var):
-        """The server step with ``agg`` as pseudo-gradient (``grad :=
-        -agg``), the round's metrics, and the next state."""
+    def _server_step(self, state, server_lr, agg):
+        """``(params, server_opt_state)`` after the server step with ``agg``
+        as pseudo-gradient (``grad := -agg``)."""
         server_updates, server_opt_state = self._server_tx.update(
             self.unravel(-agg), state.server_opt_state, state.params
         )
         params = {
             n: p - server_lr * server_updates[n] for n, p in state.params.items()
         }
+        return params, server_opt_state
+
+    def _metrics(self, losses, top1s, var, agg) -> RoundMetrics:
         honest = (~self.byz_mask).to(losses.dtype)
         n_honest = torch.clamp_min(honest.sum(), 1.0)
-        metrics = RoundMetrics(
+        return RoundMetrics(
             train_loss=(losses * honest).sum() / n_honest,
             train_loss_all=losses.mean(),
             train_top1=(top1s * honest).sum() / n_honest,
@@ -592,16 +692,21 @@ class RoundEngine:
             update_variance_norm=torch.linalg.vector_norm(var),
             agg_norm=torch.linalg.vector_norm(agg),
         )
+
+    def _finish_round(self, state, server_lr, agg, agg_state, attack_state, fault_state,
+                      losses, top1s, var, client_opt_state):
+        """The server step, the round's metrics, and the next state."""
+        params, server_opt_state = self._server_step(state, server_lr, agg)
         new_state = RoundState(
             params=params,
             server_opt_state=server_opt_state,
-            client_opt_state=(),
+            client_opt_state=client_opt_state,
             agg_state=agg_state,
             attack_state=attack_state,
             round_idx=state.round_idx + 1,
             fault_state=fault_state,
         )
-        return new_state, metrics
+        return new_state, self._metrics(losses, top1s, var, agg)
 
     # -- evaluation ----------------------------------------------------------
 

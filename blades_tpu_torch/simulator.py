@@ -5,18 +5,22 @@ Counterpart: ``blades_tpu/simulator.py`` — the constructor
 flipping auto-fills at :194-198), ``run`` for the per-round synchronous
 dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
 ``run_round`` -> ``log_train`` / ``log_variance``, periodic ``evaluate``;
-``fault_model`` as a ``FaultModel`` or its kwargs, :466-467; ``streaming``
-and its guard against ``retain_updates`` / ``on_round_end``, :475-479),
-the stats records (:1240-1260) and ``evaluate`` (:1396-1437). It writes
-the same ``stats`` records (``train``, ``variance``, ``client_validation``,
-``test``) with the same keys.
+``fault_model`` as a ``FaultModel`` or its kwargs, :466-467;
+``async_config`` as an ``AsyncConfig`` or its kwargs, :470-471;
+``streaming`` and its guard against ``retain_updates`` / ``on_round_end``,
+:475-479), ``_CompositeAttack`` (:69-148) and ``register_attackers``
+(:262-275, wired in at :597-598), the stats records (:1240-1260) and
+``evaluate`` (:1396-1437). It writes the same ``stats`` records
+(``train``, ``variance``, ``client_validation``, ``test``) with the same
+keys.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
 yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice (queue A)
 that brings it; the JAX package's telemetry trace (with its per-round
-``faults`` records: ``engine.last_fault_diag`` holds the counters), run
-ledger and supervision hooks come with slice 10 and are not written.
+``faults`` and ``async`` records: ``engine.last_fault_diag`` and
+``engine.last_async_diag`` hold the counters), run ledger and supervision
+hooks come with slice 10 and are not written.
 """
 
 from __future__ import annotations
@@ -30,7 +34,9 @@ import torch
 from torch import nn
 
 from blades_tpu_torch.aggregators import get_aggregator
+from blades_tpu_torch.asyncfl import AsyncConfig
 from blades_tpu_torch.attackers import get_attack
+from blades_tpu_torch.attackers.base import Attack
 from blades_tpu_torch.client import BladesClient, ByzantineClient
 from blades_tpu_torch.core.engine import (
     ClientOptSpec,
@@ -61,7 +67,6 @@ _UNPORTED_RUN_OPTIONS = {
     "block_size": (1, "slice 7 (multi-round execution)"),
     "donate_batches": (False, "slice 7 (multi-round execution)"),
     "engine_cache": (None, "slice 7 (multi-round execution)"),
-    "async_config": (None, "slice 9 (async)"),
     "audit_monitor": (None, "slice 10 (audit, metrics, telemetry)"),
     "collect_diagnostics": (None, "slice 10 (audit, metrics, telemetry)"),
     "round_metrics": (None, "slice 10 (audit, metrics, telemetry)"),
@@ -85,6 +90,101 @@ def _unported(what: str, slice_name: str) -> NotImplementedError:
         f"{what} is not ported to blades_tpu_torch yet (ROADMAP.md queue A, "
         f"{slice_name})"
     )
+
+
+def _clone(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A new generator at ``generator``'s current state."""
+    if generator is None:
+        return None
+    out = torch.Generator(device=generator.device)
+    out.set_state(generator.get_state())
+    return out
+
+
+class _CompositeAttack(Attack):
+    """Each registered attacker's hooks on its own rows (``blades_tpu/
+    simulator.py:69-148``), as the reference runs each client object's own
+    hooks: ``on_batch`` and ``on_grads`` dispatch per row through a ``[K]``
+    client -> branch table (branch 0 is honest; each distinct dishonest
+    attack has a branch), by a ``torch.where`` per branch where the JAX
+    package takes ``lax.switch`` per client; ``on_updates`` gives every
+    attacker's ``omniscient_callback`` the pre-attack matrix and the full
+    byzantine mask, and keeps only that attacker's row of its output.
+
+    Every callback draws from the same stream, as every JAX callback gets
+    the same key: each gets a generator at the state the round's generator
+    had on entry, so two noise attackers draw the same normals. In the
+    streaming round ``on_updates`` sees one chunk's slab and its mask, and
+    an attacker's client index then names a row of the slab (dropped past
+    its end), as in the JAX streaming round."""
+
+    def __init__(self, entries):
+        # entries: [(client index, ByzantineClient)]; attacks built once
+        self.entries = entries
+        self._attacks = [c.make_attack() for _, c in entries]
+        self.trains_dishonestly = any(
+            a is not None and a.trains_dishonestly for a in self._attacks)
+        self._branches, branch_of, self._idx_to_branch = [], {}, {}
+        for (idx, _), a in zip(entries, self._attacks):
+            if a is None or not a.trains_dishonestly:
+                continue
+            if id(a) not in branch_of:
+                self._branches.append(a)
+                branch_of[id(a)] = len(self._branches)
+            self._idx_to_branch[idx] = branch_of[id(a)]
+        self._branch_table = None
+
+    def init_state(self, num_clients, dim):
+        # the [K] branch table, now that K is known
+        table = torch.zeros(num_clients, dtype=torch.int32)
+        for idx, b in self._idx_to_branch.items():
+            table[idx] = b
+        self._branch_table = table
+        return tuple(a.init_state(num_clients, dim) if a is not None else ()
+                     for a in self._attacks)
+
+    def _rows(self, client_idx):
+        """Each row's branch, on the rows' device."""
+        if self._branch_table.device != client_idx.device:
+            self._branch_table = self._branch_table.to(client_idx.device)
+        return self._branch_table[client_idx]
+
+    @staticmethod
+    def _pick(sel, new, old):
+        return torch.where(sel.view(-1, *([1] * (old.dim() - 1))), new, old)
+
+    def on_batch(self, x, y, byz_mask, *, num_classes, generator=None, client_idx=None):
+        if not self._branches or client_idx is None:
+            return x, y
+        branch = self._rows(client_idx)
+        out_x, out_y = x, y
+        for b, a in enumerate(self._branches, 1):
+            bx, by = a.on_batch(x, y, byz_mask, num_classes=num_classes, generator=generator,
+                                client_idx=client_idx)
+            sel = branch == b
+            out_x, out_y = self._pick(sel, bx, out_x), self._pick(sel, by, out_y)
+        return out_x, out_y
+
+    def on_grads(self, grads, byz_mask, client_idx=None):
+        if not self._branches or client_idx is None:
+            return grads
+        branch = self._rows(client_idx)
+        out = grads
+        for b, a in enumerate(self._branches, 1):
+            bg = a.on_grads(grads, byz_mask, client_idx=client_idx)
+            sel = branch == b
+            out = {n: self._pick(sel, bg[n], g) for n, g in out.items()}
+        return out
+
+    def on_updates(self, updates, byz_mask, generator=None, state=()):
+        pre, out, new_states = updates, updates, []
+        for (idx, client), st in zip(self.entries, state):
+            rewritten, st = client.omniscient_callback(pre, byz_mask, _clone(generator), st)
+            if idx < out.shape[0]:
+                out = out.clone() if out is pre else out
+                out[idx] = rewritten[idx]
+            new_states.append(st)
+        return out, tuple(new_states)
 
 
 class Simulator:
@@ -158,6 +258,7 @@ class Simulator:
             else:
                 self._clients[u] = BladesClient(id=u)
 
+        self._custom_attack_entries: List = []
         self.server: Optional[BladesServer] = None
         self.engine: Optional[RoundEngine] = None
         for name in _IGNORED_KWARGS:
@@ -186,7 +287,19 @@ class Simulator:
             self._clients[u].trust()
 
     def register_attackers(self, clients: List[ByzantineClient]) -> None:
-        raise _unported("register_attackers (custom per-client attacks)", "slice 3b (composite attacks)")
+        """Replace the first ``len(clients)`` clients with these attackers
+        (reference ``simulator.py:167-187``); ``num_byzantine`` rises to at
+        least their number, and ``run`` then applies each one's own attack
+        to its own row. Call before :meth:`run`."""
+        users = list(self._clients.keys())
+        if len(clients) > len(users):
+            raise ValueError("more attackers than clients")
+        self._custom_attack_entries = []
+        for i, c in enumerate(clients):
+            c._id = users[i]
+            self._clients[users[i]] = c
+            self._custom_attack_entries.append((i, c))
+        self.num_byzantine = max(self.num_byzantine, len(clients))
 
     # -- run ------------------------------------------------------------------
 
@@ -261,6 +374,7 @@ class Simulator:
         compute_dtype: Optional[Union[str, torch.dtype]] = None,
         fault_model: Optional[Union[FaultModel, Dict]] = None,
         streaming: bool = False,
+        async_config: Optional[Union[AsyncConfig, Dict]] = None,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -286,6 +400,19 @@ class Simulator:
         never exists; a defense, attack or fault model without a streaming
         form raises, and so do ``retain_updates`` and ``on_round_end``,
         which read that matrix.
+        ``client_optimizer``: ``"SGD"``, ``"Adam"`` or a
+        :class:`ClientOptSpec`; with ``persist=True`` each client's
+        optimizer state lives across rounds (``server.state.client_opt_state``).
+        ``async_config``: an :class:`~blades_tpu_torch.asyncfl.AsyncConfig`,
+        or its keyword arguments (``arrivals`` may be an ``ArrivalProcess``'s),
+        runs buffered-asynchronous (FedBuff) rounds: clients arrive on a
+        seeded schedule and train from the model they downloaded, the server
+        buffers their updates and fires once ``buffer_m`` are in, each
+        update weighted by its staleness; each round's counters are
+        ``self.engine.last_async_diag``. Not with ``streaming=True`` or a
+        fault model with stragglers.
+        Attackers registered with :meth:`register_attackers` replace the
+        uniform attack.
         """
         for name, value in options.items():
             if name not in _UNPORTED_RUN_OPTIONS:
@@ -297,6 +424,8 @@ class Simulator:
 
         if isinstance(fault_model, dict):
             fault_model = FaultModel(**fault_model)
+        if isinstance(async_config, dict):
+            async_config = AsyncConfig(**async_config)
         if streaming and (retain_updates or on_round_end is not None):
             raise ValueError(
                 "streaming=True never materializes the [K, D] update matrix "
@@ -306,6 +435,9 @@ class Simulator:
         batch_size = train_batch_size or self._train_bs
         params = spec.init(rng.generator(self.seed, 0, rng.INIT))
         trusted = torch.tensor([c.is_trusted() for c in self.get_clients()], dtype=torch.bool)
+        attack = self.attack
+        if self._custom_attack_entries:
+            attack = _CompositeAttack(self._custom_attack_entries)
         self.engine = RoundEngine(
             spec.train_loss_fn,
             spec.eval_logits_fn,
@@ -313,7 +445,7 @@ class Simulator:
             spec.layout,
             num_clients=self.dataset.num_clients,
             num_byzantine=self.num_byzantine,
-            attack=self.attack,
+            attack=attack,
             aggregator=self.aggregator,
             client_opt=self._resolve_opt(client_optimizer, ClientOptSpec),
             server_opt=self._resolve_opt(server_optimizer, ServerOptSpec),
@@ -325,6 +457,7 @@ class Simulator:
             noise_sites=spec.noise_sites,
             fault_model=fault_model,
             streaming=streaming,
+            async_config=async_config,
         )
         state = self.engine.init(params)
         self.server = BladesServer(self.engine, state, self.aggregator)

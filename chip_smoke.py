@@ -54,6 +54,20 @@ chunks of 250, for peak memory; and each streaming defense's
 ``aggregate_streaming`` on ``[100, 16384]`` in 3 chunks on the card and on
 the CPU.
 
+Then composite attacks, persistent client state and the buffered-async
+(FedBuff) round on the same bf16 CCT-2 round at K=1000 under trimmed mean
+(b=5): 2 label flippers, 2 sign flippers and 1 ALIE client registered
+together, each attacker's row held to what its own attack gives; Adam with
+``persist=True`` beside ``persist=False``, its stacked moments changing and
+finite; the zero-delay async round with ``buffer_m=1000``, whose params
+equal the sync round's and which launches the kernel once a tick; the
+general async round (uniform delays up to 2, ``buffer_m=250``, polynomial
+staleness weights), its 10 counters a tick, host syncs, peak memory and the
+masked trimmed mean's own time on the weighted buffer (no kernel launch);
+the async pair (``asyncmean``, ``asynccenteredclipping``) under it and in
+their streaming forms; geometric delays with a cutoff under 10% dropout;
+and a K=16 MLP async run on the card against the CPU.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -135,6 +149,25 @@ STREAM_AGGREGATORS = ("mean", "trimmedmean", "median", "krum", "multikrum", "geo
                       "signguard")
 STREAM_FAULTS = dict(dropout_rate=0.1, corrupt_rate=0.02, corrupt_mode="nan")
 STREAM_SCALE_CLIENTS, STREAM_SCALE_CHUNKS, STREAM_SCALE_ROUNDS = 4000, 16, 2
+# composite attacks, persistent client state and the buffered-async round on
+# the bf16 CCT-2 round at K=1000 (4 chunks) under trimmed mean b=5: the
+# registered attackers (2 label flippers, 2 sign flippers, 1 ALIE client),
+# the rounds or ticks of each phase, the async configurations
+COMPOSITE_ROUNDS, PERSIST_ROUNDS, PERSIST_CLIENT_LR = 2, 3, 1e-3
+ASYNC_STATIC_ROUNDS, ASYNC_TICKS, ASYNC_AGG_TICKS, ASYNC_STREAM_ROUNDS = 2, 4, 2, 2
+# a delay-3 client drawn at tick 0 arrives at tick 4, 3 ticks stale: past
+# the cutoff of 2
+ASYNC_FAULT_TICKS = 5
+ASYNC_CONFIG = dict(buffer_m=250, arrivals=dict(kind="uniform", max_delay=2),
+                    staleness="polynomial")
+ASYNC_FAULT_CONFIG = dict(buffer_m=250, arrivals=dict(kind="geometric", mean_delay=1.0,
+                                                      max_delay=3), staleness="cutoff", cutoff=2)
+ASYNC_FAULTS = dict(dropout_rate=0.1)
+ASYNC_AGGREGATORS = ("asyncmean", "asynccenteredclipping")
+# card vs CPU: a K=16 MLP async run with fixed delays, 3 ticks
+ASYNC_CPU_CLIENTS, ASYNC_CPU_TICKS = 16, 3
+# bf16 rows compared across runs: relative L2 error (the CCT tests' bar)
+BF16_ROW_REL = 2e-2
 
 
 def emit(record: dict) -> None:
@@ -1646,6 +1679,412 @@ def phase_stream_card_vs_cpu(torch, x_cpu, mask_cpu, dev) -> None:
                 check(torch.equal(a, b), f"{name}: state leaf {i} differs")
 
 
+def slice_run(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
+              aggregator: str = "trimmedmean", attack="alie", register=None, keep_rows=0,
+              **run_kw) -> dict:
+    """``rounds`` bf16 CCT-2 rounds at K=1000 (4 client chunks) through
+    Simulator.run on the store ``fl``: ``attack`` with f=5 (None: no
+    uniform attack), ``aggregator`` (trimmed mean b=5), ``register``: the
+    attackers of register_attackers, ``run_kw``: more run() arguments; no
+    evaluation. Each round's loss, aggregate norm, row count, first
+    ``keep_rows`` update rows and, where there are any, its async and
+    fault counters and the persistent Adam moments' norms are read in
+    on_round_end. Returns the simulator, those records, the round times,
+    the kernel's launches and the peak memory."""
+    from blades_tpu_torch import Simulator
+
+    gc.collect()
+    k, d, f = CCT2_SHAPE
+    sim = Simulator(dataset=fl, attack=attack, num_byzantine=f if attack else 0,
+                    aggregator=aggregator, aggregator_kws=catalog_kwargs(aggregator), seed=1,
+                    log_path=str(log_root / name))
+    if register:
+        sim.register_attackers(register)
+    seen = []
+
+    def on_round_end(rnd, state, m):
+        eng = sim.engine
+        rec = dict(loss=float(m.train_loss), agg_norm=float(m.agg_norm),
+                   rows=int(eng.last_updates.shape[0]),
+                   kept=eng.last_updates[:keep_rows].clone())
+        if eng.last_async_diag is not None:
+            rec["async"] = {n: float(v) if v.is_floating_point() else int(v)
+                            for n, v in eng.last_async_diag.items()}
+        if eng.last_fault_diag is not None:
+            rec["faults"] = {n: int(v) for n, v in eng.last_fault_diag.items()}
+        if state.client_opt_state:
+            count, mu, nu = state.client_opt_state[-1]
+            rec["adam"] = dict(count=[int(count.min()), int(count.max())],
+                               mu_norm=float(sum(torch.linalg.vector_norm(t) for t in mu.values())),
+                               nu_norm=float(sum(torch.linalg.vector_norm(t) for t in nu.values())))
+        seen.append(rec)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
+    run_kw.setdefault("client_lr", 0.1)
+    times = sim.run(model="cct_2_3x2_32", global_rounds=rounds, local_steps=1, server_lr=1.0,
+                    validate_interval=rounds + 1, client_chunks=CCT2_CHUNKS,
+                    on_round_end=on_round_end, compute_dtype="bfloat16", **run_kw)
+    torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
+    peak = torch.cuda.max_memory_allocated()
+    check(len(seen) == rounds and all(r["rows"] == k for r in seen), f"{name}: rounds {seen}")
+    numbers = [v for r in seen for v in (r["loss"], r["agg_norm"])]
+    check(all(map(math.isfinite, numbers)), f"{name}: non-finite {numbers}")
+    return dict(sim=sim, seen=seen, round_s=times, launches=launches, peak=peak)
+
+
+def _rel_l2(a, b) -> float:
+    return float(((a - b).norm() / b.norm().clamp_min(1e-30)))
+
+
+def phase_composite_round(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """register_attackers with 2 label flippers, 2 sign flippers and 1 ALIE
+    client (f=5), trimmed mean b=5, COMPOSITE_ROUNDS bf16 CCT-2 rounds at
+    K=1000, and one round each of an honest run and a uniform
+    label-flipping run from the same seed. Each attacker's row is held to
+    what its own attack gives: the label flippers' round-1 rows to the
+    uniform run's, the sign flippers' to the negation of the honest run's
+    (one local step), within a relative L2 error of BF16_ROW_REL (bf16
+    training; the label flippers' rows are further than that from the
+    honest ones), the honest rows to the honest run's, and the ALIE row to
+    ALIE on the round's own matrix. Records the round times, a warm
+    round's host syncs and the launches (1 a round). Returns the kernel's
+    launches per run."""
+    from blades_tpu_torch.attackers import Alie, get_attack
+    from blades_tpu_torch.client import ByzantineClient
+
+    k, d, f = CCT2_SHAPE
+    attackers = ([ByzantineClient(attack=get_attack("labelflipping", num_classes=10))
+                  for _ in range(2)]
+                 + [ByzantineClient(attack=get_attack("signflipping")) for _ in range(2)]
+                 + [ByzantineClient(attack=Alie(num_clients=k, num_byzantine=f))])
+    runs, first = {}, {}
+    for name, attack, register, rounds in (("composite", None, attackers, COMPOSITE_ROUNDS),
+                                           ("honest", None, None, 1),
+                                           ("labelflipping", "labelflipping", None, 1)):
+        run = slice_run(torch, trimmed, fl, log_root, f"composite_{name}", rounds,
+                        attack=attack, register=register, keep_rows=6)
+        first[name] = run["seen"][0]["kept"]
+        runs[name] = run
+        del run
+    comp = runs.pop("composite")
+    sim = comp["sim"]
+    eng = sim.engine
+    u = eng.last_updates
+    alie, _ = Alie(num_clients=k, num_byzantine=f).on_updates(u, eng.byz_mask)
+    alie_err = float((alie[4] - u[4]).abs().max())
+    c, h, lf = first["composite"], first["honest"], first["labelflipping"]
+    rows = {"labelflipping": [_rel_l2(c[i], lf[i]) for i in (0, 1)],
+            "labelflipping_vs_honest": [_rel_l2(c[i], h[i]) for i in (0, 1)],
+            "signflipping_vs_negated_honest": [_rel_l2(c[i], -h[i]) for i in (2, 3)],
+            "honest": [_rel_l2(c[5], h[5])]}
+    warm = warm_round(torch, sim)
+    emit({"phase": "composite_round", "attackers": ["labelflipping"] * 2 + ["signflipping"] * 2
+          + ["alie"], "aggregator": "trimmedmean", "dtype": "bfloat16", "clients": k,
+          "byzantine": sim.num_byzantine, "b": f, "rounds": COMPOSITE_ROUNDS,
+          "kernel_launches": comp["launches"], "round_s": comp["round_s"],
+          "train_loss": [r["loss"] for r in comp["seen"]],
+          "agg_norm": [r["agg_norm"] for r in comp["seen"]], "peak_mem_bytes": comp["peak"],
+          "row_rel_l2": rows, "alie_row_max_abs_err": alie_err, **warm,
+          "other_runs_launches": {n: r["launches"] for n, r in runs.items()}, "card": card})
+    check(sim.num_byzantine == f and [cl.is_byzantine() for cl in sim.get_clients()[:6]]
+          == [True] * 5 + [False], "composite: the byzantine clients")
+    check(max(rows["labelflipping"] + rows["signflipping_vs_negated_honest"]
+              + rows["honest"]) <= BF16_ROW_REL, f"composite: an attacker's row {rows}")
+    check(min(rows["labelflipping_vs_honest"]) > BF16_ROW_REL,
+          f"composite: the label flippers' rows are honest ones {rows}")
+    check(torch.allclose(alie[4], u[4], **TOL), f"composite: the ALIE row ({alie_err})")
+    check(comp["launches"] == COMPOSITE_ROUNDS,
+          f"composite: the kernel launched {comp['launches']} times")
+    launches = {"cct2_bf16_composite": comp["launches"]}
+    launches.update({f"cct2_bf16_composite_{n}": r["launches"] for n, r in runs.items()})
+    return launches
+
+
+def phase_persist_round(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """Adam on the clients (lr PERSIST_CLIENT_LR) with persist=True and with
+    persist=False, ALIE f=5 and trimmed mean b=5, PERSIST_ROUNDS bf16 CCT-2
+    rounds at K=1000 each: round times and peak memory (the stacked moments
+    add 2 x K x D float32); the persistent moments change between rounds
+    and stay finite, and every count equals the rounds run. Returns the
+    kernel's launches per run."""
+    from blades_tpu_torch import ClientOptSpec
+
+    k, d, f = CCT2_SHAPE
+    out = {}
+    for persist in (True, False):
+        name = "persist" if persist else "fresh"
+        run = slice_run(torch, trimmed, fl, log_root, f"adam_{name}", PERSIST_ROUNDS,
+                        client_optimizer=ClientOptSpec(name="adam", persist=persist),
+                        client_lr=PERSIST_CLIENT_LR)
+        state = run["sim"].server.state
+        moments = [r.get("adam") for r in run["seen"]]
+        out[name] = dict(round_s=run["round_s"], peak_mem_bytes=run["peak"],
+                         kernel_launches=run["launches"], moments=moments,
+                         train_loss=[r["loss"] for r in run["seen"]],
+                         state_bytes=sum(t.numel() * t.element_size() for t in
+                                         torch.utils._pytree.tree_leaves(state.client_opt_state)))
+        del run, state
+    emit({"phase": "persist_round", "client_optimizer": "adam", "client_lr": PERSIST_CLIENT_LR,
+          "attack": "alie", "aggregator": "trimmedmean", "dtype": "bfloat16", "clients": k,
+          "rounds": PERSIST_ROUNDS, **out,
+          "peak_extra_bytes": out["persist"]["peak_mem_bytes"] - out["fresh"]["peak_mem_bytes"],
+          "card": card})
+    moments = out["persist"]["moments"]
+    norms = [(m["mu_norm"], m["nu_norm"]) for m in moments]
+    check(all(math.isfinite(x) and x > 0 for pair in norms for x in pair),
+          f"persist: moments {norms}")
+    check(all(a != b for a, b in zip(norms, norms[1:])), f"persist: moments unchanged {norms}")
+    check([m["count"] for m in moments] == [[r, r] for r in range(1, PERSIST_ROUNDS + 1)],
+          f"persist: counts {moments}")
+    check(out["persist"]["state_bytes"] == 2 * k * d * 4 + k * 4 and out["fresh"][
+        "state_bytes"] == 0, f"persist: state bytes {out['persist']['state_bytes']}")
+    for name in out:
+        check(out[name]["kernel_launches"] == PERSIST_ROUNDS, f"{name}: kernel launches")
+    return {f"cct2_bf16_adam_{n}": r["kernel_launches"] for n, r in out.items()}
+
+
+class _MaskedRecorder:
+    """Keeps the arguments of an aggregator's last aggregate_masked call (an
+    instance attribute shadows the class's method)."""
+
+    def __init__(self, agg):
+        self.agg, self.last = agg, None
+        masked = agg.aggregate_masked
+
+        def on_call(updates, state=(), *, mask=None, **ctx):
+            self.last = (updates, state, mask, ctx)
+            return masked(updates, state, mask=mask, **ctx)
+
+        agg.aggregate_masked = on_call
+
+    def remove(self):
+        del self.agg.aggregate_masked
+
+
+def async_run(torch, trimmed, fl, log_root: Path, name: str, ticks: int, config: dict,
+              aggregator: str = "trimmedmean", fault_model=None) -> dict:
+    """slice_run of ``ticks`` async ticks under ``config`` (ALIE f=5),
+    recording the aggregator's last masked call; then a warm tick's wall
+    time and host syncs, and the aggregator's own time on the recorded
+    weighted buffer and mask (none for the static zero-delay path). Returns
+    slice_run's record with ``warm``, ``own`` and ``counters``."""
+    from blades_tpu_torch.aggregators import get_aggregator
+
+    agg = get_aggregator(aggregator, **catalog_kwargs(aggregator))
+    rec = _MaskedRecorder(agg)
+    run = slice_run(torch, trimmed, fl, log_root, name, ticks, aggregator=agg,
+                    async_config=config, fault_model=fault_model)
+    run["counters"] = [r["async"] for r in run["seen"]]
+    run["warm"] = warm_round(torch, run["sim"])
+    rec.remove()
+    run["own"] = None
+    if rec.last is not None:
+        updates, state, mask, ctx = rec.last
+        run["own"] = call_cost(torch, lambda: agg.aggregate_masked(updates, state, mask=mask,
+                                                                    **ctx))
+        run["own"]["participants"] = int(mask.sum())
+    del rec
+    return run
+
+
+def _check_counters(name: str, counters: list, k: int) -> None:
+    for c in counters:
+        check(0 <= c["deposited"] <= c["arrivals"] <= k and c["buffer_count"] <= k
+              and 0 <= c["stale_excluded"] <= c["buffer_count"]
+              and c["aggregated"] == (c["buffer_count"] - c["stale_excluded"]) * c["fired"]
+              and c["fired"] in (0, 1), f"{name}: counters {c}")
+
+
+def phase_async_static(torch, trimmed, fl, card: str, log_root: Path) -> tuple:
+    """AsyncConfig(buffer_m=1000) with zero delays, ALIE f=5 and trimmed
+    mean b=5, ASYNC_STATIC_ROUNDS bf16 CCT-2 ticks at K=1000, beside the
+    sync run from the same seed, both with cuDNN's deterministic
+    algorithms: the same unmasked aggregate call a tick, so the params
+    equal the sync round's bit for bit, and the kernel launches once a
+    tick. Returns (the async launches, the sync run's launches, its peak
+    memory)."""
+    from blades_tpu_torch.ops.pytree import ravel
+
+    k, d, f = CCT2_SHAPE
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        sync = slice_run(torch, trimmed, fl, log_root, "async_static_sync", ASYNC_STATIC_ROUNDS)
+        p_sync = ravel(sync["sim"].server.state.params, sync["sim"].engine.layout)
+        asy = slice_run(torch, trimmed, fl, log_root, "async_static", ASYNC_STATIC_ROUNDS,
+                        async_config=dict(buffer_m=k))
+        p_async = ravel(asy["sim"].server.state.params, asy["sim"].engine.layout)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    same = bool(torch.equal(p_async, p_sync))
+    counters = [r["async"] for r in asy["seen"]]
+    emit({"phase": "async_static", "async_config": {"buffer_m": k, "arrivals": "zero"},
+          "attack": "alie", "aggregator": "trimmedmean", "dtype": "bfloat16", "clients": k,
+          "ticks": ASYNC_STATIC_ROUNDS, "kernel_launches": asy["launches"],
+          "sync_kernel_launches": sync["launches"], "round_s": asy["round_s"],
+          "sync_round_s": sync["round_s"], "peak_mem_bytes": asy["peak"],
+          "sync_peak_mem_bytes": sync["peak"], "params_equal_sync": same,
+          "params_max_abs_err": float((p_async - p_sync).abs().max()), "counters": counters,
+          "card": card})
+    check(same, "async_static: the params differ from the sync round's")
+    check(asy["launches"] == ASYNC_STATIC_ROUNDS == sync["launches"],
+          f"async_static: the kernel launched {asy['launches']} times")
+    check(all(c["fired"] == 1 and c["aggregated"] == k and c["max_staleness"] == 0
+              for c in counters), f"async_static: counters {counters}")
+    return asy["launches"], sync["launches"], sync["peak"]
+
+
+def phase_async_round(torch, trimmed, fl, card: str, log_root: Path, sync_peak: int) -> int:
+    """ASYNC_CONFIG (buffer_m=250, uniform delays up to 2, polynomial
+    staleness weights), ALIE f=5 and trimmed mean b=5, ASYNC_TICKS bf16
+    CCT-2 ticks at K=1000: per tick the 10 counters and the wall time; a
+    warm tick's wall time and host syncs (0: the tick's gates are device
+    tensors, and the masked trimmed mean makes none); the peak memory
+    beside the sync run's (``sync_peak``); the masked trimmed mean's own
+    time on the last fire's weighted buffer. The kernel never launches (the
+    general tick takes the masked form). Returns the launches."""
+    k, d, f = CCT2_SHAPE
+    run = async_run(torch, trimmed, fl, log_root, "async_round", ASYNC_TICKS, ASYNC_CONFIG)
+    eng = run["sim"].engine
+    emit({"phase": "async_round", "async_config": ASYNC_CONFIG, "attack": "alie",
+          "aggregator": "trimmedmean", "dtype": "bfloat16", "clients": k, "ticks": ASYNC_TICKS,
+          "buffer_m": eng.async_buffer_m, "kernel_launches": run["launches"],
+          "round_s": run["round_s"], "counters": run["counters"],
+          "train_loss": [r["loss"] for r in run["seen"]],
+          "agg_norm": [r["agg_norm"] for r in run["seen"]], "peak_mem_bytes": run["peak"],
+          "sync_peak_mem_bytes": sync_peak, **run["warm"],
+          **{f"masked_trimmed_mean_{n}": v for n, v in run["own"].items()}, "card": card})
+    _check_counters("async_round", run["counters"], k)
+    check(run["launches"] == 0, f"async_round: the kernel launched {run['launches']} times")
+    check(run["warm"]["round_host_syncs"] == 0,
+          f"async_round: host syncs {run['warm']['round_host_sync_sites']}")
+    check(sum(c["fired"] for c in run["counters"]) >= 2 and any(
+        c["max_staleness"] > 0 for c in run["counters"]), f"async_round: {run['counters']}")
+    return run["launches"]
+
+
+def phase_async_aggregators(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """``asyncmean`` and ``asynccenteredclipping`` under ASYNC_CONFIG,
+    ASYNC_AGG_TICKS ticks each with their own time on the last fire's
+    weighted buffer; then each one's streaming form in one
+    ``run(streaming=True)`` of ASYNC_STREAM_ROUNDS rounds (sign flipping,
+    4 chunks of 250). Returns the kernel's launches per run (0 each)."""
+    k, d, f = CCT2_SHAPE
+    launches = {}
+    for aggregator in ASYNC_AGGREGATORS:
+        run = async_run(torch, trimmed, fl, log_root, f"async_{aggregator}", ASYNC_AGG_TICKS,
+                        ASYNC_CONFIG, aggregator=aggregator)
+        rec = {"phase": "async_aggregator", "aggregator": aggregator,
+               "async_config": ASYNC_CONFIG, "attack": "alie", "dtype": "bfloat16",
+               "clients": k, "ticks": ASYNC_AGG_TICKS, "kernel_launches": run["launches"],
+               "round_s": run["round_s"], "counters": run["counters"],
+               "agg_norm": [r["agg_norm"] for r in run["seen"]], "peak_mem_bytes": run["peak"],
+               **run["warm"], **{f"aggregate_{n}": v for n, v in run["own"].items()}}
+        _check_counters(aggregator, run["counters"], k)
+        launches[f"async_{aggregator}"] = run["launches"]
+        del run
+        stream = stream_run(torch, trimmed, fl, log_root, aggregator, ASYNC_STREAM_ROUNDS, True)
+        rec.update(stream_round_s=stream["round_s"], stream_kernel_launches=stream["launches"],
+                   stream_peak_mem_bytes=stream["peak"],
+                   stream_agg_norm=[r["agg_norm"] for r in stream["seen"]],
+                   stream_warm=warm_round(torch, stream["sim"]), card=card)
+        emit(rec)
+        check(rec["kernel_launches"] == 0 and stream["launches"] == 0,
+              f"{aggregator}: the kernel launched")
+        check(rec["round_host_syncs"] == 0 and rec["stream_warm"]["round_host_syncs"] == 0,
+              f"{aggregator}: host syncs {rec['round_host_sync_sites']}")
+        launches[f"stream_{aggregator}"] = stream["launches"]
+        del stream
+    return launches
+
+
+def phase_async_fault(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """ASYNC_FAULT_CONFIG (geometric delays of mean 1 up to 3, cutoff 2)
+    under FaultModel(ASYNC_FAULTS), ALIE f=5 and trimmed mean b=5,
+    ASYNC_FAULT_TICKS bf16 CCT-2 ticks at K=1000: deposited <= arrivals
+    (a dropped arrival is lost), 0 <= stale_excluded <= buffer_count, and
+    the cutoff excludes the updates more than 2 ticks stale. Returns the
+    launches (0)."""
+    from blades_tpu_torch.faults import FaultModel
+
+    k, d, f = CCT2_SHAPE
+    run = async_run(torch, trimmed, fl, log_root, "async_fault", ASYNC_FAULT_TICKS,
+                    ASYNC_FAULT_CONFIG, fault_model=FaultModel(**ASYNC_FAULTS))
+    faults = [r["faults"] for r in run["seen"]]
+    emit({"phase": "async_fault", "async_config": ASYNC_FAULT_CONFIG,
+          "fault_model": ASYNC_FAULTS, "attack": "alie", "aggregator": "trimmedmean",
+          "dtype": "bfloat16", "clients": k, "ticks": ASYNC_FAULT_TICKS,
+          "kernel_launches": run["launches"], "round_s": run["round_s"],
+          "counters": run["counters"], "faults": faults, "peak_mem_bytes": run["peak"],
+          **run["warm"], **{f"masked_trimmed_mean_{n}": v for n, v in (run["own"] or {}).items()},
+          "card": card})
+    _check_counters("async_fault", run["counters"], k)
+    check(sum(c["arrivals"] - c["deposited"] for c in run["counters"]) > 0,
+          "async_fault: no arrival was dropped")
+    check(any(c["stale_excluded"] > 0 for c in run["counters"]) and all(
+        c["max_staleness"] <= ASYNC_FAULT_CONFIG["cutoff"] for c in run["counters"]),
+        f"async_fault: the cutoff {run['counters']}")
+    check(run["launches"] == 0, f"async_fault: the kernel launched {run['launches']} times")
+    return run["launches"]
+
+
+def phase_async_card_vs_cpu(torch, dev) -> None:
+    """A K=16 MLP async run, fixed delays (0, 1, 2, ...), buffer_m=7,
+    polynomial weights, ALIE f=2 and trimmed mean b=2, ASYNC_CPU_TICKS ticks
+    on the card and on the CPU from the same params and batches: the params
+    within ROUND_TOL after every tick, the async state's integer fields and
+    the counts equal, its float fields within ROUND_TOL. The second tick's 6
+    arrivals do not fire it; the first and third fire."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.asyncfl import AsyncConfig
+    from blades_tpu_torch.attackers import Alie
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.datasets import Synthetic
+    from blades_tpu_torch.models import create_mnist_model
+    from blades_tpu_torch.ops.pytree import ravel
+
+    k, f = ASYNC_CPU_CLIENTS, 2
+    cfg = AsyncConfig(buffer_m=7, staleness="polynomial",
+                      arrivals=dict(kind="fixed", delays=tuple(i % 3 for i in range(k))))
+    spec = create_mnist_model()
+    params = spec.init(torch.Generator().manual_seed(21))
+    ds = Synthetic(num_clients=k, train_bs=32, train_size=4_000, cache=False).get_dls("cpu")
+    batches = [ds.sample_round(torch.Generator().manual_seed(22 + t), 1, 32)
+               for t in range(ASYNC_CPU_TICKS)]
+    out = {}
+    for where in ("cpu", dev):
+        eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                          num_clients=k, num_byzantine=f,
+                          attack=Alie(num_clients=k, num_byzantine=f),
+                          aggregator=Trimmedmean(num_byzantine=f), device=where,
+                          async_config=cfg)
+        state, ticks = eng.init(params), []
+        for cx, cy in batches:
+            state, _ = eng.run_round(state, cx.to(where), cy.to(where), 0.1, 1.0, seed=3)
+            ticks.append((ravel(state.params, spec.layout).cpu(),
+                          {n: t.cpu() for n, t in state.async_state.items()},
+                          {n: t.item() for n, t in eng.last_async_diag.items()}))
+        out[str(where)] = ticks
+    errs, same = [], True
+    for (p_cpu, a_cpu, d_cpu), (p_gpu, a_gpu, d_gpu) in zip(out["cpu"], out[str(dev)]):
+        errs.append(float((p_gpu - p_cpu).abs().max()))
+        same &= torch.allclose(p_gpu, p_cpu, **ROUND_TOL)
+        for n, t in a_cpu.items():
+            same &= (torch.allclose(a_gpu[n], t, **ROUND_TOL) if t.is_floating_point()
+                     else torch.equal(a_gpu[n], t))
+        same &= all(d_gpu[n] == v for n, v in d_cpu.items() if isinstance(v, int)) and all(
+            math.isclose(d_gpu[n], v, rel_tol=1e-5) for n, v in d_cpu.items()
+            if isinstance(v, float))
+    emit({"phase": "async_card_vs_cpu", "clients": k, "ticks": ASYNC_CPU_TICKS,
+          "async_config": repr(cfg), "tol": ROUND_TOL, "params_max_abs_err": errs,
+          "counters_cpu": [t[2] for t in out["cpu"]], "ok": same})
+    check(same, f"async_card_vs_cpu: card and CPU differ ({errs})")
+    check([t[2]["fired"] for t in out["cpu"]] == [1, 0, 1], "async_card_vs_cpu: the fires")
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -1739,6 +2178,20 @@ def main() -> int:
         stream_launches["stream_exact"] = phase_stream_exact(torch, trimmed, fl, card, Path(tmp))
         stream_launches.update(phase_stream_aggregators(torch, trimmed, fl, card, Path(tmp)))
         stream_launches["stream_fault"] = phase_stream_fault(torch, trimmed, fl, card, Path(tmp))
+        # composite attacks and persistent client state launch the kernel
+        # once a round; the async round launches it only on its static
+        # zero-delay path
+        launches.update(phase_composite_round(torch, trimmed, fl, card, Path(tmp)))
+        launches.update(phase_persist_round(torch, trimmed, fl, card, Path(tmp)))
+        async_launches = {}
+        async_launches["async_static"], launches["cct2_bf16_async_static_sync"], sync_peak = (
+            phase_async_static(torch, trimmed, fl, card, Path(tmp)))
+        async_launches["async_round"] = phase_async_round(torch, trimmed, fl, card, Path(tmp),
+                                                          sync_peak)
+        agg_launches = phase_async_aggregators(torch, trimmed, fl, card, Path(tmp))
+        async_launches.update({n: v for n, v in agg_launches.items() if n.startswith("async")})
+        stream_launches.update({n: v for n, v in agg_launches.items() if n.startswith("stream")})
+        async_launches["async_fault"] = phase_async_fault(torch, trimmed, fl, card, Path(tmp))
         del fl
         launches["cct2_bf16_k4000_dense"], stream_launches["stream_scale"] = (
             phase_stream_scale(torch, trimmed, dev, card, Path(tmp)))
@@ -1746,11 +2199,15 @@ def main() -> int:
         phase_catalog_card_vs_cpu(torch, sample, dev)
         phase_fault_card_vs_cpu(torch, *fault_sample, dev)
         phase_stream_card_vs_cpu(torch, *fault_sample, dev)
+        phase_async_card_vs_cpu(torch, dev)
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
+    check(async_launches["async_static"] > 0 and not any(
+        n for p, n in async_launches.items() if p != "async_static"),
+        f"async launches: {async_launches}")
 
     # the slice's main path is the CCT-2 round, under ALIE in f32 and bf16
     # and under each catalog attack in bf16: its launches, and the kernel
@@ -1767,6 +2224,9 @@ def main() -> int:
         # the streaming round's chunks take the masked trimmed mean, as the
         # JAX package's streaming round never reaches its Pallas kernel
         "launches_under_streaming": stream_launches,
+        # the async round's static zero-delay path makes the sync round's
+        # unmasked call; its general ticks take the masked trimmed mean
+        "launches_under_async": async_launches,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

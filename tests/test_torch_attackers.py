@@ -65,15 +65,18 @@ def test_honest_stats_matches_jax(n_honest):
 def test_registry():
     assert isinstance(get_attack(None), NoAttack)
     assert isinstance(get_attack("alie", num_clients=10), Alie)
-    # persistent per-client optimizer state is still to port (slice 3b)
+    # persistent per-client optimizer state is ported (slice 3b): the engine
+    # keeps one stacked [K, ...] state
     from blades_tpu_torch.core import ClientOptSpec, RoundEngine
     from blades_tpu_torch.models import create_mnist_model
 
     spec = create_mnist_model()
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        RoundEngine(spec.train_loss_fn, spec.eval_logits_fn,
-                    spec.init(torch.Generator().manual_seed(0)), spec.layout,
-                    num_clients=4, client_opt=ClientOptSpec(persist=True), device="cpu")
+    params = spec.init(torch.Generator().manual_seed(0))
+    eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                      num_clients=4, client_opt=ClientOptSpec(name="adam", persist=True),
+                      device="cpu")
+    count, mu, nu = eng.init(params).client_opt_state[-1]
+    assert count.tolist() == [0] * 4 and all(m.shape[0] == 4 for m in mu.values())
     with pytest.raises(ValueError, match="Unknown attack"):
         get_attack("nope")
 

@@ -42,7 +42,9 @@ from blades_tpu.aggregators import get_aggregator as jax_get_aggregator
 from blades_tpu.aggregators.trimmedmean import Trimmedmean as JaxTrimmedmean
 from blades_tpu.attackers import get_attack as jax_get_attack
 from blades_tpu.attackers.alie import Alie as JaxAlie
+from blades_tpu.core import ClientOptSpec as JaxClientOptSpec
 from blades_tpu.core import RoundEngine as JaxRoundEngine
+from blades_tpu.core import ServerOptSpec as JaxServerOptSpec
 from blades_tpu.faults import FaultModel as JaxFaultModel
 from blades_tpu.models import build_fns as jax_build_fns
 from blades_tpu.models import cct as jax_cct
@@ -51,7 +53,7 @@ from blades_tpu_torch.aggregators import Trimmedmean, get_aggregator
 from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.attackers import Alie, get_attack
 from blades_tpu_torch.attackers.noise import draw_normals
-from blades_tpu_torch.core import RoundEngine, RoundMetrics
+from blades_tpu_torch.core import ClientOptSpec, RoundEngine, RoundMetrics, ServerOptSpec
 from blades_tpu_torch.faults import FaultModel, draw_faults
 from blades_tpu_torch.models import build_fns, cct, create_mnist_model, params_from_jax
 from blades_tpu_torch.ops.pytree import ravel
@@ -76,10 +78,15 @@ def jax_params():
 
 
 def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=None,
-             faults=None):
+             faults=None, client_opt=None, server_opt=None):
     """The two engines; ``attack`` / ``aggregator``: ``(name, kwargs)`` for
     both registries (default ALIE and trimmed mean b=5); ``faults``: the
-    kwargs of a fault model for both."""
+    kwargs of a fault model for both; ``client_opt`` / ``server_opt``: the
+    kwargs of both packages' optimizer specs (default plain SGD)."""
+    opts = dict(client_opt=(JaxClientOptSpec(**client_opt), ClientOptSpec(**client_opt))
+                if client_opt else (JaxClientOptSpec(), ClientOptSpec()),
+                server_opt=(JaxServerOptSpec(**server_opt), ServerOptSpec(**server_opt))
+                if server_opt else (JaxServerOptSpec(), ServerOptSpec()))
     jspec, tspec = jax_mlp(), create_mnist_model()
     if attack is None:
         jattack, tattack = JaxAlie(num_clients=K, num_byzantine=F), Alie(num_clients=K,
@@ -98,6 +105,7 @@ def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=No
         trusted_mask=None if trusted is None else jnp.asarray(trusted),
         plan=None, client_chunks=client_chunks, keep_updates=True,
         fault_model=None if faults is None else JaxFaultModel(**faults),
+        **{n: pair[0] for n, pair in opts.items()},
     )
     tparams = params_from_jax(jax_params, tspec.layout)
     teng = RoundEngine(
@@ -106,6 +114,7 @@ def _engines(jax_params, client_chunks, attack=None, aggregator=None, trusted=No
         trusted_mask=None if trusted is None else torch.from_numpy(trusted),
         client_chunks=client_chunks, keep_updates=True, device="cpu",
         fault_model=None if faults is None else FaultModel(**faults),
+        **{n: pair[1] for n, pair in opts.items()},
     )
     jstate = jeng.init(jax_params)
     tstate = teng.init(tparams)
@@ -470,3 +479,201 @@ def test_unguarded_nan_fault_round_with_trimmed_mean_matches_jax(jax_params):
     assert np.isfinite(tp).all()
     np.testing.assert_allclose(tp, jp, **TOL)
     _check_metrics(jm, tm, rtol=TOL["rtol"])
+
+
+# -- client and server optimizers; persistent client state ----------------------
+
+MOMENTUM = dict(name="sgd", momentum=0.9, weight_decay=1e-2)
+ADAM = dict(name="adam")
+# Adam's step g / (sqrt(nu_hat) + 1e-8) turns the two frameworks' rounding
+# in a near-zero gradient into a step of order lr: its params are held
+# where every client's sqrt(nu_hat) exceeds this (in JAX's state)
+ADAM_WELL_CONDITIONED = 1e-6
+_rows = jax.vmap(lambda t: ravel_pytree(t)[0])
+
+
+# a server step's rounding is about 1e-4 of lr, so TOL_3 holds steps above
+# a tenth of lr
+ADAM_NO_CANCELLATION = 0.1
+
+
+def _well_conditioned(adam_state, no_cancellation=False):
+    """The ``[D]`` coordinates where ``sqrt(nu_hat)`` of a JAX Adam state
+    exceeds ``ADAM_WELL_CONDITIONED`` (every client's, for a stacked one)
+    and, with ``no_cancellation``, ``|mu_hat|`` exceeds
+    ``ADAM_NO_CANCELLATION * sqrt(nu_hat)``."""
+    count = np.asarray(adam_state.count, np.float64)
+    flat = _rows if count.ndim else (lambda t: ravel_pytree(t)[0])
+    if count.ndim:  # stacked [K] client states
+        count = count[:, None]
+    nu_hat = np.sqrt(np.asarray(flat(adam_state.nu)) / (1 - 0.999 ** count))
+    ok = nu_hat > ADAM_WELL_CONDITIONED
+    if no_cancellation:
+        mu_hat = np.asarray(flat(adam_state.mu)) / (1 - 0.9 ** count)
+        ok &= np.abs(mu_hat) > ADAM_NO_CANCELLATION * nu_hat
+    return np.atleast_2d(ok).all(axis=0)
+
+
+def _check_client_state(teng, tstate, jstate):
+    """The port's persistent client state against JAX's, client by client:
+    momentum's trace, or Adam's count (exact), first and second moments."""
+    tpart, jpart = tstate.client_opt_state[-1], jstate.client_opt_state[-1]
+    if isinstance(tpart, dict):  # optax.trace
+        np.testing.assert_allclose(teng._ravel_rows(tpart).numpy(),
+                                   np.asarray(_rows(jpart.trace)), **TOL_3)
+        return
+    count, mu, nu = tpart
+    np.testing.assert_array_equal(count.numpy(), np.asarray(jpart.count))
+    assert count.dtype == torch.int32 and count.shape == (K,)
+    np.testing.assert_allclose(teng._ravel_rows(mu).numpy(), np.asarray(_rows(jpart.mu)),
+                               **TOL_3)
+    np.testing.assert_allclose(teng._ravel_rows(nu).numpy(), np.asarray(_rows(jpart.nu)),
+                               **TOL_3)
+
+
+@pytest.mark.parametrize("client_chunks", [1, 3])
+def test_persistent_momentum_three_rounds_match_jax(jax_params, client_chunks):
+    """Momentum SGD with weight decay and ``persist=True``, three K=10
+    rounds: the params, the metrics and every client's trace agree with
+    the JAX engine's ``state.client_opt_state`` at ``TOL_3``."""
+    j, t = _engines(jax_params, client_chunks, client_opt=dict(MOMENTUM, persist=True))
+    for rnd in range(3):
+        j, t, jm, tm = _round(j, t, rnd)
+        _check_metrics(jm, tm, rtol=TOL_3["rtol"])
+        _check_client_state(t[0], t[1], j[1])
+    np.testing.assert_allclose(*_flat_params(j[1], t[1], t[2]), **TOL_3)
+    trace = t[1].client_opt_state[-1]
+    assert next(iter(trace.values())).shape[0] == K
+
+
+@pytest.mark.parametrize("client_chunks", [1, 3])
+def test_persistent_adam_three_rounds_match_jax(jax_params, client_chunks):
+    """Adam with ``persist=True``, three K=10 rounds. Adam's moments and
+    counts are linear and quadratic in the gradients and are held at
+    ``TOL_3`` for every client; the params at ``TOL_3`` on the coordinates
+    where every client's ``sqrt(nu_hat)`` exceeds 1e-6 (3,166 of the 59,850
+    leave that set at this seed: coordinates where a client's gradient
+    stays near zero; ``ROADMAP.md``, behaviours to know)."""
+    j, t = _engines(jax_params, client_chunks, client_opt=dict(ADAM, persist=True))
+    for rnd in range(3):
+        j, t, jm, tm = _round(j, t, rnd)
+        _check_client_state(t[0], t[1], j[1])
+    assert np.asarray(t[1].client_opt_state[-1][0]).tolist() == [3 * S] * K
+    ok = _well_conditioned(j[1].client_opt_state[-1])
+    assert ok.size - ok.sum() == 3_166
+    tp, jp = _flat_params(j[1], t[1], t[2])
+    np.testing.assert_allclose(tp[ok], jp[ok], **TOL_3)
+    assert np.isfinite(tp).all()
+
+
+def _carry_into_port(jstate, tstate, layout):
+    """The port's state with the JAX state's params and, for a server Adam,
+    its moments and count."""
+    server = tstate.server_opt_state
+    if server and isinstance(server[-1], tuple):
+        adam = jstate.server_opt_state[-1]
+        server = server[:-1] + ((torch.tensor(np.asarray(adam.count)),
+                                 params_from_jax(adam.mu, layout),
+                                 params_from_jax(adam.nu, layout)),)
+    return tstate._replace(params=params_from_jax(jstate.params, layout), server_opt_state=server)
+
+
+@pytest.mark.parametrize("opt", [MOMENTUM, ADAM], ids=["momentum", "adam"])
+@pytest.mark.parametrize("side", ["client", "server"])
+def test_non_persistent_optimizer_rounds_match_jax(jax_params, side, opt):
+    """Momentum SGD with weight decay and Adam, on the client (a fresh
+    state each round) or on the server, three K=10 rounds.
+
+    Momentum: the trajectory, the metrics too, at ``TOL_3``. Adam: each
+    round from JAX's state carried into the port, the round's step (the new
+    params less the carried ones: a step of order lr can land a param near
+    zero, where its own relative error is no measure) at ``TOL_3`` on the
+    coordinates where Adam's direction ``mu_hat / sqrt(nu_hat)`` is well
+    conditioned in JAX's state: ``sqrt(nu_hat)`` above 1e-6 and, on the
+    server, ``|mu_hat|`` above ``ADAM_NO_CANCELLATION * sqrt(nu_hat)`` (a
+    new gradient that cancels the first moment leaves a small step made of
+    rounding). The client side takes one local step a round: a client's
+    first Adam step is ``g / (|g| + eps)``, of order lr however small ``g``
+    is, so one near-zero gradient changes all its later steps; its
+    ``nu_hat`` is every client's, read from a JAX engine with
+    ``persist=True`` run on the same round (its fresh state is the one the
+    round starts from). Across rounds Adam is not held: its first server
+    step moves every coordinate by ``server_lr`` in the sign of the
+    aggregate, so an aggregate within rounding of zero sends the two
+    trajectories apart."""
+    adam = opt == ADAM
+    j, t = _engines(jax_params, 2, **{f"{side}_opt": opt})
+    steps = 1 if adam and side == "client" else S
+    excluded = []
+    for rnd in range(3):
+        cx, cy = (a[:, :steps] for a in _batches(rnd))
+        if adam:
+            t = (t[0], _carry_into_port(j[1], t[1], t[2]), t[2])
+        if adam and side == "client":
+            (twin, tstate), _ = _engines(jax_params, 2, client_opt=dict(ADAM, persist=True))
+            start = jax.tree_util.tree_map(lambda a: jnp.array(a, copy=True), j[1].params)
+            tstate, _ = twin.run_round(tstate._replace(params=start), jnp.asarray(cx),
+                                       jnp.asarray(cy), CLIENT_LR, SERVER_LR,
+                                       jax.random.PRNGKey(7))
+            ok = _well_conditioned(tstate.client_opt_state[-1])
+        before = _flat_params(j[1], t[1], t[2])[1]
+        jstate, jm = j[0].run_round(j[1], jnp.asarray(cx), jnp.asarray(cy), CLIENT_LR,
+                                    SERVER_LR, jax.random.PRNGKey(7))
+        tstate, tm = t[0].run_round(t[1], torch.from_numpy(cx), torch.from_numpy(cy),
+                                    CLIENT_LR, SERVER_LR)
+        j, t = (j[0], jstate), (t[0], tstate, t[2])
+        tp, jp = _flat_params(j[1], t[1], t[2])
+        if adam:
+            if side == "server":
+                ok = _well_conditioned(jstate.server_opt_state[-1], no_cancellation=True)
+                # the aggregate the server stepped with, before Adam
+                np.testing.assert_allclose(float(tm.agg_norm), float(jm.agg_norm),
+                                           rtol=TOL["rtol"])
+            excluded.append(int(ok.size - ok.sum()))
+            np.testing.assert_allclose((tp - before)[ok], (jp - before)[ok], **TOL_3)
+        else:
+            _check_metrics(jm, tm, rtol=TOL_3["rtol"])
+    assert t[1].client_opt_state == ()
+    if adam:
+        assert max(excluded) < 0.8 * tp.size, excluded
+    else:
+        np.testing.assert_allclose(tp, jp, **TOL_3)
+    assert np.isfinite(tp).all()
+
+
+@pytest.mark.parametrize("lead", [(), (K,)], ids=["server", "stacked-clients"])
+@pytest.mark.parametrize("spec", [MOMENTUM, ADAM, dict(ADAM, weight_decay=1e-2)],
+                         ids=["momentum", "adam", "adamw"])
+def test_optimizer_transforms_match_optax(spec, lead):
+    """The port's optax chains on the same seeded gradients and params,
+    four updates, against optax's (vmapped over a stacked client axis):
+    the updates and every state leaf, the count exactly."""
+    import optax  # noqa: F401  (the JAX side's optimizer library)
+
+    rng = np.random.RandomState(9)
+    shapes = {"w": (3, 4), "b": (4,)}
+    params = {n: rng.randn(*lead, *sh).astype(np.float32) for n, sh in shapes.items()}
+    ours = ClientOptSpec(**spec).transform()
+    ref = JaxClientOptSpec(**spec).transform()
+    tstate = ours.init({n: torch.from_numpy(a) for n, a in params.items()}, lead=lead)
+    jinit = jax.vmap(ref.init) if lead else ref.init
+    jupdate = jax.vmap(ref.update) if lead else ref.update
+    jstate = jinit({n: jnp.asarray(a) for n, a in params.items()})
+    for step in range(4):
+        # one gradient row near zero: Adam's g / (|g| + eps) with |g| ~ eps
+        grads = {n: (rng.randn(*lead, *sh) * (10.0 ** -step)).astype(np.float32)
+                 for n, sh in shapes.items()}
+        tu, tstate = ours.update({n: torch.from_numpy(g) for n, g in grads.items()}, tstate,
+                                 {n: torch.from_numpy(a) for n, a in params.items()})
+        ju, jstate = jupdate({n: jnp.asarray(g) for n, g in grads.items()}, jstate,
+                             {n: jnp.asarray(a) for n, a in params.items()})
+        for n in shapes:
+            np.testing.assert_allclose(tu[n].numpy(), np.asarray(ju[n]), rtol=1e-5, atol=1e-7)
+    tleaves = torch.utils._pytree.tree_leaves(tstate)
+    jleaves = jax.tree_util.tree_leaves(jstate)
+    assert len(tleaves) == len(jleaves)
+    for a, b in zip(tleaves, jleaves):
+        if np.asarray(b).dtype.kind == "i":
+            assert a.dtype == torch.int32
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+            assert a.shape == tuple(lead)

@@ -144,11 +144,11 @@ class _Both:
 
 
 def test_registry_matches_jax_but_async():
-    assert set(AGGREGATORS) == set(JAX_AGGREGATORS) - set(UNPORTED)
-    assert set(UNPORTED) == {"asyncmean", "asynccenteredclipping"}
-    for name in UNPORTED:
-        with pytest.raises(NotImplementedError, match="slice 9"):
-            get_aggregator(name)
+    """The whole JAX registry, the async pair included since slice 9."""
+    assert set(AGGREGATORS) == set(JAX_AGGREGATORS)
+    assert UNPORTED == {}
+    for name in ("asyncmean", "asynccenteredclipping"):
+        assert get_aggregator(name)._masked_aggregate is not Aggregator._masked_aggregate
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -182,6 +182,8 @@ CASES = [
     ("byzantinesgd", {}), ("byzantinesgd", {"th_A": 0.05, "th_B": 0.8, "th_V": 0.25}),
     ("dnc", {"num_byzantine": 2, "sub_dim": 16, "num_iters": 3}),
     ("signguard", {}), ("signguard", {"lower": 0.9, "upper": 1.1}),
+    ("asyncmean", {}), ("asynccenteredclipping", {}),
+    ("asynccenteredclipping", {"tau": 0.05, "n_iter": 3}),
 ]
 
 
@@ -205,6 +207,7 @@ def test_masked_aggregate_matches_jax(monkeypatch, case, kind):
 
 @pytest.mark.parametrize("case", [
     ("centeredclipping", {"tau": 0.5, "n_iter": 3}),
+    ("asynccenteredclipping", {"tau": 0.05, "n_iter": 2}),
     ("clippedclustering", {"history_cap": 30}),  # the ring wraps in round 3
     ("byzantinesgd", {}),
     ("byzantinesgd", {"th_A": 0.05, "th_B": 0.8, "th_V": 0.25}),

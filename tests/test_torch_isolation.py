@@ -97,3 +97,38 @@ def test_streaming_module_is_covered_and_a_streaming_round_loads_no_jax(tmp_path
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_asyncfl_package_is_covered_and_an_async_round_loads_no_jax(tmp_path):
+    """``asyncfl/`` is among the checked sources, and buffered-async rounds
+    with persistent Adam state and registered attackers run through the
+    port leave no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    for name in ("__init__.py", "arrivals.py", "buffer.py", "engine.py"):
+        assert ROOT / "blades_tpu_torch" / "asyncfl" / name in files
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch import ClientOptSpec, Simulator\n"
+        "from blades_tpu_torch.attackers import get_attack\n"
+        "from blades_tpu_torch.client import ByzantineClient\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "ds = Synthetic(num_clients=6, train_size=120, test_size=30, cache=False)\n"
+        "sim = Simulator(ds, aggregator='asyncmean', device='cpu',\n"
+        f"                log_path={str(tmp_path / 'out')!r})\n"
+        "sim.register_attackers([ByzantineClient(attack=get_attack('signflipping'))])\n"
+        "sim.run(model='mlp', global_rounds=2, train_batch_size=4,\n"
+        "        client_optimizer=ClientOptSpec(name='adam', persist=True),\n"
+        "        async_config={'buffer_m': 3, 'arrivals': {'kind': 'uniform', 'max_delay': 2}})\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

@@ -14,6 +14,7 @@ from blades_tpu import Simulator as JaxSimulator
 from blades_tpu.datasets import Synthetic as JaxSynthetic
 from blades_tpu.utils.logging import read_stats as jax_read_stats
 from blades_tpu_torch import Simulator
+from blades_tpu_torch.client import ByzantineClient
 from blades_tpu_torch.core import ClientOptSpec
 from blades_tpu_torch.datasets import FLDataset, Synthetic
 from blades_tpu_torch.utils.logging import read_stats
@@ -107,7 +108,6 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
     "option,value,slice_no",
     [
         ("donate_batches", True, "slice 7"),
-        ("async_config", {"buffer_m": 2}, "slice 9"),
         ("collect_diagnostics", True, "slice 10"),
         ("audit_monitor", {}, "slice 10"),
         ("block_size", 4, "slice 7"),
@@ -171,20 +171,26 @@ def test_streaming_refuses_parts_without_a_streaming_form(tmp_path):
     for option, value in (("collect_diagnostics", True), ("audit_monitor", {})):
         with pytest.raises(NotImplementedError, match="slice 10"):
             sim.run(model="mlp", streaming=True, **{option: value})
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        sim.run(model="mlp", streaming=True, client_optimizer=ClientOptSpec(persist=True))
+    # persistent client state streams (slice 3b); the async buffer does not
+    sim.run(model="mlp", streaming=True,
+            client_optimizer=ClientOptSpec(name="adam", persist=True))
+    count = sim.server.state.client_opt_state[-1][0]
+    assert sim.engine.streaming and count.tolist() == [1] * ds.num_clients
+    with pytest.raises(ValueError, match="async_config is incompatible"):
+        sim.run(model="mlp", streaming=True, async_config={"buffer_m": 2})
 
 
 def test_unported_choices_raise(tmp_path):
     ds = Synthetic(num_clients=4, train_size=100, cache=False)
     with pytest.raises(NotImplementedError, match="slice 12"):
         Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        Simulator(ds, device="cpu", log_path=str(tmp_path), aggregator="asyncmean")
+    # the async pair and register_attackers are ported (slices 9 and 3b)
+    assert repr(Simulator(ds, device="cpu", log_path=str(tmp_path),
+                          aggregator="asyncmean").aggregator) == "Asyncmean"
     sim = Simulator(ds, device="cpu", log_path=str(tmp_path), attack="signflipping",
                     num_byzantine=1)
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        sim.register_attackers(sim.get_clients()[:1])
+    sim.register_attackers([ByzantineClient(attack=sim.attack) for _ in range(2)])
+    assert sim.num_byzantine == 2 and sim.get_clients()[1].is_byzantine()
     with pytest.raises(NotImplementedError, match="slice 11"):
         sim.run(model="resnet18")
     with pytest.raises(TypeError, match="unexpected keyword"):

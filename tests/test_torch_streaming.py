@@ -1,7 +1,8 @@
 """The port's streaming round against the JAX package's streaming round.
 
-Covered: the registry's split (11 streaming defenses, 3 opt-outs with the
-JAX package's reasons, the async pair raising "slice 9"); every streaming
+Covered: the registry's split (13 streaming defenses with the async pair,
+3 opt-outs with the JAX package's reasons, and asynchronous centered
+clipping's with ``n_iter > 1``); every streaming
 defense's ``aggregate_streaming`` at 1, 2 and 3 chunks of K=7 rows (2 and
 3 chunks pad the final chunk), with and without a mask, against JAX's;
 masked-out garbage and zero participants; three rounds of centered
@@ -10,7 +11,8 @@ clipping's momentum and clipped clustering's ring; ``plan_streaming`` and
 rounds (2 chunks, pad 1) under sign flipping, label flipping and noise,
 with and without a fault model, and one round with each streaming defense;
 a K=6 CCT-2 streaming round; the exact forms' streaming rounds against the
-port's dense rounds.
+port's dense rounds; persistent client state (``persist=True``) through
+the streaming round.
 
 The JAX streaming round draws per chunk (the noise attack's normals and the
 bit-flip pattern, from ``fold_in(key, chunk)``). The port draws them from
@@ -39,6 +41,7 @@ from jax.flatten_util import ravel_pytree
 from blades_tpu.aggregators import AGGREGATORS as JAX_AGGREGATORS
 from blades_tpu.aggregators import get_aggregator as jax_get_aggregator
 from blades_tpu.attackers import get_attack as jax_get_attack
+from blades_tpu.core import ClientOptSpec as JaxClientOptSpec
 from blades_tpu.core import RoundEngine as JaxRoundEngine
 from blades_tpu.faults import FaultModel as JaxFaultModel
 from blades_tpu.models import build_fns as jax_build_fns
@@ -60,15 +63,17 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 LOOP_TOL = dict(rtol=1e-4, atol=1e-6)  # GeoMed, AutoGM
 ROUND_TOL = dict(rtol=1e-4, atol=1e-5)
 EXACT_TOL = dict(rtol=1e-5, atol=1e-6)
-STREAMING = ("autogm", "centeredclipping", "clippedclustering", "clustering", "geomed",
-             "krum", "mean", "median", "multikrum", "signguard", "trimmedmean")
+STREAMING = ("asynccenteredclipping", "asyncmean", "autogm", "centeredclipping",
+             "clippedclustering", "clustering", "geomed", "krum", "mean", "median", "multikrum",
+             "signguard", "trimmedmean")
 OPTOUTS = ("byzantinesgd", "dnc", "fltrust")
 # (name, kwargs): every streaming defense, and the variants whose streaming
 # form differs (centered clipping's exact n_iter=1, clustering's distance)
 CASES = [(n, {"num_byzantine": 2} if n in ("krum", "multikrum", "trimmedmean") else {})
          for n in STREAMING]
 CASES += [("centeredclipping", {"n_iter": 1}), ("clustering", {"metric": "distance"}),
-          ("multikrum", {"num_byzantine": 1, "num_selected": 3})]
+          ("multikrum", {"num_byzantine": 1, "num_selected": 3}),
+          ("asynccenteredclipping", {"tau": 0.05})]
 
 
 def _id(case):
@@ -121,10 +126,10 @@ def test_streaming_coverage():
     assert sorted(n for n in AGGREGATORS if get_aggregator(n).supports_streaming()) == sorted(
         STREAMING)
     assert set(AGGREGATORS) - set(STREAMING) == set(OPTOUTS)
-    # the JAX registry's streaming defenses are these and the async pair
+    # the JAX registry's streaming defenses are these, and none is unported
     jax_streaming_names = {n for n in JAX_AGGREGATORS
                            if jax_get_aggregator(n).supports_streaming()}
-    assert jax_streaming_names == set(STREAMING) | set(UNPORTED)
+    assert jax_streaming_names == set(STREAMING) and UNPORTED == {}
 
 
 @pytest.mark.parametrize("name", OPTOUTS)
@@ -139,10 +144,18 @@ def test_optouts_raise_with_the_jax_reason(name):
         agg.aggregate_streaming(torch.zeros(K, D), num_chunks=2)
 
 
-@pytest.mark.parametrize("name", sorted(UNPORTED))
+@pytest.mark.parametrize("name", ["asyncmean", "asynccenteredclipping"])
 def test_async_pair_raises_slice_9(name):
-    with pytest.raises(NotImplementedError, match="slice 9"):
-        get_aggregator(name)
+    """The async pair is ported (slice 9): it resolves and streams exactly
+    where the JAX package's does; with ``n_iter > 1`` asynchronous centered
+    clipping opts out with the JAX package's reason."""
+    assert get_aggregator(name).supports_streaming() and get_aggregator(name).streaming_exact
+    if name == "asynccenteredclipping":
+        ours, ref = get_aggregator(name, n_iter=2), jax_get_aggregator(name, n_iter=2)
+        assert not ours.supports_streaming() and ours.streaming_exact is False
+        assert ours.streaming_optouts == ref.streaming_optouts
+        with pytest.raises(NotImplementedError, match="mid-pass"):
+            ours.streaming_init(K, 2, 4, D)
 
 
 # -- ops/streaming.py ----------------------------------------------------------------
@@ -425,8 +438,13 @@ def test_build_time_validation():
             _port_engine(attack=(name, kw))
     with pytest.raises(ValueError, match="straggler"):
         _port_engine(faults=dict(straggler_rate=0.2))
-    with pytest.raises(NotImplementedError, match="slice 3b"):
-        _port_engine(client_opt=ClientOptSpec(persist=True))
+    # persistent client state streams (slice 3b); async does not
+    persisted, _ = _port_engine(client_opt=ClientOptSpec(persist=True))
+    assert persisted.streaming and persisted.client_opt.persist
+    from blades_tpu_torch.asyncfl import AsyncConfig
+
+    with pytest.raises(ValueError, match="async_config is incompatible"):
+        _port_engine(async_config=AsyncConfig())
     # the dense round takes all of these but the population attacks' absence
     dense, _ = _port_engine(aggregator=("fltrust", {}), attack=("alie", {
         "num_clients": K, "num_byzantine": F}), streaming_on=False)
@@ -441,7 +459,7 @@ def test_peak_update_bytes_and_keep_updates():
     assert dense.peak_update_bytes == K * 59_850 * 4
 
 
-def _stream_engines(jax_params, aggregator, attack, faults, chunks=2):
+def _stream_engines(jax_params, aggregator, attack, faults, chunks=2, client_opt=None):
     jspec, tspec = jax_mlp(), create_mnist_model()
     jeng = JaxRoundEngine(
         jspec.train_loss_fn, jspec.eval_logits_fn, jax_params, num_clients=K,
@@ -449,9 +467,11 @@ def _stream_engines(jax_params, aggregator, attack, faults, chunks=2):
         aggregator=jax_get_aggregator(aggregator[0], **aggregator[1]), plan=None,
         client_chunks=chunks, streaming=True,
         fault_model=None if faults is None else JaxFaultModel(**faults),
+        client_opt=JaxClientOptSpec(**(client_opt or {})),
     )
     tparams = params_from_jax(jax_params, tspec.layout)
-    teng, _ = _port_engine(tparams, aggregator, attack, faults, chunks)
+    teng, _ = _port_engine(tparams, aggregator, attack, faults, chunks,
+                           client_opt=ClientOptSpec(**(client_opt or {})))
     return (jeng, jeng.init(jax_params)), (teng, teng.init(tparams), tspec.layout)
 
 
@@ -476,13 +496,13 @@ def _chunk_draws(teng, seed, rnd):
     return normals, plan + flips
 
 
-def _run_both(monkeypatch, j, t, rnd, seed=0):
+def _run_both(monkeypatch, j, t, rnd, seed=0, steps=None):
     (jeng, jstate), (teng, tstate, layout) = j, t
     normals, bern = _chunk_draws(teng, seed, rnd)
     nq = [a.numpy() for a in normals]
     bq = _queue_bernoulli(monkeypatch, bern)
     monkeypatch.setattr(jax.random, "normal", lambda *a, **kw: jnp.asarray(nq.pop(0)))
-    cx, cy = _batches(rnd)
+    cx, cy = (a[:, :steps] for a in _batches(rnd))
     eager = bool(normals) or any(b.dim() == 2 for b in bern)
     with jax.disable_jit(eager):
         jstate, jm = jeng.run_round(jstate, jnp.asarray(cx), jnp.asarray(cy), CLIENT_LR,
@@ -672,3 +692,53 @@ def test_cct2_streaming_mean_round_equals_dense_with_dropout():
         out.append((ravel(state.params, spec.layout), float(m.train_loss)))
     torch.testing.assert_close(out[0][0], out[1][0], **EXACT_TOL)
     assert out[0][1] == pytest.approx(out[1][1], rel=1e-6)
+
+
+# -- persistent client state ---------------------------------------------------------
+
+
+@pytest.mark.parametrize("client_opt", [
+    dict(name="sgd", momentum=0.9, weight_decay=1e-2, persist=True),
+    dict(name="adam", persist=True),
+], ids=["momentum", "adam"])
+def test_persistent_client_state_streaming_rounds_match_jax(jax_params, monkeypatch,
+                                                            client_opt):
+    """K=7 MLP streaming rounds of 2 chunks (4 + 3, pad 1) with
+    ``persist=True``, sign flipping and trimmed mean b=2 under 30% dropout
+    (momentum two rounds of 2 local steps; Adam one round of one step: its
+    first step ``g / (|g| + eps)`` turns a near-zero gradient's rounding
+    into a step of order lr that every later gradient feels):
+    each chunk trains from its rows of the stacked client state, and the
+    new rows come back, against the JAX streaming round: the params and
+    metrics, and every client's state (momentum's trace at ``ROUND_TOL``;
+    Adam's count exactly, its moments and its params at the multi-round
+    ``rtol=1e-3, atol=1e-5``, the params where every client's
+    ``sqrt(nu_hat)`` exceeds 1e-6, as in ``tests/test_torch_engine.py``)."""
+    adam_tol = dict(rtol=1e-3, atol=1e-5)
+    faults = dict(dropout_rate=0.3)
+    j, t = _stream_engines(jax_params, ("trimmedmean", {"num_byzantine": 2}),
+                           ("signflipping", {}), faults, client_opt=client_opt)
+    rows = jax.vmap(lambda x: ravel_pytree(x)[0])
+    sgd = client_opt["name"] == "sgd"
+    for rnd in range(2 if sgd else 1):
+        j = (_stream_engines(jax_params, ("trimmedmean", {"num_byzantine": 2}),
+                             ("signflipping", {}), faults, client_opt=client_opt)[0][0], j[1])
+        j, t, jm, tm = _run_both(monkeypatch, j, t, rnd, seed=6, steps=None if sgd else 1)
+        tpart, jpart = t[1].client_opt_state[-1], j[1].client_opt_state[-1]
+        if client_opt["name"] == "sgd":
+            _check_round(j, t, jm, tm)
+            np.testing.assert_allclose(t[0]._ravel_rows(tpart).numpy(),
+                                       np.asarray(rows(jpart.trace)), **ROUND_TOL)
+            continue
+        count, mu, nu = tpart
+        np.testing.assert_array_equal(count.numpy(), np.asarray(jpart.count))
+        assert count.tolist() == [1] * K
+        np.testing.assert_allclose(t[0]._ravel_rows(mu).numpy(), np.asarray(rows(jpart.mu)),
+                                   **adam_tol)
+        np.testing.assert_allclose(t[0]._ravel_rows(nu).numpy(), np.asarray(rows(jpart.nu)),
+                                   **adam_tol)
+        nu_hat = np.asarray(rows(jpart.nu)) / (1 - 0.999 ** np.asarray(jpart.count)[:, None])
+        ok = np.sqrt(nu_hat).min(axis=0) > 1e-6
+        np.testing.assert_allclose(ravel(t[1].params, t[2]).numpy()[ok],
+                                   np.asarray(ravel_pytree(j[1].params)[0])[ok], **adam_tol)
+        assert ok.sum() > 0.5 * ok.size
