@@ -19,7 +19,13 @@ to the defense one ``[chunk, D]`` slab at a time; mixed attacker
 populations (``Simulator.register_attackers``) and client optimizer state
 kept across rounds (``ClientOptSpec(persist=True)``); and the
 buffered-asynchronous round (``Simulator.run(async_config=...)``,
-``asyncfl/``) with the async aggregators. The
+``asyncfl/``) with the async aggregators. Multi-round execution too:
+``Simulator.run(block_size=...)`` and ``RoundEngine.run_block``, which on
+the card replay one captured CUDA graph of the round (``core/graphs.py``),
+``ExperimentBatch`` (``core/experiments.py``), ``EngineCache``
+(``sweeps/``, ``run(engine_cache=...)``); every round of the Simulator
+donates its batch to the engine (``run(donate_batches=...)`` is accepted
+and changes nothing). The
 coordinate-wise trimmed mean runs on the card through a CUDA kernel
 written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
 ``ops/trimmed.py``); the other defenses and the masked trimmed mean are
@@ -37,6 +43,8 @@ _LAZY = {
     "RoundEngine": "blades_tpu_torch.core.engine",
     "ClientOptSpec": "blades_tpu_torch.core.engine",
     "ServerOptSpec": "blades_tpu_torch.core.engine",
+    "ExperimentBatch": "blades_tpu_torch.core.experiments",
+    "EngineCache": "blades_tpu_torch.sweeps",
     "get_aggregator": "blades_tpu_torch.aggregators",
     "get_attack": "blades_tpu_torch.attackers",
 }

@@ -87,6 +87,8 @@ def _wrap_callable(fn: Callable) -> Aggregator:
     """Adapt a bare ``updates -> vector`` function."""
 
     class _Custom(Aggregator):
+        graph_unsafe_reason = "a bare callable, whose host syncs are unknown"
+
         def aggregate(self, updates, state=(), **ctx):
             return fn(updates), state
 

@@ -57,6 +57,12 @@ class Aggregator:
     #: order of the chunk sums); False for a two-level form
     streaming_exact: bool = False
 
+    #: None when ``aggregate`` and ``_masked_aggregate`` can be captured in
+    #: a CUDA graph (no host sync, no generator state set inside the call),
+    #: else why not; an engine with such a defense runs its round blocks
+    #: eagerly (``RoundEngine.graph_block_reason``)
+    graph_unsafe_reason: Optional[str] = None
+
     def init_state(self, num_clients: int, dim: int) -> Any:
         """Initial carry for stateful aggregators; ``()`` when stateless."""
         return ()

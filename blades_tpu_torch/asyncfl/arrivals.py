@@ -12,8 +12,9 @@ re-downloads the current model and draws a fresh delay. Kinds:
   and ``p = 1 / (1 + mean_delay)``, clipped to ``[0, max_delay]``
   (:func:`geometric_delays`).
 
-A round's ``[K]`` draws come from one generator, ``utils/rng.py``'s
-``(seed, round, ARRIVAL)`` stream, where the JAX package folds the client id
+A round's ``[K]`` draws come from one generator, the round's ``ARRIVAL``
+stream (``utils/rng.py``), which the engine passes to
+:meth:`ArrivalProcess.draw`, where the JAX package folds the client id
 into its round key. Torch cannot reproduce threefry's bits, so tests hand
 the port's draws to the JAX package; :func:`geometric_delays` takes ``u``
 as an argument so that a test can give both packages the same ``u``.
@@ -26,7 +27,6 @@ from typing import Optional, Tuple
 
 import torch
 
-from blades_tpu_torch.utils import rng
 
 _KINDS = ("zero", "fixed", "uniform", "geometric")
 #: the geometric draw's lower bound on ``u`` (``log(0)`` is ``-inf``)
@@ -82,10 +82,18 @@ class ArrivalProcess:
         # that a round makes no host-to-device copy
         object.__setattr__(self, "_tables", {})
 
-    def draw(self, seed: int, round_idx: int, num_clients: int, device="cpu") -> torch.Tensor:
-        """``[K]`` int32 delays for the clients that re-download in round
-        ``round_idx`` (drawn for every client; the engine keeps those of the
-        clients that arrived), on ``device``."""
+    @property
+    def draws(self) -> bool:
+        """True when :meth:`draw` draws from its generator."""
+        return self.kind in ("uniform", "geometric")
+
+    def draw(self, num_clients: int, generator: Optional[torch.Generator],
+             device="cpu") -> torch.Tensor:
+        """``[K]`` int32 delays for the clients that re-download this round
+        (drawn for every client; the engine keeps those of the clients that
+        arrived), on ``device``, drawn from ``generator``: the round's
+        ``ARRIVAL`` generator, which the engine passes in. The zero and
+        fixed kinds draw nothing (``generator`` may then be None)."""
         k, device = int(num_clients), torch.device(device)
         if self.kind == "zero":
             return torch.zeros(k, dtype=torch.int32, device=device)
@@ -95,11 +103,10 @@ class ArrivalProcess:
             if device not in self._tables:
                 self._tables[device] = torch.tensor(self.delays, dtype=torch.int32).to(device)
             return self._tables[device]
-        gen = rng.generator(seed, round_idx, rng.ARRIVAL, device=device)
         if self.kind == "uniform":
-            return torch.randint(self.min_delay, self.max_delay + 1, (k,), generator=gen,
+            return torch.randint(self.min_delay, self.max_delay + 1, (k,), generator=generator,
                                  device=device, dtype=torch.int32)
-        u = torch.rand(k, generator=gen, device=device) * (1.0 - U_MIN) + U_MIN
+        u = torch.rand(k, generator=generator, device=device) * (1.0 - U_MIN) + U_MIN
         return geometric_delays(torch.clamp_min(u, U_MIN), self.mean_delay, self.max_delay)
 
     @property

@@ -66,15 +66,19 @@ def _rows_where(mask, new, old):
 
 
 @torch.no_grad()
-def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
-    """One buffered-asynchronous tick (module docstring); returns ``(new
-    state, metrics)`` as ``run_round`` does, and sets the engine's
+def async_round(engine, state, batch, inputs, streams):
+    """One buffered-asynchronous tick (module docstring) on ``batch``
+    (``[cx, cy]``, emptied once training has consumed it), with the round's
+    0-d ``inputs`` (``core/engine.py:RoundInputs``; the tick index ``t`` is
+    ``inputs.round_t``, a device tensor, so that a captured tick reads the
+    tick it replays) and generators ``streams``; returns ``(new state,
+    metrics)`` as ``run_round`` does, and sets the engine's
     ``last_updates`` (the matrix the server received this tick, under
     ``keep_updates``), ``last_fault_diag`` and ``last_async_diag``."""
     from blades_tpu_torch.core.engine import RoundState
 
     cfg, astate = engine.async_config, state.async_state
-    k, t, dev = engine.num_clients, state.round_idx, engine.device
+    k, t, dev = engine.num_clients, inputs.round_t, engine.device
     static_sync = cfg.arrivals.kind == "zero" and engine.fault_model is None
     flat = ravel(state.params, engine.layout)
 
@@ -82,24 +86,23 @@ def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
     hist, lag = astate.get("hist"), None
     if hist is not None:
         h = hist.shape[0]
-        hist = hist.index_copy(0, torch.full((1,), t % h, device=dev), flat[None])
+        hist = hist.index_copy(0, torch.remainder(t, h).view(1), flat[None])
         lag = (hist, torch.remainder(astate["version"], h))
 
     # -- 2. every client trains; the attack and the faults as in the dense round
     updates, losses, top1s, new_client_opt = engine._train_clients(
-        state.params, state.client_opt_state, client_lr, cx, cy,
-        rng.generator(seed, t, rng.DROPOUT, device=dev), lag=lag,
+        state.params, state.client_opt_state, inputs.client_lr, batch,
+        streams(rng.DROPOUT), lag=lag,
     )
     updates = torch.nan_to_num(updates)
     updates, attack_state = engine.attack.on_updates(
-        updates, engine.byz_mask, rng.generator(seed, t, rng.ATTACK, device=dev),
-        state.attack_state,
+        updates, engine.byz_mask, streams(rng.ATTACK), state.attack_state,
     )
     sent = updates
     fault_state, part_mask, fault_diag = state.fault_state, None, None
     if engine.fault_model is not None:
         updates, part_mask, fault_state, fault_diag = engine.fault_model.apply(
-            updates, state.fault_state, rng.generator(seed, t, rng.FAULT, device=dev), t,
+            updates, state.fault_state, streams(rng.FAULT), t,
         )
 
     # -- 3. deposit into the per-client slots -------------------------------
@@ -119,7 +122,7 @@ def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
 
     # -- 4. staleness-weighted aggregation, gated on the fire ---------------
     agg_ctx = dict(trusted_mask=engine.trusted_mask, params_flat=flat,
-                   generator=rng.generator(seed, t, rng.AGG, device=dev))
+                   generator=streams(rng.AGG))
     if static_sync:
         # staleness 0 and weight 1 by construction: the sync round's call
         tau = torch.zeros(k, dtype=torch.int32, device=dev)
@@ -138,7 +141,7 @@ def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
         agg = torch.where(fired & (n_agg > 0), agg, torch.zeros_like(agg))
         agg_state = _tree_where(fired, agg_state, state.agg_state)
 
-    params, server_opt_state = engine._server_step(state, server_lr, agg)
+    params, server_opt_state = engine._server_step(state, inputs.server_lr, agg)
     if not static_sync:
         params = _tree_where(fired, params, state.params)
         server_opt_state = _tree_where(fired, server_opt_state, state.server_opt_state)
@@ -147,7 +150,8 @@ def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
             new_client_opt = _rows_where(arriving, new_client_opt, state.client_opt_state)
 
     # -- 5. drain on fire; arrived clients re-download and draw a delay ------
-    new_delays = cfg.arrivals.draw(seed, t, k, device=dev)
+    new_delays = cfg.arrivals.draw(
+        k, streams(rng.ARRIVAL) if cfg.arrivals.draws else None, device=dev)
     fired_i = fired.to(torch.int32)
     new_astate = dict(astate)
     new_astate.update(
@@ -190,7 +194,7 @@ def async_round(engine, state, cx, cy, client_lr, server_lr, seed):
         client_opt_state=new_client_opt,
         agg_state=agg_state,
         attack_state=attack_state,
-        round_idx=t + 1,
+        round_idx=state.round_idx + 1,
         fault_state=fault_state,
         async_state=new_astate,
     )

@@ -29,11 +29,20 @@ class Alie(Attack):
     ):
         self.num_clients = num_clients
         self.num_byzantine = num_byzantine
-        self._z = z
+        self.z = z
+
+    @property
+    def graph_unsafe_reason(self) -> Optional[str]:
+        """Without ``num_byzantine``, ``on_updates`` counts the byzantine
+        rows on the host, a sync a round; the Simulator fills it in."""
+        if self.num_byzantine is None:
+            return ("without num_byzantine it counts the byzantine rows on the host "
+                    "(int(byz_mask.sum())) every round")
+        return None
 
     def _z_max(self, n: int, f: int) -> float:
-        if self._z is not None:
-            return float(self._z)
+        if self.z is not None:
+            return float(self.z)
         s = math.floor(n / 2 + 1) - f
         cdf_value = (n - f - s) / (n - f)
         # f beyond the supported-majority regime pushes the cdf outside

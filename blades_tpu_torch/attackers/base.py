@@ -33,6 +33,12 @@ class Attack:
     #: ``"population"`` when byzantine rows come from population statistics
     update_locality: str = "row"
 
+    #: None when every hook can be captured in a CUDA graph (no host sync,
+    #: no generator state set inside the round), else why not; an engine
+    #: with such an attack runs its round blocks eagerly
+    #: (``RoundEngine.graph_block_reason``)
+    graph_unsafe_reason: Optional[str] = None
+
     def init_state(self, num_clients: int, dim: int) -> Any:
         return ()
 

@@ -7,8 +7,9 @@ Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 ``RoundEngine.init`` (:456), ``_local_update`` (:569-625),
 ``_train_clients`` (:638-712), ``_round_dense`` (:714-874, its fault branch
 :749-797), ``_round_streaming`` (:876-1100), ``run_round`` (:1113),
-``evaluate_per_sample`` (:1344) and ``multistep_lr`` (:1374); the async
-build checks (:341-363), dispatched to ``blades_tpu_torch/asyncfl/engine.py``.
+``run_block`` (:1203), ``evaluate_per_sample`` (:1344) and
+``multistep_lr`` (:1374); the async build checks (:341-363), dispatched to
+``blades_tpu_torch/asyncfl/engine.py``.
 
 One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
 
@@ -66,9 +67,19 @@ train from the model version they downloaded, their updates wait in a
 ``buffer_m`` have arrived, each update weighted by its staleness; the tick's
 counters are ``self.last_async_diag``.
 
-Not ported yet, each raising where it would be selected: round blocks
-(``ROADMAP.md`` queue A, slice 7), audit, diagnostics and the metric pack
-(slice 10), and sharding plans (slice 12).
+:meth:`RoundEngine.run_block` runs R rounds with the dataset's sampler
+fused in (JAX ``_build_block`` / ``run_block``, :1177-1279). On the card,
+where the configuration is graph-safe (:meth:`RoundEngine.graph_block_reason`),
+it replays one captured CUDA graph of the round R times
+(``core/graphs.py``); elsewhere it runs the R rounds eagerly. The round's
+scalars reach it as 0-d device tensors (:class:`RoundInputs`) and its
+generators come from one ``utils/rng.py:RoundStreams``, in the eager and
+the captured round alike, so a block equals R sequential rounds bit for
+bit.
+
+Not ported yet, each raising where it would be selected: audit,
+diagnostics and the metric pack (``ROADMAP.md`` queue A, slice 10), and
+sharding plans (slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
 is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
@@ -260,6 +271,31 @@ class RoundMetrics(NamedTuple):
     agg_norm: torch.Tensor  # L2 norm of the aggregated update
 
 
+class RoundInputs(NamedTuple):
+    """A round's per-round scalars as 0-d tensors on the engine's device, in
+    the eager and the captured round alike: a Python number would be baked
+    into a CUDA graph as a constant. The host ``RoundState.round_idx`` stays
+    the truth; ``round_t`` is its device copy, written at the round's entry
+    (a fill, no host sync), for the sites that index by the round: the
+    fault schedule's row, the async ring's slot, staleness and versions."""
+
+    client_lr: torch.Tensor  # float32
+    server_lr: torch.Tensor  # float32
+    round_t: torch.Tensor  # int64
+
+
+class RoundSpec(NamedTuple):
+    """One round of a block: the seed and host round index its generators
+    are rooted at, the round its batch is drawn for (``rng.DATA``), and its
+    learning rates."""
+
+    seed: int
+    round_idx: int
+    data_round: int
+    client_lr: float
+    server_lr: float
+
+
 class RoundEngine:
     """Runs federated rounds and evaluation on one device.
 
@@ -349,6 +385,12 @@ class RoundEngine:
         self.async_config = async_config
         self.last_async_diag: Optional[dict] = None
         self.async_buffer_m = 0
+        # run_block: how the last block ran, and why not as a graph
+        self.last_block_mode: Optional[str] = None
+        self.last_block_reason: Optional[str] = None
+        # core/graphs.py: the one captured round, replaced when the batch
+        # source, the state layout or the fault model's program changes
+        self.last_graph = None
         if async_config is not None:
             if self.streaming:
                 raise ValueError(
@@ -425,8 +467,13 @@ class RoundEngine:
         params = {
             n: t.detach().to(self.device, torch.float32).clone() for n, t in params.items()
         }
+        # the defense's and the attack's initial state on the engine's
+        # device: a round then copies nothing from the host (a captured one
+        # could not)
+        on_device = lambda tree: tree_map(  # noqa: E731
+            lambda t: t.to(self.device) if isinstance(t, torch.Tensor) else t, tree)
         agg_state = (
-            self.aggregator.init_state(self.num_clients, self.dim)
+            on_device(self.aggregator.init_state(self.num_clients, self.dim))
             if self.aggregator is not None
             else ()
         )
@@ -441,7 +488,7 @@ class RoundEngine:
             server_opt_state=self._server_tx.init(params),
             client_opt_state=client_opt_state,
             agg_state=agg_state,
-            attack_state=self.attack.init_state(self.num_clients, self.dim),
+            attack_state=on_device(self.attack.init_state(self.num_clients, self.dim)),
             round_idx=0,
             fault_state=(
                 self.fault_model.init_state(self.num_clients, self.dim, device=self.device)
@@ -473,11 +520,12 @@ class RoundEngine:
                      start=None):
         """Local training of the clients ``rows`` (``_local_update`` with the
         chunk's client axis written out): ``(updates [n, D], losses [n],
-        top1s [n], opt_state)``; ``noise`` holds each step's masks for all K.
-        ``opt_state``: the chunk's rows of the persistent client state
-        (``persist=True``), else ``()`` and each client starts from a fresh
-        one. ``start``: the chunk's ``[n, D]`` flat start params (the async
-        round's version lag), else every client starts from ``params``."""
+        top1s [n], opt_state)``; ``noise`` holds each step's masks for all K;
+        ``client_lr`` is a 0-d tensor. ``opt_state``: the chunk's rows of
+        the persistent client state (``persist=True``), else ``()`` and each
+        client starts from a fresh one. ``start``: the chunk's ``[n, D]``
+        flat start params (the async round's version lag), else every
+        client starts from ``params``."""
         ids = torch.arange(self.num_clients, device=self.device)[rows]
         byz = self.byz_mask[rows]
         if start is None:
@@ -501,14 +549,18 @@ class RoundEngine:
         return (self._ravel_rows(p) - flat0, over_steps(losses), over_steps(top1s),
                 opt_state if self.client_opt.persist else ())
 
-    def _train_clients(self, params, client_opt_state, client_lr, cx, cy, noise_gen,
+    def _train_clients(self, params, client_opt_state, client_lr, batch, noise_gen,
                        lag=None):
         """Local training of all K clients, chunk by chunk: ``(updates [K,
         D], losses [K], top1s [K], client_opt_state)``, the last the
         chunks' new persistent rows concatenated (``()`` without
-        ``persist``). ``lag``: ``(hist [h, D], slot [K])``, each client's
-        start params the ring row ``hist[slot]``, gathered per chunk (the
-        async round); None trains every client from ``params``."""
+        ``persist``). ``batch``: the list ``[cx, cy]``, emptied once every
+        chunk has trained, so that a batch nobody else holds is freed
+        before the attack and the aggregation (``run_round_donated``).
+        ``lag``: ``(hist [h, D], slot [K])``, each client's start params the
+        ring row ``hist[slot]``, gathered per chunk (the async round); None
+        trains every client from ``params``."""
+        cx, cy = batch
         noise = self._draw_noise(noise_gen, cx.shape[1], cx.shape[2])
         flat0 = ravel(params, self.layout)
         out = []
@@ -517,6 +569,8 @@ class RoundEngine:
             start = None if lag is None else lag[0][lag[1][rows]]
             out.append(self._train_chunk(params, flat0, client_lr, cx, cy, rows, noise, opt,
                                          start))
+        del cx, cy
+        batch.clear()
         updates, losses, top1s = (torch.cat(parts) for parts in list(zip(*out))[:3])
         return updates, losses, top1s, self._cat_opt_states([o[3] for o in out])
 
@@ -525,6 +579,17 @@ class RoundEngine:
         if not self.client_opt.persist:
             return ()
         return tree_map(lambda *rows: torch.cat(rows), *states)
+
+    def _inputs(self, client_lr, server_lr, round_idx: int) -> RoundInputs:
+        """The round's :class:`RoundInputs` on the engine's device: fills,
+        no host-to-device copy."""
+        def full(value, dtype):
+            if isinstance(value, torch.Tensor):
+                return value.to(self.device, dtype)
+            return torch.full((), value, dtype=dtype, device=self.device)
+
+        return RoundInputs(full(client_lr, torch.float32), full(server_lr, torch.float32),
+                           full(int(round_idx), torch.int64))
 
     @torch.no_grad()
     def run_round(
@@ -539,38 +604,64 @@ class RoundEngine:
         """One federated round. ``cx``/``cy``: ``[K, S, B, ...]`` on the
         engine's device. ``seed`` roots the round's dropout, attack and
         aggregator generators (``utils/rng.py``)."""
+        return self.run_round_donated(state, [cx, cy], client_lr, server_lr, seed)
+
+    @torch.no_grad()
+    def run_round_donated(
+        self, state: RoundState, batch: list, client_lr: float, server_lr: float,
+        seed: int = 0,
+    ) -> Tuple[RoundState, RoundMetrics]:
+        """:meth:`run_round` on ``batch``, the list ``[cx, cy]``, which the
+        round empties once local training has consumed it: when the caller
+        keeps no other reference (``Simulator.run`` keeps none),
+        the caching allocator reuses the batch's memory during the attack
+        and the aggregation (the JAX package donates the buffers to its
+        round program, ``blades_tpu/core/engine.py:245-251``). The results
+        do not change."""
+        self._check_runnable()
+        streams = rng.RoundStreams(seed, state.round_idx, self.device)
+        return self._round(state, batch, self._inputs(client_lr, server_lr, state.round_idx),
+                           streams)
+
+    def _check_runnable(self) -> None:
         if self.aggregator is None:
             raise ValueError("RoundEngine.run_round needs an aggregator")
+
+    def _round(self, state, batch, inputs: RoundInputs, streams: rng.RoundStreams):
+        """The round body shared by the eager and the captured round: the
+        async tick, the streaming round or the dense round, each drawing
+        from ``streams`` and reading its scalars from ``inputs``."""
         if self.async_config is not None:
             from blades_tpu_torch.asyncfl.engine import async_round
 
-            return async_round(self, state, cx, cy, client_lr, server_lr, seed)
+            return async_round(self, state, batch, inputs, streams)
         if self.streaming:
-            return self._round_streaming(state, cx, cy, client_lr, server_lr, seed)
-        r = state.round_idx
+            return self._round_streaming(state, batch, inputs, streams)
+        return self._round_dense(state, batch, inputs, streams)
+
+    def _round_dense(self, state, batch, inputs, streams):
+        """The dense round (module docstring, steps 1-6)."""
         updates, losses, top1s, client_opt_state = self._train_clients(
-            state.params, state.client_opt_state, client_lr, cx, cy,
-            rng.generator(seed, r, rng.DROPOUT, device=self.device),
+            state.params, state.client_opt_state, inputs.client_lr, batch,
+            streams(rng.DROPOUT),
         )
 
         # parity: the reference nan_to_num's every uploaded update
         updates = torch.nan_to_num(updates)
         updates, attack_state = self.attack.on_updates(
-            updates, self.byz_mask, rng.generator(seed, r, rng.ATTACK, device=self.device),
-            state.attack_state,
+            updates, self.byz_mask, streams(rng.ATTACK), state.attack_state,
         )
         # the variance metrics stay on the matrix the clients sent
         sent_updates = updates
         fault_state, part_mask, fault_diag = state.fault_state, None, None
         if self.fault_model is not None:
             updates, part_mask, fault_state, fault_diag = self.fault_model.apply(
-                updates, state.fault_state,
-                rng.generator(seed, r, rng.FAULT, device=self.device), r,
+                updates, state.fault_state, streams(rng.FAULT), inputs.round_t,
             )
         agg_ctx = dict(
             trusted_mask=self.trusted_mask,
             params_flat=ravel(state.params, self.layout),
-            generator=rng.generator(seed, r, rng.AGG, device=self.device),
+            generator=streams(rng.AGG),
         )
         if part_mask is None:
             agg, agg_state = self.aggregator.aggregate(updates, state.agg_state, **agg_ctx)
@@ -585,14 +676,16 @@ class RoundEngine:
         var = sent_updates.var(dim=0, correction=0)
         self.last_updates = updates if self.keep_updates else None
         self.last_fault_diag = fault_diag
-        return self._finish_round(state, server_lr, agg, agg_state, attack_state, fault_state,
-                                  losses, top1s, var, client_opt_state)
+        return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
+                                  fault_state, losses, top1s, var, client_opt_state)
 
-    def _round_streaming(self, state, cx, cy, client_lr, server_lr, seed):
+    def _round_streaming(self, state, batch, inputs, streams):
         """The streaming round (module docstring): one ``[chunk_size, D]``
         slab at a time, in the JAX chunk body's order. Counts stay device
-        tensors; the chunk loop itself is a host loop."""
-        r, k, dev = state.round_idx, self.num_clients, self.device
+        tensors; the chunk loop itself is a host loop. The batch is dropped
+        once the last chunk has trained."""
+        k, dev = self.num_clients, self.device
+        cx, cy = batch
         fm = self.fault_model
 
         def padded(mask):  # a [K] mask, False on the final chunk's padding
@@ -605,24 +698,22 @@ class RoundEngine:
         n_part, n_excl, n_dropped = zero, zero, zero
         if fm is not None:
             # the [K] decisions, from the draws the dense round takes
-            part0, drop, corrupt = fm.plan_streaming(
-                k, rng.generator(seed, r, rng.FAULT, device=dev), r)
+            part0, drop, corrupt = fm.plan_streaming(k, streams(rng.FAULT), inputs.round_t)
             part0, corrupt = padded(part0), padded(corrupt)
             if fm.value_corruption:
                 fill = state.fault_state["fill"]
             n_dropped = drop.to(torch.int32).sum(dtype=torch.int32)
 
         flat0 = ravel(state.params, self.layout)
-        sctx = dict(params_flat=flat0, generator=rng.generator(seed, r, rng.AGG, device=dev))
+        sctx = dict(params_flat=flat0, generator=streams(rng.AGG))
         agg_ss = self.aggregator.streaming_init(
             k, self.client_chunks, self.chunk_size, self.dim, state.agg_state, device=dev)
-        noise = self._draw_noise(rng.generator(seed, r, rng.DROPOUT, device=dev),
-                                 cx.shape[1], cx.shape[2])
+        noise = self._draw_noise(streams(rng.DROPOUT), cx.shape[1], cx.shape[2])
         mom = moments_init(self.dim, device=dev)
         attack_state, losses, top1s, opt_states = state.attack_state, [], [], []
         for j, rows in enumerate(self._chunk_rows()):
             upd, loss, top1, opt = self._train_chunk(
-                state.params, flat0, client_lr, cx, cy, rows, noise,
+                state.params, flat0, inputs.client_lr, cx, cy, rows, noise,
                 tree_map(lambda t: t[rows], state.client_opt_state))
             losses.append(loss)
             top1s.append(top1)
@@ -632,16 +723,14 @@ class RoundEngine:
             sl = slice(j * self.chunk_size, (j + 1) * self.chunk_size)
             upd = torch.nan_to_num(upd)
             upd, attack_state = self.attack.on_updates(
-                upd, byz[sl], rng.generator(seed, r, rng.ATTACK, device=dev, chunk=j),
-                attack_state,
+                upd, byz[sl], streams(rng.ATTACK, chunk=j), attack_state,
             )
             # the variance metrics stay on what the clients sent
             mom = moments_update(mom, upd, valid[sl])
             part = valid[sl]
             if fm is not None:
                 upd = fm.corrupt_chunk(
-                    upd, corrupt[sl], rng.generator(seed, r, rng.FAULT, device=dev, chunk=j),
-                    fill=fill)
+                    upd, corrupt[sl], streams(rng.FAULT, chunk=j), fill=fill)
                 part = part0[sl]
                 if fm.guard_nonfinite:
                     finite = torch.isfinite(upd).all(dim=1)
@@ -653,7 +742,8 @@ class RoundEngine:
             agg_ss = self.aggregator.streaming_update(agg_ss, safe, chunk_mask=mask,
                                                       chunk_index=j, **sctx)
             del safe
-        del noise
+        del noise, cx, cy
+        batch.clear()
         agg, agg_state = self.aggregator.streaming_finalize(agg_ss, state.agg_state, **sctx)
         # a round with no participant applies the zero update
         agg = torch.where(n_part > 0, agg, torch.zeros_like(agg))
@@ -666,7 +756,7 @@ class RoundEngine:
             }
         self.last_updates = None
         self.last_fault_diag = fault_diag
-        return self._finish_round(state, server_lr, agg, agg_state, attack_state,
+        return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
                                   state.fault_state, torch.cat(losses), torch.cat(top1s),
                                   moments_var(mom), self._cat_opt_states(opt_states))
 
@@ -707,6 +797,112 @@ class RoundEngine:
             fault_state=fault_state,
         )
         return new_state, self._metrics(losses, top1s, var, agg)
+
+    # -- round blocks ----------------------------------------------------------
+
+    def graph_block_reason(self) -> Optional[str]:
+        """None when this engine's blocks are captured as a CUDA graph
+        (``core/graphs.py``), else why they run eagerly. Decided from the
+        configuration at build time, never by trying a capture: a capture
+        that fails on a configuration this calls graph-safe raises."""
+        if self.device.type != "cuda":
+            return f"the engine runs on {self.device}; a CUDA graph needs the card"
+        if self.streaming:
+            return ("the streaming round draws from per-chunk generators, not yet "
+                    "registered with a graph (ROADMAP.md queue A, item 7c)")
+        for part in (self.attack, self.aggregator):
+            if part.graph_unsafe_reason:
+                return f"{part!r}: {part.graph_unsafe_reason}"
+        return None
+
+    @torch.no_grad()
+    def run_block(
+        self,
+        state: RoundState,
+        rounds,
+        client_lrs,
+        server_lrs,
+        seed: int = 0,
+        sampler: Optional[Callable] = None,
+    ):
+        """``R = len(rounds)`` federated rounds with the dataset's sampler
+        fused in (``sampler``: ``generator -> (cx, cy)``,
+        ``FLDataset.sampler``): round ``i`` draws its batch from the
+        ``DATA`` generator of round ``rounds[i]`` (the rounds
+        ``sample_round`` would be called for), and its other generators
+        are rooted at ``state.round_idx + i``. ``client_lrs`` /
+        ``server_lrs``: ``[R]`` schedules.
+
+        On a CUDA engine whose configuration is graph-safe
+        (:meth:`graph_block_reason`) the block replays one captured round R
+        times (``core/graphs.py``; the first block of a new capture runs its
+        first round eagerly as the warm-up), with no host sync; otherwise it
+        runs the R rounds eagerly. ``self.last_block_mode`` (``"graph"`` or
+        ``"eager"``) and ``self.last_block_reason`` say which and why. Either
+        way the block equals R sequential :meth:`run_round` calls bit for
+        bit (JAX contract, ``blades_tpu/core/engine.py:1230-1234``).
+
+        Returns ``(new_state, metrics, diags)``: :class:`RoundMetrics` of
+        ``[R]`` tensors, and the JAX package's ``diags`` dict, whose
+        ``faults`` and ``async`` hold the stacked ``[R]`` counters (None
+        without a fault model or async config) and whose ``defense``,
+        ``audit`` and ``metrics`` are None (slice 10). ``last_updates`` is
+        None after a block; ``last_fault_diag`` / ``last_async_diag`` hold
+        its final round's counters."""
+        if sampler is None:
+            raise ValueError("run_block needs the dataset's sampler (FLDataset.sampler)")
+        rounds = [int(r) for r in rounds]
+        if not len(client_lrs) == len(server_lrs) == len(rounds) > 0:
+            raise ValueError(
+                f"run_block needs one learning rate of each kind per round: {len(rounds)} "
+                f"rounds, {len(client_lrs)} client and {len(server_lrs)} server rates"
+            )
+        specs = [RoundSpec(int(seed), state.round_idx + i, r, float(c), float(s))
+                 for i, (r, c, s) in enumerate(zip(rounds, client_lrs, server_lrs))]
+        state, (metrics, faults, adiag) = self._run_rounds(state, specs, sampler=sampler)
+        return state, metrics, {"defense": None, "faults": faults, "audit": None,
+                                "metrics": None, "async": adiag}
+
+    def _run_rounds(self, state, specs, sampler=None, batches=None):
+        """The rounds of ``specs`` in order, each on a batch from ``sampler``
+        or on its own ``batches[i]`` (``(cx, cy)``): captured and replayed
+        where :meth:`graph_block_reason` allows, else eagerly. Returns the
+        new state and ``(metrics, fault counters, async counters)``, each
+        stacked ``[R]`` (None where the surface is off), and sets
+        ``last_block_mode`` / ``last_block_reason`` and the ``last_*``
+        counters to the final round's."""
+        self._check_runnable()
+        reason = self.graph_block_reason()
+        if reason is None:
+            from blades_tpu_torch.core.graphs import run_graph
+
+            state, outs = run_graph(self, state, specs, sampler=sampler, batches=batches)
+        else:
+            state, outs = self._run_eager(state, specs, sampler, batches)
+        self.last_block_mode = "graph" if reason is None else "eager"
+        self.last_block_reason = reason
+        last = lambda tree: tree_map(lambda a: a[-1], tree)  # noqa: E731
+        self.last_updates = None
+        self.last_fault_diag = None if outs[1] is None else last(outs[1])
+        self.last_async_diag = None if outs[2] is None else last(outs[2])
+        return state, outs
+
+    def _run_eager(self, state, specs, sampler, batches):
+        """:meth:`_run_rounds` round by round, each as :meth:`run_round`
+        runs it; the outputs are stacked on the device, so the block itself
+        waits for nothing (a defense that tests a stopping rule on the host
+        still does, inside its round)."""
+        outs = []
+        for i, spec in enumerate(specs):
+            streams = rng.RoundStreams(spec.seed, spec.round_idx, self.device,
+                                       data_round=spec.data_round)
+            batch = list(sampler(streams(rng.DATA)) if batches is None else batches[i])
+            state, metrics = self._round(
+                state, batch, self._inputs(spec.client_lr, spec.server_lr, spec.round_idx),
+                streams)
+            outs.append((metrics, self.last_fault_diag, self.last_async_diag))
+        stack = lambda *xs: None if xs[0] is None else torch.stack(xs)  # noqa: E731
+        return state, tree_map(stack, *outs)
 
     # -- evaluation ----------------------------------------------------------
 

@@ -1,9 +1,10 @@
 """FLDataset: the runtime federated dataset, resident on the run's device.
 
 Counterpart: ``blades_tpu/datasets/fl.py:35-285`` (``FLDataset``;
-``_make_sample_fn`` :163-207, ``sample_round`` :221, ``client_test_slices``
-:279). All K clients' train data is one padded ``[K, N_max, ...]`` tensor
-family, and a round's batches for every client come from one gather.
+``_make_sample_fn`` :163-207, ``traceable_sampler`` :209, ``sample_round``
+:221, ``client_test_slices`` :279). All K clients' train data is one padded
+``[K, N_max, ...]`` tensor family, and a round's batches for every client
+come from one gather.
 
 Sampling: each round draws, per client, a fresh without-replacement order of
 its samples (uniform draws argsorted, padding pushed last) and indexes it
@@ -18,7 +19,7 @@ and normalization, the host-side ``get_train_data`` streams,
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -72,40 +73,68 @@ class FLDataset:
                 f"test_counts sum {int(self.test_counts.sum())} != union test "
                 f"size {n_test}"
             )
+        self._samplers = {}
         self.test_offsets = np.concatenate(
             [[0], np.cumsum(self.test_counts)[:-1]]
         ).astype(np.int64)
 
     def to(self, device) -> "FLDataset":
-        """Move the data store to ``device`` (in place; returns self)."""
+        """Move the data store to ``device`` (in place; returns self). A
+        store that moves drops its samplers, which hold its old tensors."""
         self.device = torch.device(device)
         for name in ("train_x", "train_y", "train_counts", "test_x", "test_y"):
-            setattr(self, name, getattr(self, name).to(self.device))
+            old = getattr(self, name)
+            new = old.to(self.device)
+            if new is not old:
+                setattr(self, name, new)
+                self._samplers = {}
         return self
 
     def get_clients(self) -> List:
         """Client ids (reference: ``FLDataset.get_clients``)."""
         return self.client_ids
 
+    def sampler(self, local_steps: int, batch_size: int) -> Callable:
+        """The round's sampler, ``generator -> (cx, cy)``: ``[K, S, B, ...]``
+        train batches for every client in one gather, torch ops on the
+        dataset's device with no host sync (counterpart:
+        ``traceable_sampler``, ``blades_tpu/datasets/fl.py:209-219``).
+        ``generator`` must live on the dataset's device. One sampler is made
+        per ``(local_steps, batch_size)`` and handed out again until the
+        store moves (:meth:`to`): a captured round (``core/graphs.py``)
+        keys on its identity, and it holds the store's tensors, so the
+        captured gather never reads freed memory."""
+        key = (int(local_steps), int(batch_size))
+        fn = self._samplers.get(key)
+        if fn is not None:
+            return fn
+        train_x, train_y, counts = self.train_x, self.train_y, self.train_counts
+        k, n_max = train_y.shape
+        need = key[0] * key[1]
+        dev = train_x.device
+
+        def sample(generator: torch.Generator) -> Tuple[torch.Tensor, torch.Tensor]:
+            u = torch.rand((k, n_max), generator=generator, device=dev)
+            pad = torch.arange(n_max, device=dev)[None, :] >= counts[:, None]
+            order = torch.argsort(torch.where(pad, torch.inf, u), dim=1, stable=True)
+            pos = torch.arange(need, device=dev)[None, :] % torch.clamp_min(
+                counts[:, None], 1
+            )  # wraparound past one local epoch
+            idx = torch.gather(order, 1, pos)  # [K, S*B]
+            cx = train_x[torch.arange(k, device=dev)[:, None], idx]
+            cy = torch.gather(train_y, 1, idx)
+            cx = cx.reshape((k,) + key + tuple(cx.shape[2:]))
+            return cx, cy.reshape((k,) + key)
+
+        self._samplers[key] = sample
+        return sample
+
     def sample_round(
         self, generator: torch.Generator, local_steps: int, batch_size: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``[K, S, B, ...]`` train batches for every client, in one gather.
-        ``generator`` must live on the dataset's device."""
-        k, n_max = self.train_y.shape
-        need = local_steps * batch_size
-        u = torch.rand((k, n_max), generator=generator, device=self.device)
-        pad = torch.arange(n_max, device=self.device)[None, :] >= self.train_counts[:, None]
-        order = torch.argsort(torch.where(pad, torch.inf, u), dim=1, stable=True)
-        pos = torch.arange(need, device=self.device)[None, :] % torch.clamp_min(
-            self.train_counts[:, None], 1
-        )  # wraparound past one local epoch
-        idx = torch.gather(order, 1, pos)  # [K, S*B]
-        cx = self.train_x[torch.arange(k, device=self.device)[:, None], idx]
-        cy = torch.gather(self.train_y, 1, idx)
-        cx = cx.reshape((k, local_steps, batch_size) + tuple(cx.shape[2:]))
-        cy = cy.reshape(k, local_steps, batch_size)
-        return cx, cy
+        """``[K, S, B, ...]`` train batches for every client, in one gather:
+        :meth:`sampler`'s function on ``generator``."""
+        return self.sampler(local_steps, batch_size)(generator)
 
     def client_test_slices(self) -> List[np.ndarray]:
         """Index arrays into the union test set, one per client."""

@@ -161,7 +161,7 @@ class FaultModel:
     # -- the fault pass ---------------------------------------------------------
 
     def apply(
-        self, updates: torch.Tensor, state: Any, generator: torch.Generator, round_idx: int,
+        self, updates: torch.Tensor, state: Any, generator: torch.Generator, round_idx,
         draws: Optional[Dict[str, Optional[torch.Tensor]]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor, Any, dict]:
         """This round's faults on the post-attack update matrix.
@@ -171,8 +171,10 @@ class FaultModel:
         it), the boolean ``[K]`` mask of the rows it aggregates, the advanced
         state, and 0-d int32 counters (participants, dropped, stale
         replays, stragglers dropped past ``max_staleness``, corrupted rows,
-        rows excluded by the non-finite guard). ``draws``: this round's
-        :func:`draw_faults`, drawn here from ``generator`` when None.
+        rows excluded by the non-finite guard). ``round_idx``: an int or the
+        round's 0-d device index (it picks the schedule's row). ``draws``:
+        this round's :func:`draw_faults`, drawn here from ``generator`` when
+        None.
         """
         k, d = updates.shape
         dev = updates.device
@@ -190,11 +192,13 @@ class FaultModel:
             fresh = ~drop & ~straggle
             out = torch.where(stale_ok[:, None], st["stale"].to(updates.dtype), updates)
             part = fresh | stale_ok
+            # init_state's key order, so a new state has the layout of the
+            # one it replaces (a captured round writes it back in place)
             new_state = {
-                **({"fill": st["fill"]} if "fill" in st else {}),
                 "stale": torch.where(fresh[:, None], updates.to(torch.float32), st["stale"]),
                 "age": torch.where(fresh, 0, age).to(torch.int32),
                 "has": st["has"] | fresh,
+                **({"fill": st["fill"]} if "fill" in st else {}),
             }
             n_stale = _count(stale_ok)
             n_expired = _count(straggle & ~stale_ok)
@@ -233,7 +237,7 @@ class FaultModel:
 
     # -- the streaming round's fault pass --------------------------------------
 
-    def _decisions(self, draws, k: int, round_idx: int, dev) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _decisions(self, draws, k: int, round_idx, dev) -> Tuple[torch.Tensor, torch.Tensor]:
         """``(dropped, corrupt)``, ``[K]`` each, from the round's draws (on
         ``dev``), the schedule and the corrupt client ids; corruption not
         yet restricted to the rows delivered."""
@@ -254,7 +258,7 @@ class FaultModel:
         return drop, corrupt
 
     def plan_streaming(
-        self, num_clients: int, generator: torch.Generator, round_idx: int,
+        self, num_clients: int, generator: torch.Generator, round_idx,
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """The streaming round's ``[K]`` decisions on the generator's device,
         ``(participation, dropped, corrupt)``, from the draws ``apply``
@@ -285,16 +289,22 @@ class FaultModel:
         flip = _bernoulli(self.bitflip_frac, slab.shape, generator).to(slab.device)
         return torch.where(flip & corrupt[:, None], -self.bitflip_scale * slab, slab)
 
-    def _schedule_row(self, round_idx: int, device) -> torch.Tensor:
-        """Round ``round_idx``'s row of the schedule on ``device``. The
-        schedule is copied to each device once and kept with the model, so
-        only the first round waits for a host-to-device copy."""
+    def _schedule_row(self, round_idx, device) -> torch.Tensor:
+        """Round ``round_idx``'s row of the schedule on ``device``.
+        ``round_idx`` is an int or the round's 0-d device index (the
+        engine's, so that a captured round reads the row of the round it
+        replays). The schedule is copied to each device once and kept with
+        the model, so only the first round waits for a host-to-device
+        copy."""
         cache = self.__dict__.setdefault("_schedule_on", {})
         key = str(torch.device(device))
         if key not in cache:
             cache[key] = torch.from_numpy(self.participation_schedule).to(device)
         sched = cache[key]
-        return sched[round_idx % sched.shape[0]]
+        if not isinstance(round_idx, torch.Tensor):
+            round_idx = torch.full((), int(round_idx), dtype=torch.int64, device=sched.device)
+        row = torch.remainder(round_idx.to(sched.device, torch.int64), sched.shape[0])
+        return sched.index_select(0, row.view(1))[0]
 
     def __repr__(self) -> str:
         parts = []

@@ -10,9 +10,11 @@ dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
 ``streaming`` and its guard against ``retain_updates`` / ``on_round_end``,
 :475-479), ``_CompositeAttack`` (:69-148) and ``register_attackers``
 (:262-275, wired in at :597-598), the stats records (:1240-1260) and
-``evaluate`` (:1396-1437). It writes the same ``stats`` records
+``evaluate`` (:1396-1437); round blocks (``block_size``, :788-846, and
+``_run_blocks``, :1048-1192), ``donate_batches`` and the engine cache's key
+(``engine_cache``, :640-715). It writes the same ``stats`` records
 (``train``, ``variance``, ``client_validation``, ``test``) with the same
-keys.
+keys, a block's rounds included.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
@@ -41,6 +43,7 @@ from blades_tpu_torch.client import BladesClient, ByzantineClient
 from blades_tpu_torch.core.engine import (
     ClientOptSpec,
     RoundEngine,
+    RoundMetrics,
     ServerOptSpec,
     multistep_lr,
     resolve_device,
@@ -51,6 +54,7 @@ from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.models import create_model
 from blades_tpu_torch.models.common import ModelSpec, build_fns
 from blades_tpu_torch.server import BladesServer
+from blades_tpu_torch.sweeps import contains_callables, program_fingerprint, static_fingerprint
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.logging import initialize_logger
 from blades_tpu_torch.utils.metrics import top1_accuracy
@@ -64,9 +68,6 @@ _UNPORTED_RUN_OPTIONS = {
     "checkpoint_path": (None, "slice 5 (checkpoint and resume)"),
     "checkpoint_interval": (0, "slice 5 (checkpoint and resume)"),
     "resume": (False, "slice 5 (checkpoint and resume)"),
-    "block_size": (1, "slice 7 (multi-round execution)"),
-    "donate_batches": (False, "slice 7 (multi-round execution)"),
-    "engine_cache": (None, "slice 7 (multi-round execution)"),
     "audit_monitor": (None, "slice 10 (audit, metrics, telemetry)"),
     "collect_diagnostics": (None, "slice 10 (audit, metrics, telemetry)"),
     "round_metrics": (None, "slice 10 (audit, metrics, telemetry)"),
@@ -117,6 +118,9 @@ class _CompositeAttack(Attack):
     streaming round ``on_updates`` sees one chunk's slab and its mask, and
     an attacker's client index then names a row of the slab (dropped past
     its end), as in the JAX streaming round."""
+
+    graph_unsafe_reason = ("each callback's generator is set to the round's entry state "
+                           "inside the round (_clone) (ROADMAP.md queue A, item 7c)")
 
     def __init__(self, entries):
         # entries: [(client index, ByzantineClient)]; attacks built once
@@ -375,6 +379,9 @@ class Simulator:
         fault_model: Optional[Union[FaultModel, Dict]] = None,
         streaming: bool = False,
         async_config: Optional[Union[AsyncConfig, Dict]] = None,
+        block_size: int = 1,
+        donate_batches: bool = False,
+        engine_cache=None,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -411,6 +418,29 @@ class Simulator:
         update weighted by its staleness; each round's counters are
         ``self.engine.last_async_diag``. Not with ``streaming=True`` or a
         fault model with stragglers.
+        ``block_size``: run the rounds in blocks of this many through
+        ``RoundEngine.run_block``, the sampler fused in; a remainder block
+        takes ``global_rounds % block_size``. The ``train`` and
+        ``variance`` records are the per-round ones, read back once a
+        block; evaluation runs at block boundaries, after a block holding a
+        multiple of ``validate_interval``. On the card a graph-safe
+        configuration replays one captured CUDA graph of the round
+        (``self.engine.last_block_mode``); elsewhere blocks run eagerly
+        (``self.engine.last_block_reason`` says why). ``retain_updates`` and
+        ``on_round_end`` need every round on the host, so with either the
+        run goes round by round (a debug note says so).
+        ``donate_batches``: accepted for parity with the JAX package and
+        changes nothing: the Simulator always hands each round's batch to
+        the engine (``RoundEngine.run_round_donated``) and keeps no
+        reference to it, so the caching allocator may reuse its memory once
+        local training has consumed it. In a block the engine owns its
+        batches already, and a captured round reads a static batch buffer.
+        ``engine_cache``: a :class:`~blades_tpu_torch.sweeps.EngineCache`;
+        a run whose static configuration matches an earlier run's reuses
+        its engine, and with it the engine's captured graph (the key is
+        built as in ``blades_tpu/simulator.py:640-715``: a registry model
+        name only, no registered attackers, nothing holding a bare
+        callable; the fault model is rebound on a hit).
         Attackers registered with :meth:`register_attackers` replace the
         uniform attack.
         """
@@ -438,11 +468,7 @@ class Simulator:
         attack = self.attack
         if self._custom_attack_entries:
             attack = _CompositeAttack(self._custom_attack_entries)
-        self.engine = RoundEngine(
-            spec.train_loss_fn,
-            spec.eval_logits_fn,
-            params,
-            spec.layout,
+        engine_kwargs = dict(
             num_clients=self.dataset.num_clients,
             num_byzantine=self.num_byzantine,
             attack=attack,
@@ -454,28 +480,64 @@ class Simulator:
             client_chunks=client_chunks,
             keep_updates=retain_updates or on_round_end is not None,
             device=self.device,
-            noise_sites=spec.noise_sites,
             fault_model=fault_model,
             streaming=streaming,
             async_config=async_config,
         )
+        engine_key = None
+        if (engine_cache is not None and isinstance(model, str)
+                and not self._custom_attack_entries):
+            view = static_fingerprint({"model": model, "loss": loss,
+                                       "compute_dtype": str(compute_dtype),
+                                       **engine_kwargs, "device": str(self.device)})
+            if not contains_callables(view):
+                engine_key = program_fingerprint(view=view)
+        cached = engine_cache.get(engine_key) if engine_key is not None else None
+        if cached is not None:
+            self.engine = cached
+            # an equal-program fault model (a NaN/Inf twin: the fill rides
+            # the state) is rebound; init below makes its state
+            self.engine.fault_model = fault_model
+        else:
+            t_build = time.perf_counter()
+            self.engine = RoundEngine(
+                spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                noise_sites=spec.noise_sites, **engine_kwargs,
+            )
+            if engine_key is not None:
+                engine_cache.put(engine_key, self.engine,
+                                 build_s=time.perf_counter() - t_build)
         state = self.engine.init(params)
         self.server = BladesServer(self.engine, state, self.aggregator)
         client_lr_fn = self._resolve_schedule(client_lr_scheduler, client_lr)
         server_lr_fn = self._resolve_schedule(server_lr_scheduler, server_lr)
 
+        block_size = max(1, int(block_size))
+        if block_size > 1 and (retain_updates or on_round_end is not None):
+            self.debug_logger.info(
+                "block_size>1 disabled: retain_updates/on_round_end need "
+                "per-round host visibility"
+            )
+            block_size = 1
+
         round_times: List[float] = []
         global_start = time.time()
+        if block_size > 1:
+            self._run_blocks(state, self.dataset.sampler(local_steps, batch_size), block_size,
+                             global_rounds, local_steps, validate_interval, test_batch_size,
+                             client_lr_fn, server_lr_fn, round_times, global_start)
+            return round_times
         for rnd in range(1, global_rounds + 1):
             round_start = time.time()
-            cx, cy = self.dataset.sample_round(
+            batch = list(self.dataset.sample_round(
                 rng.generator(self.seed, rnd, rng.DATA, device=self.device),
                 local_steps,
                 batch_size,
-            )
+            ))
             c_lr = client_lr_fn(rnd - 1)
             s_lr = server_lr_fn(rnd - 1)
-            state, m = self.engine.run_round(state, cx, cy, c_lr, s_lr, self.seed)
+            # the engine empties the list: nothing else holds the batch
+            state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr, self.seed)
             self.server.state = state
             # the float() reads in the loggers wait for the device
             self.log_train(rnd, local_steps, m)
@@ -496,6 +558,44 @@ class Simulator:
                 f"Time cost = {time.time() - global_start}"
             )
         return round_times
+
+    def _run_blocks(self, state, sampler, block_size, global_rounds, local_steps,
+                    validate_interval, test_batch_size, client_lr_fn, server_lr_fn,
+                    round_times, global_start) -> None:
+        """Rounds ``1..global_rounds`` in blocks of ``block_size`` through
+        ``RoundEngine.run_block`` (``blades_tpu/simulator.py:1048-1192``), a
+        remainder block taking the rest. Each block's metrics come to the
+        host in one copy and are logged round by round; evaluation runs once
+        a block; ``round_times`` gets each round's share of its block's
+        wall; the final state is left on ``self.server``."""
+        rnd = 1
+        while rnd <= global_rounds:
+            bs = min(block_size, global_rounds - rnd + 1)
+            rounds = list(range(rnd, rnd + bs))
+            block_start = time.time()
+            c_lrs = [client_lr_fn(r - 1) for r in rounds]
+            s_lrs = [server_lr_fn(r - 1) for r in rounds]
+            state, ms, _ = self.engine.run_block(state, rounds, c_lrs, s_lrs, self.seed,
+                                                 sampler=sampler)
+            self.server.state = state
+            # the block's one host sync: every round's metrics in one copy
+            host = torch.stack(list(ms)).cpu().numpy()
+            for i, r in enumerate(rounds):
+                m = RoundMetrics(*host[:, i])
+                self.log_train(r, local_steps, m)
+                self.log_variance(r, m)
+            if any(r % validate_interval == 0 for r in rounds):
+                ev = self.evaluate(rounds[-1], test_batch_size)
+                self.debug_logger.info(
+                    f"Test global round {rounds[-1]}, loss: {ev['Loss']}, top1: {ev['top1']}"
+                )
+            wall = time.time() - block_start
+            round_times.extend([wall / bs] * bs)
+            self.debug_logger.info(
+                f"E={rounds[0]}-{rounds[-1]}; block={bs} ({self.engine.last_block_mode}); "
+                f"Client learning rate = {c_lrs[-1]}; Time cost = {time.time() - global_start}"
+            )
+            rnd += bs
 
     # -- logging (stats-file schema parity) -----------------------------------
 

@@ -9,11 +9,12 @@ Counterpart: ``blades_tpu/utils/rng.py:26-61``, a ``fold_in`` key tree:
 and, for the streaming round's per-chunk draws (the JAX package's
 ``fold_in(purpose_key, chunk)``), ``round -> purpose -> CHUNKS -> chunk``.
 
-Here every node is a fresh generator seeded from a hash of its path, so any
-round's streams are a pure function of (seed, round, purpose, client) and a
-round is reproducible in isolation. The bits differ from JAX's threefry
-streams; tests that compare the two packages draw the random inputs once
-with numpy and hand them to both.
+Here every node is a generator seeded from a hash of its path
+(:func:`seed_of`), so any round's streams are a pure function of (seed,
+round, purpose, client) and a round is reproducible in isolation; a round
+takes its generators from a :class:`RoundStreams`. The bits differ from
+JAX's threefry streams; tests that compare the two packages draw the random
+inputs once with numpy and hand them to both.
 """
 
 from __future__ import annotations
@@ -44,15 +45,14 @@ DROPOUT = 9
 CHUNKS = 10
 
 
-def generator(
+def seed_of(
     seed: int,
     round_idx: int,
     purpose: int,
     client: Optional[int] = None,
-    device="cpu",
     chunk: Optional[int] = None,
-) -> torch.Generator:
-    """The generator at ``root(seed) -> round -> purpose`` or, with
+) -> int:
+    """The seed of the node at ``root(seed) -> round -> purpose`` or, with
     ``client``, at ``root(seed) -> round -> CLIENTS -> client`` (``purpose``
     is then ignored, as the JAX tree has no purpose below a client); with
     ``chunk``, at ``... -> purpose -> CHUNKS -> chunk``."""
@@ -61,7 +61,65 @@ def generator(
     if chunk is not None:
         path += [CHUNKS, int(chunk)]
     state = np.random.SeedSequence(path).generate_state(1, np.uint64)[0]
-    return torch.Generator(device=device).manual_seed(int(state) >> 1)
+    return int(state) >> 1
+
+
+def generator(
+    seed: int,
+    round_idx: int,
+    purpose: int,
+    client: Optional[int] = None,
+    device="cpu",
+    chunk: Optional[int] = None,
+) -> torch.Generator:
+    """A new generator seeded at :func:`seed_of`'s node."""
+    return torch.Generator(device=device).manual_seed(
+        seed_of(seed, round_idx, purpose, client=client, chunk=chunk))
+
+
+class RoundStreams:
+    """A round's generators, one per ``(purpose, chunk)``, made on first
+    request and handed out again on a later one.
+
+    A new instance per round gives the generators :func:`generator` makes.
+    A captured round (``core/graphs.py``) keeps one instance and calls
+    :meth:`reseed` before each replay: ``manual_seed`` puts a generator at
+    its node with the Philox offset at 0, the state a new one starts from,
+    so a replayed round draws the bits an eager round draws. ``DATA`` is
+    rooted at ``data_round``, the round the sampler draws for (the
+    Simulator counts those from 1), every other purpose at ``round_idx``.
+    """
+
+    def __init__(self, seed: int, round_idx: int, device="cpu",
+                 data_round: Optional[int] = None):
+        self.device = torch.device(device)
+        self._held = {}
+        self._at(seed, round_idx, data_round)
+
+    def _at(self, seed, round_idx, data_round):
+        self.seed, self.round_idx = int(seed), int(round_idx)
+        self.data_round = self.round_idx if data_round is None else int(data_round)
+
+    def _seed(self, purpose: int, chunk: Optional[int]) -> int:
+        r = self.data_round if purpose == DATA else self.round_idx
+        return seed_of(self.seed, r, purpose, chunk=chunk)
+
+    def __call__(self, purpose: int, chunk: Optional[int] = None) -> torch.Generator:
+        key = (int(purpose), None if chunk is None else int(chunk))
+        gen = self._held.get(key)
+        if gen is None:
+            gen = self._held[key] = torch.Generator(device=self.device).manual_seed(
+                self._seed(*key))
+        return gen
+
+    def reseed(self, seed: int, round_idx: int, data_round: Optional[int] = None) -> None:
+        """Move every held generator to its node of another round."""
+        self._at(seed, round_idx, data_round)
+        for key, gen in self._held.items():
+            gen.manual_seed(self._seed(*key))
+
+    def generators(self) -> list:
+        return list(self._held.values())
 
 
 def keep_masks(sites, generator: torch.Generator, lead=()) -> dict:

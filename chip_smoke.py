@@ -68,6 +68,22 @@ the async pair (``asyncmean``, ``asynccenteredclipping``) under it and in
 their streaming forms; geometric delays with a cutoff under 10% dropout;
 and a K=16 MLP async run on the card against the CPU.
 
+Then round blocks (``RoundEngine.run_block``, ``Simulator.run(block_size=
+...)``), each against the same rounds run one by one, bit for bit, with
+cuDNN's deterministic algorithms: the MLP at K=1000, 20 rounds one by one
+and in blocks of 10 (one captured CUDA graph of the round, replayed), then
+again with an ``EngineCache`` hit that captures nothing, and a warm block
+against a warm round (wall, host syncs, busy share, the kernel's profiler
+events against its counted launches); bf16 and f32 CCT-2 graph blocks
+(round wall, capture time, peak memory); graph blocks under the fault
+model and of async ticks (counters equal); a clipped-clustering graph
+block, with the defense's own time eager and as a replayed graph of the
+call; GeoMed and streaming blocks, which run eagerly and say why;
+``ExperimentBatch`` of 2 at the MLP round, each column equal to its own
+run; and the bf16 CCT-2 round's peak memory with the batch held by the
+caller and donated to the engine (``run_round_donated``, as
+``Simulator.run`` does every round).
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -168,6 +184,14 @@ ASYNC_AGGREGATORS = ("asyncmean", "asynccenteredclipping")
 ASYNC_CPU_CLIENTS, ASYNC_CPU_TICKS = 16, 3
 # bf16 rows compared across runs: relative L2 error (the CCT tests' bar)
 BF16_ROW_REL = 2e-2
+# round blocks (RoundEngine.run_block; a replayed CUDA graph where the
+# configuration is graph-safe): the MLP's rounds and block size, the bf16
+# and f32 CCT-2 blocks, the fault-model and async blocks, the linkage
+# block, the eager blocks (GeoMed, streaming), the experiments of
+# ExperimentBatch and the rounds of the donated-batch runs
+BLOCK_MLP_ROUNDS, BLOCK_MLP_SIZE = 20, 10
+BLOCK_CCT2_ROUNDS, BLOCK_F32_ROUNDS, BLOCK_SLICE_ROUNDS = 3, 2, 3
+BLOCK_LINKAGE_ROUNDS, BLOCK_EAGER_ROUNDS, EXPERIMENTS, DONATE_ROUNDS = 2, 2, 2, 2
 
 
 def emit(record: dict) -> None:
@@ -2085,6 +2109,482 @@ def phase_async_card_vs_cpu(torch, dev) -> None:
     check([t[2]["fired"] for t in out["cpu"]] == [1, 0, 1], "async_card_vs_cpu: the fires")
 
 
+def _same(torch, a, b) -> bool:
+    """Bit-identical tensors, NaN where NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        nan = torch.isnan(a)
+        return bool(torch.equal(nan, torch.isnan(b)) and torch.equal(a[~nan], b[~nan]))
+    return bool(torch.equal(a, b))
+
+
+def _tensors(torch, tree) -> list:
+    return [t for t in torch.utils._pytree.tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
+
+
+def block_equals_rounds(torch, seq, st, st2, ms, diags) -> list:
+    """What differs between R sequential rounds (``seq``: each round's
+    metrics, fault and async counters; ``st``: their final state) and a
+    block (``st2``, its stacked ``ms`` and ``diags``): [] when the block is
+    bit-identical (params, every state tensor, round_idx, every metric,
+    every counter)."""
+    bad = []
+    if st.round_idx != st2.round_idx:
+        bad.append(f"round_idx {st.round_idx} != {st2.round_idx}")
+    a, b = _tensors(torch, st), _tensors(torch, st2)
+    bad += [f"state tensor {i}" for i, (x, y) in enumerate(zip(a, b)) if not _same(torch, x, y)]
+    for i, (m, fdiag, adiag) in enumerate(seq):
+        bad += [f"round {i} {n}" for n, x, col in zip(m._fields, m, ms)
+                if not _same(torch, x, col[i])]
+        for kind, ref in (("faults", fdiag), ("async", adiag)):
+            bad += [f"round {i} {kind} {n}" for n in (ref or {})
+                    if not _same(torch, ref[n], diags[kind][n][i])]
+    return bad
+
+
+def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
+                  dtype: str = "bfloat16", aggregator: str = "trimmedmean", attack="alie",
+                  warm_block: bool = True, profiled: bool = False, **run_kw) -> dict:
+    """CCT-2 at K=1000 (4 chunks, ``attack`` f=5, ``aggregator``) on the
+    store ``fl``: ``rounds`` sequential ``run_round`` calls, then the same
+    rounds from the same init as one ``run_block`` (the sampler fused in),
+    and with ``warm_block`` a second block from there (a warm graph:
+    replays only; under torch.profiler with ``profiled``: its device busy
+    share and the kernel's events). Each timed with a device sync, its
+    peak memory (allocated, and the allocator's reserve after it: a
+    graph's private pool stays reserved between replays) and the kernel's
+    launches; the block held to the rounds bit for bit."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.utils import rng
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    k, d, f = CCT2_SHAPE
+    sim = Simulator(dataset=fl, attack=attack, num_byzantine=f if attack else 0,
+                    aggregator=aggregator, aggregator_kws=catalog_kwargs(aggregator), seed=1,
+                    log_path=str(log_root / name))
+    sim.run(model="cct_2_3x2_32", global_rounds=0, client_chunks=CCT2_CHUNKS,
+            compute_dtype=None if dtype == "float32" else dtype, **run_kw)
+    eng, seed = sim.engine, sim.seed
+    p0 = {n: t.clone() for n, t in sim.server.state.params.items()}
+    del sim
+    lrs, slrs = [0.1] * rounds, [1.0] * rounds
+
+    def measured(fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trimmed.trimmed_mean_launches = 0
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, trimmed.trimmed_mean_launches, \
+            (torch.cuda.max_memory_allocated(), torch.cuda.memory_reserved())
+
+    def sequential():
+        st, seq, walls = eng.init(p0), [], []
+        for i, r in enumerate(range(1, rounds + 1)):
+            t0 = time.perf_counter()
+            cx, cy = fl.sample_round(rng.generator(seed, r, rng.DATA, device=eng.device), 1, 32)
+            st, m = eng.run_round(st, cx, cy, lrs[i], slrs[i], seed)
+            del cx, cy
+            seq.append((m, eng.last_fault_diag, eng.last_async_diag))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        return st, seq, walls
+
+    (st, seq, walls), _, seq_launches, seq_peak = measured(sequential)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sampler = fl.sampler(1, 32)
+    (st2, ms, diags), block_s, launches, peak = measured(
+        lambda: eng.run_block(eng.init(p0), range(1, rounds + 1), lrs, slrs, seed,
+                              sampler=sampler))
+    bad = block_equals_rounds(torch, seq, st, st2, ms, diags)
+    graph = eng.last_graph if eng.last_block_mode == "graph" else None
+    out = dict(engine=eng, mode=eng.last_block_mode, reason=eng.last_block_reason,
+               state=st2, diags=diags, differs=bad, round_s=walls, seq_launches=seq_launches,
+               seq_peak=seq_peak, block_s=block_s, launches=launches, peak=peak,
+               capture_s=graph and graph.capture_seconds,
+               warmup_s=graph and graph.warmup_seconds,
+               graph_kernel_launches=graph and graph.kernel_launches,
+               train_loss=[float(x) for x in ms.train_loss])
+    if warm_block:
+        def warm():
+            return eng.run_block(st2, range(rounds + 1, 2 * rounds + 1), lrs, slrs, seed,
+                                 sampler=sampler)
+
+        (st3, _, _), warm_s, warm_launches, warm_peak = measured(warm)
+        out.update(warm_block_s=warm_s, warm_block_launches=warm_launches,
+                   warm_block_peak=warm_peak, state=st3)
+        if profiled:
+            trimmed.trimmed_mean_launches = 0
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                warm()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+            dev = device_breakdown(torch, prof, set(), set())
+            out.update(profiled_block_wall_ms=wall, profiled_block_busy_ms=dev["busy_ms"],
+                       profiled_block_busy_share=dev["busy_ms"] / wall,
+                       profiled_block_kernel_events=sum(
+                           1 for e in device_kernels(torch, prof)
+                           if "trimmed_mean_kernel" in e.name),
+                       profiled_block_counted_launches=trimmed.trimmed_mean_launches)
+    return out
+
+
+def emit_blocks(name: str, run: dict, card: str, **extra) -> dict:
+    """One block phase's record (without the engine and the states)."""
+    rec = {n: v for n, v in run.items() if n not in ("engine", "state", "diags")}
+    rounds = len(run["round_s"])
+    rec["round_s_per_block_round"] = run["block_s"] / rounds
+    if "warm_block_s" in run:
+        rec["warm_block_round_s"] = run["warm_block_s"] / rounds
+    emit({"phase": name, **extra, "rounds": rounds, **rec, "card": card})
+    return rec
+
+
+def phase_block_mlp(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """The MLP at K=1000 (ALIE f=5, trimmed mean b=5) through Simulator.run:
+    BLOCK_MLP_ROUNDS rounds one by one, then in blocks of BLOCK_MLP_SIZE
+    (a captured CUDA graph) with an EngineCache, then again with that cache
+    (``engine_cache``: a hit, no capture). Params equal across the three;
+    the kernel launches once a round in each. Then a warm block against a
+    warm eager round: wall, host syncs (the block's one read of its
+    metrics) and, under torch.profiler, device busy share and the kernel's
+    events against its counted launches. Returns the launches by path and
+    the profiler's kernel events by path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.sweeps import EngineCache
+
+    k, f = MAIN_CLIENTS, MAIN_BYZANTINE
+    run_kw = dict(model="mlp", global_rounds=BLOCK_MLP_ROUNDS, local_steps=1, server_lr=1.0,
+                  client_lr=0.1, validate_interval=BLOCK_MLP_ROUNDS)
+
+    def run(name, **kw):
+        gc.collect()
+        sim = Simulator(dataset=fl, attack="alie", num_byzantine=f, aggregator="trimmedmean",
+                        aggregator_kws={"num_byzantine": f}, seed=1, device=fl.device,
+                        log_path=str(log_root / name))
+        torch.cuda.synchronize()
+        trimmed.trimmed_mean_launches = 0
+        t0 = time.perf_counter()
+        times = sim.run(**run_kw, **kw)
+        torch.cuda.synchronize()
+        return dict(sim=sim, round_s=times, wall_s=time.perf_counter() - t0,
+                    launches=trimmed.trimmed_mean_launches,
+                    params=ravel(sim.server.state.params, sim.engine.layout))
+
+    eager = run("block_mlp_eager")
+    cache = EngineCache()
+    blocked = run("block_mlp_graph", block_size=BLOCK_MLP_SIZE, engine_cache=cache)
+    eng = blocked["sim"].engine
+    graph = eng.last_graph
+    first = dict(replays=graph.replays, capture_s=graph.capture_seconds,
+                 warmup_s=graph.warmup_seconds)
+    hit = run("engine_cache", block_size=BLOCK_MLP_SIZE, engine_cache=cache)
+    hit_replays = graph.replays - first["replays"]
+    check(eng.last_block_mode == "graph", f"block_mlp: {eng.last_block_mode} {eng.last_block_reason}")
+
+    # warm: a block of BLOCK_MLP_SIZE rounds and its one read of the metrics,
+    # against an eager round
+    state, sampler = blocked["sim"].server.state, fl.sampler(1, 32)
+    r = BLOCK_MLP_SIZE
+    rounds = list(range(BLOCK_MLP_ROUNDS + 1, BLOCK_MLP_ROUNDS + 1 + r))
+
+    def block():
+        _, ms, _ = eng.run_block(state, rounds, [0.1] * r, [1.0] * r, 1, sampler=sampler)
+        return torch.stack(list(ms)).cpu()
+
+    block()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        block()
+        walls.append(time.perf_counter() - t0)
+    syncs = host_syncs(torch, block)
+    block()
+    torch.cuda.synchronize()
+    trimmed.trimmed_mean_launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        block()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    counted = trimmed.trimmed_mean_launches
+    dev = device_breakdown(torch, prof, set(), set())
+    profiled = sum(1 for e in device_kernels(torch, prof) if "trimmed_mean_kernel" in e.name)
+    warm_eager = warm_round(torch, eager["sim"], profiled=True)
+
+    same_graph = bool(torch.equal(blocked["params"], eager["params"]))
+    same_hit = bool(torch.equal(hit["params"], blocked["params"]))
+    emit({"phase": "block_mlp", "clients": k, "byzantine": f, "b": f,
+          "rounds": BLOCK_MLP_ROUNDS, "block_size": BLOCK_MLP_SIZE,
+          "mode": eng.last_block_mode, "eager_round_s": eager["round_s"],
+          "block_round_s": blocked["round_s"], "eager_wall_s": eager["wall_s"],
+          "block_wall_s": blocked["wall_s"], "capture_s": first["capture_s"],
+          "warmup_s": first["warmup_s"], "replays": first["replays"],
+          "eager_launches": eager["launches"], "block_launches": blocked["launches"],
+          "graph_kernel_launches": graph.kernel_launches,
+          "params_equal_eager": same_graph,
+          "warm_block_ms": [w * 1e3 for w in walls],
+          "warm_block_round_ms": [w * 1e3 / r for w in walls],
+          "warm_block_host_syncs": sum(syncs.values()), "warm_block_host_sync_sites": syncs,
+          "profiled_block_wall_ms": wall, "profiled_block_busy_ms": dev["busy_ms"],
+          "profiled_block_busy_share": dev["busy_ms"] / wall,
+          "profiled_block_kernel_events": profiled, "profiled_block_counted_launches": counted,
+          "profiled_block_trimmed_mean_ms": dev["by_class_union_ms"]["trimmed_mean_kernel"],
+          "warm_eager_round": warm_eager, "card": card})
+    emit({"phase": "engine_cache", "hits": cache.hits, "misses": cache.misses,
+          "entries": len(cache), "same_engine": hit["sim"].engine is eng,
+          "same_graph": eng.last_graph is graph, "first_wall_s": blocked["wall_s"],
+          "hit_wall_s": hit["wall_s"], "hit_round_s": hit["round_s"],
+          "replays_in_hit": hit_replays,
+          "hit_launches": hit["launches"], "params_equal_fresh": same_hit, "card": card})
+    check(same_graph, "block_mlp: the graph blocks' params differ from the rounds'")
+    check(eager["launches"] == blocked["launches"] == BLOCK_MLP_ROUNDS,
+          f"block_mlp: launches {eager['launches']} / {blocked['launches']}")
+    check(graph.kernel_launches == 1 and counted == r,
+          f"block_mlp: {graph.kernel_launches} launches captured, {counted} counted")
+    check(profiled == counted, f"block_mlp: the profiler saw {profiled} kernels, {counted} counted")
+    check(sum(syncs.values()) == 1, f"block_mlp: a warm block synced {syncs}")
+    check(cache.hits == 1 and cache.misses == 1 and hit["sim"].engine is eng
+          and eng.last_graph is graph and hit_replays == BLOCK_MLP_ROUNDS,
+          f"engine_cache: hits {cache.hits}, same graph {eng.last_graph is graph}, "
+          f"replays {hit_replays}")
+    check(same_hit and hit["launches"] == BLOCK_MLP_ROUNDS,
+          f"engine_cache: params equal {same_hit}, launches {hit['launches']}")
+    return ({"mlp_k1000_graph_block": blocked["launches"],
+             "mlp_k1000_engine_cache": hit["launches"], "mlp_k1000_profiled_block": counted},
+            {"mlp_k1000_profiled_block": profiled})
+
+
+def phase_block_cct2(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """bf16 CCT-2 at K=1000 (ALIE f=5, trimmed mean b=5): BLOCK_CCT2_ROUNDS
+    rounds against a graph block of as many, then a warm block; f32:
+    BLOCK_F32_ROUNDS. Returns the launches of the blocks and the profiler's
+    kernel events in the profiled bf16 block."""
+    launches, events = {}, {}
+    for dtype, rounds in (("bfloat16", BLOCK_CCT2_ROUNDS), ("float32", BLOCK_F32_ROUNDS)):
+        run = engine_blocks(torch, trimmed, fl, log_root, f"block_cct2_{dtype}", rounds, dtype,
+                            profiled=dtype == "bfloat16")
+        emit_blocks("block_cct2", run, card, dtype=dtype, attack="alie",
+                    aggregator="trimmedmean", clients=CCT2_SHAPE[0])
+        check(run["mode"] == "graph", f"block_cct2 {dtype}: {run['mode']} {run['reason']}")
+        check(not run["differs"], f"block_cct2 {dtype}: the block differs: {run['differs']}")
+        check(run["seq_launches"] == run["launches"] == run["warm_block_launches"] == rounds,
+              f"block_cct2 {dtype}: launches {run['seq_launches']} / {run['launches']}")
+        check(run.get("profiled_block_kernel_events") == run.get(
+            "profiled_block_counted_launches", rounds) == rounds or dtype != "bfloat16",
+            f"block_cct2 {dtype}: the profiler saw {run.get('profiled_block_kernel_events')} "
+            f"kernels, {run.get('profiled_block_counted_launches')} counted")
+        launches[f"cct2_{dtype}_graph_block"] = run["launches"] + run["warm_block_launches"]
+        if "profiled_block_kernel_events" in run:
+            events[f"cct2_{dtype}_profiled_block"] = run["profiled_block_kernel_events"]
+            launches[f"cct2_{dtype}_profiled_block"] = run["profiled_block_counted_launches"]
+        del run
+    return launches, events
+
+
+def phase_block_fault_async(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """Graph blocks of BLOCK_SLICE_ROUNDS bf16 CCT-2 rounds under the fault
+    model of fault_round (trimmed mean's masked form) and of as many async
+    ticks under ASYNC_CONFIG, each held to the same rounds run one by one,
+    counters included. The kernel launches in neither."""
+    from blades_tpu_torch.faults import FaultModel
+
+    launches = {}
+    for name, kw in (("faults", dict(fault_model=FaultModel(**FAULTS))),
+                     ("async", dict(async_config=ASYNC_CONFIG))):
+        run = engine_blocks(torch, trimmed, fl, log_root, f"block_{name}", BLOCK_SLICE_ROUNDS,
+                            **kw)
+        counters = {n: v.tolist() for n, v in (run["diags"][name] or {}).items()}
+        emit_blocks("block_fault_async", run, card, kind=name, counters=counters,
+                    clients=CCT2_SHAPE[0])
+        check(run["mode"] == "graph", f"block_{name}: {run['mode']} {run['reason']}")
+        check(not run["differs"], f"block_{name}: the block differs: {run['differs']}")
+        check(run["launches"] == run["seq_launches"] == 0,
+              f"block_{name}: the kernel launched {run['launches']} times")
+        launches[name] = run["launches"] + run["warm_block_launches"]
+        del run
+    return launches
+
+
+def phase_block_linkage(torch, trimmed, fl, card: str, log_root: Path) -> None:
+    """A graph block of BLOCK_LINKAGE_ROUNDS bf16 CCT-2 rounds with clipped
+    clustering under ALIE, held to the rounds; then the defense's own time
+    on a round's update matrix, eager and as a replayed graph of the call
+    alone, the two results equal."""
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.utils import rng
+
+    run = engine_blocks(torch, trimmed, fl, log_root, "block_linkage", BLOCK_LINKAGE_ROUNDS,
+                        aggregator="clippedclustering")
+    eng, state = run["engine"], run["state"]
+    eng.keep_updates = True
+    cx, cy = fl.sample_round(rng.generator(1, 50, rng.DATA, device=eng.device), 1, 32)
+    eng.run_round(state, cx, cy, 0.1, 1.0, 1)
+    updates, agg = eng.last_updates, eng.aggregator
+    eng.keep_updates, eng.last_updates = False, None
+    del cx, cy
+    ctx = dict(trusted_mask=eng.trusted_mask, params_flat=ravel(state.params, eng.layout))
+    eager_out = agg.aggregate(updates, state.agg_state, **ctx)[0]
+    eager = call_cost(torch, lambda: agg.aggregate(updates, state.agg_state, **ctx))
+    side, main = torch.cuda.Stream(), torch.cuda.current_stream()
+    side.wait_stream(main)
+    with torch.cuda.stream(side):
+        agg.aggregate(updates, state.agg_state, **ctx)
+    main.wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    t0 = time.perf_counter()
+    with torch.cuda.graph(graph, stream=side):
+        graph_out = agg.aggregate(updates, state.agg_state, **ctx)[0]
+    capture_s = time.perf_counter() - t0
+    graph_ms = time_ms(graph.replay, reps=10)
+    same = bool(torch.equal(graph_out, eager_out))
+    emit_blocks("block_linkage", run, card, aggregator="clippedclustering", attack="alie",
+                clients=CCT2_SHAPE[0], own_eager_ms=eager["ms"],
+                own_eager_host_syncs=eager["host_syncs"], own_graph_ms=graph_ms,
+                own_graph_capture_s=capture_s, own_graph_equal=same)
+    check(run["mode"] == "graph", f"block_linkage: {run['mode']} {run['reason']}")
+    check(not run["differs"], f"block_linkage: the block differs: {run['differs']}")
+    check(same, "block_linkage: the replayed defense differs from the eager call")
+    del graph, run, eng, state, updates
+
+
+def phase_block_eager(torch, trimmed, fl, card: str, log_root: Path) -> None:
+    """Blocks that run eagerly, each with its reason: BLOCK_EAGER_ROUNDS bf16
+    CCT-2 rounds with GeoMed (a host-side stopping rule) and as many
+    streaming rounds (sign flipping, trimmed mean), each held to the rounds
+    run one by one."""
+    for name, kw in (("geomed", dict(aggregator="geomed")),
+                     ("streaming", dict(attack="signflipping", streaming=True))):
+        run = engine_blocks(torch, trimmed, fl, log_root, f"block_eager_{name}",
+                            BLOCK_EAGER_ROUNDS, warm_block=False, **kw)
+        emit_blocks("block_eager", run, card, kind=name, clients=CCT2_SHAPE[0])
+        check(run["mode"] == "eager" and run["reason"], f"block_eager {name}: {run['mode']}")
+        check(not run["differs"], f"block_eager {name}: the block differs: {run['differs']}")
+        del run
+
+
+def phase_experiments(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """ExperimentBatch of EXPERIMENTS at the MLP K=1000 round: one round of
+    each on one shared batch (one replay each of a graph on the static
+    batch) and a block of 2 rounds each (the sampler's graph), each column
+    held to that experiment's own run_round / run_block. Returns the
+    launches."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.core import ExperimentBatch, unstack_experiments
+    from blades_tpu_torch.utils import rng
+
+    gc.collect()
+    sim = Simulator(dataset=fl, attack="alie", num_byzantine=MAIN_BYZANTINE,
+                    aggregator="trimmedmean", aggregator_kws={"num_byzantine": MAIN_BYZANTINE},
+                    seed=1, device=fl.device, log_path=str(log_root / "experiments"))
+    sim.run(model="mlp", global_rounds=0)
+    eng = sim.engine
+    p0 = {n: t.clone() for n, t in sim.server.state.params.items()}
+    s = EXPERIMENTS
+    eb = ExperimentBatch(eng, s)
+    cx, cy = fl.sample_round(rng.generator(1, 201, rng.DATA, device=eng.device), 1, 32)
+    c_lrs, s_lrs, seeds = [0.1, 0.05], [1.0, 0.5], [1, 2]
+    torch.cuda.synchronize()
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    states, ms, _ = eb.run_round_batch(eb.init_batch(p0), cx, cy, c_lrs, s_lrs, seeds)
+    torch.cuda.synchronize()
+    round_s, round_mode = time.perf_counter() - t0, eng.last_block_mode
+    launches = trimmed.trimmed_mean_launches
+    differs = []
+    for i, got in enumerate(unstack_experiments(states)):
+        ref, m = eng.run_round(eng.init(p0), cx, cy, c_lrs[i], s_lrs[i], seeds[i])
+        differs += [f"round {i}: {d}" for d in block_equals_rounds(
+            torch, [(m, None, None)], ref, got, [col[i:i + 1] for col in ms], {})]
+    rounds = [[301, 401], [302, 402]]
+    lrs = [[0.1, 0.05], [0.1, 0.05]]
+    slrs = [[1.0, 0.5], [1.0, 0.5]]
+    sampler = fl.sampler(1, 32)
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    states, ms, _ = eb.run_block_batch(eb.init_batch(p0), rounds, lrs, slrs, seeds,
+                                       sampler=sampler)
+    torch.cuda.synchronize()
+    block_s, block_mode = time.perf_counter() - t0, eng.last_block_mode
+    launches += trimmed.trimmed_mean_launches
+    for i, got in enumerate(unstack_experiments(states)):
+        col = lambda t: [row[i] for row in t]  # noqa: E731
+        ref, m, _ = eng.run_block(eng.init(p0), col(rounds), col(lrs), col(slrs), seeds[i],
+                                  sampler=sampler)
+        if not (all(_same(torch, a, b[:, i]) for a, b in zip(m, ms))
+                and not block_equals_rounds(torch, [], ref, got, ms, {})):
+            differs.append(f"block column {i}")
+    emit({"phase": "experiments", "experiments": s, "clients": MAIN_CLIENTS,
+          "round_mode": round_mode, "round_batch_s": round_s, "block_mode": block_mode,
+          "block_batch_s": block_s, "block_rounds": len(rounds), "kernel_launches": launches,
+          "graph_replays": eng.last_graph.replays, "differs": differs, "card": card})
+    check(round_mode == block_mode == "graph", f"experiments: {round_mode} / {block_mode}")
+    check(not differs, f"experiments: columns differ: {differs}")
+    check(launches == s * (1 + len(rounds)), f"experiments: {launches} launches")
+    return launches
+
+
+def phase_donate(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """DONATE_ROUNDS bf16 CCT-2 rounds at K=1000 (ALIE, trimmed mean) on one
+    engine, twice from one state: through run_round, with the caller holding
+    the batch, and through run_round_donated, which empties the batch list
+    once local training has consumed it (what Simulator.run does every
+    round): the peak memory of each, the params equal. Returns the
+    launches of the donated rounds."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.utils import rng
+
+    k, d, f = CCT2_SHAPE
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = Simulator(dataset=fl, attack="alie", num_byzantine=f, aggregator="trimmedmean",
+                    aggregator_kws={"num_byzantine": f}, seed=1,
+                    device=fl.device, log_path=str(log_root / "donate"))
+    sim.run(model="cct_2_3x2_32", global_rounds=0, client_chunks=CCT2_CHUNKS,
+            compute_dtype="bfloat16")
+    eng, state0 = sim.engine, sim.server.state
+    out = {}
+    for donate in (False, True):
+        state, times, peaks = state0, [], []
+        trimmed.trimmed_mean_launches = 0
+        for rnd in range(1, DONATE_ROUNDS + 1):
+            batch = list(fl.sample_round(rng.generator(1, rnd, rng.DATA, device=eng.device),
+                                         1, 32))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            if donate:
+                state, _ = eng.run_round_donated(state, batch, 0.1, 1.0, 1)
+            else:
+                state, _ = eng.run_round(state, *batch, 0.1, 1.0, 1)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated())
+            del batch
+        out[donate] = dict(round_s=times, peaks=peaks, launches=trimmed.trimmed_mean_launches,
+                           params=ravel(state.params, eng.layout))
+    same = bool(torch.equal(out[True]["params"], out[False]["params"]))
+    emit({"phase": "donate", "dtype": "bfloat16", "clients": k, "rounds": DONATE_ROUNDS,
+          "round_s": out[False]["round_s"], "donate_round_s": out[True]["round_s"],
+          "peak_mem_bytes": out[False]["peaks"], "donate_peak_mem_bytes": out[True]["peaks"],
+          "params_equal": same, "card": card})
+    check(same, "donate: the params differ between held and donated batches")
+    check(out[True]["launches"] == out[False]["launches"] == DONATE_ROUNDS,
+          f"donate: launches {out[True]['launches']}")
+    return out[True]["launches"]
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -2160,6 +2660,7 @@ def main() -> int:
         phase_profile(torch, trimmed, sim, card, other)
         phase_card_vs_cpu(torch, dev)
         launches["config1"] = phase_config1(torch, trimmed, dev, card, Path(tmp))
+        mlp_fl = sim.dataset  # the MNIST-shaped store of the block phases
         del sim
         sim = cct2_simulator(torch, Path(tmp))
         runs = phase_cct2_path(torch, trimmed, sim, card)
@@ -2192,7 +2693,26 @@ def main() -> int:
         async_launches.update({n: v for n, v in agg_launches.items() if n.startswith("async")})
         stream_launches.update({n: v for n, v in agg_launches.items() if n.startswith("stream")})
         async_launches["async_fault"] = phase_async_fault(torch, trimmed, fl, card, Path(tmp))
-        del fl
+        # round blocks: a graph or an eager block against the same rounds one
+        # by one, bit for bit (cuDNN's deterministic algorithms on)
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            graph_launches, graph_events = phase_block_mlp(torch, trimmed, mlp_fl, card,
+                                                           Path(tmp))
+            cct2_blocks, cct2_events = phase_block_cct2(torch, trimmed, fl, card, Path(tmp))
+            graph_launches.update(cct2_blocks)
+            graph_events.update(cct2_events)
+            launches.update(cct2_blocks)
+            block_bypass = phase_block_fault_async(torch, trimmed, fl, card, Path(tmp))
+            phase_block_linkage(torch, trimmed, fl, card, Path(tmp))
+            phase_block_eager(torch, trimmed, fl, card, Path(tmp))
+            graph_launches["mlp_k1000_experiments"] = phase_experiments(
+                torch, trimmed, mlp_fl, card, Path(tmp))
+            launches["cct2_bf16_donate"] = phase_donate(torch, trimmed, fl, card, Path(tmp))
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        del fl, mlp_fl
         launches["cct2_bf16_k4000_dense"], stream_launches["stream_scale"] = (
             phase_stream_scale(torch, trimmed, dev, card, Path(tmp)))
         phase_cct2_card_vs_cpu(torch, dev)
@@ -2227,6 +2747,13 @@ def main() -> int:
         # the async round's static zero-delay path makes the sync round's
         # unmasked call; its general ticks take the masked trimmed mean
         "launches_under_async": async_launches,
+        # round blocks replayed as CUDA graphs: launches counted (one a
+        # replay, as captured) by path, and torch.profiler's kernel events
+        # in the profiled warm blocks beside their counted launches; the
+        # fault and async blocks take the masked trimmed mean
+        "launches_under_graph": graph_launches,
+        "launches_under_graph_profiler_events": graph_events,
+        "launches_under_graph_bypassed": block_bypass,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

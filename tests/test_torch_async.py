@@ -133,19 +133,25 @@ def test_geometric_transform_matches_jax_on_the_same_uniforms():
         assert got.min() == 0 and got.max() == cap
 
 
+def _arrival_draws(proc, seed, rnd, k):
+    """``proc``'s delays of tick ``rnd`` from the round's ARRIVAL generator,
+    as the engine draws them."""
+    return proc.draw(k, port_rng.generator(seed, rnd, port_rng.ARRIVAL))
+
+
 def test_draws_are_seeded_and_in_range():
     for kw, lo, hi in ((dict(kind="uniform", min_delay=1, max_delay=3), 1, 3),
                        (dict(kind="geometric", mean_delay=1.0, max_delay=3), 0, 3)):
         proc = ArrivalProcess(**kw)
-        a, b = proc.draw(4, 2, 1000), proc.draw(4, 2, 1000)
+        a, b = _arrival_draws(proc, 4, 2, 1000), _arrival_draws(proc, 4, 2, 1000)
         assert torch.equal(a, b) and a.dtype == torch.int32 and a.shape == (1000,)
         assert int(a.min()) == lo and int(a.max()) == hi
-        assert not torch.equal(a, proc.draw(4, 3, 1000))
+        assert not torch.equal(a, _arrival_draws(proc, 4, 3, 1000))
     fixed = ArrivalProcess(kind="fixed", delays=(2, 0, 1))
-    assert fixed.draw(0, 5, 3).tolist() == [2, 0, 1]
+    assert fixed.draw(3, None).tolist() == [2, 0, 1]
     with pytest.raises(ValueError, match="num_clients"):
-        fixed.draw(0, 0, 4)
-    assert not ArrivalProcess().draw(0, 0, 3).any()
+        fixed.draw(4, None)
+    assert not ArrivalProcess().draw(3, None).any()
 
 
 @pytest.mark.parametrize("mode", ["constant", "polynomial", "cutoff"])
@@ -358,7 +364,7 @@ def _carry(jstate, tstate, layout):
 
 def _inject_draws(jeng, teng, seed, rnd):
     """Hand the port's arrival draws of tick ``rnd`` to ``jeng``."""
-    draws = teng.async_config.arrivals.draw(seed, rnd, K)
+    draws = _arrival_draws(teng.async_config.arrivals, seed, rnd, K)
     object.__setattr__(jeng.async_config.arrivals, "draw",
                        lambda key, k: jnp.asarray(draws.numpy()))
     return draws

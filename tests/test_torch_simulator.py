@@ -107,10 +107,10 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "option,value,slice_no",
     [
-        ("donate_batches", True, "slice 7"),
+        ("checkpoint_interval", 5, "slice 5"),
         ("collect_diagnostics", True, "slice 10"),
         ("audit_monitor", {}, "slice 10"),
-        ("block_size", 4, "slice 7"),
+        ("profile_dir", "prof", "slice 10"),
         ("checkpoint_path", "ckpt", "slice 5"),
         ("resume", True, "slice 5"),
         ("remat", True, "slice 2b"),
