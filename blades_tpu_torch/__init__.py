@@ -25,7 +25,12 @@ the card replay one captured CUDA graph of the round (``core/graphs.py``),
 ``ExperimentBatch`` (``core/experiments.py``), ``EngineCache``
 (``sweeps/``, ``run(engine_cache=...)``); every round of the Simulator
 donates its batch to the engine (``run(donate_batches=...)`` is accepted
-and changes nothing). The
+and changes nothing). Real data: the MNIST, CIFAR-10, CIFAR-100 and custom
+loaders (``datasets/``, local files only), uint8 on the device, augmented
+and normalized in the round's sampler (``datasets/augment.py``); and
+resumable runs: checkpoints, the crash autosave and bit-exact resume
+(``utils/checkpoint.py``, ``Simulator.run(checkpoint_path=...,
+resume=...)``). The
 coordinate-wise trimmed mean runs on the card through a CUDA kernel
 written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
 ``ops/trimmed.py``); the other defenses and the masked trimmed mean are

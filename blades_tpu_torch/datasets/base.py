@@ -2,14 +2,16 @@
 
 Counterpart: ``blades_tpu/datasets/base.py:21-190``, ported line for line so
 one seed gives the same per-client split in both packages (the partitioners
-are numpy; the cache archive is the same ``.npz`` under the same name).
+are numpy; the cache archive is the same ``.npz`` under the same name). The
+store keeps the raw dtype: uint8 images stay uint8 on the device, and the
+subclass's ``make_transform`` / ``make_normalize`` run in the sampler.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import List, Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +76,7 @@ class BaseDataset:
 
     name: str = "base"
     num_classes: int = 10
+    pad_id: Optional[int] = None  # text datasets: id of the padding token
 
     def __init__(
         self,
@@ -97,6 +100,15 @@ class BaseDataset:
     def load_raw(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
         """Return (train_x, train_y, test_x, test_y) as numpy arrays."""
         raise NotImplementedError
+
+    def make_transform(self) -> Optional[Callable]:
+        """Batched train augmentation ``(x [N, ...], generator) -> x``, run
+        in the sampler, or None."""
+        return None
+
+    def make_normalize(self) -> Optional[Callable]:
+        """Cast and standardization ``(x) -> x`` on the device, or None."""
+        return None
 
     def _cache_path(self) -> str:
         meta = f"{self.name}-v2-{self.num_clients}-{self.iid}-{self.alpha}-{self.seed}"
@@ -155,7 +167,12 @@ class BaseDataset:
         if self._fl is None:
             px, py, counts, test_x, test_y, test_counts = self._partition()
             self._fl = FLDataset(
-                px, py, counts, test_x, test_y, test_counts=test_counts, device=device
+                px, py, counts, test_x, test_y,
+                transform=self.make_transform(),
+                normalize=self.make_normalize(),
+                pad_id=self.pad_id,
+                test_counts=test_counts,
+                device=device,
             )
         elif self._fl.device != torch.device(device):
             self._fl.to(device)

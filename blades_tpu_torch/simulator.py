@@ -12,7 +12,8 @@ dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
 (:262-275, wired in at :597-598), the stats records (:1240-1260) and
 ``evaluate`` (:1396-1437); round blocks (``block_size``, :788-846, and
 ``_run_blocks``, :1048-1192), ``donate_batches`` and the engine cache's key
-(``engine_cache``, :640-715). It writes the same ``stats`` records
+(``engine_cache``, :640-715); checkpoints, the crash autosave and resume
+(:748-780, :936-1000). It writes the same ``stats`` records
 (``train``, ``variance``, ``client_validation``, ``test``) with the same
 keys, a block's rounds included.
 
@@ -22,12 +23,15 @@ yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice (queue A)
 that brings it; the JAX package's telemetry trace (with its per-round
 ``faults`` and ``async`` records: ``engine.last_fault_diag`` and
 ``engine.last_async_diag`` hold the counters), run ledger and supervision
-hooks come with slice 10 and are not written.
+hooks come with slice 10 and are not written (``BLADES_RESUME=1`` is
+honoured; the supervisor, heartbeat and SIGTERM handling come with slice
+13).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Callable, Dict, List, Optional, Union
 
@@ -56,6 +60,12 @@ from blades_tpu_torch.models.common import ModelSpec, build_fns
 from blades_tpu_torch.server import BladesServer
 from blades_tpu_torch.sweeps import contains_callables, program_fingerprint, static_fingerprint
 from blades_tpu_torch.utils import rng
+from blades_tpu_torch.utils.checkpoint import (
+    RESUME_ENV,
+    checkpoint_file,
+    restore_state,
+    save_state,
+)
 from blades_tpu_torch.utils.logging import initialize_logger
 from blades_tpu_torch.utils.metrics import top1_accuracy
 
@@ -65,9 +75,6 @@ _IGNORED_KWARGS = ("num_actors", "num_trainers", "gpu_per_actor", "mode", "use_c
 #: name -> (the value that leaves it off, the ROADMAP.md queue-A slice)
 _UNPORTED_RUN_OPTIONS = {
     "remat": (False, "slice 2b (remat under torch.func)"),
-    "checkpoint_path": (None, "slice 5 (checkpoint and resume)"),
-    "checkpoint_interval": (0, "slice 5 (checkpoint and resume)"),
-    "resume": (False, "slice 5 (checkpoint and resume)"),
     "audit_monitor": (None, "slice 10 (audit, metrics, telemetry)"),
     "collect_diagnostics": (None, "slice 10 (audit, metrics, telemetry)"),
     "round_metrics": (None, "slice 10 (audit, metrics, telemetry)"),
@@ -348,11 +355,10 @@ class Simulator:
             rebuilt.init = model.init
             return rebuilt
         if isinstance(model, str):
-            model = create_model(
-                model,
-                num_classes=self._num_classes,
-                sample_shape=tuple(self.dataset.train_x.shape[2:]),
-            )
+            # sized from the store's sample shape (its dtype may be uint8:
+            # the model sees the sampler's normalized float batches)
+            model = create_model(model, num_classes=self._num_classes,
+                                 sample_shape=self.dataset.sample_shape)
         if isinstance(model, nn.Module):
             return build_fns(model, loss=loss or "crossentropy", compute_dtype=dtype)
         raise TypeError(f"model must be a registry name, an nn.Module or a ModelSpec, got {model!r}")
@@ -382,6 +388,9 @@ class Simulator:
         block_size: int = 1,
         donate_batches: bool = False,
         engine_cache=None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_interval: int = 0,
+        resume: bool = False,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -441,6 +450,17 @@ class Simulator:
         built as in ``blades_tpu/simulator.py:640-715``: a registry model
         name only, no registered attackers, nothing holding a bare
         callable; the fault model is rebound on a hit).
+        ``checkpoint_path`` / ``checkpoint_interval``: save the whole
+        ``RoundState`` there (``utils/checkpoint.py``, atomic) after every
+        round that is a multiple of the interval; with blocks, after every
+        block holding such a round, so a checkpoint holds a block boundary.
+        On any exception the state of the last completed round (or block)
+        is saved to ``checkpoint_path``, else to ``<log_path>/autosave``,
+        and the exception re-raised. ``resume``: continue from
+        ``checkpoint_path``, else from that autosave, at the round after
+        the saved one, bit for bit (``BLADES_RESUME=1`` in the environment
+        means ``resume=True``). A fresh run and a completed run remove a
+        leftover implicit autosave, never ``checkpoint_path``.
         Attackers registered with :meth:`register_attackers` replace the
         uniform attack.
         """
@@ -451,6 +471,7 @@ class Simulator:
             is_off = value in (None, False) if off is None else value == off
             if not is_off:
                 raise _unported(f"run({name}={value!r})", slice_name)
+        resume = resume or os.environ.get(RESUME_ENV) == "1"
 
         if isinstance(fault_model, dict):
             fault_model = FaultModel(**fault_model)
@@ -508,6 +529,20 @@ class Simulator:
                 engine_cache.put(engine_key, self.engine,
                                  build_s=time.perf_counter() - t_build)
         state = self.engine.init(params)
+        # the crash autosave's target: the checkpoint path when given, else
+        # a fixed path in the log dir (whose wipe keeps *.npz)
+        autosave_path = checkpoint_path or os.path.join(self.log_path, "autosave")
+        start_round = 1
+        if resume:
+            for cand in dict.fromkeys((checkpoint_path, autosave_path)):
+                if cand and os.path.exists(checkpoint_file(cand)):
+                    state = restore_state(cand, state)
+                    start_round = state.round_idx + 1
+                    self.debug_logger.info(f"resumed from {cand} at round {start_round}")
+                    break
+        elif checkpoint_path is None:
+            # a fresh run: a leftover implicit autosave belongs to another run
+            self._remove_autosave(autosave_path, "fresh run")
         self.server = BladesServer(self.engine, state, self.aggregator)
         client_lr_fn = self._resolve_schedule(client_lr_scheduler, client_lr)
         server_lr_fn = self._resolve_schedule(server_lr_scheduler, server_lr)
@@ -522,53 +557,87 @@ class Simulator:
 
         round_times: List[float] = []
         global_start = time.time()
-        if block_size > 1:
-            self._run_blocks(state, self.dataset.sampler(local_steps, batch_size), block_size,
-                             global_rounds, local_steps, validate_interval, test_batch_size,
-                             client_lr_fn, server_lr_fn, round_times, global_start)
-            return round_times
-        for rnd in range(1, global_rounds + 1):
-            round_start = time.time()
-            batch = list(self.dataset.sample_round(
-                rng.generator(self.seed, rnd, rng.DATA, device=self.device),
-                local_steps,
-                batch_size,
-            ))
-            c_lr = client_lr_fn(rnd - 1)
-            s_lr = server_lr_fn(rnd - 1)
-            # the engine empties the list: nothing else holds the batch
-            state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr, self.seed)
-            self.server.state = state
-            # the float() reads in the loggers wait for the device
-            self.log_train(rnd, local_steps, m)
-            self.log_variance(rnd, m)
-            if retain_updates:
-                for i, c in enumerate(self.get_clients()):
-                    c.save_update(self.engine.last_updates[i])
-            if on_round_end is not None:
-                on_round_end(rnd, state, m)
-            if rnd % validate_interval == 0:
-                ev = self.evaluate(rnd, test_batch_size)
+        try:
+            if block_size > 1:
+                self._run_blocks(state, self.dataset.sampler(local_steps, batch_size),
+                                 block_size, start_round, global_rounds, local_steps,
+                                 validate_interval, test_batch_size, client_lr_fn,
+                                 server_lr_fn, round_times, global_start, checkpoint_path,
+                                 checkpoint_interval)
+            else:
+                for rnd in range(start_round, global_rounds + 1):
+                    round_start = time.time()
+                    batch = list(self.dataset.sample_round(
+                        rng.generator(self.seed, rnd, rng.DATA, device=self.device),
+                        local_steps,
+                        batch_size,
+                    ))
+                    c_lr = client_lr_fn(rnd - 1)
+                    s_lr = server_lr_fn(rnd - 1)
+                    # the engine empties the list: nothing else holds the batch
+                    state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr,
+                                                             self.seed)
+                    self.server.state = state
+                    # the float() reads in the loggers wait for the device
+                    self.log_train(rnd, local_steps, m)
+                    self.log_variance(rnd, m)
+                    if retain_updates:
+                        for i, c in enumerate(self.get_clients()):
+                            c.save_update(self.engine.last_updates[i])
+                    if on_round_end is not None:
+                        on_round_end(rnd, state, m)
+                    if rnd % validate_interval == 0:
+                        ev = self.evaluate(rnd, test_batch_size)
+                        self.debug_logger.info(
+                            f"Test global round {rnd}, loss: {ev['Loss']}, top1: {ev['top1']}"
+                        )
+                    if checkpoint_path and checkpoint_interval and rnd % checkpoint_interval == 0:
+                        save_state(checkpoint_path, state)
+                    round_times.append(time.time() - round_start)
+                    self.debug_logger.info(
+                        f"E={rnd}; Client learning rate = {c_lr}; "
+                        f"Time cost = {time.time() - global_start}"
+                    )
+        except BaseException as err:
+            # self.server.state is the last completed round's (or block's):
+            # both loops set it only once a round (block) has returned. The
+            # save is best effort: its failure must not mask ``err``
+            try:
+                save_state(autosave_path, self.server.state)
                 self.debug_logger.info(
-                    f"Test global round {rnd}, loss: {ev['Loss']}, top1: {ev['top1']}"
-                )
-            round_times.append(time.time() - round_start)
-            self.debug_logger.info(
-                f"E={rnd}; Client learning rate = {c_lr}; "
-                f"Time cost = {time.time() - global_start}"
-            )
+                    f"crash after round {self.server.state.round_idx} "
+                    f"({type(err).__name__}: {err}); state saved to "
+                    f"{checkpoint_file(autosave_path)}; run again with resume=True")
+            except Exception as save_err:  # noqa: BLE001 - keep the original error
+                self.debug_logger.info(f"crash autosave failed: {save_err!r}")
+            raise
+        if checkpoint_path is None:
+            # the run completed: its crash autosave is stale
+            self._remove_autosave(autosave_path, "run complete")
         return round_times
 
-    def _run_blocks(self, state, sampler, block_size, global_rounds, local_steps,
+    def _remove_autosave(self, autosave_path: str, why: str) -> None:
+        stale = checkpoint_file(autosave_path)
+        try:
+            os.unlink(stale)
+        except FileNotFoundError:
+            return
+        except OSError as err:
+            self.debug_logger.info(f"{why}: could not remove crash autosave {stale}: {err}")
+            return
+        self.debug_logger.info(f"{why}: removed stale crash autosave {stale}")
+
+    def _run_blocks(self, state, sampler, block_size, start_round, global_rounds, local_steps,
                     validate_interval, test_batch_size, client_lr_fn, server_lr_fn,
-                    round_times, global_start) -> None:
-        """Rounds ``1..global_rounds`` in blocks of ``block_size`` through
-        ``RoundEngine.run_block`` (``blades_tpu/simulator.py:1048-1192``), a
-        remainder block taking the rest. Each block's metrics come to the
-        host in one copy and are logged round by round; evaluation runs once
-        a block; ``round_times`` gets each round's share of its block's
-        wall; the final state is left on ``self.server``."""
-        rnd = 1
+                    round_times, global_start, checkpoint_path, checkpoint_interval) -> None:
+        """Rounds ``start_round..global_rounds`` in blocks of ``block_size``
+        through ``RoundEngine.run_block`` (``blades_tpu/simulator.py:
+        1048-1192``), a remainder block taking the rest. Each block's
+        metrics come to the host in one copy and are logged round by round;
+        evaluation runs once a block, and so does the checkpoint (a block
+        boundary); ``round_times`` gets each round's share of its block's
+        wall; the state after each block is left on ``self.server``."""
+        rnd = start_round
         while rnd <= global_rounds:
             bs = min(block_size, global_rounds - rnd + 1)
             rounds = list(range(rnd, rnd + bs))
@@ -589,6 +658,9 @@ class Simulator:
                 self.debug_logger.info(
                     f"Test global round {rounds[-1]}, loss: {ev['Loss']}, top1: {ev['top1']}"
                 )
+            if checkpoint_path and checkpoint_interval and any(
+                    r % checkpoint_interval == 0 for r in rounds):
+                save_state(checkpoint_path, state)
             wall = time.time() - block_start
             round_times.extend([wall / bs] * bs)
             self.debug_logger.info(

@@ -84,6 +84,30 @@ run; and the bf16 CCT-2 round's peak memory with the batch held by the
 caller and donated to the engine (``run_round_donated``, as
 ``Simulator.run`` does every round).
 
+Then real data from files and resumable runs, with cuDNN's deterministic
+algorithms still on. The script writes CIFAR-10's python-pickle batches
+(50,000 / 10,000 seeded uint8 images) and MNIST's gzipped IDX files
+(60,000 / 10,000) into its temporary directory, and removes them at the
+end. CIFAR-10 is split by Dirichlet(0.1) over K=1000 clients into a uint8
+store on the card (load and partition seconds, N_max, the store's bytes
+beside the float32 Synthetic store's). The bf16 CCT-2 round runs on it
+through ``Simulator.run``, its sampler cropping, flipping, erasing and
+normalizing inside the round: 3 rounds one by one, then as one captured
+graph block held to them bit for bit (state and records); a warm block's
+host syncs and its kernel events under the profiler against its counted
+launches; the round with sampling beside the same round on the float32
+Synthetic store; the sampler's device time on each store; the transform
+and the normalizer alone on a round's ``[32000, 32, 32, 3]`` batch, and
+on the card against the CPU on the same draws. Then the MLP at K=1000 on
+the MNIST files (3 rounds) and the mini example
+(``blades_tpu_torch/examples/mini_example.py``, K=10, ALIE f=4, mean, 2
+rounds of 50 local steps). Then checkpoint and resume of the CIFAR-10
+CCT-2 run under the fault model: an uninterrupted 4-round run against one
+that checkpoints at round 2, crashes at round 3 (the crash autosave
+fires) and is resumed by a fresh ``Simulator``, and against blocks of 2
+resumed at a block boundary, all bit for bit, the straggler buffer
+included; the save and the restore timed, with the file's size.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -192,6 +216,20 @@ BF16_ROW_REL = 2e-2
 BLOCK_MLP_ROUNDS, BLOCK_MLP_SIZE = 20, 10
 BLOCK_CCT2_ROUNDS, BLOCK_F32_ROUNDS, BLOCK_SLICE_ROUNDS = 3, 2, 3
 BLOCK_LINKAGE_ROUNDS, BLOCK_EAGER_ROUNDS, EXPERIMENTS, DONATE_ROUNDS = 2, 2, 2, 2
+# real data from files (slice 4) and resume (slice 5): CIFAR-10 and MNIST at
+# their published sizes (written by the script from a seed), CIFAR-10's
+# Dirichlet split (alpha 0.1, the reference's non-IID setting); the rounds
+# of the CIFAR-10 runs and of the MNIST MLP; the mini example's rounds and
+# local steps; a round's images at K=1000 (1 step of 32); the checkpoint
+# phase's rounds, checkpoint interval, crash round and block size
+CIFAR10_TRAIN, CIFAR10_TEST, MNIST_TRAIN, MNIST_TEST = 50_000, 10_000, 60_000, 10_000
+DATA_ALPHA, DATA_EAGER_ROUNDS, DATA_BLOCK_ROUNDS, DATA_MLP_ROUNDS = 0.1, 3, 3, 3
+MINI_ROUNDS, MINI_STEPS, AUGMENT_BATCH, SAMPLER_CALLS = 2, 50, 32_000, 5
+# profiled warm blocks: the most times one is run under torch.profiler
+# until the kernel's device events equal its counted launches (the
+# profiler loses some device events; profiled_block)
+PROFILE_ATTEMPTS = 3
+CKPT_ROUNDS, CKPT_AT, CKPT_CRASH_AT, CKPT_BLOCK = 4, 2, 3, 2
 
 
 def emit(record: dict) -> None:
@@ -2123,17 +2161,21 @@ def _tensors(torch, tree) -> list:
     return [t for t in torch.utils._pytree.tree_flatten(tree)[0] if isinstance(t, torch.Tensor)]
 
 
+def _states_differ(torch, a, b) -> list:
+    """The state tensors (by position) that are not bit-identical, and the
+    round index if it differs."""
+    bad = [] if a.round_idx == b.round_idx else [f"round_idx {a.round_idx} != {b.round_idx}"]
+    return bad + [f"state tensor {i}" for i, (x, y) in
+                  enumerate(zip(_tensors(torch, a), _tensors(torch, b))) if not _same(torch, x, y)]
+
+
 def block_equals_rounds(torch, seq, st, st2, ms, diags) -> list:
     """What differs between R sequential rounds (``seq``: each round's
     metrics, fault and async counters; ``st``: their final state) and a
     block (``st2``, its stacked ``ms`` and ``diags``): [] when the block is
     bit-identical (params, every state tensor, round_idx, every metric,
     every counter)."""
-    bad = []
-    if st.round_idx != st2.round_idx:
-        bad.append(f"round_idx {st.round_idx} != {st2.round_idx}")
-    a, b = _tensors(torch, st), _tensors(torch, st2)
-    bad += [f"state tensor {i}" for i, (x, y) in enumerate(zip(a, b)) if not _same(torch, x, y)]
+    bad = _states_differ(torch, st, st2)
     for i, (m, fdiag, adiag) in enumerate(seq):
         bad += [f"round {i} {n}" for n, x, col in zip(m._fields, m, ms)
                 if not _same(torch, x, col[i])]
@@ -2141,6 +2183,34 @@ def block_equals_rounds(torch, seq, st, st2, ms, diags) -> list:
             bad += [f"round {i} {kind} {n}" for n in (ref or {})
                     if not _same(torch, ref[n], diags[kind][n][i])]
     return bad
+
+
+def profiled_block(torch, trimmed, fn) -> dict:
+    """A warm block ``fn`` under torch.profiler: its wall (ms), device busy
+    time (``device_breakdown``), the trimmed-mean kernel's device events
+    and the launches the wrapper counted. The profiler loses some device
+    events on the card (it saw 79.4 of a sampler's fixed 80 kernels a
+    call, and 2 kernel events of a block's 3 counted launches, on an H100), so
+    the block is profiled again, up to PROFILE_ATTEMPTS times, until its
+    events equal its counted launches; every attempt's events are kept."""
+    from torch.profiler import ProfilerActivity, profile
+
+    attempts = []
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        trimmed.trimmed_mean_launches = 0
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        counted = trimmed.trimmed_mean_launches
+        events = sum(1 for e in device_kernels(torch, prof) if "trimmed_mean_kernel" in e.name)
+        attempts.append(events)
+        if events == counted:
+            break
+    return dict(wall_ms=wall, dev=device_breakdown(torch, prof, set(), set()), events=events,
+                counted=counted, events_by_attempt=attempts)
 
 
 def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
@@ -2155,8 +2225,6 @@ def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
     peak memory (allocated, and the allocator's reserve after it: a
     graph's private pool stays reserved between replays) and the kernel's
     launches; the block held to the rounds bit for bit."""
-    from torch.profiler import ProfilerActivity, profile
-
     from blades_tpu_torch import Simulator
     from blades_tpu_torch.utils import rng
 
@@ -2220,19 +2288,13 @@ def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
         out.update(warm_block_s=warm_s, warm_block_launches=warm_launches,
                    warm_block_peak=warm_peak, state=st3)
         if profiled:
-            trimmed.trimmed_mean_launches = 0
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                warm()
-                torch.cuda.synchronize()
-                wall = (time.perf_counter() - t0) * 1e3
-            dev = device_breakdown(torch, prof, set(), set())
-            out.update(profiled_block_wall_ms=wall, profiled_block_busy_ms=dev["busy_ms"],
-                       profiled_block_busy_share=dev["busy_ms"] / wall,
-                       profiled_block_kernel_events=sum(
-                           1 for e in device_kernels(torch, prof)
-                           if "trimmed_mean_kernel" in e.name),
-                       profiled_block_counted_launches=trimmed.trimmed_mean_launches)
+            prof = profiled_block(torch, trimmed, warm)
+            out.update(profiled_block_wall_ms=prof["wall_ms"],
+                       profiled_block_busy_ms=prof["dev"]["busy_ms"],
+                       profiled_block_busy_share=prof["dev"]["busy_ms"] / prof["wall_ms"],
+                       profiled_block_kernel_events=prof["events"],
+                       profiled_block_counted_launches=prof["counted"],
+                       profiled_block_events_by_attempt=prof["events_by_attempt"])
     return out
 
 
@@ -2257,8 +2319,6 @@ def phase_block_mlp(torch, trimmed, fl, card: str, log_root: Path) -> dict:
     metrics) and, under torch.profiler, device busy share and the kernel's
     events against its counted launches. Returns the launches by path and
     the profiler's kernel events by path."""
-    from torch.profiler import ProfilerActivity, profile
-
     from blades_tpu_torch import Simulator
     from blades_tpu_torch.ops.pytree import ravel
     from blades_tpu_torch.sweeps import EngineCache
@@ -2310,16 +2370,8 @@ def phase_block_mlp(torch, trimmed, fl, card: str, log_root: Path) -> dict:
         walls.append(time.perf_counter() - t0)
     syncs = host_syncs(torch, block)
     block()
-    torch.cuda.synchronize()
-    trimmed.trimmed_mean_launches = 0
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        block()
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
-    counted = trimmed.trimmed_mean_launches
-    dev = device_breakdown(torch, prof, set(), set())
-    profiled = sum(1 for e in device_kernels(torch, prof) if "trimmed_mean_kernel" in e.name)
+    prof = profiled_block(torch, trimmed, block)
+    wall, dev, profiled, counted = prof["wall_ms"], prof["dev"], prof["events"], prof["counted"]
     warm_eager = warm_round(torch, eager["sim"], profiled=True)
 
     same_graph = bool(torch.equal(blocked["params"], eager["params"]))
@@ -2339,6 +2391,7 @@ def phase_block_mlp(torch, trimmed, fl, card: str, log_root: Path) -> dict:
           "profiled_block_wall_ms": wall, "profiled_block_busy_ms": dev["busy_ms"],
           "profiled_block_busy_share": dev["busy_ms"] / wall,
           "profiled_block_kernel_events": profiled, "profiled_block_counted_launches": counted,
+          "profiled_block_events_by_attempt": prof["events_by_attempt"],
           "profiled_block_trimmed_mean_ms": dev["by_class_union_ms"]["trimmed_mean_kernel"],
           "warm_eager_round": warm_eager, "card": card})
     emit({"phase": "engine_cache", "hits": cache.hits, "misses": cache.misses,
@@ -2585,6 +2638,428 @@ def phase_donate(torch, trimmed, fl, card: str, log_root: Path) -> int:
     return out[True]["launches"]
 
 
+def write_cifar10(root: Path, seed: int = 0) -> Path:
+    """CIFAR-10's python-pickle layout at its published size under
+    ``root``: ``cifar-10-batches-py/data_batch_1..5`` (10,000 images each)
+    and ``test_batch`` (10,000), seeded uint8 pixels and labels."""
+    import pickle
+
+    import numpy as np
+
+    d = root / "cifar-10-batches-py"
+    d.mkdir(parents=True)
+    r = np.random.RandomState(seed)
+    files = [(f"data_batch_{i}", CIFAR10_TRAIN // 5) for i in range(1, 6)]
+    for name, n in files + [("test_batch", CIFAR10_TEST)]:
+        with open(d / name, "wb") as fh:
+            pickle.dump({b"data": r.randint(0, 256, (n, 3072), dtype=np.uint8),
+                         b"labels": r.randint(0, 10, n).tolist()}, fh)
+    return d
+
+
+def write_mnist(root: Path, seed: int = 0) -> None:
+    """MNIST's four gzipped IDX files at its published size (60,000 /
+    10,000) under ``root``, seeded uint8 pixels and labels."""
+    import gzip
+    import struct
+
+    import numpy as np
+
+    root.mkdir(parents=True)
+    r = np.random.RandomState(seed)
+    for prefix, n in (("train", MNIST_TRAIN), ("t10k", MNIST_TEST)):
+        with gzip.open(root / f"{prefix}-images-idx3-ubyte.gz", "wb", compresslevel=1) as fh:
+            fh.write(struct.pack(">IIII", 2051, n, 28, 28))
+            fh.write(r.randint(0, 256, (n, 28, 28), dtype=np.uint8).tobytes())
+        with gzip.open(root / f"{prefix}-labels-idx1-ubyte.gz", "wb", compresslevel=1) as fh:
+            fh.write(struct.pack(">II", 2049, n))
+            fh.write(r.randint(0, 10, n).astype(np.uint8).tobytes())
+
+
+def _records(log_dir: Path, kind: str) -> list:
+    from blades_tpu_torch.utils.logging import read_stats
+
+    return [{n: v for n, v in r.items() if n != "_meta"} for r in read_stats(str(log_dir), kind)]
+
+
+def data_simulator(ds, log_root: Path, name: str, **kw):
+    """The main path's population on the dataset ``ds`` (K=1000, ALIE f=5,
+    trimmed mean b=5), on the card by default."""
+    from blades_tpu_torch import Simulator
+
+    k, _, f = CCT2_SHAPE
+    return Simulator(dataset=ds, attack="alie", num_byzantine=f, aggregator="trimmedmean",
+                     aggregator_kws={"num_byzantine": f}, seed=1, log_path=str(log_root / name),
+                     **kw)
+
+
+def sampled_round_ms(torch, sim, reps: int = 3) -> list:
+    """Warm rounds of ``sim``'s engine from its state (not applied), each
+    sampling its own batch from the store first, as a round of the
+    Simulator does; host wall with a device sync, ms."""
+    from blades_tpu_torch.utils import rng
+
+    eng, state, fl = sim.engine, sim.server.state, sim.dataset
+
+    def one(i):
+        batch = list(fl.sample_round(rng.generator(sim.seed, 200 + i, rng.DATA,
+                                                   device=eng.device), 1, 32))
+        return eng.run_round_donated(state, batch, 0.1, 1.0, sim.seed)
+
+    one(0)
+    torch.cuda.synchronize()
+    walls = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        one(i + 1)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
+                       data_root: Path):
+    """CIFAR-10 from files (slice 4): the pickles written at their real
+    size, loaded and Dirichlet-split (alpha 0.1) over K=1000 clients into a
+    uint8 store on the card; then bf16 CCT-2 (ALIE f=5, trimmed mean b=5, 4
+    chunks, 1 step of batch 32) through Simulator.run, the sampler
+    cropping, flipping, erasing and normalizing inside the round:
+    DATA_EAGER_ROUNDS rounds one by one, then the same rounds as one graph
+    block (held bit for bit: state, train, variance and test records), a
+    warm block's host syncs and, under torch.profiler, its kernel events
+    against its counted launches. Beside it: the warm round (sampling
+    included) on this store and on the float32 Synthetic store ``syn_fl``
+    without a transform; the sampler's device time on each store; the
+    transform and the normalizer alone on a round's [32000, 32, 32, 3]
+    uint8 batch; and the card's transform and normalizer against the
+    CPU's on the same batch and draws. Returns the dataset, the launches
+    by path, the graph launches and the profiler's kernel events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from blades_tpu_torch.datasets import CIFAR10
+    from blades_tpu_torch.datasets.augment import (
+        CifarParams,
+        apply_cifar_transform,
+        draw_cifar_params,
+    )
+    from blades_tpu_torch.utils import rng
+
+    k, _, f = CCT2_SHAPE
+    t0 = time.perf_counter()
+    write_cifar10(data_root)
+    write_s = time.perf_counter() - t0
+    ds = CIFAR10(data_root=str(data_root), num_clients=k, iid=False, alpha=DATA_ALPHA,
+                 train_bs=32, cache=False)
+    t0 = time.perf_counter()
+    ds.load_raw()
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fl = ds.get_dls(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(fl.train_x.dtype == torch.uint8 and fl.train_x.device.type == dev.type,
+          f"data_cifar10: store {fl.train_x.dtype} on {fl.train_x.device}")
+    store = {n: t.numel() * t.element_size() for n, t in (
+        ("train_x", fl.train_x), ("train_y", fl.train_y), ("test_x", fl.test_x_raw))}
+
+    run = dict(model="cct_2_3x2_32", global_rounds=DATA_EAGER_ROUNDS, local_steps=1,
+               server_lr=1.0, client_lr=0.1, client_chunks=CCT2_CHUNKS,
+               compute_dtype="bfloat16", validate_interval=DATA_EAGER_ROUNDS)
+    out = {}
+    for mode, kw in (("eager", {}), ("graph", dict(block_size=DATA_BLOCK_ROUNDS))):
+        gc.collect()
+        sim = data_simulator(ds, log_root, f"data_cifar10_{mode}")
+        check(sim.device.type == dev.type, f"data_cifar10: device {sim.device}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        trimmed.trimmed_mean_launches = 0
+        t0 = time.perf_counter()
+        times = sim.run(**run, **kw)
+        torch.cuda.synchronize()
+        out[mode] = dict(sim=sim, round_s=times, wall_s=time.perf_counter() - t0,
+                         launches=trimmed.trimmed_mean_launches,
+                         peak=torch.cuda.max_memory_allocated())
+    eng = out["graph"]["sim"].engine
+    differs = _states_differ(torch, out["eager"]["sim"].server.state,
+                             out["graph"]["sim"].server.state)
+    records = {kind: _records(log_root / "data_cifar10_eager", kind)
+               == _records(log_root / "data_cifar10_graph", kind)
+               for kind in ("train", "variance", "test")}
+    train = _records(log_root / "data_cifar10_eager", "train")
+    test = _records(log_root / "data_cifar10_eager", "test")
+
+    # a warm block: its host syncs, and under the profiler its kernel events
+    state, sampler, r = out["graph"]["sim"].server.state, fl.sampler(1, 32), DATA_BLOCK_ROUNDS
+    nxt = list(range(DATA_EAGER_ROUNDS + 1, DATA_EAGER_ROUNDS + 1 + r))
+
+    def block():
+        _, ms, _ = eng.run_block(state, nxt, [0.1] * r, [1.0] * r, 1, sampler=sampler)
+        return torch.stack(list(ms)).cpu()
+
+    block()
+    syncs = host_syncs(torch, block)
+    block()
+    prof = profiled_block(torch, trimmed, block)
+    wall, dev, events, counted = prof["wall_ms"], prof["dev"], prof["events"], prof["counted"]
+
+    # the round with sampling on this store and on the float32 Synthetic one
+    syn = data_simulator(syn_fl, log_root, "data_cifar10_synthetic")
+    syn.run(**dict(run, global_rounds=0))
+    round_ms = {"cifar10_uint8_augmented": sampled_round_ms(torch, out["eager"]["sim"]),
+                "synthetic_float32": sampled_round_ms(torch, syn)}
+    del syn
+
+    # the sampler's time on each store (CUDA events, and the union of its
+    # kernels under the profiler, over SAMPLER_CALLS calls), and the
+    # transform and the normalizer alone on a round's batch (CUDA events)
+    sampler_ms, sampler_profiled = {}, {}
+    for name, store_fl in (("cifar10_uint8_augmented", fl), ("synthetic_float32", syn_fl)):
+        gen = rng.generator(1, 300, rng.DATA, device=store_fl.device)
+        sampler_ms[name] = time_ms(lambda: store_fl.sample_round(gen, 1, 32), reps=20)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as sprof:
+            for _ in range(SAMPLER_CALLS):
+                store_fl.sample_round(gen, 1, 32)
+            torch.cuda.synchronize()
+        kernels = device_kernels(torch, sprof)
+        sampler_profiled[name] = {
+            "ms": _union_ms([(e.time_range.start, e.time_range.end) for e in kernels])
+            / SAMPLER_CALLS, "kernels_per_call": len(kernels) / SAMPLER_CALLS}
+    gen = rng.generator(1, 301, rng.DATA, device=fl.device)
+    u = torch.rand(fl.train_y.shape, generator=gen, device=fl.device)
+    idx = torch.argsort(u, dim=1)[:, :32]
+    flat = fl.train_x[torch.arange(k, device=fl.device)[:, None], idx].reshape(-1, 32, 32, 3)
+    check(flat.shape == (AUGMENT_BATCH, 32, 32, 3), f"data_cifar10: batch {tuple(flat.shape)}")
+    draws = draw_cifar_params(gen, AUGMENT_BATCH, 32, 32)
+    transform_ms = time_ms(lambda: apply_cifar_transform(flat, draws), reps=20)
+    draw_ms = time_ms(lambda: draw_cifar_params(gen, AUGMENT_BATCH, 32, 32), reps=20)
+    normalize_ms = time_ms(lambda: fl.normalize(flat), reps=20)
+    card_img = apply_cifar_transform(flat, draws)
+    cpu_img = apply_cifar_transform(flat.cpu(), CifarParams(*(t.cpu() for t in draws)))
+    transform_equal = bool(torch.equal(card_img.cpu(), cpu_img))
+    normalize_equal = bool(torch.equal(fl.normalize(card_img).cpu(), fl.normalize(cpu_img)))
+    erased = int(draws.erase.sum())
+    del card_img, cpu_img, flat
+
+    ev, gr = out["eager"], out["graph"]
+    emit({"phase": "data_cifar10", "clients": k, "byzantine": f, "alpha": DATA_ALPHA,
+          "train_images": CIFAR10_TRAIN, "test_images": CIFAR10_TEST,
+          "write_files_s": write_s, "load_s": load_s, "load_partition_to_card_s": build_s,
+          "n_max": int(fl.train_x.shape[1]), "clients_without_samples":
+              int((fl.train_counts == 0).sum()),
+          "store_bytes": store, "synthetic_float32_train_x_bytes":
+              syn_fl.train_x.numel() * syn_fl.train_x.element_size(),
+          "eager_round_s": ev["round_s"], "graph_round_s": gr["round_s"],
+          "eager_wall_s": ev["wall_s"], "graph_wall_s": gr["wall_s"],
+          "mode": eng.last_block_mode, "capture_s": eng.last_graph.capture_seconds,
+          "warmup_s": eng.last_graph.warmup_seconds,
+          "eager_launches": ev["launches"], "graph_launches": gr["launches"],
+          "peak_mem_bytes": [ev["peak"], gr["peak"]], "block_differs": differs,
+          "records_equal": records, "train_loss": [r["Loss"] for r in train],
+          "test": test,
+          "warm_block_host_syncs": sum(syncs.values()), "warm_block_host_sync_sites": syncs,
+          "profiled_block_wall_ms": wall, "profiled_block_busy_ms": dev["busy_ms"],
+          "profiled_block_busy_share": dev["busy_ms"] / wall,
+          "profiled_block_kernel_events": events, "profiled_block_counted_launches": counted,
+          "profiled_block_events_by_attempt": prof["events_by_attempt"],
+          "warm_round_ms": round_ms, "sampler_ms": sampler_ms,
+          "sampler_profiled": sampler_profiled,
+          "augment_batch": AUGMENT_BATCH, "transform_ms": transform_ms, "draw_ms": draw_ms,
+          "normalize_ms": normalize_ms, "images_erased": erased,
+          "transform_card_equals_cpu": transform_equal,
+          "normalize_card_equals_cpu": normalize_equal, "card": card})
+    check(eng.last_block_mode == "graph", f"data_cifar10: {eng.last_block_reason}")
+    check(not differs and all(records.values()),
+          f"data_cifar10: the block differs from its rounds: {differs} {records}")
+    check(ev["launches"] == gr["launches"] == DATA_EAGER_ROUNDS,
+          f"data_cifar10: launches {ev['launches']} / {gr['launches']}")
+    check(events == counted == r, f"data_cifar10: {events} kernel events, {counted} counted")
+    check(sum(syncs.values()) == 1, f"data_cifar10: a warm block synced {syncs}")
+    check(all(math.isfinite(x["Loss"]) for x in train + test), f"data_cifar10: {train} {test}")
+    check(transform_equal and normalize_equal, "data_cifar10: card and CPU augmentations differ")
+    launches = {"cct2_bf16_cifar10_files": ev["launches"],
+                "cct2_bf16_cifar10_files_graph_block": gr["launches"]}
+    graph = {"cct2_bf16_cifar10_files_graph_block": gr["launches"],
+             "cct2_bf16_cifar10_files_profiled_block": counted}
+    del out
+    return ds, launches, graph, {"cct2_bf16_cifar10_files_profiled_block": events}
+
+
+def phase_data_mnist(torch, trimmed, dev, card: str, log_root: Path, base: Path) -> int:
+    """MNIST from gzipped IDX files (slice 4), written at their real size
+    under ``base/data``: the MLP at K=1000 (ALIE f=5, trimmed mean b=5,
+    IID) for DATA_MLP_ROUNDS rounds through Simulator.run, the uint8 store
+    normalized in the sampler; then the mini example's configuration
+    (K=10, ALIE f=4, mean) through ``blades_tpu_torch/examples/
+    mini_example.py`` run from ``base`` with MINI_ROUNDS and MINI_STEPS
+    set. Returns the MLP run's kernel launches."""
+    import contextlib
+    import os
+
+    from blades_tpu_torch.datasets import MNIST
+    from blades_tpu_torch.examples import mini_example
+
+    t0 = time.perf_counter()
+    write_mnist(base / "data")
+    write_s = time.perf_counter() - t0
+    k, _, f = CCT2_SHAPE
+    t0 = time.perf_counter()
+    ds = MNIST(data_root=str(base / "data"), num_clients=k, train_bs=32, cache=False)
+    fl = ds.get_dls(dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    sim = data_simulator(ds, log_root, "data_mnist_mlp")
+    torch.cuda.synchronize()
+    trimmed.trimmed_mean_launches = 0
+    times = sim.run(model="mlp", global_rounds=DATA_MLP_ROUNDS, local_steps=1, server_lr=1.0,
+                    client_lr=0.1, validate_interval=DATA_MLP_ROUNDS)
+    torch.cuda.synchronize()
+    launches = trimmed.trimmed_mean_launches
+    train = _records(log_root / "data_mnist_mlp", "train")
+    test = _records(log_root / "data_mnist_mlp", "test")
+    del sim, fl, ds
+
+    env = {n: os.environ.get(n) for n in ("MINI_ROUNDS", "MINI_STEPS")}
+    os.environ.update(MINI_ROUNDS=str(MINI_ROUNDS), MINI_STEPS=str(MINI_STEPS))
+    try:
+        trimmed.trimmed_mean_launches = 0
+        t0 = time.perf_counter()
+        with contextlib.chdir(base):
+            mini = mini_example.main([])
+        torch.cuda.synchronize()
+        mini_s = time.perf_counter() - t0
+    finally:
+        for n, v in env.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+    mini_train = _records(base / "outputs", "train")
+    mini_test = _records(base / "outputs", "test")
+    emit({"phase": "data_mnist", "clients": k, "byzantine": f, "write_files_s": write_s,
+          "load_partition_to_card_s": build_s, "round_s": times, "launches": launches,
+          "train_loss": [r["Loss"] for r in train], "test": test,
+          "mini_example": {"clients": 10, "byzantine": 4, "aggregator": "mean",
+                           "rounds": MINI_ROUNDS, "local_steps": MINI_STEPS,
+                           "device": str(mini.device), "wall_s": mini_s,
+                           "store_dtype": str(mini.dataset.train_x.dtype),
+                           "train_loss": [r["Loss"] for r in mini_train], "test": mini_test,
+                           "launches": trimmed.trimmed_mean_launches},
+          "card": card})
+    check(launches == DATA_MLP_ROUNDS, f"data_mnist: launches {launches}")
+    check(len(train) == DATA_MLP_ROUNDS and len(mini_train) == MINI_ROUNDS,
+          f"data_mnist: {len(train)} and {len(mini_train)} train records")
+    check(mini.device.type == dev.type and mini.dataset.train_x.dtype == torch.uint8,
+          f"data_mnist: mini example on {mini.device}, {mini.dataset.train_x.dtype}")
+    check(all(math.isfinite(r["Loss"]) for r in train + test + mini_train + mini_test),
+          "data_mnist: non-finite loss")
+    return launches
+
+
+def phase_checkpoint(torch, trimmed, ds, card: str, log_root: Path, ckpt_dir: Path) -> dict:
+    """Checkpoint and resume (slice 5) on bf16 CCT-2 at K=1000 from the
+    CIFAR-10 files (ALIE f=5, trimmed mean b=5) under the fault model of
+    fault_round: an uninterrupted CKPT_ROUNDS-round run; against it a run
+    that checkpoints every CKPT_AT rounds, raises from on_round_end at
+    round CKPT_CRASH_AT (the crash autosave overwrites the checkpoint with
+    that round's state) and is resumed by a fresh Simulator; then blocks of
+    CKPT_BLOCK (captured graphs) that stop at a block boundary with a
+    checkpoint and are resumed in blocks. Params, the straggler buffer,
+    every state tensor and every train record must be equal. Then the
+    final state's save and restore, timed, and the file's size. Returns
+    the kernel's launches (0: the masked trimmed mean replaces it)."""
+    from blades_tpu_torch.utils.checkpoint import checkpoint_file, restore_state, save_state
+
+    run = dict(model="cct_2_3x2_32", local_steps=1, server_lr=1.0, client_lr=0.1,
+               client_chunks=CCT2_CHUNKS, compute_dtype="bfloat16",
+               validate_interval=CKPT_ROUNDS + 1, fault_model=FAULTS)
+    launches = {}
+
+    def go(name, sim=None, **kw):
+        gc.collect()
+        sim = sim or data_simulator(ds, log_root, name)
+        trimmed.trimmed_mean_launches = 0
+        times = sim.run(**run, **kw)
+        torch.cuda.synchronize()
+        launches[name] = launches.get(name, 0) + trimmed.trimmed_mean_launches
+        return sim, times
+
+    ref, _ = go("ckpt_ref", global_rounds=CKPT_ROUNDS)
+    ref_train = _records(log_root / "ckpt_ref", "train")
+    ck = ckpt_dir / "state.npz"
+
+    def crash(rnd, state, m):
+        if rnd == CKPT_CRASH_AT:
+            raise RuntimeError("chip_smoke: simulated crash")
+
+    crashed = data_simulator(ds, log_root, "ckpt_crash")
+    try:
+        go("ckpt_crash", sim=crashed, global_rounds=CKPT_ROUNDS, checkpoint_path=str(ck),
+           checkpoint_interval=CKPT_AT, on_round_end=crash)
+        raise AssertionError("chip_smoke: the crash did not propagate")
+    except RuntimeError as err:
+        check("simulated crash" in str(err), f"checkpoint: {err!r}")
+    torch.cuda.synchronize()
+    crash_train = _records(log_root / "ckpt_crash", "train")
+    autosaved = restore_state(str(ck), crashed.server.state).round_idx
+    del crashed
+    resumed, times = go("ckpt_crash", global_rounds=CKPT_ROUNDS, checkpoint_path=str(ck),
+                        resume=True)
+    resumed_train = crash_train + _records(log_root / "ckpt_crash", "train")
+    differs = _states_differ(torch, ref.server.state, resumed.server.state)
+    stale_equal = _same(torch, ref.server.state.fault_state["stale"],
+                        resumed.server.state.fault_state["stale"])
+    stragglers = int(ref.server.state.fault_state["has"].sum())
+
+    ck2 = ckpt_dir / "blocks.npz"
+    first, _ = go("ckpt_blocks", global_rounds=CKPT_AT, block_size=CKPT_BLOCK,
+                  checkpoint_path=str(ck2), checkpoint_interval=CKPT_AT)
+    first_train = _records(log_root / "ckpt_blocks", "train")
+    mode = first.engine.last_block_mode
+    del first
+    blocks, block_times = go("ckpt_blocks", global_rounds=CKPT_ROUNDS, block_size=CKPT_BLOCK,
+                             checkpoint_path=str(ck2), resume=True)
+    blocks_train = first_train + _records(log_root / "ckpt_blocks", "train")
+    block_differs = _states_differ(torch, ref.server.state, blocks.server.state)
+    mode_resumed = blocks.engine.last_block_mode
+
+    state = resumed.server.state
+    ck3 = ckpt_dir / "timed.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    save_state(str(ck3), state)
+    save_s = time.perf_counter() - t0
+    size = Path(checkpoint_file(str(ck3))).stat().st_size
+    t0 = time.perf_counter()
+    back = restore_state(str(ck3), state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    round_trip = _states_differ(torch, state, back)
+    leftovers = sorted(p.name for p in ckpt_dir.iterdir() if p.name.endswith(".tmp"))
+    state_bytes = sum(t.numel() * t.element_size() for t in _tensors(torch, state))
+    emit({"phase": "checkpoint", "clients": CCT2_SHAPE[0], "faults": FAULTS,
+          "rounds": CKPT_ROUNDS, "checkpoint_interval": CKPT_AT, "crash_at": CKPT_CRASH_AT,
+          "autosaved_round": autosaved, "resumed_round_s": times, "differs": differs,
+          "straggler_buffer_equal": stale_equal, "buffer_rows_held": stragglers,
+          "train_equal": resumed_train == ref_train, "block_size": CKPT_BLOCK,
+          "block_mode": [mode, mode_resumed], "block_round_s": block_times,
+          "block_differs": block_differs, "block_train_equal": blocks_train == ref_train,
+          "file_bytes": size, "state_bytes": state_bytes, "save_s": save_s,
+          "restore_s": restore_s, "round_trip_differs": round_trip, "tmp_left": leftovers,
+          "launches": launches, "card": card})
+    check(autosaved == CKPT_CRASH_AT, f"checkpoint: the autosave holds round {autosaved}")
+    check(len(times) == CKPT_ROUNDS - CKPT_CRASH_AT, f"checkpoint: resumed {len(times)} rounds")
+    check(not differs and stale_equal and resumed_train == ref_train,
+          f"checkpoint: the resumed run differs: {differs}")
+    check(mode == mode_resumed == "graph", f"checkpoint: blocks ran {mode} / {mode_resumed}")
+    check(not block_differs and blocks_train == ref_train,
+          f"checkpoint: the block-boundary resume differs: {block_differs}")
+    check(not round_trip and not leftovers, f"checkpoint: {round_trip} {leftovers}")
+    check(not any(launches.values()), f"checkpoint: the kernel launched {launches}")
+    for path in (ck, ck2, ck3):
+        path.unlink()
+    return launches
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -2710,6 +3185,19 @@ def main() -> int:
             graph_launches["mlp_k1000_experiments"] = phase_experiments(
                 torch, trimmed, mlp_fl, card, Path(tmp))
             launches["cct2_bf16_donate"] = phase_donate(torch, trimmed, fl, card, Path(tmp))
+            # real data from files and resume: the CIFAR-10 round (kernel
+            # once a round, eager and in a graph block), the MNIST MLP and
+            # the mini example, then checkpoint and resume under faults
+            data = Path(tmp) / "data"
+            cifar, data_launches, data_graph, data_events = phase_data_cifar10(
+                torch, trimmed, dev, fl, card, Path(tmp), data / "cifar10")
+            launches.update(data_launches)
+            graph_launches.update(data_graph)
+            graph_events.update(data_events)
+            launches["mlp_k1000_mnist_files"] = phase_data_mnist(torch, trimmed, dev, card,
+                                                                 Path(tmp), data / "mnist")
+            fault_launches.update(phase_checkpoint(torch, trimmed, cifar, card, Path(tmp), data))
+            del cifar
         finally:
             torch.backends.cudnn.deterministic = deterministic
         del fl, mlp_fl

@@ -512,3 +512,126 @@ def test_graph_counts_kernel_launches_per_replay(cuda_device):
     torch.cuda.synchronize()
     assert eng.last_graph.kernel_launches == 1
     assert trimmed.trimmed_mean_launches == 3  # the warm-up round and two replays
+
+
+# -- real data and resume through the captured round --------------------------------------
+#
+# Each case runs on the card (``cuda``) and, here, as a rehearsal: the real
+# ``RoundGraph`` with its capture replaced by a Python replay of the round
+# body on the static buffers, and the CUDA stream calls by no-ops, so the
+# static state, the write-back and the reseeded generators run on the CPU.
+
+
+class _NoStream:
+    def __init__(self, *args, **kw):
+        pass
+
+    def wait_stream(self, other):
+        pass
+
+
+class _PythonReplay:
+    """What a captured graph's replay does, in Python: the round body on
+    the static buffers, its outputs packed into ``out_vecs``."""
+
+    def __init__(self, graph, eng):
+        self.graph, self.eng = graph, eng
+
+    def replay(self):
+        self.graph.out_vecs = self.graph.packer.pack(self.graph._body(self.eng))
+
+
+@pytest.fixture(params=["rehearsed", pytest.param("cuda", marks=pytest.mark.cuda)])
+def graph_device(request, monkeypatch):
+    if request.param == "cuda":
+        if not torch.cuda.is_available():
+            pytest.skip("needs an NVIDIA GPU: a CUDA graph has no CPU mode")
+        monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+        return torch.device("cuda")
+    import contextlib
+
+    from blades_tpu_torch.core import graphs
+
+    def capture(self, eng):
+        self.graph, self.kernel_launches, self.capture_seconds = _PythonReplay(self, eng), 0, 0.0
+
+    real_reason = RoundEngine.graph_block_reason
+
+    def reason(self):  # the card's answer for this configuration
+        device, self.device = self.device, torch.device("cuda")
+        try:
+            return real_reason(self)
+        finally:
+            self.device = device
+
+    for name, value in (("Stream", _NoStream), ("stream", lambda s: contextlib.nullcontext()),
+                        ("current_stream", lambda *a: _NoStream()),
+                        ("synchronize", lambda *a: None), ("empty_cache", lambda: None),
+                        ("is_available", lambda: True)):
+        monkeypatch.setattr(torch.cuda, name, value)
+    monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, s: None)
+    monkeypatch.setattr(graphs.RoundGraph, "_capture", capture)
+    monkeypatch.setattr(RoundEngine, "graph_block_reason", reason)
+    return torch.device("cpu")
+
+
+def _cifar_store(device, k=K):
+    """A CIFAR-shaped uint8 store whose sampler crops, flips, erases and
+    normalizes."""
+    from blades_tpu_torch.datasets import CustomTensorDataset
+    from blades_tpu_torch.datasets.augment import cifar_train_transform, make_normalizer
+
+    r = np.random.RandomState(3)
+    x = r.randint(0, 256, (k * 24, 32, 32, 3)).astype(np.uint8)
+    y = r.randint(0, C, k * 24)
+    ds = CustomTensorDataset(x, y, x[:30], y[:30], transform=cifar_train_transform,
+                             normalize=make_normalizer((0.49, 0.48, 0.45), (0.25, 0.24, 0.26)),
+                             num_clients=k, iid=False, alpha=0.5, seed=1)
+    return ds.get_dls(device)
+
+
+def _store_sim(store, tmp_path, name, **kw):
+    return Simulator(store, attack="alie", num_byzantine=2, aggregator="trimmedmean",
+                     aggregator_kws={"num_byzantine": 1}, seed=3, device=store.device,
+                     log_path=str(tmp_path / name), **kw)
+
+
+def test_graph_block_from_the_cifar_sampler_matches_rounds(graph_device, tmp_path):
+    """The augmenting, normalizing sampler inside the captured round: a run
+    in blocks [3, 1] equals the same rounds one by one, bit for bit."""
+    store = _cifar_store(graph_device)
+    assert store.train_x.dtype == torch.uint8
+    run = dict(global_rounds=4, local_steps=2, train_batch_size=4, validate_interval=4)
+    seq = _store_sim(store, tmp_path, "seq")
+    seq.run("mlp", **run)
+    blk = _store_sim(store, tmp_path, "blk")
+    blk.run("mlp", block_size=3, **run)
+    assert blk.engine.last_block_mode == "graph"
+    assert blk.engine.last_graph.replays == 3  # round 1 warmed up, rounds 2-3 and 4 replayed
+    _assert_states_equal(seq.server.state, blk.server.state)
+    assert read_stats(str(tmp_path / "seq"), "train") == read_stats(str(tmp_path / "blk"),
+                                                                  "train")
+
+
+def test_resume_into_an_engine_whose_graph_is_captured(graph_device, tmp_path):
+    """A checkpoint restored into a cached engine whose round is already
+    captured: ``write_back`` copies the restored state into the graph's
+    static buffers, the graph is replayed, not captured again, and the run
+    lands on the uninterrupted one bit for bit."""
+    from blades_tpu_torch.sweeps import EngineCache
+
+    store = _cifar_store(graph_device)
+    cache, ck = EngineCache(), str(tmp_path / "ck.npz")
+    run = dict(local_steps=1, train_batch_size=4, validate_interval=100, block_size=2,
+               engine_cache=cache)
+    _store_sim(store, tmp_path, "first").run("mlp", global_rounds=2, checkpoint_path=ck,
+                                             checkpoint_interval=2, **run)
+    ref = _store_sim(store, tmp_path, "ref")
+    ref.run("mlp", global_rounds=6, **run)
+    graph = ref.engine.last_graph
+    replays = graph.replays
+    resumed = _store_sim(store, tmp_path, "resumed")
+    assert len(resumed.run("mlp", global_rounds=6, checkpoint_path=ck, resume=True, **run)) == 4
+    assert resumed.engine is ref.engine and resumed.engine.last_graph is graph
+    assert graph.replays == replays + 4
+    _assert_states_equal(ref.server.state, resumed.server.state)

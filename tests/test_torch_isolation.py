@@ -132,3 +132,57 @@ def test_asyncfl_package_is_covered_and_an_async_round_loads_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_data_and_checkpoint_modules_are_covered_and_a_resumed_cifar_run_loads_no_jax(
+        tmp_path):
+    """The loaders, ``augment.py``, ``utils/checkpoint.py``, ``version.py``
+    and the mini example are among the checked sources, and a CIFAR-10 run
+    from pickle files, crashed and resumed from its autosave, leaves no
+    ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("datasets/augment.py", "datasets/mnist.py", "datasets/cifar10.py",
+                "datasets/cifar100.py", "datasets/custom.py", "utils/checkpoint.py",
+                "version.py", "examples/mini_example.py"):
+        assert pkg / rel in files
+    code = (
+        "import os, pickle, sys\n"
+        "import numpy as np\n"
+        "from blades_tpu_torch import Simulator\n"
+        "from blades_tpu_torch.datasets import CIFAR10\n"
+        "d = 'data/cifar-10-batches-py'\n"
+        "os.makedirs(d)\n"
+        "r = np.random.RandomState(0)\n"
+        "for name in [f'data_batch_{i}' for i in range(1, 6)] + ['test_batch']:\n"
+        "    with open(os.path.join(d, name), 'wb') as f:\n"
+        "        pickle.dump({b'data': r.randint(0, 256, (12, 3072)).astype(np.uint8),\n"
+        "                     b'labels': r.randint(0, 10, 12).tolist()}, f)\n"
+        "def make():\n"
+        "    return Simulator(CIFAR10(data_root='data', num_clients=4, cache=False),\n"
+        "                     attack='alie', num_byzantine=1, aggregator='trimmedmean',\n"
+        "                     aggregator_kws={'num_byzantine': 1}, device='cpu',\n"
+        "                     log_path='out')\n"
+        "def boom(rnd, state, m):\n"
+        "    raise RuntimeError('kill')\n"
+        "run = dict(model='cct_2_3x2_32', global_rounds=2, train_batch_size=2,\n"
+        "           validate_interval=2)\n"
+        "try:\n"
+        "    make().run(on_round_end=boom, **run)\n"
+        "except RuntimeError:\n"
+        "    pass\n"
+        "assert os.path.exists('out/autosave.npz')\n"
+        "assert len(make().run(resume=True, **run)) == 1\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

@@ -107,12 +107,9 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
 @pytest.mark.parametrize(
     "option,value,slice_no",
     [
-        ("checkpoint_interval", 5, "slice 5"),
         ("collect_diagnostics", True, "slice 10"),
         ("audit_monitor", {}, "slice 10"),
         ("profile_dir", "prof", "slice 10"),
-        ("checkpoint_path", "ckpt", "slice 5"),
-        ("resume", True, "slice 5"),
         ("remat", True, "slice 2b"),
         ("round_metrics", True, "slice 10"),
     ],
