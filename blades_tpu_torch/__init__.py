@@ -30,7 +30,12 @@ loaders (``datasets/``, local files only), uint8 on the device, augmented
 and normalized in the round's sampler (``datasets/augment.py``); and
 resumable runs: checkpoints, the crash autosave and bit-exact resume
 (``utils/checkpoint.py``, ``Simulator.run(checkpoint_path=...,
-resume=...)``). The
+resume=...)``). In-round forensics and the telemetry trace:
+``Simulator.run(collect_diagnostics=..., round_metrics=...,
+audit_monitor=AuditMonitor(...), profile_dir=...)`` records what the
+defense decided, the audit's certificates (``audit/``) and the metric pack
+(``telemetry/metric_pack.py``) of every round in
+``<log_path>/telemetry.jsonl`` (``telemetry/``). The
 coordinate-wise trimmed mean runs on the card through a CUDA kernel
 written by hand for Hopper (``csrc/trimmed_mean.cu``, bound in
 ``ops/trimmed.py``); the other defenses and the masked trimmed mean are
@@ -49,6 +54,7 @@ _LAZY = {
     "ClientOptSpec": "blades_tpu_torch.core.engine",
     "ServerOptSpec": "blades_tpu_torch.core.engine",
     "ExperimentBatch": "blades_tpu_torch.core.experiments",
+    "AuditMonitor": "blades_tpu_torch.audit",
     "EngineCache": "blades_tpu_torch.sweeps",
     "get_aggregator": "blades_tpu_torch.aggregators",
     "get_attack": "blades_tpu_torch.attackers",

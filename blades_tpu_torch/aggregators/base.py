@@ -16,8 +16,16 @@ draws from it) and ``weights`` (GeoMed's initial client weights).
 
 The mask-aware path (``aggregate_masked``, JAX ``:89-137``) aggregates over
 the participating clients of a ``[K]`` mask (``blades_tpu_torch.faults``);
-each registered aggregator implements ``_masked_aggregate``. Its
-diagnostics variant is not ported yet (``ROADMAP.md`` queue A, slice 10).
+each registered aggregator implements ``_masked_aggregate``.
+
+The forensics (JAX ``:139-159``, ``:260-283``): ``diagnostics`` is the
+per-round record of what the defense decided (trimmed mean's trim counts,
+Krum's scores and selection, centered clipping's clip norms, FLTrust's
+trust scores; ``{}`` by default), a dict of device tensors with no host
+sync; ``aggregate_with_diagnostics`` and
+``aggregate_masked_with_diagnostics`` return it beside the aggregate. The
+masked form's diagnostics run on the sanitized matrix, so an excluded NaN
+row cannot NaN them.
 
 The streaming protocol (JAX ``:160-260``) consumes the update matrix as one
 ordered pass of sanitized ``[chunk, D]`` slabs (``streaming_init``,
@@ -46,7 +54,7 @@ class Aggregator:
     stateful: bool = False
 
     #: certification-contract opt-outs, ``{contract: reason}`` (class-level,
-    #: never mutated; the audit battery comes with slice 10)
+    #: never mutated; the offline audit battery is slice 10b)
     audit_optouts: dict = {}
 
     #: streaming-protocol opt-outs, ``{"streaming": reason}``: why a defense
@@ -113,6 +121,34 @@ class Aggregator:
             f"{type(self).__name__} does not implement mask-aware "
             "aggregation (_masked_aggregate)"
         )
+
+    # -- forensics ----------------------------------------------------------------
+
+    def diagnostics(self, updates: torch.Tensor, state: Any = (), **ctx) -> dict:
+        """What the defense decided this round, as a dict of device tensors
+        of fixed shape (no host sync, so a captured round records it too);
+        ``state`` is the round's incoming aggregator state. Default: none."""
+        return {}
+
+    def aggregate_with_diagnostics(
+        self, updates: torch.Tensor, state: Any = (), **ctx
+    ) -> Tuple[torch.Tensor, Any, dict]:
+        """:meth:`aggregate` and :meth:`diagnostics` over the same inputs
+        (the engine's ``collect_diagnostics`` path)."""
+        agg, new_state = self.aggregate(updates, state, **ctx)
+        return agg, new_state, self.diagnostics(updates, state, **ctx)
+
+    def aggregate_masked_with_diagnostics(
+        self, updates: torch.Tensor, state: Any = (), *,
+        mask: Optional[torch.Tensor] = None, **ctx,
+    ) -> Tuple[torch.Tensor, Any, dict]:
+        """:meth:`aggregate_masked` and :meth:`diagnostics`; the diagnostics
+        run on the sanitized matrix (masked-out rows zeroed)."""
+        if mask is None:
+            return self.aggregate_with_diagnostics(updates, state, **ctx)
+        mask, safe = self._sanitize(updates, mask)
+        agg, new_state = self._masked_aggregate(safe, state, mask=mask, **ctx)
+        return agg, new_state, self.diagnostics(safe, state, mask=mask, **ctx)
 
     # -- streaming (chunk-scanned) aggregation ----------------------------------
     #

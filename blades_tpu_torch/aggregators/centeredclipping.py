@@ -85,5 +85,13 @@ class Centeredclipping(Aggregator):
         momentum = torch.where(counts.sum() > 0, v, sstate["v0"])
         return momentum, momentum
 
+    def diagnostics(self, updates, state=(), **ctx):
+        """Each client's distance from the round's incoming momentum centre
+        (``clip_norms``) and whether the clip engaged on the first inner
+        step (``clipped``: ``|u_i - v| > tau``), JAX ``:124-129``."""
+        v = state.to(updates.device, updates.dtype)
+        norms = torch.sqrt(torch.clamp_min(((updates - v) ** 2).sum(dim=1), 1e-24))
+        return {"clip_norms": norms, "clipped": norms > self.tau}
+
     def __repr__(self):
         return f"Clipping (tau={self.tau}, n_iter={self.n_iter})"

@@ -59,6 +59,15 @@ class Fltrust(Aggregator):
         ts, t_norm, norms = self._trust_scores(updates, trusted_mask)
         return self._weighted(updates, ts * mask.to(updates.dtype), t_norm, norms), state
 
+    def diagnostics(self, updates, state=(), *, trusted_mask=None, **ctx):
+        """``trust_scores [K]``: the weights :meth:`aggregate` applies this
+        round, from the same ``_trust_scores`` call (JAX ``:95-101``); ``{}``
+        without a trusted mask."""
+        if trusted_mask is None:
+            return {}
+        ts, _, _ = self._trust_scores(updates, trusted_mask)
+        return {"trust_scores": ts}
+
     @staticmethod
     def _weighted(updates, ts, t_norm, norms):
         """The trust-weighted average of the updates rescaled to the trusted

@@ -112,6 +112,14 @@ class Krum(TwoLevelStreaming, Aggregator):
         agg, _ = self._level_clone(aggs.shape[0])._masked_aggregate(aggs, (), mask=counts > 0)
         return torch.where(counts.sum() > 0, agg, torch.zeros_like(agg)), state
 
+    def diagnostics(self, updates, state=(), **ctx):
+        """``scores [K]`` and the ``m`` ``selected`` client indices (int32),
+        from the same ``_select`` call as :meth:`aggregate` (JAX
+        ``:148-154``). On the masked path they are the dense selection over
+        the sanitized matrix, as in the JAX package."""
+        scores, top_m = self._select(updates)
+        return {"scores": scores, "selected": top_m.to(torch.int32)}
+
     def __repr__(self):
         return f"Krum (m={self.m})"
 

@@ -36,9 +36,14 @@ weighting are then bit-identical to the sync round, and the trimmed mean
 takes the Hopper kernel; every other configuration takes the masked path
 (for the trimmed mean, the masked trimmed mean, not the kernel).
 
-The per-tick counters go to ``engine.last_async_diag`` (0-d tensors); the
-JAX Simulator's per-round ``async`` telemetry record comes with
-``ROADMAP.md`` queue A, slice 10.
+The per-tick counters go to ``engine.last_async_diag`` (0-d tensors), which
+the Simulator writes as the ``async`` telemetry record. The forensics (JAX
+``:185-250``) run on the rows the defense consumed: with
+``collect_diagnostics`` the defense's diagnostics, with an audit monitor
+its certificates and fallback on the tick's aggregate, with
+``round_metrics`` the metric pack against the aggregate applied. On the
+general path they are gated on the fire: a breach on a tick that did not
+fire swapped nothing in, and its ``breach`` and ``fallback_used`` read 0.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from torch.utils._pytree import tree_map
 
 from blades_tpu_torch.ops.masked import participant_count as _count
 from blades_tpu_torch.ops.pytree import ravel
+from blades_tpu_torch.telemetry.metric_pack import pack_dense
 from blades_tpu_torch.utils import rng
 
 
@@ -74,7 +80,9 @@ def async_round(engine, state, batch, inputs, streams):
     tick it replays) and generators ``streams``; returns ``(new state,
     metrics)`` as ``run_round`` does, and sets the engine's
     ``last_updates`` (the matrix the server received this tick, under
-    ``keep_updates``), ``last_fault_diag`` and ``last_async_diag``."""
+    ``keep_updates``), ``last_fault_diag``, ``last_async_diag`` and the
+    forensics ``last_diagnostics``, ``last_audit_diag`` and
+    ``last_metric_pack``."""
     from blades_tpu_torch.core.engine import RoundState
 
     cfg, astate = engine.async_config, state.async_state
@@ -124,22 +132,47 @@ def async_round(engine, state, batch, inputs, streams):
     agg_ctx = dict(trusted_mask=engine.trusted_mask, params_flat=flat,
                    generator=streams(rng.AGG))
     if static_sync:
-        # staleness 0 and weight 1 by construction: the sync round's call
+        # staleness 0 and weight 1 by construction: the sync round's
+        # unmasked calls (mask None)
         tau = torch.zeros(k, dtype=torch.int32, device=dev)
-        agg_mask, n_agg = buf_mask, count
+        agg_mask, n_agg, mask = buf_mask, count, None
         weights = torch.ones(k, dtype=torch.float32, device=dev)
-        agg, agg_state = engine.aggregator.aggregate(buf, state.agg_state, **agg_ctx)
+        weighted = buf
     else:
         tau = (t - buf_version).to(torch.int32)
         agg_mask, weights = cfg.staleness_mask_weights(tau, buf_mask)
         weighted = buf if cfg.weights_are_identity else buf * weights[:, None]
+        n_agg, mask = _count(agg_mask), agg_mask
+    agg_diag = audit_diag = None
+    if engine.collect_diagnostics:
+        agg, agg_state, agg_diag = engine.aggregator.aggregate_masked_with_diagnostics(
+            weighted, state.agg_state, mask=mask, **agg_ctx)
+    else:
         agg, agg_state = engine.aggregator.aggregate_masked(
-            weighted, state.agg_state, mask=agg_mask, **agg_ctx)
-        del weighted
-        n_agg = _count(agg_mask)
-        # an empty aggregated set, or no fire, applies the zero update
-        agg = torch.where(fired & (n_agg > 0), agg, torch.zeros_like(agg))
+            weighted, state.agg_state, mask=mask, **agg_ctx)
+    if not static_sync:
+        # an empty aggregated set applies the zero update
+        agg = torch.where(n_agg > 0, agg, torch.zeros_like(agg))
+    if engine.audit_monitor is not None:
+        # the certificates over the (weighted) rows the defense consumed
+        agg, audit_diag = engine.audit_monitor.apply(weighted, agg, mask=mask,
+                                                     byz_mask=engine.byz_mask, **agg_ctx)
+    if not static_sync:
+        # so does a tick that does not fire
+        agg = torch.where(fired, agg, torch.zeros_like(agg))
         agg_state = _tree_where(fired, agg_state, state.agg_state)
+        if audit_diag is not None:
+            # a breach on a tick that never fired swapped nothing in
+            fired_i = fired.to(torch.int32)
+            audit_diag["breach"] = audit_diag["breach"] * fired_i
+            audit_diag["fallback_used"] = audit_diag["fallback_used"] * fired_i
+            audit_diag["agg_norm"] = torch.sqrt((agg * agg).sum())  # the monitor's norm
+    metric_pack = None
+    if engine.round_metrics:
+        # the rows the defense consumed, against the aggregate applied
+        metric_pack = pack_dense(weighted, agg_mask, engine.byz_mask, agg,
+                                 engine.client_chunks, engine.chunk_size)
+    del weighted
 
     params, server_opt_state = engine._server_step(state, inputs.server_lr, agg)
     if not static_sync:
@@ -187,6 +220,9 @@ def async_round(engine, state, batch, inputs, streams):
     }
     engine.last_updates = updates if engine.keep_updates else None
     engine.last_fault_diag = fault_diag
+    engine.last_diagnostics = agg_diag
+    engine.last_audit_diag = audit_diag
+    engine.last_metric_pack = metric_pack
     metrics = engine._metrics(losses, top1s, sent.var(dim=0, correction=0), agg)
     new_state = RoundState(
         params=params,

@@ -6,7 +6,8 @@ Counterpart: ``blades_tpu/core/engine.py`` — ``ClientOptSpec`` /
 ``_validate_streaming`` (:399-434), ``peak_update_bytes`` (:436-452),
 ``RoundEngine.init`` (:456), ``_local_update`` (:569-625),
 ``_train_clients`` (:638-712), ``_round_dense`` (:714-874, its fault branch
-:749-797), ``_round_streaming`` (:876-1100), ``run_round`` (:1113),
+:749-797, diagnostics, audit and metric pack :770-830),
+``_round_streaming`` (:876-1100), ``run_round`` (:1113),
 ``run_block`` (:1203), ``evaluate_per_sample`` (:1344) and
 ``multistep_lr`` (:1374); the async build checks (:341-363), dispatched to
 ``blades_tpu_torch/asyncfl/engine.py``.
@@ -33,7 +34,14 @@ One call to :meth:`RoundEngine.run_round` runs, on the engine's device:
      generator as context; under a fault model its masked form
      (``aggregate_masked``; for trimmed mean stock torch ops, not the
      kernel), and the zero update when no client participated;
-  6. the server step with the aggregate as pseudo-gradient, ``grad := -agg``.
+  6. with ``collect_diagnostics``, what the defense decided
+     (``aggregate_with_diagnostics``, or its masked form); with an
+     ``audit_monitor``, its certificates on the aggregate and, on a breach,
+     its fallback's aggregate in its place; with ``round_metrics``, the
+     metric pack (``telemetry/metric_pack.py``) against the aggregate
+     applied. The results are ``last_diagnostics``, ``last_audit_diag`` and
+     ``last_metric_pack``, dicts (a ``MetricPack``) of device tensors;
+  7. the server step with the aggregate as pseudo-gradient, ``grad := -agg``.
 
 The optimizers port optax's chains literally — ``add_decayed_weights``, then
 ``trace`` (momentum) or ``scale_by_adam`` — and the engine applies
@@ -46,8 +54,10 @@ is the final, short one, and taken through ``nan_to_num``, the attack's
 ``on_updates`` (on the chunk, with the chunk's own ``ATTACK`` generator), the
 running moments of what the clients sent, the fault model's
 ``corrupt_chunk``, the non-finite guard and ``_sanitize``, into the
-aggregator's ``streaming_update``; then ``streaming_finalize``, the zero
-update when no client participated, and the server step. The fault model's
+aggregator's ``streaming_update`` (and those of the audit monitor and its
+fallback, and the metric pack's ``pack_update``); then
+``streaming_finalize``, the zero update when no client participated, the
+audit's ``streaming_apply``, ``pack_finalize`` and the server step. The fault model's
 ``[K]`` decisions come first, from ``plan_streaming``. The losses are exact;
 the variance metrics come from the one-pass moments. Local training is the
 dense round's, mask for mask, so the exact forms (``mean``, centered
@@ -77,9 +87,10 @@ generators come from one ``utils/rng.py:RoundStreams``, in the eager and
 the captured round alike, so a block equals R sequential rounds bit for
 bit.
 
-Not ported yet, each raising where it would be selected: audit,
-diagnostics and the metric pack (``ROADMAP.md`` queue A, slice 10), and
-sharding plans (slice 12).
+Each round runs inside a ``dispatch`` span of the active telemetry
+recorder (``telemetry/recorder.py``): the host's time to enqueue it, not
+the device's to run it. Sharding plans are not ported (``ROADMAP.md`` queue
+A, slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
 is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
@@ -96,10 +107,11 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 from torch.func import grad_and_value, vmap
-from torch.utils._pytree import tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from blades_tpu_torch.aggregators.base import Aggregator
 from blades_tpu_torch.attackers.base import Attack, NoAttack
+from blades_tpu_torch.audit import AuditMonitor
 from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.ops.pytree import FlatLayout, Params, make_unraveler, ravel
 from blades_tpu_torch.ops.streaming import (
@@ -108,6 +120,8 @@ from blades_tpu_torch.ops.streaming import (
     moments_update,
     moments_var,
 )
+from blades_tpu_torch.telemetry import get_recorder
+from blades_tpu_torch.telemetry.metric_pack import pack_dense, pack_finalize, pack_init, pack_update
 from blades_tpu_torch.utils import rng
 
 
@@ -322,9 +336,16 @@ class RoundEngine:
     The build raises where a part has no streaming form: an aggregator
     without one (its ``streaming_optouts`` reason), an attack whose
     ``on_updates`` reads the whole population (``update_locality !=
-    "row"``), a fault model with stragglers. Diagnostics and the audit
-    monitor, which the JAX package also rejects in streaming, are not
-    ported (``Simulator.run`` raises for them, slice 10).
+    "row"``), a fault model with stragglers, ``collect_diagnostics`` (the
+    forensics are defined on the dense matrix), an audit fallback without a
+    streaming form; the audit monitor itself and the metric pack run in
+    their streaming forms.
+
+    ``collect_diagnostics``, ``audit_monitor`` (an
+    :class:`~blades_tpu_torch.audit.AuditMonitor`) and ``round_metrics``:
+    the round's forensics (module docstring, step 6), each round's in
+    ``last_diagnostics`` / ``last_audit_diag`` / ``last_metric_pack`` (None
+    when off); a block returns them stacked ``[R]``.
 
     ``async_config``: an :class:`~blades_tpu_torch.asyncfl.AsyncConfig`;
     each round is then one buffered-asynchronous tick (module docstring),
@@ -357,6 +378,9 @@ class RoundEngine:
         fault_model: Optional[FaultModel] = None,
         streaming: bool = False,
         async_config=None,
+        collect_diagnostics: bool = False,
+        audit_monitor: Optional[AuditMonitor] = None,
+        round_metrics: bool = False,
     ):
         if int(client_chunks) < 1:
             raise ValueError(f"client_chunks must be >= 1, got {client_chunks}")
@@ -385,6 +409,12 @@ class RoundEngine:
         self.async_config = async_config
         self.last_async_diag: Optional[dict] = None
         self.async_buffer_m = 0
+        self.collect_diagnostics = bool(collect_diagnostics)
+        self.last_diagnostics: Optional[dict] = None
+        self.audit_monitor = audit_monitor
+        self.last_audit_diag: Optional[dict] = None
+        self.round_metrics = bool(round_metrics)
+        self.last_metric_pack = None
         # run_block: how the last block ran, and why not as a graph
         self.last_block_mode: Optional[str] = None
         self.last_block_reason: Optional[str] = None
@@ -449,6 +479,14 @@ class RoundEngine:
                 "streaming supports participation/corruption faults only "
                 "(straggler_rate=0)"
             )
+        if self.collect_diagnostics:
+            raise ValueError(
+                "streaming=True cannot collect_diagnostics: aggregator forensics are "
+                "defined on the dense [K, D] matrix"
+            )
+        fb = self.audit_monitor.fallback_aggregator if self.audit_monitor is not None else None
+        if fb is not None and not fb.supports_streaming():
+            raise ValueError("streaming=True: audit fallback " + fb._no_streaming_msg())
 
     @property
     def peak_update_bytes(self) -> int:
@@ -620,8 +658,9 @@ class RoundEngine:
         do not change."""
         self._check_runnable()
         streams = rng.RoundStreams(seed, state.round_idx, self.device)
-        return self._round(state, batch, self._inputs(client_lr, server_lr, state.round_idx),
-                           streams)
+        with get_recorder().span("dispatch"):
+            return self._round(state, batch,
+                               self._inputs(client_lr, server_lr, state.round_idx), streams)
 
     def _check_runnable(self) -> None:
         if self.aggregator is None:
@@ -663,21 +702,44 @@ class RoundEngine:
             params_flat=ravel(state.params, self.layout),
             generator=streams(rng.AGG),
         )
-        if part_mask is None:
-            agg, agg_state = self.aggregator.aggregate(updates, state.agg_state, **agg_ctx)
+        # mask None: the unmasked aggregate (the trimmed mean's kernel)
+        agg_diag = None
+        if self.collect_diagnostics:
+            agg, agg_state, agg_diag = self.aggregator.aggregate_masked_with_diagnostics(
+                updates, state.agg_state, mask=part_mask, **agg_ctx)
         else:
             agg, agg_state = self.aggregator.aggregate_masked(
-                updates, state.agg_state, mask=part_mask, **agg_ctx
-            )
+                updates, state.agg_state, mask=part_mask, **agg_ctx)
+        if part_mask is not None:
             # a round with no participant applies the zero update
             agg = torch.where(part_mask.any(), agg, torch.zeros_like(agg))
+        agg, audit_diag, metric_pack = self._audit_and_pack(updates, agg, part_mask, agg_ctx)
 
         # population variance (ddof 0), as jnp.var: torch.var defaults to ddof 1
         var = sent_updates.var(dim=0, correction=0)
         self.last_updates = updates if self.keep_updates else None
         self.last_fault_diag = fault_diag
+        self.last_diagnostics = agg_diag
+        self.last_audit_diag = audit_diag
+        self.last_metric_pack = metric_pack
         return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
                                   fault_state, losses, top1s, var, client_opt_state)
+
+    def _audit_and_pack(self, updates, agg, mask, agg_ctx):
+        """The audit monitor's certificates and fallback on ``agg`` (its
+        fallback gets the round's aggregation context), then the metric pack
+        of ``updates`` against the aggregate applied: ``(applied aggregate,
+        audit diag or None, pack or None)``. ``mask`` None: every row."""
+        audit_diag = metric_pack = None
+        if self.audit_monitor is not None:
+            agg, audit_diag = self.audit_monitor.apply(
+                updates, agg, mask=mask, byz_mask=self.byz_mask, **agg_ctx)
+        if self.round_metrics:
+            if mask is None:
+                mask = torch.ones(self.num_clients, dtype=torch.bool, device=self.device)
+            metric_pack = pack_dense(updates, mask, self.byz_mask, agg, self.client_chunks,
+                                     self.chunk_size)
+        return agg, audit_diag, metric_pack
 
     def _round_streaming(self, state, batch, inputs, streams):
         """The streaming round (module docstring): one ``[chunk_size, D]``
@@ -708,6 +770,13 @@ class RoundEngine:
         sctx = dict(params_flat=flat0, generator=streams(rng.AGG))
         agg_ss = self.aggregator.streaming_init(
             k, self.client_chunks, self.chunk_size, self.dim, state.agg_state, device=dev)
+        audit = self.audit_monitor
+        fb = audit.fallback_aggregator if audit is not None else None
+        layout = (k, self.client_chunks, self.chunk_size, self.dim)
+        fb_ss = fb.streaming_init(*layout, (), device=dev) if fb is not None else None
+        aud_ss = audit.streaming_init(*layout, device=dev) if audit is not None else None
+        mp = pack_init(self.client_chunks, self.dim, device=dev) if self.round_metrics else None
+        mp_norms, mp_masks = [], []
         noise = self._draw_noise(streams(rng.DROPOUT), cx.shape[1], cx.shape[2])
         mom = moments_init(self.dim, device=dev)
         attack_state, losses, top1s, opt_states = state.attack_state, [], [], []
@@ -741,12 +810,32 @@ class RoundEngine:
             n_part = n_part + mask.to(torch.int32).sum(dtype=torch.int32)
             agg_ss = self.aggregator.streaming_update(agg_ss, safe, chunk_mask=mask,
                                                       chunk_index=j, **sctx)
+            if fb is not None:
+                fb_ss = fb.streaming_update(fb_ss, safe, chunk_mask=mask, chunk_index=j, **sctx)
+            if audit is not None:
+                aud_ss = audit.streaming_update(aud_ss, safe, chunk_mask=mask, chunk_index=j)
+            if mp is not None:
+                # the same sanitized slab and mask the defense consumed
+                mp, norms = pack_update(mp, safe, mask, byz[sl], j)
+                mp_norms.append(norms)
+                mp_masks.append(mask)
             del safe
         del noise, cx, cy
         batch.clear()
         agg, agg_state = self.aggregator.streaming_finalize(agg_ss, state.agg_state, **sctx)
         # a round with no participant applies the zero update
         agg = torch.where(n_part > 0, agg, torch.zeros_like(agg))
+        audit_diag = metric_pack = None
+        if audit is not None:
+            fb_agg = None
+            if fb is not None:
+                fb_agg, _ = fb.streaming_finalize(fb_ss, (), **sctx)
+                fb_agg = torch.where(n_part > 0, fb_agg, torch.zeros_like(fb_agg))
+            agg, audit_diag = audit.streaming_apply(aud_ss, agg, fallback_agg=fb_agg)
+        if mp is not None:
+            # closed against the aggregate applied, as the dense round's
+            metric_pack = pack_finalize(mp, torch.cat(mp_norms)[:k], torch.cat(mp_masks)[:k],
+                                        agg)
         if fm is not None:
             fault_diag = {
                 "participants": n_part, "dropped": n_dropped,
@@ -756,6 +845,9 @@ class RoundEngine:
             }
         self.last_updates = None
         self.last_fault_diag = fault_diag
+        self.last_diagnostics = None
+        self.last_audit_diag = audit_diag
+        self.last_metric_pack = metric_pack
         return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
                                   state.fault_state, torch.cat(losses), torch.cat(top1s),
                                   moments_var(mom), self._cat_opt_states(opt_states))
@@ -844,11 +936,11 @@ class RoundEngine:
 
         Returns ``(new_state, metrics, diags)``: :class:`RoundMetrics` of
         ``[R]`` tensors, and the JAX package's ``diags`` dict, whose
-        ``faults`` and ``async`` hold the stacked ``[R]`` counters (None
-        without a fault model or async config) and whose ``defense``,
-        ``audit`` and ``metrics`` are None (slice 10). ``last_updates`` is
-        None after a block; ``last_fault_diag`` / ``last_async_diag`` hold
-        its final round's counters."""
+        ``defense``, ``faults``, ``audit``, ``metrics`` and ``async`` hold
+        each round's diagnostics, fault counters, audit fields, metric pack
+        and async counters stacked ``[R]`` (None where that surface is
+        off; JAX ``:1229-1271``). ``last_updates`` is None after a block;
+        the other ``last_*`` hold its final round's."""
         if sampler is None:
             raise ValueError("run_block needs the dataset's sampler (FLDataset.sampler)")
         rounds = [int(r) for r in rounds]
@@ -859,18 +951,24 @@ class RoundEngine:
             )
         specs = [RoundSpec(int(seed), state.round_idx + i, r, float(c), float(s))
                  for i, (r, c, s) in enumerate(zip(rounds, client_lrs, server_lrs))]
-        state, (metrics, faults, adiag) = self._run_rounds(state, specs, sampler=sampler)
-        return state, metrics, {"defense": None, "faults": faults, "audit": None,
-                                "metrics": None, "async": adiag}
+        with get_recorder().span("dispatch", rounds=len(specs)):
+            state, outs = self._run_rounds(state, specs, sampler=sampler)
+        return state, outs[0], block_diags(outs)
+
+    def round_outputs(self, metrics) -> tuple:
+        """A round's outputs as a block stacks them: its metrics, then the
+        ``last_*`` surfaces in :data:`BLOCK_DIAGS` order (None where off)."""
+        return (metrics, self.last_diagnostics, self.last_fault_diag, self.last_audit_diag,
+                self.last_metric_pack, self.last_async_diag)
 
     def _run_rounds(self, state, specs, sampler=None, batches=None):
         """The rounds of ``specs`` in order, each on a batch from ``sampler``
         or on its own ``batches[i]`` (``(cx, cy)``): captured and replayed
         where :meth:`graph_block_reason` allows, else eagerly. Returns the
-        new state and ``(metrics, fault counters, async counters)``, each
-        stacked ``[R]`` (None where the surface is off), and sets
+        new state and the rounds' :meth:`round_outputs`, each stacked
+        ``[R]`` (None where the surface is off), and sets
         ``last_block_mode`` / ``last_block_reason`` and the ``last_*``
-        counters to the final round's."""
+        surfaces to the final round's."""
         self._check_runnable()
         reason = self.graph_block_reason()
         if reason is None:
@@ -881,10 +979,10 @@ class RoundEngine:
             state, outs = self._run_eager(state, specs, sampler, batches)
         self.last_block_mode = "graph" if reason is None else "eager"
         self.last_block_reason = reason
-        last = lambda tree: tree_map(lambda a: a[-1], tree)  # noqa: E731
+        last = lambda tree: None if tree is None else tree_map(lambda a: a[-1], tree)  # noqa: E731
         self.last_updates = None
-        self.last_fault_diag = None if outs[1] is None else last(outs[1])
-        self.last_async_diag = None if outs[2] is None else last(outs[2])
+        (self.last_diagnostics, self.last_fault_diag, self.last_audit_diag,
+         self.last_metric_pack, self.last_async_diag) = (last(t) for t in outs[1:])
         return state, outs
 
     def _run_eager(self, state, specs, sampler, batches):
@@ -900,7 +998,7 @@ class RoundEngine:
             state, metrics = self._round(
                 state, batch, self._inputs(spec.client_lr, spec.server_lr, spec.round_idx),
                 streams)
-            outs.append((metrics, self.last_fault_diag, self.last_async_diag))
+            outs.append(self.round_outputs(metrics))
         stack = lambda *xs: None if xs[0] is None else torch.stack(xs)  # noqa: E731
         return state, tree_map(stack, *outs)
 
@@ -919,6 +1017,41 @@ class RoundEngine:
             losses.append(-logp.gather(-1, yb[:, None])[:, 0])
             correct.append((logits.argmax(dim=-1) == yb).to(torch.float32))
         return torch.cat(losses).cpu().numpy(), torch.cat(correct).cpu().numpy()
+
+
+#: the keys of a block's ``diags``, in :meth:`RoundEngine.round_outputs`
+#: order after the metrics
+BLOCK_DIAGS = ("defense", "faults", "audit", "metrics", "async")
+
+
+def block_diags(outs) -> dict:
+    """A block's stacked :meth:`RoundEngine.round_outputs` as the JAX
+    package's ``diags`` dict."""
+    return dict(zip(BLOCK_DIAGS, outs[1:]))
+
+
+_HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int32: np.int32,
+                torch.int64: np.int64, torch.bool: np.bool_}
+
+
+def outputs_to_host(tree):
+    """``tree`` with every tensor leaf as a numpy array of its dtype, read
+    from the device in ONE copy: the leaves travel as one float64 vector
+    (exact for float32, bool and the int32 counters), so a round's or a
+    block's metrics and forensics cost one host sync together."""
+    leaves, spec = tree_flatten(tree)
+    tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
+    if not tensors:
+        return tree
+    flat = torch.cat([t.detach().reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    out, at = [], 0
+    for leaf in leaves:
+        if isinstance(leaf, torch.Tensor):
+            n = leaf.numel()
+            leaf = flat[at:at + n].reshape(tuple(leaf.shape)).astype(_HOST_DTYPES[leaf.dtype])
+            at += n
+        out.append(leaf)
+    return tree_unflatten(out, spec)
 
 
 def multistep_lr(lr0: float, milestones=(), gamma: float = 0.5) -> Callable[[int], float]:

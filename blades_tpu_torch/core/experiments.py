@@ -24,7 +24,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
-from blades_tpu_torch.core.engine import RoundSpec
+from blades_tpu_torch.core.engine import RoundSpec, block_diags
 
 _MODES = ("map", "vmap")
 
@@ -163,6 +163,5 @@ class ExperimentBatch:
             xs = [x[0] for x in xs] if squeeze else xs
             return torch.stack(xs, dim=axis)
 
-        metrics, faults, adiag = tree_map(stack, *[o for _, o in outs])
-        return states, metrics, {"defense": None, "faults": faults, "audit": None,
-                                 "metrics": None, "async": adiag}
+        stacked = tree_map(stack, *[o for _, o in outs])
+        return states, stacked[0], block_diags(stacked)

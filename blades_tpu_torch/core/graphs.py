@@ -23,9 +23,10 @@ engine and one batch source (a sampler, or a batch shape):
   the host before each replay: ``manual_seed`` sets the seed and puts the
   Philox offset at 0, and the replay reads both, so it draws what a new
   generator at that node draws in the eager round;
-- the round's outputs (metrics, fault and async counters), packed in the
-  graph into one vector per dtype, whose values each replay copies into its
-  row of the block's ``[R, n]`` buffers.
+- the round's outputs (metrics; the defense's diagnostics, the fault
+  counters, the audit's fields, the metric pack and the async counters
+  where they are on), packed in the graph into one vector per dtype, whose
+  values each replay copies into its row of the block's ``[R, n]`` buffers.
 
 The first round run through a new graph runs eagerly on a side stream.
 That is PyTorch's warm-up before capture (cuBLAS and cuDNN pick their
@@ -114,17 +115,20 @@ def state_signature(state) -> tuple:
 
 
 class _Packer:
-    """A round's outputs (a pytree of 0-d tensors and Nones) as one vector
-    per dtype, and back as ``[R]`` tensors from ``[R, n]`` rows."""
+    """A round's outputs (a pytree of tensors of fixed shapes, e.g. 0-d
+    metrics and ``[K]`` trim counts, and Nones) as one vector per dtype,
+    and back as ``[R, *shape]`` tensors from ``[R, n]`` rows."""
 
     def __init__(self, outs):
         leaves, self.spec = tree_flatten(outs)
+        # per leaf: None, or (dtype, offset into its dtype's vector, shape)
         self.slots: List[Optional[tuple]] = []
         sizes: Dict[torch.dtype, int] = {}
         for leaf in leaves:
             if isinstance(leaf, torch.Tensor):
-                self.slots.append((leaf.dtype, sizes.get(leaf.dtype, 0)))
-                sizes[leaf.dtype] = sizes.get(leaf.dtype, 0) + 1
+                at = sizes.get(leaf.dtype, 0)
+                self.slots.append((leaf.dtype, at, tuple(leaf.shape)))
+                sizes[leaf.dtype] = at + leaf.numel()
             elif leaf is None:
                 self.slots.append(None)
             else:
@@ -136,14 +140,24 @@ class _Packer:
         groups: Dict[torch.dtype, list] = {dt: [] for dt in self.sizes}
         for leaf, slot in zip(leaves, self.slots):
             if slot is not None:
-                groups[slot[0]].append(leaf.reshape(()))
-        return {dt: torch.stack(vals) for dt, vals in groups.items()}
+                groups[slot[0]].append(leaf.reshape(-1))
+        return {dt: torch.cat(vals) for dt, vals in groups.items()}
 
     def rows(self, r: int, device) -> Dict[torch.dtype, torch.Tensor]:
         return {dt: torch.empty((r, n), dtype=dt, device=device) for dt, n in self.sizes.items()}
 
     def unpack(self, rows: Dict[torch.dtype, torch.Tensor]):
-        leaves = [None if slot is None else rows[slot[0]][:, slot[1]] for slot in self.slots]
+        leaves = []
+        for slot in self.slots:
+            if slot is None:
+                leaves.append(None)
+                continue
+            dt, at, shape = slot
+            n = 1
+            for dim in shape:
+                n *= dim
+            block = rows[dt][:, at:at + n]
+            leaves.append(block.reshape((block.shape[0],) + shape))
         return tree_unflatten(leaves, self.spec)
 
 
@@ -163,7 +177,7 @@ class RoundGraph:
         self.batch = None if sampler is not None else [torch.empty_like(t) for t in batch]
         # every object whose device tensors the captured round reads stays
         # alive with the graph, even if the engine is rebound
-        self._keep = (engine.attack, engine.aggregator, engine.fault_model,
+        self._keep = (engine.attack, engine.aggregator, engine.fault_model, engine.audit_monitor,
                       engine.async_config, sampler)
         self.stream = torch.cuda.Stream(dev)
         self.graph: Optional[torch.cuda.CUDAGraph] = None
@@ -185,7 +199,7 @@ class RoundGraph:
             batch = list(self.batch)
         new_state, metrics = eng._round(self.state, batch, self.inputs, self.streams)
         write_back(self.state, new_state)
-        return metrics, eng.last_fault_diag, eng.last_async_diag
+        return eng.round_outputs(metrics)
 
     def _set_inputs(self, spec, batch) -> None:
         self.streams.reseed(spec.seed, spec.round_idx, spec.data_round)
@@ -248,6 +262,7 @@ class RoundGraph:
             trimmed.trimmed_mean_launches = before
         del outs
         eng.last_updates = eng.last_fault_diag = eng.last_async_diag = None
+        eng.last_diagnostics = eng.last_audit_diag = eng.last_metric_pack = None
         self.graph, self.kernel_launches = graph, captured
         self.capture_seconds = time.perf_counter() - t0
 

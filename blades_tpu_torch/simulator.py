@@ -17,15 +17,23 @@ dense loop (:297-1046: model spec, ``engine.init``, ``sample_round`` ->
 (``train``, ``variance``, ``client_validation``, ``test``) with the same
 keys, a block's rounds included.
 
+The telemetry trace (:461-465, :523-552, :869-960, :1096-1182,
+:1262-1395): every run writes ``<log_path>/telemetry.jsonl`` (a fresh run
+starts it anew, a resumed one appends): the ``meta`` record, the span tree
+``round`` / ``sample`` / ``dispatch`` / ``sync`` / ``eval`` /
+``checkpoint`` (``block`` in a block), one ``round`` record per round, and
+the round's ``defense``, ``faults``, ``audit``, ``metrics`` and ``async``
+records where those surfaces are on (``collect_diagnostics``,
+``fault_model``, ``audit_monitor``, ``round_metrics``, ``async_config``),
+with their gauges, counters and byzantine-overlap summaries.
+``BLADES_TELEMETRY=0`` turns it off. The run ledger, alerts, the timeline
+and the supervision hooks are ``ROADMAP.md`` queue A, slices 10b and 13
+(``BLADES_RESUME=1`` is honoured).
+
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
 yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice (queue A)
-that brings it; the JAX package's telemetry trace (with its per-round
-``faults`` and ``async`` records: ``engine.last_fault_diag`` and
-``engine.last_async_diag`` hold the counters), run ledger and supervision
-hooks come with slice 10 and are not written (``BLADES_RESUME=1`` is
-honoured; the supervisor, heartbeat and SIGTERM handling come with slice
-13).
+that brings it.
 """
 
 from __future__ import annotations
@@ -38,18 +46,21 @@ from typing import Callable, Dict, List, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.utils._pytree import tree_map
 
 from blades_tpu_torch.aggregators import get_aggregator
 from blades_tpu_torch.asyncfl import AsyncConfig
 from blades_tpu_torch.attackers import get_attack
 from blades_tpu_torch.attackers.base import Attack
+from blades_tpu_torch.audit import AuditMonitor
 from blades_tpu_torch.client import BladesClient, ByzantineClient
 from blades_tpu_torch.core.engine import (
+    BLOCK_DIAGS,
     ClientOptSpec,
     RoundEngine,
-    RoundMetrics,
     ServerOptSpec,
     multistep_lr,
+    outputs_to_host,
     resolve_device,
 )
 from blades_tpu_torch.datasets.base import BaseDataset
@@ -58,7 +69,15 @@ from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.models import create_model
 from blades_tpu_torch.models.common import ModelSpec, build_fns
 from blades_tpu_torch.server import BladesServer
-from blades_tpu_torch.sweeps import contains_callables, program_fingerprint, static_fingerprint
+from blades_tpu_torch.sweeps import (
+    config_fingerprint,
+    contains_callables,
+    program_fingerprint,
+    static_fingerprint,
+)
+from blades_tpu_torch.telemetry import NULL_RECORDER, Recorder, context, set_recorder
+from blades_tpu_torch.telemetry import profiling
+from blades_tpu_torch.telemetry.metric_pack import pack_to_fields
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.checkpoint import (
     RESUME_ENV,
@@ -75,11 +94,8 @@ _IGNORED_KWARGS = ("num_actors", "num_trainers", "gpu_per_actor", "mode", "use_c
 #: name -> (the value that leaves it off, the ROADMAP.md queue-A slice)
 _UNPORTED_RUN_OPTIONS = {
     "remat": (False, "slice 2b (remat under torch.func)"),
-    "audit_monitor": (None, "slice 10 (audit, metrics, telemetry)"),
-    "collect_diagnostics": (None, "slice 10 (audit, metrics, telemetry)"),
-    "round_metrics": (None, "slice 10 (audit, metrics, telemetry)"),
-    "profile_dir": (None, "slice 10 (audit, metrics, telemetry)"),
 }
+
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
@@ -272,6 +288,7 @@ class Simulator:
         self._custom_attack_entries: List = []
         self.server: Optional[BladesServer] = None
         self.engine: Optional[RoundEngine] = None
+        self.telemetry: Recorder = NULL_RECORDER
         for name in _IGNORED_KWARGS:
             val = locals().get(name)
             if val not in (None, 0, 1, "actor", False, 0.0):
@@ -391,6 +408,10 @@ class Simulator:
         checkpoint_path: Optional[str] = None,
         checkpoint_interval: int = 0,
         resume: bool = False,
+        collect_diagnostics: Optional[bool] = None,
+        round_metrics: Optional[bool] = None,
+        audit_monitor: Optional[Union[AuditMonitor, Dict]] = None,
+        profile_dir: Optional[str] = None,
         **options,
     ) -> List[float]:
         """Run adversarial training; returns per-round wall times.
@@ -463,6 +484,23 @@ class Simulator:
         leftover implicit autosave, never ``checkpoint_path``.
         Attackers registered with :meth:`register_attackers` replace the
         uniform attack.
+        ``collect_diagnostics`` (default ``BLADES_TELEMETRY_DIAG=1``): each
+        round's ``defense`` record, what the defense decided (trimmed mean's
+        trim counts, Krum's scores and selection, centered clipping's clip
+        norms, FLTrust's trust scores) with the byzantine share of it; not
+        with ``streaming=True``. ``audit_monitor``: an
+        :class:`~blades_tpu_torch.audit.AuditMonitor` or its keyword
+        arguments; each round's certificates, and the fallback's aggregate
+        on a breach, as the ``audit`` record. ``round_metrics`` (default
+        ``BLADES_ROUND_METRICS=1``): each round's metric pack (update-norm
+        quantiles and histogram, honest and byzantine cosines to the applied
+        aggregate, per-chunk extremes) as the ``metrics`` record. All three
+        land in ``<log_path>/telemetry.jsonl`` and, for the last round, in
+        ``self.engine.last_diagnostics`` / ``last_audit_diag`` /
+        ``last_metric_pack``. ``profile_dir`` (or ``BLADES_PROFILE``): a
+        ``torch.profiler`` capture of about 3 rounds, exported to
+        ``<profile_dir>/trace.json``; a capture that fails is a ``profile``
+        record with ``ok: false``, not a failed run.
         """
         for name, value in options.items():
             if name not in _UNPORTED_RUN_OPTIONS:
@@ -472,9 +510,16 @@ class Simulator:
             if not is_off:
                 raise _unported(f"run({name}={value!r})", slice_name)
         resume = resume or os.environ.get(RESUME_ENV) == "1"
+        if collect_diagnostics is None:
+            collect_diagnostics = os.environ.get("BLADES_TELEMETRY_DIAG") == "1"
+        if round_metrics is None:
+            round_metrics = os.environ.get("BLADES_ROUND_METRICS") == "1"
+        profile_dir = profile_dir or profiling.profile_dir_from_env()
 
         if isinstance(fault_model, dict):
             fault_model = FaultModel(**fault_model)
+        if isinstance(audit_monitor, dict):
+            audit_monitor = AuditMonitor(**audit_monitor)
         if isinstance(async_config, dict):
             async_config = AsyncConfig(**async_config)
         if streaming and (retain_updates or on_round_end is not None):
@@ -482,6 +527,11 @@ class Simulator:
                 "streaming=True never materializes the [K, D] update matrix "
                 "that retain_updates/on_round_end read; run dense for those"
             )
+        rec = self._start_trace(resume, model, fault_model, audit_monitor, async_config, {
+            "global_rounds": global_rounds, "local_steps": local_steps,
+            "train_batch_size": train_batch_size or self._train_bs, "client_lr": client_lr,
+            "server_lr": server_lr, "client_chunks": client_chunks, "block_size": block_size,
+            "streaming": streaming})
         spec = self._model_spec(model, loss, compute_dtype)
         batch_size = train_batch_size or self._train_bs
         params = spec.init(rng.generator(self.seed, 0, rng.INIT))
@@ -504,6 +554,9 @@ class Simulator:
             fault_model=fault_model,
             streaming=streaming,
             async_config=async_config,
+            collect_diagnostics=collect_diagnostics,
+            audit_monitor=audit_monitor,
+            round_metrics=round_metrics,
         )
         engine_key = None
         if (engine_cache is not None and isinstance(model, str)
@@ -519,6 +572,7 @@ class Simulator:
             # an equal-program fault model (a NaN/Inf twin: the fill rides
             # the state) is rebound; init below makes its state
             self.engine.fault_model = fault_model
+            rec.event("engine_cache", hit=1, key=engine_key)
         else:
             t_build = time.perf_counter()
             self.engine = RoundEngine(
@@ -528,6 +582,14 @@ class Simulator:
             if engine_key is not None:
                 engine_cache.put(engine_key, self.engine,
                                  build_s=time.perf_counter() - t_build)
+        # the round's update-matrix footprint rides every round record
+        rec.gauge("engine.peak_update_bytes", self.engine.peak_update_bytes)
+        rec.gauge("engine.client_chunks", self.engine.client_chunks)
+        rec.gauge("engine.chunk_size", self.engine.chunk_size)
+        rec.gauge("engine.streaming", int(self.engine.streaming))
+        if async_config is not None:
+            rec.gauge("engine.async", 1)
+            rec.gauge("engine.async_buffer_m", self.engine.async_buffer_m)
         state = self.engine.init(params)
         # the crash autosave's target: the checkpoint path when given, else
         # a fixed path in the log dir (whose wipe keeps *.npz)
@@ -557,43 +619,60 @@ class Simulator:
 
         round_times: List[float] = []
         global_start = time.time()
+        # the profiler's window: about 3 rounds, past round 1 where the run
+        # is long enough
+        prof_first = min(max(start_round, 2), global_rounds)
+        prof_last = min(prof_first + 2, global_rounds)
+        self._capture = None  # the open profiler capture, if any
         try:
             if block_size > 1:
                 self._run_blocks(state, self.dataset.sampler(local_steps, batch_size),
                                  block_size, start_round, global_rounds, local_steps,
                                  validate_interval, test_batch_size, client_lr_fn,
                                  server_lr_fn, round_times, global_start, checkpoint_path,
-                                 checkpoint_interval)
+                                 checkpoint_interval, profile_dir, prof_first, prof_last)
             else:
                 for rnd in range(start_round, global_rounds + 1):
+                    if profile_dir and rnd == prof_first:
+                        self._capture = profiling.start_capture(profile_dir, rec, self.device)
                     round_start = time.time()
-                    batch = list(self.dataset.sample_round(
-                        rng.generator(self.seed, rnd, rng.DATA, device=self.device),
-                        local_steps,
-                        batch_size,
-                    ))
-                    c_lr = client_lr_fn(rnd - 1)
-                    s_lr = server_lr_fn(rnd - 1)
-                    # the engine empties the list: nothing else holds the batch
-                    state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr,
-                                                             self.seed)
-                    self.server.state = state
-                    # the float() reads in the loggers wait for the device
-                    self.log_train(rnd, local_steps, m)
-                    self.log_variance(rnd, m)
-                    if retain_updates:
-                        for i, c in enumerate(self.get_clients()):
-                            c.save_update(self.engine.last_updates[i])
-                    if on_round_end is not None:
-                        on_round_end(rnd, state, m)
-                    if rnd % validate_interval == 0:
-                        ev = self.evaluate(rnd, test_batch_size)
-                        self.debug_logger.info(
-                            f"Test global round {rnd}, loss: {ev['Loss']}, top1: {ev['top1']}"
-                        )
-                    if checkpoint_path and checkpoint_interval and rnd % checkpoint_interval == 0:
-                        save_state(checkpoint_path, state)
-                    round_times.append(time.time() - round_start)
+                    with rec.span("round"):
+                        with rec.span("sample"):
+                            batch = list(self.dataset.sample_round(
+                                rng.generator(self.seed, rnd, rng.DATA, device=self.device),
+                                local_steps,
+                                batch_size,
+                            ))
+                        c_lr = client_lr_fn(rnd - 1)
+                        s_lr = server_lr_fn(rnd - 1)
+                        # the engine empties the list: nothing else holds the
+                        # batch; it records the round/dispatch span
+                        state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr,
+                                                                 self.seed)
+                        self.server.state = state
+                        with rec.span("sync"):
+                            self._sync()
+                        host = self._round_records(
+                            [rnd], local_steps, self.engine.round_outputs(m), stacked=False)
+                        if retain_updates:
+                            for i, c in enumerate(self.get_clients()):
+                                c.save_update(self.engine.last_updates[i])
+                        if on_round_end is not None:
+                            on_round_end(rnd, state, m)
+                        if rnd % validate_interval == 0:
+                            with rec.span("eval"):
+                                ev = self.evaluate(rnd, test_batch_size)
+                            self.debug_logger.info(
+                                f"Test global round {rnd}, loss: {ev['Loss']}, top1: {ev['top1']}"
+                            )
+                        if self._capture is not None and rnd == prof_last:
+                            self._stop_capture(profile_dir)
+                        if checkpoint_path and checkpoint_interval and rnd % checkpoint_interval == 0:
+                            with rec.span("checkpoint"):
+                                save_state(checkpoint_path, state)
+                    wall = time.time() - round_start
+                    round_times.append(wall)
+                    self._flush_rounds([rnd], [wall], host)
                     self.debug_logger.info(
                         f"E={rnd}; Client learning rate = {c_lr}; "
                         f"Time cost = {time.time() - global_start}"
@@ -602,19 +681,119 @@ class Simulator:
             # self.server.state is the last completed round's (or block's):
             # both loops set it only once a round (block) has returned. The
             # save is best effort: its failure must not mask ``err``
+            crash_state = self.server.state
             try:
-                save_state(autosave_path, self.server.state)
+                with rec.span("crash_checkpoint"):
+                    save_state(autosave_path, crash_state)
+                rec.event("crash_checkpoint", path=checkpoint_file(autosave_path),
+                          round=int(crash_state.round_idx),
+                          error=f"{type(err).__name__}: {err}"[:300])
                 self.debug_logger.info(
-                    f"crash after round {self.server.state.round_idx} "
+                    f"crash after round {crash_state.round_idx} "
                     f"({type(err).__name__}: {err}); state saved to "
                     f"{checkpoint_file(autosave_path)}; run again with resume=True")
             except Exception as save_err:  # noqa: BLE001 - keep the original error
+                rec.event("crash_checkpoint_failed", error=str(save_err)[:300])
                 self.debug_logger.info(f"crash autosave failed: {save_err!r}")
             raise
+        finally:
+            if self._capture is not None:
+                self._stop_capture(profile_dir)
+            # whatever was recorded up to a failure reaches the trace; the
+            # file is closed (a later record reopens it)
+            rec.event("run_end", rounds_completed=len(round_times))
+            rec.close()
         if checkpoint_path is None:
             # the run completed: its crash autosave is stale
             self._remove_autosave(autosave_path, "run complete")
         return round_times
+
+    def _start_trace(self, resume, model, fault_model, audit_monitor, async_config,
+                     run_kw) -> Recorder:
+        """Mint the run's identity and install a recorder writing
+        ``<log_path>/telemetry.jsonl`` with the JAX ``meta`` fields
+        (``blades_tpu/simulator.py:481-566``). A fresh run starts the trace
+        anew; a resumed one appends to it. The meta record is written at
+        once, so a run that dies before its first round leaves a trace."""
+        context.activate(fresh=True)
+        run_config = {
+            "kind": "simulator",
+            "num_clients": self.dataset.num_clients,
+            "num_byzantine": self.num_byzantine,
+            "attack": repr(self.attack),
+            "aggregator": repr(self.aggregator),
+            "seed": self.seed,
+            "model": model if isinstance(model, str) else type(model).__name__,
+            **run_kw,
+            **({"fault_model": repr(fault_model)} if fault_model else {}),
+            **({"async_config": repr(async_config)} if async_config is not None else {}),
+        }
+        trace_path = os.path.join(self.log_path, "telemetry.jsonl")
+        if not resume:
+            try:
+                os.unlink(trace_path)
+            except OSError:
+                pass
+        meta = {
+            "run": "simulator",
+            "config_fingerprint": config_fingerprint(run_config),
+            "num_clients": self.dataset.num_clients,
+            "num_byzantine": self.num_byzantine,
+            "attack": repr(self.attack),
+            "aggregator": repr(self.aggregator),
+            "global_rounds": run_kw["global_rounds"],
+            "local_steps": run_kw["local_steps"],
+            "device": str(self.device),
+        }
+        for name, part in (("fault_model", fault_model), ("audit_monitor", audit_monitor),
+                           ("async_config", async_config)):
+            if part is not None:
+                meta[name] = repr(part)
+        rec = Recorder(path=trace_path, meta=meta)
+        self.telemetry = rec
+        set_recorder(rec)  # the engine's dispatch spans land here
+        rec.flush()
+        return rec
+
+    def _sync(self) -> None:
+        """Wait for the device (the round's execution lands in the ``sync``
+        span)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _stop_capture(self, profile_dir) -> None:
+        profiling.stop_capture(profile_dir, self._capture, self.telemetry)
+        self._capture = None
+
+    def _round_records(self, rounds, local_steps, outs, stacked: bool = True):
+        """The ``stats`` and telemetry records of ``rounds`` from their
+        outputs (``RoundEngine.round_outputs`` order; stacked ``[R]`` for a
+        block), read from the device in one copy (the forensics only when
+        telemetry is on). Returns the host metrics."""
+        if not self.telemetry.enabled:
+            outs = (outs[0],) + (None,) * (len(outs) - 1)
+        metrics, *diags = outputs_to_host(outs)
+        for i, r in enumerate(rounds):
+            pick = (lambda tree: tree_map(lambda a: a[i], tree)) if stacked else (lambda t: t)
+            m = pick(metrics)
+            self.log_train(r, local_steps, m)
+            self.log_variance(r, m)
+            for name, diag in zip(BLOCK_DIAGS, diags):
+                if diag is not None:  # _log_defense, _log_faults, ...
+                    getattr(self, f"_log_{name}")(r, pick(diag))
+        return metrics
+
+    def _flush_rounds(self, rounds, walls, metrics) -> None:
+        """Each round's ``round`` record (the device's memory gauges riding
+        it) and the trace's one buffered write."""
+        rec = self.telemetry
+        profiling.record_live_bytes(rec, self.device)
+        for i, (r, wall) in enumerate(zip(rounds, walls)):
+            loss, top1 = metrics.train_loss, metrics.train_top1
+            if np.ndim(loss):  # a block's [R]
+                loss, top1 = loss[i], top1[i]
+            rec.round_record(r, wall_s=wall, train_loss=float(loss), train_top1=float(top1))
+        rec.flush()
 
     def _remove_autosave(self, autosave_path: str, why: str) -> None:
         stale = checkpoint_file(autosave_path)
@@ -629,40 +808,52 @@ class Simulator:
 
     def _run_blocks(self, state, sampler, block_size, start_round, global_rounds, local_steps,
                     validate_interval, test_batch_size, client_lr_fn, server_lr_fn,
-                    round_times, global_start, checkpoint_path, checkpoint_interval) -> None:
+                    round_times, global_start, checkpoint_path, checkpoint_interval,
+                    profile_dir=None, prof_first=0, prof_last=0) -> None:
         """Rounds ``start_round..global_rounds`` in blocks of ``block_size``
         through ``RoundEngine.run_block`` (``blades_tpu/simulator.py:
         1048-1192``), a remainder block taking the rest. Each block's
-        metrics come to the host in one copy and are logged round by round;
-        evaluation runs once a block, and so does the checkpoint (a block
-        boundary); ``round_times`` gets each round's share of its block's
-        wall; the state after each block is left on ``self.server``."""
+        metrics and forensics come to the host in one copy and are logged
+        round by round (each round's slice of the ``[R]`` outputs);
+        evaluation runs once a block, and so do the checkpoint (a block
+        boundary) and the trace's flush; ``round_times`` gets each round's
+        share of its block's wall; the state after each block is left on
+        ``self.server``."""
+        rec = self.telemetry
         rnd = start_round
         while rnd <= global_rounds:
             bs = min(block_size, global_rounds - rnd + 1)
             rounds = list(range(rnd, rnd + bs))
+            if profile_dir and self._capture is None and rnd <= prof_first < rnd + bs:
+                self._capture = profiling.start_capture(profile_dir, rec, self.device)
             block_start = time.time()
-            c_lrs = [client_lr_fn(r - 1) for r in rounds]
-            s_lrs = [server_lr_fn(r - 1) for r in rounds]
-            state, ms, _ = self.engine.run_block(state, rounds, c_lrs, s_lrs, self.seed,
-                                                 sampler=sampler)
-            self.server.state = state
-            # the block's one host sync: every round's metrics in one copy
-            host = torch.stack(list(ms)).cpu().numpy()
-            for i, r in enumerate(rounds):
-                m = RoundMetrics(*host[:, i])
-                self.log_train(r, local_steps, m)
-                self.log_variance(r, m)
-            if any(r % validate_interval == 0 for r in rounds):
-                ev = self.evaluate(rounds[-1], test_batch_size)
-                self.debug_logger.info(
-                    f"Test global round {rounds[-1]}, loss: {ev['Loss']}, top1: {ev['top1']}"
-                )
-            if checkpoint_path and checkpoint_interval and any(
-                    r % checkpoint_interval == 0 for r in rounds):
-                save_state(checkpoint_path, state)
+            with rec.span("block", rounds=bs):
+                c_lrs = [client_lr_fn(r - 1) for r in rounds]
+                s_lrs = [server_lr_fn(r - 1) for r in rounds]
+                # records the block/dispatch span
+                state, ms, diags = self.engine.run_block(state, rounds, c_lrs, s_lrs, self.seed,
+                                                         sampler=sampler)
+                self.server.state = state
+                with rec.span("sync"):
+                    self._sync()
+                # the block's one host read: every round's metrics and forensics
+                host = self._round_records(rounds, local_steps,
+                                           (ms,) + tuple(diags[k] for k in BLOCK_DIAGS))
+                if any(r % validate_interval == 0 for r in rounds):
+                    with rec.span("eval"):
+                        ev = self.evaluate(rounds[-1], test_batch_size)
+                    self.debug_logger.info(
+                        f"Test global round {rounds[-1]}, loss: {ev['Loss']}, top1: {ev['top1']}"
+                    )
+                if self._capture is not None and rounds[-1] >= prof_last:
+                    self._stop_capture(profile_dir)
+                if checkpoint_path and checkpoint_interval and any(
+                        r % checkpoint_interval == 0 for r in rounds):
+                    with rec.span("checkpoint"):
+                        save_state(checkpoint_path, state)
             wall = time.time() - block_start
             round_times.extend([wall / bs] * bs)
+            self._flush_rounds(rounds, [wall / bs] * bs, host)
             self.debug_logger.info(
                 f"E={rounds[0]}-{rounds[-1]}; block={bs} ({self.engine.last_block_mode}); "
                 f"Client learning rate = {c_lrs[-1]}; Time cost = {time.time() - global_start}"
@@ -692,6 +883,95 @@ class Simulator:
             "norm": float(m.update_variance_norm),
         }
         self.json_logger.info(r)
+
+    # -- telemetry forensics (blades_tpu/simulator.py:1262-1395) ------------------
+    #
+    # Each takes one round's diagnostics as numpy arrays (the host copy that
+    # the per-round and the block loops read once), writes one record and
+    # sets its gauges.
+
+    def _log_defense(self, rnd: int, diag) -> None:
+        """The ``defense`` record: the defense's diagnostics and how much of
+        what it selected, trimmed, clipped or trusted was byzantine (ground
+        truth the simulator knows and a deployment would not)."""
+        if not diag or not self.telemetry.enabled:
+            return
+        byz = np.arange(self.engine.num_clients) < self.engine.num_byzantine
+        fields = {}
+        for name, v in diag.items():
+            arr = np.asarray(v)
+            fields[name] = arr.tolist() if arr.ndim else arr.item()
+        overlap = {}
+        if "selected" in diag:  # krum / multikrum: byzantine share of the selection
+            overlap["byz_selected_frac"] = float(byz[np.asarray(diag["selected"])].mean())
+        if "trim_counts" in diag:  # trimmed mean: byzantine share of the trimmed slots
+            tc = np.asarray(diag["trim_counts"], dtype=np.float64)
+            tot = tc.sum()
+            overlap["byz_trim_frac"] = float(tc[byz].sum() / tot) if tot else 0.0
+        if "clipped" in diag:  # centered clipping: who hit the clip radius
+            cl = np.asarray(diag["clipped"])
+            overlap["byz_clipped_frac"] = float(cl[byz].mean()) if byz.any() else 0.0
+            overlap["honest_clipped_frac"] = float(cl[~byz].mean()) if (~byz).any() else 0.0
+        if "trust_scores" in diag:  # fltrust: byzantine share of the trust mass
+            ts = np.asarray(diag["trust_scores"], dtype=np.float64)
+            tot = ts.sum()
+            overlap["byz_trust_frac"] = float(ts[byz].sum() / tot) if tot > 0 else 0.0
+        for name, value in overlap.items():
+            self.telemetry.gauge(f"defense.{name}", value)
+        self.telemetry.event("defense", round=rnd, agg=repr(self.aggregator), **fields,
+                             **overlap)
+
+    def _log_faults(self, rnd: int, diag) -> None:
+        """The ``faults`` record: participants, dropouts, stale replays,
+        expired stragglers, corrupted payloads, non-finite exclusions; the
+        counts also as gauges."""
+        if not diag or not self.telemetry.enabled:
+            return
+        fields = {name: int(np.asarray(v)) for name, v in diag.items()}
+        for name, value in fields.items():
+            self.telemetry.gauge(f"faults.{name}", value)
+        self.telemetry.event("faults", round=rnd, **fields)
+
+    def _log_audit(self, rnd: int, diag) -> None:
+        """The ``audit`` record: the certificates' verdicts, the breach and
+        fallback flags and the honest-deviation fields; the headline flags
+        also as gauges, breaches as a counter."""
+        if not diag or not self.telemetry.enabled:
+            return
+        fields = {}
+        for name, v in diag.items():
+            arr = np.asarray(v)
+            fields[name] = arr.item() if arr.ndim == 0 else arr.tolist()
+        for name in ("breach", "fallback_used", "dev_honest"):
+            if name in fields:
+                self.telemetry.gauge(f"audit.{name}", fields[name])
+        self.telemetry.counter("audit.breaches", fields.get("breach", 0))
+        self.telemetry.event("audit", round=rnd, agg=repr(self.aggregator), **fields)
+
+    def _log_async(self, rnd: int, diag) -> None:
+        """The ``async`` record: the tick's 10 counters; the buffer and fire
+        headline also as gauges, fires as a counter."""
+        if not diag or not self.telemetry.enabled:
+            return
+        fields = {}
+        for name, v in diag.items():
+            arr = np.asarray(v)
+            fields[name] = float(arr) if arr.dtype.kind == "f" else int(arr)
+        for name in ("buffer_count", "fired", "mean_staleness"):
+            self.telemetry.gauge(f"async.{name}", fields[name])
+        self.telemetry.counter("async.fires", fields.get("fired", 0))
+        self.telemetry.event("async", round=rnd, **fields)
+
+    def _log_metrics(self, rnd: int, pack) -> None:
+        """The ``metrics`` record: the round's metric pack
+        (``telemetry/metric_pack.py``); its headline geometry also as
+        gauges."""
+        if not self.telemetry.enabled:
+            return
+        fields = pack_to_fields(pack)
+        for name in ("cos_honest", "cos_byz", "norm_median", "participants"):
+            self.telemetry.gauge(f"metrics.{name}", fields[name])
+        self.telemetry.event("metrics", round=rnd, **fields)
 
     def evaluate(self, rnd: int, batch_size: int = 64) -> Dict:
         """Every client evaluates the global model on its own test shard (one

@@ -108,6 +108,24 @@ fires) and is resumed by a fresh ``Simulator``, and against blocks of 2
 resumed at a block boundary, all bit for bit, the straggler buffer
 included; the save and the restore timed, with the file's size.
 
+Then in-round forensics and the telemetry trace (slice 10a), with cuDNN's
+deterministic algorithms on: the bf16 CCT-2 round at K=1000 through
+``Simulator.run(collect_diagnostics=True, round_metrics=True,
+audit_monitor=AuditMonitor(fallback_aggregator="trimmedmean"))``, 2 eager
+rounds (the second captured by ``profile_dir``'s ``torch.profiler``, whose
+records must say ok and whose trace file must exist) and the same 2 as a
+captured graph block, the kernel launching twice
+a round (the defense and the audit's fallback): the block's ``defense``,
+``audit`` and ``metrics`` records equal the eager rounds' bit for bit, both
+``telemetry.jsonl`` traces validate against the port's schema, the trim
+counts sum to 2bD; a warm block's host syncs and its kernel events under
+the profiler; the round's ``[1000, 283723]`` matrix copied to the CPU and
+its trim counts (exactly), audit and metric pack computed there again; the
+warm round with the three options on and off, the own time, host syncs and
+extra peak memory of the trim-count diagnostics, the audit and the pack.
+Then one streaming round with the metric pack and a median fallback,
+against the dense round of the same rows.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -230,6 +248,9 @@ MINI_ROUNDS, MINI_STEPS, AUGMENT_BATCH, SAMPLER_CALLS = 2, 50, 32_000, 5
 # profiler loses some device events; profiled_block)
 PROFILE_ATTEMPTS = 3
 CKPT_ROUNDS, CKPT_AT, CKPT_CRASH_AT, CKPT_BLOCK = 4, 2, 3, 2
+# in-round forensics and the telemetry trace (slice 10a): the eager rounds
+# and the graph block of the forensics phase
+FORENSICS_ROUNDS = 2
 
 
 def emit(record: dict) -> None:
@@ -2638,6 +2659,339 @@ def phase_donate(torch, trimmed, fl, card: str, log_root: Path) -> int:
     return out[True]["launches"]
 
 
+def forensics_sim(fl, log_root: Path, name: str, attack: str = "alie",
+                  aggregator: str = "trimmedmean"):
+    """A Simulator of the forensics phases on the store ``fl``: ``attack``
+    f=5 and ``aggregator`` (trimmed mean b=5), seed 1."""
+    from blades_tpu_torch import Simulator
+
+    f = CCT2_SHAPE[2]
+    return Simulator(dataset=fl, attack=attack, num_byzantine=f, aggregator=aggregator,
+                     aggregator_kws={"num_byzantine": f}, seed=1, device=fl.device,
+                     log_path=str(log_root / name))
+
+
+def forensics_options(fallback: str = "trimmedmean") -> dict:
+    """The three forensics options of ``Simulator.run``."""
+    from blades_tpu_torch.audit import AuditMonitor
+
+    return dict(collect_diagnostics=True, round_metrics=True,
+                audit_monitor=AuditMonitor(fallback_aggregator=fallback))
+
+
+def forensics_records(log_dir: Path) -> dict:
+    """The trace of a run: its schema errors, and its records by type
+    (the run's identity fields dropped, so two runs' records compare)."""
+    from blades_tpu_torch.telemetry import schema
+
+    path = str(log_dir / "telemetry.jsonl")
+    by_type = {}
+    for r in schema.load_trace(path):
+        r = {n: v for n, v in r.items() if n not in ("run_id", "attempt")}
+        by_type.setdefault(r["t"], []).append(r)
+    return {"errors": schema.validate_trace(path), "by_type": by_type}
+
+
+def round_peak(torch, sim) -> tuple:
+    """One warm round of ``sim``'s engine from its state (not applied): its
+    wall (ms) and the peak memory it allocated above what was allocated
+    before it."""
+    from blades_tpu_torch.utils import rng
+
+    eng, state = sim.engine, sim.server.state
+    cx, cy = sim.dataset.sample_round(rng.generator(sim.seed, 98, rng.DATA, device=eng.device),
+                                      1, 32)
+    eng.run_round(state, cx, cy, 0.1, 1.0, seed=sim.seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    eng.run_round(state, cx, cy, 0.1, 1.0, seed=sim.seed)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, torch.cuda.max_memory_allocated() - base
+
+
+def _compare_fields(torch, name: str, got: dict, ref: dict) -> list:
+    """The fields of two forensic dicts (numpy or tensors) that differ:
+    integers and flags exactly, floats at TOL."""
+    import numpy as np
+
+    bad = []
+    for n in sorted(set(got) | set(ref)):
+        if n not in got or n not in ref:
+            bad.append(f"{name}.{n} missing")
+            continue
+        a = np.asarray(got[n].cpu() if isinstance(got[n], torch.Tensor) else got[n])
+        b = np.asarray(ref[n].cpu() if isinstance(ref[n], torch.Tensor) else ref[n])
+        ok = (np.array_equal(a, b) if a.dtype.kind in "biu"
+              else np.allclose(a, b, rtol=TOL["rtol"], atol=TOL["atol"]))
+        if not ok:
+            bad.append(f"{name}.{n}: card {a.tolist() if a.size < 8 else a[:4].tolist()} "
+                       f"cpu {b.tolist() if b.size < 8 else b[:4].tolist()}")
+    return bad
+
+
+def phase_forensics_round(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """The slice's main path: bf16 CCT-2 at K=1000 in 4 chunks, ALIE f=5,
+    trimmed mean b=5, through Simulator.run with collect_diagnostics,
+    round_metrics and AuditMonitor(fallback_aggregator="trimmedmean"), with
+    cuDNN deterministic. FORENSICS_ROUNDS eager rounds, then the same rounds
+    as a graph block: the kernel launches twice a round (the defense and the
+    audit's fallback), the block's defense, audit and metrics records equal
+    the eager rounds' bit for bit, both traces validate with one round,
+    defense, audit and metrics record a round, trim counts summing to 2bD.
+    A warm graph block: its host syncs (one read of metrics and forensics)
+    and its kernel events under the profiler against its counted launches.
+    The last eager round's [K, D] matrix is copied to the CPU, where the trim
+    counts, the audit and the metric pack are computed again and compared.
+    Costs: the warm round with the options on and off, the own time, host
+    syncs and extra peak memory of the trim-count diagnostics, the audit's
+    apply (its fallback kernel launch included) and pack_dense. Returns the
+    launches by path and the profiled block's kernel events."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.audit import AuditMonitor
+    from blades_tpu_torch.core.engine import BLOCK_DIAGS, outputs_to_host
+    from blades_tpu_torch.telemetry.metric_pack import pack_dense
+
+    k, d, b = CCT2_SHAPE
+    r = FORENSICS_ROUNDS
+    run = dict(model="cct_2_3x2_32", global_rounds=r, local_steps=1, server_lr=1.0,
+               client_lr=0.1, validate_interval=r + 1, client_chunks=CCT2_CHUNKS,
+               compute_dtype="bfloat16")
+    launches, out = {}, {}
+
+    # eager rounds, each round's forensics read where the Simulator logs them
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = forensics_sim(fl, log_root, "forensics_eager")
+    seen, kept = [], {}
+
+    def on_round_end(rnd, state, m):
+        eng = sim.engine
+        seen.append((eng.last_diagnostics, eng.last_audit_diag, eng.last_metric_pack))
+        if rnd == r:
+            kept["updates"] = eng.last_updates.cpu()
+
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    profile_dir = log_root / "forensics_profile"
+    eager_s = sim.run(**run, **forensics_options(), on_round_end=on_round_end,
+                      profile_dir=str(profile_dir))
+    torch.cuda.synchronize()
+    out["eager_wall_s"] = time.perf_counter() - t0
+    launches["cct2_bf16_forensics_eager"] = trimmed.trimmed_mean_launches
+    diag, audit, pack = seen[-1]
+    u_dev, byz = sim.engine.last_updates, sim.engine.byz_mask
+    eager_trace = forensics_records(log_root / "forensics_eager")
+    # the profiler's capture of the run's last round: recorded ok, exported
+    trace_file = profile_dir / "trace.json"
+    profiled = [(x["action"], x["ok"]) for x in eager_trace["by_type"].get("profile", [])]
+    out["profile_records"] = profiled
+    out["profile_trace_bytes"] = trace_file.stat().st_size if trace_file.exists() else 0
+
+    # costs on the card, on the last round's matrix
+    tm, mon = Trimmedmean(b), AuditMonitor(fallback_aggregator="trimmedmean")
+    # the kernel's aggregate: the round's own (no certificate breached)
+    agg_dev, _ = tm.aggregate(u_dev)
+    kept["agg"] = agg_dev.cpu()
+    ones = torch.ones(k, dtype=torch.bool, device=u_dev.device)
+    costs = {
+        "trim_count_diagnostics": call_cost(torch, lambda: tm.diagnostics(u_dev)),
+        "audit_apply": call_cost(torch, lambda: mon.apply(u_dev, agg_dev, byz_mask=byz)),
+        "pack_dense": call_cost(torch, lambda: pack_dense(u_dev, ones, byz, agg_dev,
+                                                          CCT2_CHUNKS, k // CCT2_CHUNKS)),
+    }
+    on_warm = warm_round(torch, sim)
+    on_ms, on_peak = round_peak(torch, sim)
+    breached = any(int(x["breach"]) for x in eager_trace["by_type"].get("audit", []))
+    del sim, u_dev, agg_dev, seen, ones
+
+    # the same round with the options off
+    gc.collect()
+    torch.cuda.empty_cache()
+    off = forensics_sim(fl, log_root, "forensics_off")
+    off.run(**dict(run, global_rounds=1), on_round_end=lambda *a: None)
+    off_warm = warm_round(torch, off)
+    off_ms, off_peak = round_peak(torch, off)
+    del off
+
+    # the same rounds as a graph block, then a warm block
+    gc.collect()
+    torch.cuda.empty_cache()
+    blk = forensics_sim(fl, log_root, "forensics_block")
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    blk.run(**run, **forensics_options(), block_size=r)
+    torch.cuda.synchronize()
+    out["block_wall_s"] = time.perf_counter() - t0
+    launches["cct2_bf16_forensics_graph_block"] = trimmed.trimmed_mean_launches
+    eng = blk.engine
+    check(eng.last_block_mode == "graph",
+          f"forensics: the block ran {eng.last_block_mode} ({eng.last_block_reason})")
+    block_trace = forensics_records(log_root / "forensics_block")
+    state, sampler = blk.server.state, fl.sampler(1, 32)
+    rounds = list(range(r + 1, 2 * r + 1))
+
+    def block():
+        _, ms, diags = eng.run_block(state, rounds, [0.1] * r, [1.0] * r, blk.seed,
+                                     sampler=sampler)
+        return outputs_to_host((ms,) + tuple(diags[n] for n in BLOCK_DIAGS))
+
+    block()
+    walls = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        block()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    syncs = host_syncs(torch, block)
+    prof = profiled_block(torch, trimmed, block)
+    graph_launches = eng.last_graph.kernel_launches
+    del blk, eng, state
+
+    # the card's forensics against the CPU's, on the same [K, D] matrix and
+    # the same aggregate (the kernel's; the kernel against its plain version
+    # is the kernel phases' check)
+    t0 = time.perf_counter()
+    u_cpu, agg_card = kept.pop("updates"), kept.pop("agg")
+    byz_cpu = byz.cpu()
+    tm_cpu = Trimmedmean(b)
+    cpu_diag = tm_cpu.diagnostics(u_cpu)
+    cpu_final, cpu_audit = AuditMonitor(fallback_aggregator="trimmedmean").apply(
+        u_cpu, agg_card, byz_mask=byz_cpu)
+    cpu_pack = pack_dense(u_cpu, torch.ones(k, dtype=torch.bool), byz_cpu, cpu_final,
+                          CCT2_CHUNKS, k // CCT2_CHUNKS)
+    cpu_s = time.perf_counter() - t0
+    del u_cpu
+    card_vs_cpu = (_compare_fields(torch, "defense", diag, cpu_diag)
+                   + _compare_fields(torch, "audit", audit, cpu_audit)
+                   + _compare_fields(torch, "metrics", pack._asdict(), cpu_pack._asdict()))
+
+    # the traces
+    kinds = ("round", "defense", "audit", "metrics")
+    counts = {t: [len(tr["by_type"].get(t, [])) for tr in (eager_trace, block_trace)]
+              for t in kinds}
+    defense = eager_trace["by_type"].get("defense", [])
+    same_records = {t: eager_trace["by_type"].get(t) == block_trace["by_type"].get(t)
+                    for t in ("defense", "audit", "metrics")}
+    differing = [(t, n, a[n], b_[n]) for t in same_records if not same_records[t]
+                 for a, b_ in zip(eager_trace["by_type"].get(t, []),
+                                  block_trace["by_type"].get(t, []))
+                 for n in a if a[n] != b_.get(n)][:6]
+    per_round = r * 2
+    emit({"phase": "forensics_round", "dtype": "bfloat16", "clients": k, "byzantine": b,
+          "b": b, "rounds": r, "client_chunks": CCT2_CHUNKS,
+          "fallback_aggregator": "trimmedmean", "eager_round_s": eager_s,
+          "launches": launches, "graph_kernel_launches": graph_launches,
+          "trace_errors": eager_trace["errors"][:5] + block_trace["errors"][:5],
+          "record_counts_eager_block": counts, "block_records_equal_eager": same_records,
+          "block_records_differing": differing,
+          "trim_counts_sum": [sum(x["trim_counts"]) for x in defense],
+          "byz_trim_frac": [x["byz_trim_frac"] for x in defense],
+          "audit": [{n: x[n] for n in ("breach", "fallback_used", "cert_median_ball",
+                                        "cert_envelope", "dev_honest", "max_honest_dev")}
+                    for x in eager_trace["by_type"].get("audit", [])],
+          "metrics_cos": [(x["cos_honest"], x["cos_byz"])
+                          for x in eager_trace["by_type"].get("metrics", [])],
+          "card_vs_cpu_differs": card_vs_cpu, "cpu_check_s": cpu_s,
+          "breached": breached,
+          "warm_round_ms_on": on_warm["warm_round_ms"],
+          "warm_round_ms_off": off_warm["warm_round_ms"],
+          "round_host_syncs_on": on_warm["round_host_syncs"],
+          "round_host_syncs_off": off_warm["round_host_syncs"],
+          "peak_round_ms_on_off": [on_ms, off_ms],
+          "round_peak_extra_bytes_on_off": [on_peak, off_peak],
+          "forensics_extra_peak_bytes": on_peak - off_peak,
+          "costs": costs, "warm_block_ms": walls, "warm_block_round_ms": [w / r for w in walls],
+          "warm_block_host_syncs": sum(syncs.values()), "warm_block_host_sync_sites": syncs,
+          "profiled_block_kernel_events": prof["events"],
+          "profiled_block_counted_launches": prof["counted"],
+          "profiled_block_events_by_attempt": prof["events_by_attempt"],
+          "profiled_block_busy_share": prof["dev"]["busy_ms"] / prof["wall_ms"],
+          **out, "card": card})
+    check(profiled == [("start", True), ("stop", True)] and out["profile_trace_bytes"] > 0,
+          f"forensics: profile_dir capture {profiled}, {out['profile_trace_bytes']} bytes")
+    check(not eager_trace["errors"] and not block_trace["errors"],
+          f"forensics: trace errors {eager_trace['errors'][:3]} {block_trace['errors'][:3]}")
+    check(all(c == [r, r] for c in counts.values()), f"forensics: record counts {counts}")
+    check(all(same_records.values()), f"forensics: block records differ {same_records}")
+    check(launches["cct2_bf16_forensics_eager"] == per_round
+          and launches["cct2_bf16_forensics_graph_block"] == per_round
+          and graph_launches == 2 and prof["counted"] == per_round,
+          f"forensics: launches {launches}, captured {graph_launches}, "
+          f"block {prof['counted']} (2 a round)")
+    check(prof["events"] == prof["counted"],
+          f"forensics: the profiler saw {prof['events']} kernels, {prof['counted']} counted")
+    check(sum(syncs.values()) == 1, f"forensics: a warm block synced {syncs}")
+    check(all(x == 2 * b * d for x in (sum(y["trim_counts"]) for y in defense)),
+          "forensics: trim counts do not sum to 2bD")
+    check(all(0.0 <= x["byz_trim_frac"] <= 1.0 for x in defense), "forensics: byz_trim_frac")
+    check(not card_vs_cpu, f"forensics: card and CPU differ: {card_vs_cpu[:5]}")
+    check(not breached, "forensics: a round breached, so its aggregate is not the kernel's")
+    check(all(c["host_syncs"] == 0 for c in costs.values()),
+          f"forensics: host syncs {[(n, c['host_syncs']) for n, c in costs.items()]}")
+    launches["cct2_bf16_forensics_profiled_block"] = prof["counted"]
+    return launches, {"cct2_bf16_forensics_profiled_block": prof["events"]}
+
+
+def phase_stream_forensics(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """One streaming bf16 CCT-2 round at K=1000 in 4 chunks (sign flipping
+    f=5, trimmed mean b=5) with round_metrics and an AuditMonitor whose
+    fallback has a streaming form (median), beside the dense round of the
+    same rows: the pack's elementwise fields (norms, histogram, extremes,
+    counts) equal (the cosines are reported: the streaming trimmed mean is
+    two-level, another aggregate), the streaming audit's interval fields
+    present, both traces valid; collect_diagnostics under
+    streaming=True raises. Returns the launches of each run (the dense
+    round's defense is the kernel, its median fallback is not; the
+    streaming round never launches it)."""
+    elementwise = ("norm_q", "norm_hist", "n_participants", "n_masked_out", "slab_absmax",
+                   "slab_norm_max")
+    run = dict(model="cct_2_3x2_32", global_rounds=1, local_steps=1, server_lr=1.0,
+               client_lr=0.1, validate_interval=2, client_chunks=CCT2_CHUNKS,
+               compute_dtype="bfloat16")
+    packs, audits, launches, traces = {}, {}, {}, {}
+    for streaming in (False, True):
+        mode = "stream" if streaming else "dense"
+        gc.collect()
+        torch.cuda.empty_cache()
+        sim = forensics_sim(fl, log_root, f"forensics_{mode}", attack="signflipping")
+        opts = forensics_options("median")
+        del opts["collect_diagnostics"]
+        trimmed.trimmed_mean_launches = 0
+        sim.run(**run, **opts, streaming=streaming)
+        torch.cuda.synchronize()
+        launches[mode] = trimmed.trimmed_mean_launches
+        packs[mode] = sim.engine.last_metric_pack
+        audits[mode] = sim.engine.last_audit_diag
+        traces[mode] = forensics_records(log_root / f"forensics_{mode}")
+        if streaming:
+            refused = None
+            try:
+                sim.run(**run, streaming=True, collect_diagnostics=True)
+            except ValueError as err:
+                refused = str(err)
+        del sim
+    same = {n: bool(torch.equal(getattr(packs["stream"], n), getattr(packs["dense"], n)))
+            for n in elementwise}
+    cos = {n: [float(getattr(packs[m], n)) for m in ("dense", "stream")]
+           for n in ("cos_honest", "cos_byz")}
+    emit({"phase": "stream_forensics", "clients": CCT2_SHAPE[0], "attack": "signflipping",
+          "aggregator": "trimmedmean", "fallback_aggregator": "median",
+          "elementwise_equal": same, "cos_dense_stream": cos, "launches": launches,
+          "stream_audit": {n: float(v) for n, v in audits["stream"].items()},
+          "trace_errors": traces["dense"]["errors"][:3] + traces["stream"]["errors"][:3],
+          "collect_diagnostics_refused": refused, "card": card})
+    check(all(same.values()), f"stream_forensics: elementwise fields differ {same}")
+    check("spread_median_lo" in audits["stream"] and "dev_honest" in audits["dense"],
+          f"stream_forensics: audit fields {sorted(audits['stream'])}")
+    check(not traces["dense"]["errors"] and not traces["stream"]["errors"],
+          "stream_forensics: trace errors")
+    check(refused is not None and "collect_diagnostics" in refused,
+          f"stream_forensics: collect_diagnostics under streaming gave {refused!r}")
+    check(launches == {"dense": 1, "stream": 0}, f"stream_forensics: launches {launches}")
+    return launches
+
+
 def write_cifar10(root: Path, seed: int = 0) -> Path:
     """CIFAR-10's python-pickle layout at its published size under
     ``root``: ``cifar-10-batches-py/data_batch_1..5`` (10,000 images each)
@@ -3185,6 +3539,17 @@ def main() -> int:
             graph_launches["mlp_k1000_experiments"] = phase_experiments(
                 torch, trimmed, mlp_fl, card, Path(tmp))
             launches["cct2_bf16_donate"] = phase_donate(torch, trimmed, fl, card, Path(tmp))
+            # in-round forensics: the kernel twice a round (the defense and
+            # the audit's fallback), eager and in a graph block; the
+            # streaming forms never launch it
+            forensics, forensics_events = phase_forensics_round(torch, trimmed, fl, card,
+                                                                Path(tmp))
+            launches.update(forensics)
+            graph_launches.update({n: v for n, v in forensics.items() if "block" in n})
+            graph_events.update(forensics_events)
+            stream_forensics = phase_stream_forensics(torch, trimmed, fl, card, Path(tmp))
+            launches["cct2_bf16_forensics_dense_median_fallback"] = stream_forensics["dense"]
+            stream_launches["stream_forensics"] = stream_forensics["stream"]
             # real data from files and resume: the CIFAR-10 round (kernel
             # once a round, eager and in a graph block), the MNIST MLP and
             # the mini example, then checkpoint and resume under faults
@@ -3242,6 +3607,9 @@ def main() -> int:
         "launches_under_graph": graph_launches,
         "launches_under_graph_profiler_events": graph_events,
         "launches_under_graph_bypassed": block_bypass,
+        # the forensics path (slice 10a): the defense and the audit's
+        # fallback, 2 a round, eager and replayed
+        "launches_under_forensics": forensics,
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

@@ -635,3 +635,49 @@ def test_resume_into_an_engine_whose_graph_is_captured(graph_device, tmp_path):
     assert resumed.engine is ref.engine and resumed.engine.last_graph is graph
     assert graph.replays == replays + 4
     _assert_states_equal(ref.server.state, resumed.server.state)
+
+
+@pytest.mark.parametrize("faults", [None, {"dropout_rate": 0.3, "corrupt_clients": (3,)}],
+                         ids=["dense", "fault-model"])
+def test_diagnosed_graph_block_equals_its_rounds(graph_device, faults):
+    """The forensics inside the captured round (slice 10a): with
+    ``collect_diagnostics``, an ``AuditMonitor`` whose fallback is the
+    trimmed mean, and ``round_metrics``, a block's stacked diagnostics
+    (``[R, K]`` trim counts among them), audit fields and metric packs
+    equal R sequential rounds' bit for bit; on the card the captured round
+    holds two kernel launches, the defense's and the fallback's."""
+    from blades_tpu_torch.audit import AuditMonitor
+    from blades_tpu_torch.core.engine import BLOCK_DIAGS
+
+    device = graph_device
+    ds, w0 = _fixture(device)
+    kw = dict(num_byzantine=2, attack=get_attack("alie", num_clients=K, num_byzantine=2),
+              aggregator=get_aggregator("trimmedmean", num_byzantine=1), client_chunks=2,
+              collect_diagnostics=True, round_metrics=True,
+              audit_monitor=AuditMonitor(fallback_aggregator="trimmedmean"),
+              fault_model=None if faults is None else FaultModel(**faults))
+    eng = _engine(w0, device, **kw)
+    st, seq = eng.init(w0), []
+    for r in range(1, 4):
+        cx, cy = ds.sample_round(rng.generator(SEED, r, rng.DATA, device=device), S, B)
+        st, m = eng.run_round(st, cx, cy, LRS[r - 1], 1.0, SEED)
+        seq.append(eng.round_outputs(m))
+    blk = _engine(w0, device, **kw)
+    st2, ms, diags = blk.run_block(blk.init(w0), [1, 2, 3], list(LRS), [1.0] * 3, SEED,
+                                   sampler=ds.sampler(S, B))
+    assert blk.last_block_mode == "graph"
+    _assert_states_equal(st, st2)
+    assert diags["defense"]["trim_counts"].shape == (3, K)
+    assert diags["metrics"].norm_hist.shape[0] == 3
+    for i, outs in enumerate(seq):
+        for name, ref in zip(BLOCK_DIAGS, outs[1:]):
+            got = diags[name]
+            assert (ref is None) == (got is None), name
+            ref_leaves, got_leaves = _leaves(ref), _leaves(got)
+            assert len(ref_leaves) == len(got_leaves)
+            for a, col in zip(ref_leaves, got_leaves):
+                assert _same(a, col[i]), (name, i)
+    if faults is None:
+        assert diags["audit"]["participants"].tolist() == [K] * 3
+    if device.type == "cuda":
+        assert blk.last_graph.kernel_launches == (0 if faults else 2)

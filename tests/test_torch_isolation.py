@@ -186,3 +186,40 @@ def test_data_and_checkpoint_modules_are_covered_and_a_resumed_cifar_run_loads_n
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_forensics_modules_are_covered_and_a_traced_run_loads_no_jax(tmp_path):
+    """``telemetry/`` and ``audit/`` are among the checked sources, and a run
+    with the diagnostics, the audit monitor, the metric pack and a profiler
+    capture leaves no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("telemetry/__init__.py", "telemetry/context.py", "telemetry/recorder.py",
+                "telemetry/schema.py", "telemetry/metric_pack.py", "telemetry/profiling.py",
+                "audit/__init__.py", "audit/monitor.py"):
+        assert pkg / rel in files
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch import AuditMonitor, Simulator\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "from blades_tpu_torch.telemetry.schema import validate_trace\n"
+        "ds = Synthetic(num_clients=6, train_size=120, test_size=30, cache=False)\n"
+        "sim = Simulator(ds, attack='alie', num_byzantine=2, aggregator='trimmedmean',\n"
+        "                aggregator_kws={'num_byzantine': 1}, device='cpu', log_path='out')\n"
+        "sim.run(model='mlp', global_rounds=2, train_batch_size=4, block_size=2,\n"
+        "        collect_diagnostics=True, round_metrics=True, profile_dir='prof',\n"
+        "        audit_monitor=AuditMonitor(fallback_aggregator='trimmedmean'))\n"
+        "assert validate_trace('out/telemetry.jsonl') == []\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

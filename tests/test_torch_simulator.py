@@ -115,10 +115,22 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
     ],
 )
 def test_unported_run_options_raise(tmp_path, option, value, slice_no):
+    """``remat`` (slice 2b) is still unported and raises naming its slice;
+    the options of slice 10 are ported and run, each writing its surface."""
     sim = Simulator(Synthetic(num_clients=4, train_size=100, cache=False),
                     device="cpu", log_path=str(tmp_path))
-    with pytest.raises(NotImplementedError, match=slice_no):
-        sim.run(model="mlp", **{option: value})
+    if slice_no != "slice 10":
+        with pytest.raises(NotImplementedError, match=slice_no):
+            sim.run(model="mlp", **{option: value})
+        return
+    if option == "profile_dir":
+        value = str(tmp_path / value)
+    sim.run(model="mlp", **{option: value})
+    assert {"collect_diagnostics": sim.engine.last_diagnostics,
+            "audit_monitor": sim.engine.last_audit_diag,
+            "round_metrics": sim.engine.last_metric_pack,
+            "profile_dir": os.listdir(str(tmp_path / "prof"))
+            if option == "profile_dir" else None}[option] is not None
 
 
 def test_streaming_run_on_cpu(tmp_path):
@@ -165,9 +177,14 @@ def test_streaming_refuses_parts_without_a_streaming_form(tmp_path):
     sim = Simulator(ds, aggregator="median", device="cpu", log_path=str(tmp_path))
     with pytest.raises(ValueError, match="straggler"):
         sim.run(model="mlp", streaming=True, fault_model={"straggler_rate": 0.1})
-    for option, value in (("collect_diagnostics", True), ("audit_monitor", {})):
-        with pytest.raises(NotImplementedError, match="slice 10"):
-            sim.run(model="mlp", streaming=True, **{option: value})
+    # the forensics (slice 10a) follow the JAX package's streaming rules: no
+    # diagnostics, an audit fallback only with a streaming form
+    with pytest.raises(ValueError, match="cannot collect_diagnostics"):
+        sim.run(model="mlp", streaming=True, collect_diagnostics=True)
+    with pytest.raises(ValueError, match="audit fallback"):
+        sim.run(model="mlp", streaming=True, audit_monitor={"fallback_aggregator": "fltrust"})
+    sim.run(model="mlp", streaming=True, audit_monitor={})
+    assert "spread_median_lo" in sim.engine.last_audit_diag
     # persistent client state streams (slice 3b); the async buffer does not
     sim.run(model="mlp", streaming=True,
             client_optimizer=ClientOptSpec(name="adam", persist=True))
