@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from blades_tpu_torch.aggregators.base import Aggregator
+from blades_tpu_torch.aggregators.median import midpoint_median
 from blades_tpu_torch.ops.distances import pairwise_sq_euclidean
 
 
@@ -31,14 +32,6 @@ def _vector_median_idx(vs: torch.Tensor, threshold: float) -> torch.Tensor:
     d = torch.sqrt(pairwise_sq_euclidean(vs))
     ok = (d <= threshold).sum(dim=1) > vs.shape[0] / 2
     return torch.argmax(ok.to(torch.int32))  # the first maximum
-
-
-def _median(x: torch.Tensor) -> torch.Tensor:
-    """Median of a vector, the midpoint of the two central values for an
-    even length (``jnp.median``)."""
-    s = torch.sort(x).values
-    k = s.shape[0]
-    return (s[(k - 1) // 2] + s[k // 2]) / 2.0
 
 
 class Byzantinesgd(Aggregator):
@@ -89,7 +82,7 @@ class Byzantinesgd(Aggregator):
 
         b_med = B.index_select(0, _vector_median_idx(B, self.th_B).view(1))
         g_med = updates.index_select(0, _vector_median_idx(updates, 2 * self.th_V).view(1))
-        a_ok = torch.abs(A - _median(A)) <= self.th_A
+        a_ok = torch.abs(A - midpoint_median(A)) <= self.th_A
         b_ok = torch.linalg.vector_norm(B - b_med, dim=1) <= self.th_B
         g_ok = torch.linalg.vector_norm(updates - g_med, dim=1) <= 4 * self.th_V
         good = st["good"] & a_ok & b_ok & g_ok

@@ -5,7 +5,10 @@ midpoint of the two central values for even K). ``torch.median`` returns
 the lower of the two, and ``torch.quantile`` refuses inputs above 2^24
 elements (CCT-2's ``[1000, 283723]`` matrix has 2.8e8), so this sorts
 along the client axis and takes ``(s[(K-1)//2] + s[K//2]) * 0.5``, as
-``jnp.quantile(method='midpoint')`` does. The sort's values and int64
+``jnp.quantile(method='midpoint')`` does. ``torch.sort`` puts NaN last,
+so a column holding one is NaN where its last sorted value is, as
+``jnp.median`` gives (:func:`midpoint_median`, which ByzantineSGD and
+SignGuard share). The sort's values and int64
 indices take 3x the matrix's bytes on top of it. The masked form
 (JAX ``:26``) is the sentinel sort of ``ops/masked.py:masked_median``; the
 streaming form (JAX ``:17-21``) is the two-level median of chunk medians.
@@ -19,11 +22,17 @@ from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.masked import masked_median
 
 
+def midpoint_median(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.median(x, axis=0)``: the midpoint of the two central values
+    along dim 0; NaN where the slice holds a NaN (sorted last)."""
+    k = x.shape[0]
+    s = torch.sort(x, dim=0).values
+    return torch.where(torch.isnan(s[-1]), s[-1], (s[(k - 1) // 2] + s[k // 2]) * 0.5)
+
+
 class Median(TwoLevelStreaming, Aggregator):
     def aggregate(self, updates, state=(), **ctx):
-        k = updates.shape[0]
-        s = torch.sort(updates, dim=0).values
-        return (s[(k - 1) // 2] + s[k // 2]) * 0.5, state
+        return midpoint_median(updates), state
 
     def _masked_aggregate(self, updates, state, *, mask, **ctx):
         return masked_median(updates, mask), state

@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
+from blades_tpu_torch.aggregators.median import midpoint_median
 from blades_tpu_torch.ops.clustering import complete_linkage_two_clusters
 from blades_tpu_torch.ops.masked import masked_median_1d
 
@@ -47,11 +48,8 @@ class Signguard(TwoLevelStreaming, Aggregator):
     def _aggregate_impl(self, updates, mask):
         k, d = updates.shape
         norms = torch.sqrt(torch.clamp_min((updates * updates).sum(dim=1), 1e-24))
-        if mask is None:
-            s = torch.sort(norms).values
-            med = (s[(k - 1) // 2] + s[k // 2]) / 2.0
-        else:
-            med = masked_median_1d(norms, mask)
+        # NaN where a norm is NaN, as jnp.median gives
+        med = midpoint_median(norms) if mask is None else masked_median_1d(norms, mask)
         norm_ok = (norms >= self.lower * med) & (norms <= self.upper * med)
 
         # the JAX package's mean of a sign mask is its count times the f32

@@ -155,8 +155,9 @@ def async_round(engine, state, batch, inputs, streams):
         agg = torch.where(n_agg > 0, agg, torch.zeros_like(agg))
     if engine.audit_monitor is not None:
         # the certificates over the (weighted) rows the defense consumed
-        agg, audit_diag = engine.audit_monitor.apply(weighted, agg, mask=mask,
-                                                     byz_mask=engine.byz_mask, **agg_ctx)
+        agg, audit_diag = engine.audit_monitor.apply(
+            weighted, agg, mask=mask, byz_mask=engine.byz_mask,
+            **engine._fallback_ctx(agg_ctx, streams))
     if not static_sync:
         # so does a tick that does not fire
         agg = torch.where(fired, agg, torch.zeros_like(agg))

@@ -713,7 +713,8 @@ class RoundEngine:
         if part_mask is not None:
             # a round with no participant applies the zero update
             agg = torch.where(part_mask.any(), agg, torch.zeros_like(agg))
-        agg, audit_diag, metric_pack = self._audit_and_pack(updates, agg, part_mask, agg_ctx)
+        agg, audit_diag, metric_pack = self._audit_and_pack(
+            updates, agg, part_mask, self._fallback_ctx(agg_ctx, streams))
 
         # population variance (ddof 0), as jnp.var: torch.var defaults to ddof 1
         var = sent_updates.var(dim=0, correction=0)
@@ -725,9 +726,20 @@ class RoundEngine:
         return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
                                   fault_state, losses, top1s, var, client_opt_state)
 
+    def _fallback_ctx(self, agg_ctx: dict, streams: rng.RoundStreams) -> dict:
+        """The audit fallback's aggregation context: the round's, with a
+        copy of the ``AGG`` generator at the stream's entry state. The JAX
+        package hands the defense and the fallback one key
+        (``blades_tpu/core/engine.py:763-769``, ``:804-808``), so a random
+        fallback draws what the defense drew, not what follows it."""
+        audit = self.audit_monitor
+        if audit is None or audit.fallback_aggregator is None:
+            return agg_ctx
+        return dict(agg_ctx, generator=streams(rng.AGG, copy=1))
+
     def _audit_and_pack(self, updates, agg, mask, agg_ctx):
         """The audit monitor's certificates and fallback on ``agg`` (its
-        fallback gets the round's aggregation context), then the metric pack
+        fallback gets ``agg_ctx``, from :meth:`_fallback_ctx`), then the metric pack
         of ``updates`` against the aggregate applied: ``(applied aggregate,
         audit diag or None, pack or None)``. ``mask`` None: every row."""
         audit_diag = metric_pack = None
@@ -774,6 +786,7 @@ class RoundEngine:
         fb = audit.fallback_aggregator if audit is not None else None
         layout = (k, self.client_chunks, self.chunk_size, self.dim)
         fb_ss = fb.streaming_init(*layout, (), device=dev) if fb is not None else None
+        fb_ctx = self._fallback_ctx(sctx, streams)
         aud_ss = audit.streaming_init(*layout, device=dev) if audit is not None else None
         mp = pack_init(self.client_chunks, self.dim, device=dev) if self.round_metrics else None
         mp_norms, mp_masks = [], []
@@ -811,7 +824,8 @@ class RoundEngine:
             agg_ss = self.aggregator.streaming_update(agg_ss, safe, chunk_mask=mask,
                                                       chunk_index=j, **sctx)
             if fb is not None:
-                fb_ss = fb.streaming_update(fb_ss, safe, chunk_mask=mask, chunk_index=j, **sctx)
+                fb_ss = fb.streaming_update(fb_ss, safe, chunk_mask=mask, chunk_index=j,
+                                            **fb_ctx)
             if audit is not None:
                 aud_ss = audit.streaming_update(aud_ss, safe, chunk_mask=mask, chunk_index=j)
             if mp is not None:
@@ -829,7 +843,7 @@ class RoundEngine:
         if audit is not None:
             fb_agg = None
             if fb is not None:
-                fb_agg, _ = fb.streaming_finalize(fb_ss, (), **sctx)
+                fb_agg, _ = fb.streaming_finalize(fb_ss, (), **fb_ctx)
                 fb_agg = torch.where(n_part > 0, fb_agg, torch.zeros_like(fb_agg))
             agg, audit_diag = audit.streaming_apply(aud_ss, agg, fallback_agg=fb_agg)
         if mp is not None:
@@ -902,7 +916,10 @@ class RoundEngine:
         if self.streaming:
             return ("the streaming round draws from per-chunk generators, not yet "
                     "registered with a graph (ROADMAP.md queue A, item 7c)")
-        for part in (self.attack, self.aggregator):
+        parts = [self.attack, self.aggregator]
+        if self.audit_monitor is not None and self.audit_monitor.fallback_aggregator is not None:
+            parts.append(self.audit_monitor.fallback_aggregator)  # runs every round
+        for part in parts:
             if part.graph_unsafe_reason:
                 return f"{part!r}: {part.graph_unsafe_reason}"
         return None

@@ -18,7 +18,8 @@ engine and one batch source (a sampler, or a batch shape):
   round's :class:`~blades_tpu_torch.core.engine.RoundInputs` (the learning
   rates and the round index, 0-d tensors filled before each replay); and,
   without a sampler, the batch, copied in before each replay;
-- the round's generators, one ``utils/rng.py:RoundStreams``, registered
+- the round's generators, one ``utils/rng.py:RoundStreams`` (the audit
+  fallback's copy of the ``AGG`` generator among them), registered
   with the graph (``CUDAGraph.register_generator_state``) and reseeded on
   the host before each replay: ``manual_seed`` sets the seed and puts the
   Philox offset at 0, and the replay reads both, so it draws what a new

@@ -78,8 +78,8 @@ def generator(
 
 
 class RoundStreams:
-    """A round's generators, one per ``(purpose, chunk)``, made on first
-    request and handed out again on a later one.
+    """A round's generators, one per ``(purpose, chunk, copy)``, made on
+    first request and handed out again on a later one.
 
     A new instance per round gives the generators :func:`generator` makes.
     A captured round (``core/graphs.py``) keeps one instance and calls
@@ -104,19 +104,25 @@ class RoundStreams:
         r = self.data_round if purpose == DATA else self.round_idx
         return seed_of(self.seed, r, purpose, chunk=chunk)
 
-    def __call__(self, purpose: int, chunk: Optional[int] = None) -> torch.Generator:
-        key = (int(purpose), None if chunk is None else int(chunk))
+    def __call__(self, purpose: int, chunk: Optional[int] = None,
+                 copy: int = 0) -> torch.Generator:
+        """The held generator of ``(purpose, chunk)``. ``copy`` > 0 holds
+        another generator at the same node, which draws from the node's
+        entry state whatever the first one has drawn: where the JAX package
+        hands one key to two consumers (the defense and the audit's
+        fallback), each gets its own copy."""
+        key = (int(purpose), None if chunk is None else int(chunk), int(copy))
         gen = self._held.get(key)
         if gen is None:
             gen = self._held[key] = torch.Generator(device=self.device).manual_seed(
-                self._seed(*key))
+                self._seed(*key[:2]))
         return gen
 
     def reseed(self, seed: int, round_idx: int, data_round: Optional[int] = None) -> None:
         """Move every held generator to its node of another round."""
         self._at(seed, round_idx, data_round)
         for key, gen in self._held.items():
-            gen.manual_seed(self._seed(*key))
+            gen.manual_seed(self._seed(*key[:2]))
 
     def generators(self) -> list:
         return list(self._held.values())

@@ -126,6 +126,23 @@ extra peak memory of the trim-count diagnostics, the audit and the pack.
 Then one streaming round with the metric pack and a median fallback,
 against the dense round of the same rows.
 
+Then the BASELINE models (slice 11a), BASELINE.md configs 2-5, on CIFAR-10
+and CIFAR-100 files written at their published size (50,000 / 10,000
+seeded images each, IID splits): ResNet-18 (D = 11,173,962) at K=100,
+fedsgd, no attack, mean, a cold and 3 warm rounds in f32 and in bf16 and a
+profiled warm round of each; then ALIE f=10 and trimmed mean b=10 in bf16,
+the kernel once a round, held against its plain version on the round's own
+``[100, 11173962]`` matrix and timed there beside the bound and the
+library call, a profiled round's kernel events against its counted launch,
+and 2 rounds as a captured graph block held to the same rounds one by one
+bit for bit (cuDNN deterministic); IPM f=10 and Krum with 5 local steps;
+ResNet-18 at K=1000 streaming in 10 chunks, sign flipping and the median;
+WideResNet-28-10 at 100 classes (D = 36,536,884) at K=1000 streaming in 20
+chunks, label flipping and clipped clustering; each with its round times,
+peak memory and client chunks. Then one f32 round of ResNet-18 (K=4) and
+of WideResNet-28-10 (K=2) at full width on the card and on the CPU, and
+one client's float64 gradient on both.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -152,6 +169,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 # H100 SXM data-sheet peaks (dense, at the full 700 W power limit)
@@ -251,6 +269,33 @@ CKPT_ROUNDS, CKPT_AT, CKPT_CRASH_AT, CKPT_BLOCK = 4, 2, 3, 2
 # in-round forensics and the telemetry trace (slice 10a): the eager rounds
 # and the graph block of the forensics phase
 FORENSICS_ROUNDS = 2
+# the BASELINE models (slice 11a), BASELINE.md configs 2-5, on CIFAR-10 and
+# CIFAR-100 files written at their published size: ResNet-18 (D =
+# 11,173,962) at K=100, cold and warm rounds in f32 and bf16 (config 2);
+# the kernel's shape there, ALIE f=10 and trimmed mean b=10, its eager
+# rounds and graph block; IPM + Krum with 5 local steps (config 3); the
+# streaming rounds at K=1000 of ResNet-18 (config 4) and of WideResNet-28-10
+# at 100 classes (D = 36,536,884, config 5); client chunks as the card's
+# memory needs them (one chunk of 100 peaked at 38.8 GB in f32 and 23.5 GB
+# in bf16, a WRN chunk of 50 at 46.2 GB, on an H100 80GB); card against CPU
+# at K=4 and K=2
+RESNET18_DIM, WRN_DIM = 11_173_962, 36_536_884
+RESNET_CLIENTS, RESNET_WARM_ROUNDS = 100, 3
+RESNET_CHUNKS = {"float32": 1, "bfloat16": 1}
+RESNET18_SHAPE = (RESNET_CLIENTS, RESNET18_DIM, 10)
+RESNET_BYZANTINE = RESNET18_SHAPE[2]
+RESNET_KERNEL_ROUNDS, RESNET_BLOCK_ROUNDS, KRUM_ROUNDS, KRUM_STEPS = 2, 2, 2, 5
+RESNET_STREAM_CLIENTS, RESNET_STREAM_CHUNKS, RESNET_STREAM_ROUNDS = 1000, 10, 2
+WRN_CLIENTS, WRN_CHUNKS, WRN_ROUNDS = 1000, 20, 2
+# card vs CPU: (model, classes, K) at batch 32. Each backend's float32
+# gradient of these nets is itself about 1e-4 to 5e-4 (relative L2) from
+# the float64 one on the same backend (a ReLU input within rounding of 0
+# takes either side), while the two backends' float64 gradients agree to
+# about 3e-8 (the loss is taken in float32); so f32 rows are held at 2e-3
+# and one client's float64 gradient (its first RESNET_F64_BATCH samples) at
+# 1e-6. The phase records each backend's f32-to-f64 distance beside them
+RESNET_CPU = (("resnet18", 10, 4), ("wrn_28_10", 100, 2))
+RESNET_ROW_REL, RESNET_F64_REL, RESNET_F64_BATCH = 2e-3, 1e-6, 16
 
 
 def emit(record: dict) -> None:
@@ -2236,9 +2281,13 @@ def profiled_block(torch, trimmed, fn) -> dict:
 
 def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
                   dtype: str = "bfloat16", aggregator: str = "trimmedmean", attack="alie",
-                  warm_block: bool = True, profiled: bool = False, **run_kw) -> dict:
+                  warm_block: bool = True, profiled: bool = False, model: str = "cct_2_3x2_32",
+                  byzantine: int = MAIN_BYZANTINE, aggregator_kws=None,
+                  chunks: int = CCT2_CHUNKS, **run_kw) -> dict:
     """CCT-2 at K=1000 (4 chunks, ``attack`` f=5, ``aggregator``) on the
-    store ``fl``: ``rounds`` sequential ``run_round`` calls, then the same
+    store ``fl`` (or ``model`` with ``byzantine`` attackers, the
+    aggregator's ``aggregator_kws`` and ``chunks`` client chunks):
+    ``rounds`` sequential ``run_round`` calls, then the same
     rounds from the same init as one ``run_block`` (the sampler fused in),
     and with ``warm_block`` a second block from there (a warm graph:
     replays only; under torch.profiler with ``profiled``: its device busy
@@ -2251,11 +2300,11 @@ def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
 
     gc.collect()
     torch.cuda.empty_cache()
-    k, d, f = CCT2_SHAPE
-    sim = Simulator(dataset=fl, attack=attack, num_byzantine=f if attack else 0,
-                    aggregator=aggregator, aggregator_kws=catalog_kwargs(aggregator), seed=1,
+    sim = Simulator(dataset=fl, attack=attack, num_byzantine=byzantine if attack else 0,
+                    aggregator=aggregator,
+                    aggregator_kws=aggregator_kws or catalog_kwargs(aggregator), seed=1,
                     log_path=str(log_root / name))
-    sim.run(model="cct_2_3x2_32", global_rounds=0, client_chunks=CCT2_CHUNKS,
+    sim.run(model=model, global_rounds=0, client_chunks=chunks,
             compute_dtype=None if dtype == "float32" else dtype, **run_kw)
     eng, seed = sim.engine, sim.seed
     p0 = {n: t.clone() for n, t in sim.server.state.params.items()}
@@ -2294,7 +2343,8 @@ def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
     bad = block_equals_rounds(torch, seq, st, st2, ms, diags)
     graph = eng.last_graph if eng.last_block_mode == "graph" else None
     out = dict(engine=eng, mode=eng.last_block_mode, reason=eng.last_block_reason,
-               state=st2, diags=diags, differs=bad, round_s=walls, seq_launches=seq_launches,
+               state=st2, seq_state=st, diags=diags, differs=bad, round_s=walls,
+               seq_launches=seq_launches,
                seq_peak=seq_peak, block_s=block_s, launches=launches, peak=peak,
                capture_s=graph and graph.capture_seconds,
                warmup_s=graph and graph.warmup_seconds,
@@ -2321,7 +2371,7 @@ def engine_blocks(torch, trimmed, fl, log_root: Path, name: str, rounds: int,
 
 def emit_blocks(name: str, run: dict, card: str, **extra) -> dict:
     """One block phase's record (without the engine and the states)."""
-    rec = {n: v for n, v in run.items() if n not in ("engine", "state", "diags")}
+    rec = {n: v for n, v in run.items() if n not in ("engine", "state", "seq_state", "diags")}
     rounds = len(run["round_s"])
     rec["round_s_per_block_round"] = run["block_s"] / rounds
     if "warm_block_s" in run:
@@ -3414,6 +3464,393 @@ def phase_checkpoint(torch, trimmed, ds, card: str, log_root: Path, ckpt_dir: Pa
     return launches
 
 
+def write_cifar100(root: Path, seed: int = 0) -> Path:
+    """CIFAR-100's python-pickle layout at its published size under
+    ``root``: ``cifar-100-python/train`` (50,000 images) and ``test``
+    (10,000), seeded uint8 pixels and ``fine_labels``."""
+    import pickle
+
+    import numpy as np
+
+    d = root / "cifar-100-python"
+    d.mkdir(parents=True)
+    r = np.random.RandomState(seed)
+    for name, n in (("train", CIFAR10_TRAIN), ("test", CIFAR10_TEST)):
+        with open(d / name, "wb") as fh:
+            pickle.dump({b"data": r.randint(0, 256, (n, 3072), dtype=np.uint8),
+                         b"fine_labels": r.randint(0, 100, n).tolist()}, fh)
+    return d
+
+
+def baseline_stores(torch, dev, data_root: Path) -> dict:
+    """The BASELINE models' stores on the card, from CIFAR-10 and CIFAR-100
+    files written at their published size (IID, the loaders' default):
+    CIFAR-10 over RESNET_CLIENTS and over RESNET_STREAM_CLIENTS clients,
+    CIFAR-100 over WRN_CLIENTS. Emits the write and load seconds."""
+    from blades_tpu_torch.datasets import CIFAR10, CIFAR100
+
+    t0 = time.perf_counter()
+    write_cifar10(data_root / "cifar10", seed=11)
+    write_cifar100(data_root / "cifar100", seed=12)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stores = {}
+    for name, cls, root, k in (("cifar10_k100", CIFAR10, "cifar10", RESNET_CLIENTS),
+                               ("cifar10_k1000", CIFAR10, "cifar10", RESNET_STREAM_CLIENTS),
+                               ("cifar100", CIFAR100, "cifar100", WRN_CLIENTS)):
+        ds = cls(data_root=str(data_root / root), num_clients=k, train_bs=32, cache=False)
+        stores[name] = ds.get_dls(dev)
+        dtype = stores[name].train_x.dtype
+        check(dtype == torch.uint8, f"{name}: store {dtype}")
+    torch.cuda.synchronize()
+    emit({"phase": "baseline_data", "write_s": write_s, "load_s": time.perf_counter() - t0,
+          "stores": {n: [fl.num_clients, list(fl.train_x.shape), list(fl.test_x.shape)]
+                     for n, fl in stores.items()}})
+    return stores
+
+
+def baseline_run(torch, trimmed, fl, log_root: Path, name: str, model: str, rounds: int,
+                 chunks: int, dtype=None, attack=None, byzantine: int = 0,
+                 aggregator: str = "mean", aggregator_kws=None, local_steps: int = 1,
+                 streaming: bool = False, keep_updates: bool = False) -> dict:
+    """``rounds`` rounds of ``model`` through Simulator.run on the store
+    ``fl`` (1 step of batch 32 unless ``local_steps``, ``chunks`` client
+    chunks, no evaluation), each round's metrics read where the simulator
+    logs them (``run(streaming=True)`` refuses ``on_round_end``); with
+    ``keep_updates`` the engine keeps each round's matrix (an
+    ``on_round_end`` asks for it). Returns
+    the simulator, the records, the round times (the first one cold), the
+    kernel's launches, the peak memory and the engine's shape."""
+    from blades_tpu_torch import Simulator
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = Simulator(dataset=fl, attack=attack, num_byzantine=byzantine, aggregator=aggregator,
+                    aggregator_kws=aggregator_kws or {}, seed=1, log_path=str(log_root / name))
+    check(sim.device.type == "cuda", f"{name}: the simulator runs on {sim.device}")
+    seen, log_train = [], sim.log_train
+
+    def record(rnd, steps, m):
+        log_train(rnd, steps, m)
+        seen.append(dict(loss=float(m.train_loss), top1=float(m.train_top1),
+                         agg_norm=float(m.agg_norm), variance=float(m.update_variance)))
+
+    sim.log_train = record
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    trimmed.trimmed_mean_launches = 0
+    # a vmapped op without a batching rule would run the clients one by one
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=".*performance drop because we have not "
+                                "yet implemented the batching rule")
+        times = sim.run(model=model, global_rounds=rounds, local_steps=local_steps,
+                        server_lr=1.0, client_lr=0.1, validate_interval=rounds + 1,
+                        client_chunks=chunks, compute_dtype=dtype, streaming=streaming,
+                        on_round_end=(lambda *a: None) if keep_updates else None)
+    torch.cuda.synchronize()
+    eng = sim.engine
+    out = dict(sim=sim, seen=seen, round_s=times, launches=trimmed.trimmed_mean_launches,
+               peak=torch.cuda.max_memory_allocated(), resident=resident, dim=eng.dim,
+               clients=eng.num_clients,
+               client_chunks=eng.client_chunks, chunk_size=eng.chunk_size,
+               peak_update_bytes=eng.peak_update_bytes)
+    check(len(seen) == rounds, f"{name}: {len(seen)} rounds")
+    numbers = [v for r in seen for v in (r["loss"], r["agg_norm"], r["variance"])]
+    check(all(map(math.isfinite, numbers)), f"{name}: non-finite {numbers}")
+    check(eng.streaming == streaming, f"{name}: streaming {eng.streaming}")
+    return out
+
+
+def baseline_record(run: dict) -> dict:
+    """A baseline run's record fields."""
+    return {"clients": run["clients"], "dim": run["dim"], "client_chunks": run["client_chunks"],
+            "chunk_size": run["chunk_size"], "round_s": run["round_s"],
+            "cold_round_s": run["round_s"][0], "warm_round_s": run["round_s"][1:],
+            "kernel_launches": run["launches"], "peak_mem_bytes": run["peak"],
+            "resident_bytes_before": run["resident"],
+            "peak_update_bytes": run["peak_update_bytes"],
+            "train_loss": [r["loss"] for r in run["seen"]],
+            "train_top1": [r["top1"] for r in run["seen"]],
+            "agg_norm": [r["agg_norm"] for r in run["seen"]]}
+
+
+def eager_round(sim, rnd: int = 99):
+    """One more round of ``sim``'s engine from its state (not applied), on a
+    fresh sample of 1 step of batch 32."""
+    from blades_tpu_torch.utils import rng
+
+    eng, state = sim.engine, sim.server.state
+    cx, cy = sim.dataset.sample_round(rng.generator(sim.seed, rnd, rng.DATA, device=eng.device),
+                                      1, 32)
+    return lambda: eng.run_round(state, cx, cy, 0.1, 1.0, seed=sim.seed)
+
+
+def phase_resnet18_round(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """BASELINE config 2's shape: ResNet-18 on the CIFAR-10 files at K=100,
+    fedsgd (1 local step of batch 32), no attack, mean; f32 and bf16, a
+    cold round and RESNET_WARM_ROUNDS warm rounds each through
+    Simulator.run, then one warm round under torch.profiler (wall, device
+    busy time and share). Returns the kernel's launches by dtype (0: the
+    mean)."""
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        run = baseline_run(torch, trimmed, fl, log_root, f"resnet18_{dtype}", "resnet18",
+                           1 + RESNET_WARM_ROUNDS, RESNET_CHUNKS[dtype],
+                           None if dtype == "float32" else dtype)
+        prof = profiled_block(torch, trimmed, eager_round(run["sim"]))
+        emit({"phase": "resnet18_round", "dtype": dtype, "attack": None, "aggregator": "mean",
+              **baseline_record(run), "profiled_wall_ms": prof["wall_ms"],
+              "device_busy_ms": prof["dev"]["busy_ms"],
+              "device_busy_share": prof["dev"]["busy_ms"] / prof["wall_ms"],
+              "device_streams": prof["dev"]["streams"],
+              "other_top_ms": prof["dev"]["other_top_ms"][:5], "card": card})
+        check(run["dim"] == RESNET18_DIM, f"resnet18: D = {run['dim']}")
+        check(run["launches"] == 0 and prof["counted"] == 0, "resnet18_round: the mean launched")
+        check(prof["dev"]["busy_ms"] > 0, "resnet18_round: no device time in the profiled round")
+        out[f"resnet18_round_{dtype}"] = run["launches"]
+        del run
+    return out
+
+
+def phase_resnet18_kernel(torch, trimmed, fl, card: str, log_root: Path) -> tuple:
+    """The slice's kernel path: ResNet-18 on the CIFAR-10 files at K=100,
+    ALIE f=10 and trimmed mean b=10, bf16, RESNET_KERNEL_ROUNDS rounds
+    through Simulator.run (the kernel once a round). The last round's own
+    [100, 11173962] matrix then goes to the kernel and its plain version
+    (TOL), both timed with the library call and the bound (those launches
+    are not counted); a warm round under torch.profiler, whose kernel
+    events must equal its counted launches; and, with cuDNN's
+    deterministic algorithms, RESNET_BLOCK_ROUNDS rounds one by one and
+    as one captured graph block, held bit for bit. Should they differ, the
+    rounds run a second time: if the eager rounds differ between the two
+    runs, the round is not deterministic on the card and that is
+    recorded; otherwise the phase fails. Returns (the launches of the
+    eager run, the block's launches, its profiler events, the kernel's
+    timings and its max error)."""
+    k, d, b = RESNET18_SHAPE
+    run = baseline_run(torch, trimmed, fl, log_root, "resnet18_kernel", "resnet18",
+                       RESNET_KERNEL_ROUNDS, RESNET_CHUNKS["bfloat16"], "bfloat16",
+                       attack="alie", byzantine=b, aggregator="trimmedmean",
+                       aggregator_kws={"num_byzantine": b}, keep_updates=True)
+    sim = run["sim"]
+    check(run["launches"] == RESNET_KERNEL_ROUNDS,
+          f"resnet18_kernel: {run['launches']} launches in {RESNET_KERNEL_ROUNDS} rounds")
+    u = sim.engine.last_updates
+    check(tuple(u.shape) == (k, d) and u.dtype == torch.float32, f"matrix {tuple(u.shape)}")
+    got = trimmed.trimmed_mean_cuda(u, b)
+    ref = trimmed.trimmed_mean_plain(u, b)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ok = bool(torch.allclose(got, ref, **TOL))
+    # ALIE's rows tie in every column: the columns the kernel's candidate
+    # lists overflow take its general route
+    ties = int((u[:RESNET_BYZANTINE] == u[0]).all(dim=0).sum())
+    kern = time_ms(lambda: trimmed.trimmed_mean_cuda(u, b), reps=20)
+    plain = time_ms(lambda: trimmed.trimmed_mean_plain(u, b), reps=3, warmup=1)
+    lib = time_ms(lambda: torch.sort(u, 0)[0][b:k - b].mean(0), reps=3, warmup=1)
+    bnd, by = bound_ms(k, d)
+    timings = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    # the same shape without ties, made on the card: what the ties cost
+    g = torch.Generator(device=u.device).manual_seed(0)
+    untied = torch.randn(k, d, device=u.device, generator=g) * 1e-2
+    untied_ms = time_ms(lambda: trimmed.trimmed_mean_cuda(untied, b), reps=20)
+    untied_ok = bool(torch.allclose(trimmed.trimmed_mean_cuda(untied, b),
+                                    trimmed.trimmed_mean_plain(untied, b), **TOL))
+    del untied
+    prof = profiled_block(torch, trimmed, eager_round(sim))
+    rec = {"phase": "resnet18_kernel", "dtype": "bfloat16", "attack": "alie", "byzantine": b,
+           "aggregator": "trimmedmean", "b": b, **baseline_record(run),
+           "kernel_vs_plain_max_abs_err": err, "alie_tied_columns": ties, **timings,
+           "share_of_bound": bnd / kern, "untied_matrix_ms": untied_ms,
+           "profiler_ms": profiled_kernel_ms(torch, lambda: trimmed.trimmed_mean_cuda(u, b)),
+           "profiled_round_wall_ms": prof["wall_ms"],
+           "profiled_round_busy_share": prof["dev"]["busy_ms"] / prof["wall_ms"],
+           "profiled_round_kernel_events": prof["events"],
+           "profiled_round_counted_launches": prof["counted"],
+           "profiled_round_events_by_attempt": prof["events_by_attempt"]}
+    check(ok, f"resnet18_kernel: kernel and plain version differ by {err} (tol {TOL})")
+    check(untied_ok, "resnet18_kernel: kernel and plain version differ on the untied matrix")
+    check(math.isclose(float(torch.linalg.vector_norm(got)), run["seen"][-1]["agg_norm"],
+                       rel_tol=1e-6), "resnet18_kernel: the round applied another aggregate")
+    check(prof["counted"] == 1 and prof["events"] == prof["counted"],
+          f"resnet18_kernel: {prof['events']} profiler events, {prof['counted']} launches")
+    launches = run["launches"]
+    del run, sim, u, got, ref
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        block_kw = dict(model="resnet18", byzantine=b, aggregator_kws={"num_byzantine": b},
+                        chunks=RESNET_CHUNKS["bfloat16"], warm_block=False)
+        blocks = [engine_blocks(torch, trimmed, fl, log_root, "resnet18_block",
+                                RESNET_BLOCK_ROUNDS, **block_kw)]
+        if blocks[0]["differs"]:
+            blocks.append(engine_blocks(torch, trimmed, fl, log_root, "resnet18_block_again",
+                                        RESNET_BLOCK_ROUNDS, **block_kw))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    first = blocks[0]
+    eager_repeats = (None if len(blocks) == 1 else
+                     not _states_differ(torch, first["seq_state"], blocks[1]["seq_state"]))
+    rec.update(block_mode=first["mode"], block_reason=first["reason"],
+               block_differs=first["differs"][:10], block_round_s=first["round_s"],
+               block_s=first["block_s"], block_launches=first["launches"],
+               block_capture_s=first["capture_s"], block_warmup_s=first["warmup_s"],
+               block_peak_bytes=first["peak"], eager_rounds_repeat=eager_repeats,
+               card=card)
+    if eager_repeats is False:
+        rec["block_note"] = ("the eager rounds differ between two runs with cuDNN's "
+                             "deterministic algorithms: the round is not deterministic "
+                             "on the card, so the block cannot be held bit for bit")
+    emit(rec)
+    check(first["mode"] == "graph", f"resnet18 block ran {first['mode']}: {first['reason']}")
+    check(not first["differs"] or eager_repeats is False,
+          f"resnet18 block differs from its rounds: {first['differs'][:5]}")
+    check(first["launches"] == RESNET_BLOCK_ROUNDS and first["graph_kernel_launches"] == 1,
+          f"resnet18 block: {first['launches']} launches")
+    return launches, first["launches"], timings, err
+
+
+def phase_resnet18_krum(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """BASELINE config 3's shape: ResNet-18 at K=100, IPM f=10 and Krum
+    (f=10), bf16, KRUM_STEPS local steps of batch 32 (config 3 asks for 5
+    local epochs; cut to 5 steps), KRUM_ROUNDS rounds; Krum's own time, host
+    syncs and extra memory on the last round's matrix. Returns the
+    kernel's launches (0)."""
+    f = RESNET18_SHAPE[2]
+    run = baseline_run(torch, trimmed, fl, log_root, "resnet18_krum", "resnet18", KRUM_ROUNDS,
+                       RESNET_CHUNKS["bfloat16"], "bfloat16", attack="ipm", byzantine=f,
+                       aggregator="krum", aggregator_kws={"num_byzantine": f},
+                       local_steps=KRUM_STEPS, keep_updates=True)
+    eng = run["sim"].engine
+    u = eng.last_updates
+    cost = call_cost(torch, lambda: eng.aggregator.aggregate(u))
+    emit({"phase": "resnet18_krum", "dtype": "bfloat16", "attack": "ipm", "byzantine": f,
+          "aggregator": "krum", "local_steps": KRUM_STEPS, **baseline_record(run),
+          "krum": cost, "card": card})
+    check(run["launches"] == 0, f"resnet18_krum: {run['launches']} kernel launches")
+    return run["launches"]
+
+
+def phase_resnet18_stream(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """BASELINE config 4's shape: ResNet-18 on the CIFAR-10 files at K=1000
+    in RESNET_STREAM_CHUNKS chunks, the streaming round (one [chunk, D]
+    slab at a time: the dense [1000, D] matrix is 44.7 GB, and the
+    median's sort takes 3x that), sign flipping f=5 and the median, bf16,
+    RESNET_STREAM_ROUNDS rounds. Returns the kernel's launches (0)."""
+    run = baseline_run(torch, trimmed, fl, log_root, "resnet18_stream", "resnet18",
+                       RESNET_STREAM_ROUNDS, RESNET_STREAM_CHUNKS, "bfloat16",
+                       attack="signflipping", byzantine=MAIN_BYZANTINE, aggregator="median",
+                       streaming=True)
+    emit({"phase": "resnet18_stream", "dtype": "bfloat16", "attack": "signflipping",
+          "byzantine": MAIN_BYZANTINE, "aggregator": "median", **baseline_record(run),
+          "dense_matrix_bytes": run["clients"] * run["dim"] * 4, "card": card})
+    check(run["peak_update_bytes"] == run["chunk_size"] * run["dim"] * 4,
+          f"resnet18_stream: peak_update_bytes {run['peak_update_bytes']}")
+    check(run["launches"] == 0, f"resnet18_stream: {run['launches']} kernel launches")
+    return run["launches"]
+
+
+def phase_wrn_stream(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """BASELINE config 5's shape: WideResNet-28-10 (100 classes) on the
+    CIFAR-100 files at WRN_CLIENTS clients in WRN_CHUNKS chunks, the
+    streaming round (the dense matrix would be 146 GB at K=1000), label
+    flipping f=5 and clipped clustering (DnC has no streaming form), bf16,
+    1 local step of batch 32 (config 5 asks for fedavg; cut to fedsgd),
+    WRN_ROUNDS rounds. Returns the kernel's launches (0)."""
+    run = baseline_run(torch, trimmed, fl, log_root, "wrn_stream", "wrn_28_10", WRN_ROUNDS,
+                       WRN_CHUNKS, "bfloat16", attack="labelflipping", byzantine=MAIN_BYZANTINE,
+                       aggregator="clippedclustering", streaming=True)
+    emit({"phase": "wrn_stream", "dtype": "bfloat16", "attack": "labelflipping",
+          "byzantine": MAIN_BYZANTINE, "aggregator": "clippedclustering",
+          **baseline_record(run), "dense_matrix_bytes": run["clients"] * run["dim"] * 4,
+          "card": card})
+    check(run["dim"] == WRN_DIM, f"wrn_28_10: D = {run['dim']}")
+    check(run["launches"] == 0, f"wrn_stream: {run['launches']} kernel launches")
+    return run["launches"]
+
+
+def phase_resnet_card_vs_cpu(torch, dev, card: str) -> None:
+    """One f32 round at full width on the card and on the CPU, from the
+    same params and the same batch (1 step of batch 32), mean: ResNet-18 at
+    K=4 and WideResNet-28-10 (100 classes) at K=2. Every update row within
+    a relative L2 error of RESNET_ROW_REL, and the new params within
+    ROUND_TOL; then client 0's float64 gradient on its first
+    RESNET_F64_BATCH samples on both, within RESNET_F64_REL (see the
+    constants for why the two bars)."""
+    from blades_tpu_torch.aggregators import get_aggregator
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.models import build_fns, create_model
+    from blades_tpu_torch.ops.pytree import ravel
+
+    for name, classes, k in RESNET_CPU:
+        spec = build_fns(create_model(name, num_classes=classes, sample_shape=(32, 32, 3)))
+        params = spec.init(torch.Generator().manual_seed(31))
+        g = torch.Generator().manual_seed(32)
+        cx = torch.rand(k, 1, 32, 32, 32, 3, generator=g) * 2 - 1
+        cy = torch.randint(0, classes, (k, 1, 32), generator=g)
+        out, secs = {}, {}
+        for where in ("cpu", dev):
+            eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                              num_clients=k, aggregator=get_aggregator("mean"), device=where,
+                              num_classes=classes, noise_sites=spec.noise_sites)
+            t0 = time.perf_counter()
+            state, _ = eng.run_round(eng.init(params), cx.to(where), cy.to(where), 0.1, 1.0)
+            if where != "cpu":
+                torch.cuda.synchronize()
+            secs[str(where)] = time.perf_counter() - t0
+            out[str(where)] = (eng.last_updates.cpu(), ravel(state.params, spec.layout).cpu())
+            del eng, state
+        (u_cpu, p_cpu), (u_gpu, p_gpu) = out["cpu"], out[str(dev)]
+        rel = ((u_gpu - u_cpu).norm(dim=1) / u_cpu.norm(dim=1)).tolist()
+        del out, u_cpu, u_gpu
+        x1, y1 = cx[0, 0, :RESNET_F64_BATCH], cy[0, 0, :RESNET_F64_BATCH]
+        g = {}
+        for where in ("cpu", dev):
+            for dt in (torch.float32, torch.float64):
+                p = {n: t.to(where, dt) for n, t in params.items()}
+                grads, _ = torch.func.grad_and_value(
+                    lambda q: spec.train_loss_fn(q, x1.to(where, dt), y1.to(where)),
+                    has_aux=True)(p)
+                g[str(where), dt] = ravel(grads, spec.layout).cpu().double()
+                del p, grads
+        dist = lambda a, b: float((g[a] - g[b]).norm() / g[b].norm())  # noqa: E731
+        rel64 = dist((str(dev), torch.float64), ("cpu", torch.float64))
+        emit({"phase": "resnet_card_vs_cpu", "model": name, "classes": classes, "clients": k,
+              "dim": p_cpu.shape[0], "row_rel_l2": rel, "bar": RESNET_ROW_REL,
+              "params_max_abs_err": float((p_gpu - p_cpu).abs().max()),
+              "f64_grad_rel_l2": rel64, "f64_bar": RESNET_F64_REL,
+              "f32_vs_f64_grad_rel_l2": {w: dist((w, torch.float32), (w, torch.float64))
+                                         for w in ("cpu", str(dev))},
+              "relu_inputs_within_1e-6_of_0": relu_near_zero(torch, spec, params, x1),
+              "round_s": secs, "card": card})
+        check(max(rel) <= RESNET_ROW_REL, f"{name}: update rows {rel} past {RESNET_ROW_REL}")
+        check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), f"{name}: new params differ")
+        check(rel64 <= RESNET_F64_REL, f"{name}: float64 gradients {rel64} apart")
+        del g, p_cpu, p_gpu
+        gc.collect()
+
+
+def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
+    """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
+    ``spec``'s model on the CPU, each a point where float32 rounding may
+    take the other side."""
+    from torch.overrides import TorchFunctionMode
+
+    counts = [0, 0]
+
+    class Count(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func is torch.nn.functional.relu:
+                counts[0] += int((args[0].abs() < eps).sum())
+                counts[1] += args[0].numel()
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        spec.eval_logits_fn({n: t.double() for n, t in params.items()}, x.double())
+    return counts
+
+
 def start_other_build(src: Path, build_dir: Path):
     """Start ``nvcc`` on another source with the kernel's C interface and
     flags; returns the process and the library it writes."""
@@ -3566,6 +4003,23 @@ def main() -> int:
         finally:
             torch.backends.cudnn.deterministic = deterministic
         del fl, mlp_fl
+        # the BASELINE models (slice 11a): ResNet-18 at K=100 (the kernel
+        # once a round under ALIE + trimmed mean, eager and in a graph
+        # block), IPM + Krum, and the streaming rounds of ResNet-18 and
+        # WideResNet-28-10 at K=1000, which never launch it
+        stores = baseline_stores(torch, dev, Path(tmp) / "baseline_data")
+        baseline = phase_resnet18_round(torch, trimmed, stores["cifar10_k100"], card, Path(tmp))
+        (launches["resnet18_bf16_alie_trimmedmean"], graph_launches["resnet18_bf16_block"],
+         resnet_timings, resnet_err) = phase_resnet18_kernel(
+            torch, trimmed, stores["cifar10_k100"], card, Path(tmp))
+        baseline["resnet18_krum"] = phase_resnet18_krum(torch, trimmed, stores["cifar10_k100"],
+                                                        card, Path(tmp))
+        stream_launches["resnet18_stream"] = phase_resnet18_stream(
+            torch, trimmed, stores["cifar10_k1000"], card, Path(tmp))
+        stream_launches["wrn_stream"] = phase_wrn_stream(torch, trimmed, stores["cifar100"],
+                                                         card, Path(tmp))
+        del stores
+        phase_resnet_card_vs_cpu(torch, dev, card)
         launches["cct2_bf16_k4000_dense"], stream_launches["stream_scale"] = (
             phase_stream_scale(torch, trimmed, dev, card, Path(tmp)))
         phase_cct2_card_vs_cpu(torch, dev)
@@ -3576,22 +4030,28 @@ def main() -> int:
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
+    max_err = max(max_err, resnet_err)
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
     check(async_launches["async_static"] > 0 and not any(
         n for p, n in async_launches.items() if p != "async_static"),
         f"async launches: {async_launches}")
 
-    # the slice's main path is the CCT-2 round, under ALIE in f32 and bf16
-    # and under each catalog attack in bf16: its launches, and the kernel
-    # timed at its [K, D, b]
+    # the main paths are the CCT-2 round, under ALIE in f32 and bf16 and
+    # under each catalog attack in bf16, and this slice's ResNet-18 round
+    # under ALIE + trimmed mean: their launches, and the kernel timed at
+    # CCT-2's [K, D, b] (the top-level times) and at each path's shape
+    shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
-        "launches": sum(n for path, n in launches.items() if path.startswith("cct2")),
+        "launches": sum(n for path, n in launches.items()
+                        if path.startswith(("cct2", "resnet18"))),
         "launches_by_path": launches,
+        # the BASELINE models' paths that take another defense (mean, Krum)
+        "launches_under_baseline_models": baseline,
         # under a fault model the masked trimmed mean replaces the kernel
         "launches_under_fault_model": fault_launches,
         # the streaming round's chunks take the masked trimmed mean, as the
@@ -3613,6 +4073,7 @@ def main() -> int:
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],
+        "by_shape": [{"shape_kdb": list(shape), **t} for shape, t in shapes.items()],
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

@@ -230,6 +230,24 @@ def test_stateful_aggregator_three_rounds_match_jax(name, kw, k):
             assert int(state["count"]) == int(jstate["count"])
 
 
+def test_median_propagates_nan_as_jnp_median():
+    """A column holding a NaN has a NaN median (``jnp.median``); one holding
+    an Inf a finite one. ``torch.sort`` puts NaN last, so a bare midpoint of
+    the sort would give 2.5 in the first column."""
+    x = np.array([[1, 2], [np.nan, 3], [4, 5], [0.5, np.inf]], np.float32)
+    got, _ = get_aggregator("median").aggregate(torch.from_numpy(x))
+    expect, _ = jax_get_aggregator("median").aggregate(jnp.asarray(x))
+    np.testing.assert_array_equal(np.asarray(expect), [np.nan, 4.0])
+    np.testing.assert_array_equal(got.numpy(), np.asarray(expect))
+    for k in (10, 11):  # one NaN, one Inf, one -Inf among Gaussian columns
+        y = _matrix(k, "plain")
+        y[3, 5], y[7, 9], y[2, 11] = np.nan, np.inf, -np.inf
+        got, _ = get_aggregator("median").aggregate(torch.from_numpy(y))
+        expect, _ = jax_get_aggregator("median").aggregate(jnp.asarray(y))
+        np.testing.assert_allclose(got.numpy(), np.asarray(expect), equal_nan=True, **TOL)
+        assert np.isnan(got.numpy()).tolist() == [j == 5 for j in range(D)]
+
+
 @pytest.mark.parametrize("n", [3, 4, 7, 8])
 def test_clippedclustering_history_median_is_the_live_midpoint(n):
     from blades_tpu_torch.aggregators.clippedclustering import masked_median

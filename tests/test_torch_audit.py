@@ -8,6 +8,7 @@ packages: flags and counts exactly, floats at f32 ``rtol = atol = 1e-5``.
 Then the monitor inside the port's dense, streaming and async rounds.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +17,7 @@ import torch
 from blades_tpu.audit import AuditMonitor as JaxAuditMonitor
 from blades_tpu.audit import CERTIFICATE_NAMES as JAX_CERTIFICATE_NAMES
 from blades_tpu_torch.aggregators import get_aggregator
+from blades_tpu_torch.attackers.base import Attack
 from blades_tpu_torch.audit import CERTIFICATE_NAMES, AuditMonitor
 from blades_tpu_torch.ops.streaming import chunk_layout
 
@@ -245,3 +247,126 @@ def test_monitor_runs_in_every_round_kind(tmp_path, mode):
     for d in seen:
         # a factor of 0.01 breaches whenever the round applied anything
         assert int(d["fallback_used"]) == int(d["breach"])
+
+
+# -- the fallback's draws and its graph safety -----------------------------------
+
+C2_K, C2_D = 20, 400
+
+
+class _FixedMatrix(Attack):
+    """An attack that replaces the round's matrix with a seeded normal one."""
+
+    def __init__(self, u):
+        self.u = u
+
+    def on_updates(self, updates, byz_mask, generator=None, state=()):
+        return self.u.to(updates.device), state
+
+
+def _recorded(agg, out):
+    """Shadow ``agg.aggregate_masked`` on the instance to keep each result."""
+    real = agg.aggregate_masked
+
+    def wrapped(*args, **kw):
+        res = real(*args, **kw)
+        out.append(res[0].clone())
+        return res
+
+    agg.aggregate_masked = wrapped
+    return agg
+
+
+def _dnc_engine(primary, monitor, async_config=None):
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.ops.pytree import FlatLayout, LeafSpec
+
+    def loss_fn(p, x, y, noise=None):
+        loss = (p["w"] * x).sum(-1).mean()
+        return loss, {"top1": loss * 0}
+
+    u = torch.from_numpy(np.random.RandomState(7).randn(C2_K, C2_D).astype(np.float32))
+    layout = FlatLayout((LeafSpec("w", ("w",), (C2_D,)),))
+    return RoundEngine(loss_fn, lambda p, x: x, {"w": torch.zeros(C2_D)}, layout,
+                       num_clients=C2_K, num_byzantine=4, attack=_FixedMatrix(u),
+                       aggregator=primary, device="cpu", audit_monitor=monitor,
+                       async_config=async_config), u
+
+
+@pytest.mark.parametrize("mode", ["dense", "async-static", "async"])
+def test_fallback_draws_what_the_primary_drew(mode):
+    """A random fallback (DnC) gets the ``AGG`` stream at its entry state, as
+    the JAX package hands the defense and the fallback one key: with the same
+    DnC as both, the fallback's aggregate equals the primary's bit for bit
+    (a generator shared between the two gave aggregates up to 0.83 apart).
+    Through the dense round and the async tick (zero delays: the sync
+    round's unmasked calls; delays: the masked ones)."""
+    from blades_tpu.aggregators.dnc import Dnc as JaxDnc
+    from blades_tpu_torch.aggregators.dnc import Dnc
+    from blades_tpu_torch.asyncfl import AsyncConfig
+
+    prim, fall = [], []
+    monitor = AuditMonitor(median_ball_factor=0.0, certificates=("median_ball",),
+                           fallback_aggregator=_recorded(Dnc(sub_dim=20, num_iters=2), fall))
+    cfg = {"dense": None,
+           "async-static": AsyncConfig(buffer_m=C2_K),
+           "async": AsyncConfig(buffer_m=3, arrivals={"kind": "uniform", "max_delay": 1})}[mode]
+    eng, u = _dnc_engine(_recorded(Dnc(sub_dim=20, num_iters=2), prim), monitor, cfg)
+    state = eng.init({"w": torch.zeros(C2_D)})
+    r = np.random.RandomState(0)
+    for rnd in range(3):
+        cx = torch.from_numpy(r.randn(C2_K, 1, 2, C2_D).astype(np.float32))
+        cy = torch.zeros(C2_K, 1, 2, dtype=torch.int64)
+        state, _ = eng.run_round(state, cx, cy, 0.1, 1.0, seed=rnd)
+        assert int(eng.last_audit_diag["breach"]) == int(
+            1 if mode != "async" else eng.last_async_diag["fired"])
+    assert len(prim) == len(fall) == 3
+    for a, b in zip(prim, fall):
+        assert torch.equal(a, b)
+    assert not torch.equal(prim[0], u.mean(0))  # DnC removed rows
+    # the JAX package: one key for both, so the same aggregate
+    jdnc, key = JaxDnc(sub_dim=20, num_iters=2), jax.random.PRNGKey(3)
+    jagg, _ = jdnc.aggregate(jnp.asarray(u.numpy()), (), key=key)
+    jfinal, jdiag = JaxAuditMonitor(median_ball_factor=0.0, certificates=("median_ball",),
+                                    fallback_aggregator=jdnc).apply(
+        jnp.asarray(u.numpy()), jagg, key=key)
+    assert int(jdiag["fallback_used"]) == 1
+    np.testing.assert_array_equal(np.asarray(jfinal), np.asarray(jagg))
+
+
+def test_graph_block_reason_checks_the_fallback():
+    """A fallback whose loop tests its stopping rule on the host (GeoMed,
+    AutoGM) runs every round, so the block runs eagerly and names it; a
+    graph-safe fallback keeps the graph. Decided as on the card (an engine
+    whose device is ``cuda``)."""
+    from blades_tpu_torch.aggregators import get_aggregator
+    from blades_tpu_torch.aggregators.dnc import Dnc
+
+    eng, _ = _dnc_engine(get_aggregator("median"), AuditMonitor(fallback_aggregator="geomed"))
+    eng.device = torch.device("cuda")
+    assert eng.graph_block_reason().startswith("Geomed: its Weiszfeld loop")
+    eng.audit_monitor = AuditMonitor(fallback_aggregator="autogm")
+    assert eng.graph_block_reason().startswith("Autogm: its outer and Weiszfeld loops")
+    for fb in ("trimmedmean", "median", Dnc(sub_dim=20), None):
+        eng.audit_monitor = AuditMonitor(fallback_aggregator=fb)
+        assert eng.graph_block_reason() is None
+    eng.audit_monitor = None
+    assert eng.graph_block_reason() is None
+
+
+@pytest.mark.cuda
+def test_geomed_fallback_block_runs_eagerly_on_the_card(tmp_path):
+    """``run(block_size=2)`` with a GeoMed fallback runs its block eagerly
+    on the card and names why; a capture would raise at its host sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the graph decision is the card's")
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.datasets import Synthetic
+
+    sim = Simulator(Synthetic(num_clients=8, train_size=200, test_size=40, cache=False),
+                    attack="alie", num_byzantine=2, aggregator="median", device="cuda",
+                    log_path=str(tmp_path / "out"))
+    sim.run(model="mlp", global_rounds=2, block_size=2, train_batch_size=4,
+            audit_monitor=AuditMonitor(fallback_aggregator="geomed"))
+    assert sim.engine.last_block_mode == "eager"
+    assert sim.engine.last_block_reason.startswith("Geomed: its Weiszfeld loop")

@@ -453,6 +453,60 @@ def test_signguard_dense_matches_jax(kw, k, kind):
     np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
 
 
+@pytest.mark.parametrize("k", [10, 11])
+def test_signguard_band_anchor_propagates_nan(monkeypatch, k):
+    """One NaN coordinate makes its row's norm NaN; ``jnp.median`` then
+    anchors the norm band at NaN and no client passes it. The aggregate is
+    NaN in every column in both packages (the NaN row's weight is NaN), so
+    the anchor itself is held to JAX's: the port's median of the norms is
+    recorded where SignGuard takes it."""
+    from blades_tpu_torch.aggregators import signguard
+
+    x = _matrix("plain", seed=12, k=k)
+    x[4, 7] = np.nan
+    anchors = []
+
+    def recorded(v):
+        anchors.append(signguard_median(v))
+        return anchors[-1]
+
+    signguard_median = signguard.midpoint_median
+    monkeypatch.setattr(signguard, "midpoint_median", recorded)
+    got, _ = get_aggregator("signguard").aggregate(torch.from_numpy(x))
+    expect, _ = jax_get_aggregator("signguard").aggregate(jnp.asarray(x))
+    norms = jnp.sqrt(jnp.maximum(jnp.sum(jnp.asarray(x) ** 2, axis=1), 1e-24))
+    assert np.isnan(float(jnp.median(norms))) and len(anchors) == 1
+    assert np.isnan(float(anchors[0]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), equal_nan=True, **TOL)
+    # the masked form is unchanged: the NaN row masked out, the rest finite
+    mask = np.arange(k) != 4
+    got, _ = get_aggregator("signguard").aggregate_masked(
+        torch.from_numpy(x), (), mask=torch.from_numpy(mask))
+    expect, _ = jax_get_aggregator("signguard").aggregate_masked(
+        jnp.asarray(x), (), mask=jnp.asarray(mask))
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(expect), **TOL)
+
+
+def test_byzantinesgd_nan_and_inf_match_jax(monkeypatch):
+    """K=10, D=6 with one NaN and one Inf coordinate: JAX's ``A_med`` is
+    NaN, every client fails the A filter, and the aggregate's finite
+    coordinates are 0 (a bare midpoint of the sort kept them the mean)."""
+    both = _Both("byzantinesgd", {}, monkeypatch)
+    x = np.random.RandomState(3).randn(10, 6).astype(np.float32) * 0.1
+    x[2, 1], x[6, 4] = np.nan, np.inf
+    tstate, jstate = both.ours.init_state(10, 6), both.ref.init_state(10, 6)
+    for rnd in range(2):  # round 0 sets init_params; round 1 has A != 0
+        got, tstate, expect, jstate = both.run(x, None, tstate, jstate, rnd)
+        np.testing.assert_allclose(got.numpy(), expect, equal_nan=True, **TOL)
+        np.testing.assert_allclose(tstate["A"].numpy(), np.asarray(jstate["A"]),
+                                   equal_nan=True, **TOL)
+        np.testing.assert_array_equal(tstate["good"].numpy(), np.asarray(jstate["good"]))
+    assert not tstate["good"].any()
+    finite = np.isfinite(expect)
+    assert finite.any() and (got.numpy()[finite] == 0).all()
+
+
 @pytest.mark.parametrize("kw", [{}, {"th_A": 0.05, "th_B": 0.8, "th_V": 0.25}],
                          ids=["default", "tight"])
 def test_byzantinesgd_dense_three_rounds_match_jax(monkeypatch, kw):

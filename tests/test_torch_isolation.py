@@ -223,3 +223,35 @@ def test_forensics_modules_are_covered_and_a_traced_run_loads_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_baseline_models_are_covered_and_a_resnet_round_loads_no_jax(tmp_path):
+    """``models/resnet.py``, ``models/wrn.py`` and the reference-path
+    aliases are among the checked sources, and a ResNet-18 round (at
+    MNIST's one-channel shape, K=2, one local step) leaves no ``jax`` in
+    ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch" / "models"
+    for rel in ("resnet.py", "wrn.py", "cifar10.py", "mnist.py"):
+        assert pkg / rel in files
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch import Simulator\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "import blades_tpu_torch.models.cifar10, blades_tpu_torch.models.mnist\n"
+        "ds = Synthetic(num_clients=2, train_size=8, test_size=4, cache=False)\n"
+        "sim = Simulator(ds, aggregator='mean', device='cpu', log_path='out')\n"
+        "sim.run(model='resnet18', global_rounds=1, train_batch_size=2)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

@@ -205,8 +205,8 @@ def test_unported_choices_raise(tmp_path):
                     num_byzantine=1)
     sim.register_attackers([ByzantineClient(attack=sim.attack) for _ in range(2)])
     assert sim.num_byzantine == 2 and sim.get_clients()[1].is_byzantine()
-    with pytest.raises(NotImplementedError, match="slice 11"):
-        sim.run(model="resnet18")
+    with pytest.raises(NotImplementedError, match="slice 11b"):
+        sim.run(model="text_cct_2")
     with pytest.raises(TypeError, match="unexpected keyword"):
         sim.run(model="mlp", bogus=1)
 
