@@ -54,7 +54,9 @@ class Aggregator:
     stateful: bool = False
 
     #: certification-contract opt-outs, ``{contract: reason}`` (class-level,
-    #: never mutated; the offline audit battery is slice 10b)
+    #: never mutated; an instance may shadow it, as ``Clustering`` does per
+    #: metric): the contracts of ``audit/contracts.py`` a defense fails by
+    #: design, and why
     audit_optouts: dict = {}
 
     #: streaming-protocol opt-outs, ``{"streaming": reason}``: why a defense

@@ -49,6 +49,13 @@ def masked_median(norms: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
 class Clippedclustering(Aggregator):
     stateful = True
 
+    # certification opt-out (JAX ``clippedclustering.py:48``)
+    audit_optouts = {
+        "translation": "median-norm clipping and cosine-distance clustering "
+                       "are origin-anchored; a global translation changes "
+                       "the clip and cluster decisions",
+    }
+
     def __init__(self, tau: float = None, history_cap: int = 65536):
         self.tau = tau
         self.history_cap = history_cap

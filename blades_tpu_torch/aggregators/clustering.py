@@ -27,10 +27,27 @@ from blades_tpu_torch.ops.distances import pairwise_cosine_similarity
 
 
 class Clustering(TwoLevelStreaming, Aggregator):
+    # certification opt-outs (JAX ``clustering.py:40``): cosine features are
+    # origin-anchored, and the default metric's inverted linkage breaks
+    # under magnitude attacks
+    audit_optouts = {
+        "translation": "cosine-similarity features are origin-anchored; a "
+                       "global translation changes the cluster assignment",
+        "resilience": "default metric='similarity' reproduces the "
+                      "reference's inverted similarity-as-distance linkage, "
+                      "which breaks under magnitude attacks; "
+                      "metric='distance' certifies (see cert matrix)",
+    }
+
     def __init__(self, metric: str = "similarity"):
         if metric not in ("similarity", "distance"):
             raise ValueError(metric)
         self.metric = metric
+        if metric == "distance":
+            # the intended-metric variant certifies resilience; the
+            # instance's set shadows the class's (JAX ``:59-60``), and the
+            # certification reads the instance
+            self.audit_optouts = {"translation": type(self).audit_optouts["translation"]}
 
     def _matrix(self, updates):
         sim = pairwise_cosine_similarity(updates)

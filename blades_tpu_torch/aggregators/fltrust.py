@@ -21,6 +21,13 @@ from blades_tpu_torch.aggregators.base import Aggregator
 
 
 class Fltrust(Aggregator):
+    # certification opt-out (JAX ``fltrust.py:29``)
+    audit_optouts = {
+        "translation": "cosine trust scores and trusted-norm rescaling are "
+                       "origin-anchored; the defense is deliberately not "
+                       "translation-equivariant",
+    }
+
     # no streaming form (JAX ``fltrust.py:40-44``)
     streaming_optouts = {
         "streaming": "trust reweighting pairs every row with the trusted "

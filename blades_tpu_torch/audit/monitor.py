@@ -24,9 +24,8 @@ a second launch in the round.
 
 Everything runs on the port's ``ops/masked.py``, ``ops/distances.py`` and
 ``ops/streaming.py``; the ``[K, K]`` Gram matrix of the envelope is one
-GEMM. The offline certification battery and the attack search of the JAX
-package's ``audit/`` (``contracts.py``, ``attack_search.py``) are
-``ROADMAP.md`` queue A, slice 10b.
+GEMM. The offline certification battery and the attack search are
+``contracts.py`` and ``attack_search.py`` beside this module.
 """
 
 from __future__ import annotations

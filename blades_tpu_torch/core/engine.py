@@ -89,7 +89,11 @@ bit.
 
 Each round runs inside a ``dispatch`` span of the active telemetry
 recorder (``telemetry/recorder.py``): the host's time to enqueue it, not
-the device's to run it. Sharding plans are not ported (``ROADMAP.md`` queue
+the device's to run it. ``run_round_donated`` and ``run_block`` also open
+a launch window of the dispatch accounting (``telemetry/timeline.py``,
+JAX ``blades_tpu/core/engine.py:1141``, ``:1241``), which the caller
+closes after its own wait on the card (``Simulator.run``'s ``sync``).
+Sharding plans are not ported (``ROADMAP.md`` queue
 A, slice 12).
 
 ``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
@@ -120,7 +124,7 @@ from blades_tpu_torch.ops.streaming import (
     moments_update,
     moments_var,
 )
-from blades_tpu_torch.telemetry import get_recorder
+from blades_tpu_torch.telemetry import get_recorder, timeline
 from blades_tpu_torch.telemetry.metric_pack import pack_dense, pack_finalize, pack_init, pack_update
 from blades_tpu_torch.utils import rng
 
@@ -658,9 +662,19 @@ class RoundEngine:
         do not change."""
         self._check_runnable()
         streams = rng.RoundStreams(seed, state.round_idx, self.device)
+        # the dispatch accounting's window (telemetry/timeline.py): the
+        # caller closes it after its own wait on the card
+        timeline.launch_begin("round", rounds=1, attrs=self._timeline_attrs())
         with get_recorder().span("dispatch"):
-            return self._round(state, batch,
-                               self._inputs(client_lr, server_lr, state.round_idx), streams)
+            out = self._round(state, batch,
+                              self._inputs(client_lr, server_lr, state.round_idx), streams)
+        timeline.launch_enqueued()
+        return out
+
+    def _timeline_attrs(self) -> dict:
+        """The static labels of this engine's ``timeline`` records: which
+        round semantics its launches run."""
+        return {"streaming": int(self.streaming), "async": int(self.async_config is not None)}
 
     def _check_runnable(self) -> None:
         if self.aggregator is None:
@@ -968,8 +982,10 @@ class RoundEngine:
             )
         specs = [RoundSpec(int(seed), state.round_idx + i, r, float(c), float(s))
                  for i, (r, c, s) in enumerate(zip(rounds, client_lrs, server_lrs))]
+        timeline.launch_begin("block", rounds=len(specs), attrs=self._timeline_attrs())
         with get_recorder().span("dispatch", rounds=len(specs)):
             state, outs = self._run_rounds(state, specs, sampler=sampler)
+        timeline.launch_enqueued()
         return state, outs[0], block_diags(outs)
 
     def round_outputs(self, metrics) -> tuple:

@@ -55,6 +55,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from blades_tpu_torch.ops import trimmed
+from blades_tpu_torch.telemetry.recorder import count_process
 from blades_tpu_torch.utils import rng
 
 
@@ -266,6 +267,9 @@ class RoundGraph:
         eng.last_diagnostics = eng.last_audit_diag = eng.last_metric_pack = None
         self.graph, self.kernel_launches = graph, captured
         self.capture_seconds = time.perf_counter() - t0
+        # the port's "compile": the timeline and the alert engine read these
+        count_process("cuda.graph_captures")
+        count_process("cuda.graph_capture_s", self.capture_seconds)
 
     def run(self, eng, state, specs, batches=None):
         """The rounds of ``specs`` of the engine ``eng`` (the one the graph

@@ -12,7 +12,10 @@ H100 machine).
 The library lands in ``build/blades_tpu_torch/`` at the root of the
 checkout, named by a hash of every source under ``csrc/`` and the compiler
 flags, so an edited source is rebuilt and an unchanged one is reused. A
-missing ``nvcc`` raises; there is no fallback.
+missing ``nvcc`` raises; there is no fallback. Each :func:`build` counts,
+on the process counters of ``telemetry/recorder.py``, an ``nvcc`` run
+(``cuda.kernel_builds`` and its seconds) or a reused library
+(``cuda.kernel_reuses``).
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ import subprocess
 import time
 from pathlib import Path
 from typing import Dict
+
+from blades_tpu_torch.telemetry.recorder import count_process
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "blades_tpu_torch"
@@ -74,6 +79,7 @@ def build(name: str) -> Build:
         raise FileNotFoundError(src)
     lib = BUILD_DIR / f"{name}-{_digest()}.so"
     if lib.exists():
+        count_process("cuda.kernel_reuses")
         return Build(lib, 0.0, "")
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -91,6 +97,8 @@ def build(name: str) -> Build:
             f"{proc.stdout}{proc.stderr}"
         )
     os.replace(tmp, lib)  # atomic: a concurrent loader never sees half a file
+    count_process("cuda.kernel_builds")
+    count_process("cuda.kernel_build_s", seconds)
     return Build(lib, seconds, proc.stdout + proc.stderr)
 
 

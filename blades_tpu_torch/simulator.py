@@ -19,16 +19,24 @@ keys, a block's rounds included.
 
 The telemetry trace (:461-465, :523-552, :869-960, :1096-1182,
 :1262-1395): every run writes ``<log_path>/telemetry.jsonl`` (a fresh run
-starts it anew, a resumed one appends): the ``meta`` record, the span tree
-``round`` / ``sample`` / ``dispatch`` / ``sync`` / ``eval`` /
-``checkpoint`` (``block`` in a block), one ``round`` record per round, and
-the round's ``defense``, ``faults``, ``audit``, ``metrics`` and ``async``
-records where those surfaces are on (``collect_diagnostics``,
-``fault_model``, ``audit_monitor``, ``round_metrics``, ``async_config``),
-with their gauges, counters and byzantine-overlap summaries.
-``BLADES_TELEMETRY=0`` turns it off. The run ledger, alerts, the timeline
-and the supervision hooks are ``ROADMAP.md`` queue A, slices 10b and 13
-(``BLADES_RESUME=1`` is honoured).
+starts it anew, a resumed or supervised one appends, :511-522): the
+``meta`` record, the span tree ``round`` / ``sample`` / ``dispatch`` /
+``sync`` / ``eval`` / ``checkpoint`` (``block`` in a block), one ``round``
+record per round, and the round's ``defense``, ``faults``, ``audit``,
+``metrics`` and ``async`` records where those surfaces are on
+(``collect_diagnostics``, ``fault_model``, ``audit_monitor``,
+``round_metrics``, ``async_config``), with their gauges, counters and
+byzantine-overlap summaries. ``BLADES_TELEMETRY=0`` turns it off.
+
+The run's own records (:511, :557-570, :829, :893, :951-964, :1010-1026,
+:1111): one ``timeline`` record per round (or block) from the dispatch
+accounting (``telemetry/timeline.py``), closed at the round's existing
+``sync`` and emitted at its existing flush; the alert engine
+(``telemetry/alerts.py``) watching the trace's records; a ``started``
+and one terminal (``finished`` / ``crashed`` / ``killed``) record in the
+run ledger (``telemetry/ledger.py``, the path in ``BLADES_LEDGER``); and a
+heartbeat beat at each flush (``supervision/heartbeat.py``, when
+``BLADES_HEARTBEAT_FILE`` is set). ``BLADES_RESUME=1`` resumes.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
@@ -69,6 +77,7 @@ from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.models import create_model
 from blades_tpu_torch.models.common import ModelSpec, build_fns
 from blades_tpu_torch.server import BladesServer
+from blades_tpu_torch.supervision import heartbeat
 from blades_tpu_torch.sweeps import (
     config_fingerprint,
     contains_callables,
@@ -76,7 +85,7 @@ from blades_tpu_torch.sweeps import (
     static_fingerprint,
 )
 from blades_tpu_torch.telemetry import NULL_RECORDER, Recorder, context, set_recorder
-from blades_tpu_torch.telemetry import profiling
+from blades_tpu_torch.telemetry import alerts, ledger, profiling, timeline
 from blades_tpu_torch.telemetry.metric_pack import pack_to_fields
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.checkpoint import (
@@ -116,15 +125,6 @@ def _unported(what: str, slice_name: str) -> NotImplementedError:
     )
 
 
-def _clone(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
-    """A new generator at ``generator``'s current state."""
-    if generator is None:
-        return None
-    out = torch.Generator(device=generator.device)
-    out.set_state(generator.get_state())
-    return out
-
-
 class _CompositeAttack(Attack):
     """Each registered attacker's hooks on its own rows (``blades_tpu/
     simulator.py:69-148``), as the reference runs each client object's own
@@ -143,7 +143,7 @@ class _CompositeAttack(Attack):
     its end), as in the JAX streaming round."""
 
     graph_unsafe_reason = ("each callback's generator is set to the round's entry state "
-                           "inside the round (_clone) (ROADMAP.md queue A, item 7c)")
+                           "inside the round (rng.clone) (ROADMAP.md queue A, item 7c)")
 
     def __init__(self, entries):
         # entries: [(client index, ByzantineClient)]; attacks built once
@@ -206,7 +206,7 @@ class _CompositeAttack(Attack):
     def on_updates(self, updates, byz_mask, generator=None, state=()):
         pre, out, new_states = updates, updates, []
         for (idx, client), st in zip(self.entries, state):
-            rewritten, st = client.omniscient_callback(pre, byz_mask, _clone(generator), st)
+            rewritten, st = client.omniscient_callback(pre, byz_mask, rng.clone(generator), st)
             if idx < out.shape[0]:
                 out = out.clone() if out is pre else out
                 out[idx] = rewritten[idx]
@@ -289,6 +289,7 @@ class Simulator:
         self.server: Optional[BladesServer] = None
         self.engine: Optional[RoundEngine] = None
         self.telemetry: Recorder = NULL_RECORDER
+        self.alert_engine: Optional[alerts.AlertEngine] = None
         for name in _IGNORED_KWARGS:
             val = locals().get(name)
             if val not in (None, 0, 1, "actor", False, 0.0):
@@ -527,104 +528,107 @@ class Simulator:
                 "streaming=True never materializes the [K, D] update matrix "
                 "that retain_updates/on_round_end read; run dense for those"
             )
-        rec = self._start_trace(resume, model, fault_model, audit_monitor, async_config, {
-            "global_rounds": global_rounds, "local_steps": local_steps,
-            "train_batch_size": train_batch_size or self._train_bs, "client_lr": client_lr,
-            "server_lr": server_lr, "client_chunks": client_chunks, "block_size": block_size,
-            "streaming": streaming})
-        spec = self._model_spec(model, loss, compute_dtype)
-        batch_size = train_batch_size or self._train_bs
-        params = spec.init(rng.generator(self.seed, 0, rng.INIT))
-        trusted = torch.tensor([c.is_trusted() for c in self.get_clients()], dtype=torch.bool)
-        attack = self.attack
-        if self._custom_attack_entries:
-            attack = _CompositeAttack(self._custom_attack_entries)
-        engine_kwargs = dict(
-            num_clients=self.dataset.num_clients,
-            num_byzantine=self.num_byzantine,
-            attack=attack,
-            aggregator=self.aggregator,
-            client_opt=self._resolve_opt(client_optimizer, ClientOptSpec),
-            server_opt=self._resolve_opt(server_optimizer, ServerOptSpec),
-            num_classes=self._num_classes,
-            trusted_mask=trusted,
-            client_chunks=client_chunks,
-            keep_updates=retain_updates or on_round_end is not None,
-            device=self.device,
-            fault_model=fault_model,
-            streaming=streaming,
-            async_config=async_config,
-            collect_diagnostics=collect_diagnostics,
-            audit_monitor=audit_monitor,
-            round_metrics=round_metrics,
-        )
-        engine_key = None
-        if (engine_cache is not None and isinstance(model, str)
-                and not self._custom_attack_entries):
-            view = static_fingerprint({"model": model, "loss": loss,
-                                       "compute_dtype": str(compute_dtype),
-                                       **engine_kwargs, "device": str(self.device)})
-            if not contains_callables(view):
-                engine_key = program_fingerprint(view=view)
-        cached = engine_cache.get(engine_key) if engine_key is not None else None
-        if cached is not None:
-            self.engine = cached
-            # an equal-program fault model (a NaN/Inf twin: the fill rides
-            # the state) is rebound; init below makes its state
-            self.engine.fault_model = fault_model
-            rec.event("engine_cache", hit=1, key=engine_key)
-        else:
-            t_build = time.perf_counter()
-            self.engine = RoundEngine(
-                spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
-                noise_sites=spec.noise_sites, **engine_kwargs,
-            )
-            if engine_key is not None:
-                engine_cache.put(engine_key, self.engine,
-                                 build_s=time.perf_counter() - t_build)
-        # the round's update-matrix footprint rides every round record
-        rec.gauge("engine.peak_update_bytes", self.engine.peak_update_bytes)
-        rec.gauge("engine.client_chunks", self.engine.client_chunks)
-        rec.gauge("engine.chunk_size", self.engine.chunk_size)
-        rec.gauge("engine.streaming", int(self.engine.streaming))
-        if async_config is not None:
-            rec.gauge("engine.async", 1)
-            rec.gauge("engine.async_buffer_m", self.engine.async_buffer_m)
-        state = self.engine.init(params)
-        # the crash autosave's target: the checkpoint path when given, else
-        # a fixed path in the log dir (whose wipe keeps *.npz)
-        autosave_path = checkpoint_path or os.path.join(self.log_path, "autosave")
-        start_round = 1
-        if resume:
-            for cand in dict.fromkeys((checkpoint_path, autosave_path)):
-                if cand and os.path.exists(checkpoint_file(cand)):
-                    state = restore_state(cand, state)
-                    start_round = state.round_idx + 1
-                    self.debug_logger.info(f"resumed from {cand} at round {start_round}")
-                    break
-        elif checkpoint_path is None:
-            # a fresh run: a leftover implicit autosave belongs to another run
-            self._remove_autosave(autosave_path, "fresh run")
-        self.server = BladesServer(self.engine, state, self.aggregator)
-        client_lr_fn = self._resolve_schedule(client_lr_scheduler, client_lr)
-        server_lr_fn = self._resolve_schedule(server_lr_scheduler, server_lr)
-
-        block_size = max(1, int(block_size))
-        if block_size > 1 and (retain_updates or on_round_end is not None):
-            self.debug_logger.info(
-                "block_size>1 disabled: retain_updates/on_round_end need "
-                "per-round host visibility"
-            )
-            block_size = 1
-
+        rec, ledger_entry = self._start_trace(
+            resume, model, fault_model, audit_monitor, async_config, {
+                "global_rounds": global_rounds, "local_steps": local_steps,
+                "train_batch_size": train_batch_size or self._train_bs, "client_lr": client_lr,
+                "server_lr": server_lr, "client_chunks": client_chunks,
+                "block_size": block_size, "streaming": streaming})
         round_times: List[float] = []
-        global_start = time.time()
-        # the profiler's window: about 3 rounds, past round 1 where the run
-        # is long enough
-        prof_first = min(max(start_round, 2), global_rounds)
-        prof_last = min(prof_first + 2, global_rounds)
         self._capture = None  # the open profiler capture, if any
+        built = False  # a failure before the round loop has no state to autosave
         try:
+            spec = self._model_spec(model, loss, compute_dtype)
+            batch_size = train_batch_size or self._train_bs
+            params = spec.init(rng.generator(self.seed, 0, rng.INIT))
+            trusted = torch.tensor([c.is_trusted() for c in self.get_clients()], dtype=torch.bool)
+            attack = self.attack
+            if self._custom_attack_entries:
+                attack = _CompositeAttack(self._custom_attack_entries)
+            engine_kwargs = dict(
+                num_clients=self.dataset.num_clients,
+                num_byzantine=self.num_byzantine,
+                attack=attack,
+                aggregator=self.aggregator,
+                client_opt=self._resolve_opt(client_optimizer, ClientOptSpec),
+                server_opt=self._resolve_opt(server_optimizer, ServerOptSpec),
+                num_classes=self._num_classes,
+                trusted_mask=trusted,
+                client_chunks=client_chunks,
+                keep_updates=retain_updates or on_round_end is not None,
+                device=self.device,
+                fault_model=fault_model,
+                streaming=streaming,
+                async_config=async_config,
+                collect_diagnostics=collect_diagnostics,
+                audit_monitor=audit_monitor,
+                round_metrics=round_metrics,
+            )
+            engine_key = None
+            if (engine_cache is not None and isinstance(model, str)
+                    and not self._custom_attack_entries):
+                view = static_fingerprint({"model": model, "loss": loss,
+                                           "compute_dtype": str(compute_dtype),
+                                           **engine_kwargs, "device": str(self.device)})
+                if not contains_callables(view):
+                    engine_key = program_fingerprint(view=view)
+            cached = engine_cache.get(engine_key) if engine_key is not None else None
+            if cached is not None:
+                self.engine = cached
+                # an equal-program fault model (a NaN/Inf twin: the fill rides
+                # the state) is rebound; init below makes its state
+                self.engine.fault_model = fault_model
+                rec.event("engine_cache", hit=1, key=engine_key)
+            else:
+                t_build = time.perf_counter()
+                self.engine = RoundEngine(
+                    spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                    noise_sites=spec.noise_sites, **engine_kwargs,
+                )
+                if engine_key is not None:
+                    engine_cache.put(engine_key, self.engine,
+                                     build_s=time.perf_counter() - t_build)
+            # the round's update-matrix footprint rides every round record
+            rec.gauge("engine.peak_update_bytes", self.engine.peak_update_bytes)
+            rec.gauge("engine.client_chunks", self.engine.client_chunks)
+            rec.gauge("engine.chunk_size", self.engine.chunk_size)
+            rec.gauge("engine.streaming", int(self.engine.streaming))
+            if async_config is not None:
+                rec.gauge("engine.async", 1)
+                rec.gauge("engine.async_buffer_m", self.engine.async_buffer_m)
+            state = self.engine.init(params)
+            # the crash autosave's target: the checkpoint path when given, else
+            # a fixed path in the log dir (whose wipe keeps *.npz)
+            autosave_path = checkpoint_path or os.path.join(self.log_path, "autosave")
+            start_round = 1
+            if resume:
+                for cand in dict.fromkeys((checkpoint_path, autosave_path)):
+                    if cand and os.path.exists(checkpoint_file(cand)):
+                        state = restore_state(cand, state)
+                        start_round = state.round_idx + 1
+                        self.debug_logger.info(f"resumed from {cand} at round {start_round}")
+                        break
+            elif checkpoint_path is None:
+                # a fresh run: a leftover implicit autosave belongs to another run
+                self._remove_autosave(autosave_path, "fresh run")
+            self.server = BladesServer(self.engine, state, self.aggregator)
+            client_lr_fn = self._resolve_schedule(client_lr_scheduler, client_lr)
+            server_lr_fn = self._resolve_schedule(server_lr_scheduler, server_lr)
+
+            block_size = max(1, int(block_size))
+            if block_size > 1 and (retain_updates or on_round_end is not None):
+                self.debug_logger.info(
+                    "block_size>1 disabled: retain_updates/on_round_end need "
+                    "per-round host visibility"
+                )
+                block_size = 1
+
+            global_start = time.time()
+            # the profiler's window: about 3 rounds, past round 1 where the run
+            # is long enough
+            prof_first = min(max(start_round, 2), global_rounds)
+            prof_last = min(prof_first + 2, global_rounds)
+            built = True
             if block_size > 1:
                 self._run_blocks(state, self.dataset.sampler(local_steps, batch_size),
                                  block_size, start_round, global_rounds, local_steps,
@@ -652,6 +656,9 @@ class Simulator:
                         self.server.state = state
                         with rec.span("sync"):
                             self._sync()
+                        # the round's launch window closes at this existing
+                        # wait (no host sync of its own)
+                        timeline.launch_ready()
                         host = self._round_records(
                             [rnd], local_steps, self.engine.round_outputs(m), stacked=False)
                         if retain_updates:
@@ -681,20 +688,13 @@ class Simulator:
             # self.server.state is the last completed round's (or block's):
             # both loops set it only once a round (block) has returned. The
             # save is best effort: its failure must not mask ``err``
-            crash_state = self.server.state
-            try:
-                with rec.span("crash_checkpoint"):
-                    save_state(autosave_path, crash_state)
-                rec.event("crash_checkpoint", path=checkpoint_file(autosave_path),
-                          round=int(crash_state.round_idx),
-                          error=f"{type(err).__name__}: {err}"[:300])
-                self.debug_logger.info(
-                    f"crash after round {crash_state.round_idx} "
-                    f"({type(err).__name__}: {err}); state saved to "
-                    f"{checkpoint_file(autosave_path)}; run again with resume=True")
-            except Exception as save_err:  # noqa: BLE001 - keep the original error
-                rec.event("crash_checkpoint_failed", error=str(save_err)[:300])
-                self.debug_logger.info(f"crash autosave failed: {save_err!r}")
+            if built:
+                self._crash_autosave(rec, autosave_path, err)
+            # a real error is `crashed`; an interrupt or a termination
+            # (a BaseException) is `killed`
+            ledger_entry.ended("crashed" if isinstance(err, Exception) else "killed",
+                               error=f"{type(err).__name__}: {err}"[:300],
+                               metrics={"rounds_completed": len(round_times)})
             raise
         finally:
             if self._capture is not None:
@@ -703,18 +703,43 @@ class Simulator:
             # file is closed (a later record reopens it)
             rec.event("run_end", rounds_completed=len(round_times))
             rec.close()
+            # the terminal ledger record (a no-op after a crash's)
+            total = sum(round_times)
+            ledger_entry.ended("finished", metrics={
+                "rounds_completed": len(round_times),
+                **({"rounds_per_sec": round(len(round_times) / total, 4)} if total > 0 else {}),
+            })
         if checkpoint_path is None:
             # the run completed: its crash autosave is stale
             self._remove_autosave(autosave_path, "run complete")
         return round_times
 
-    def _start_trace(self, resume, model, fault_model, audit_monitor, async_config,
-                     run_kw) -> Recorder:
-        """Mint the run's identity and install a recorder writing
-        ``<log_path>/telemetry.jsonl`` with the JAX ``meta`` fields
-        (``blades_tpu/simulator.py:481-566``). A fresh run starts the trace
-        anew; a resumed one appends to it. The meta record is written at
-        once, so a run that dies before its first round leaves a trace."""
+    def _crash_autosave(self, rec, autosave_path: str, err: BaseException) -> None:
+        crash_state = self.server.state
+        try:
+            with rec.span("crash_checkpoint"):
+                save_state(autosave_path, crash_state)
+            rec.event("crash_checkpoint", path=checkpoint_file(autosave_path),
+                      round=int(crash_state.round_idx),
+                      error=f"{type(err).__name__}: {err}"[:300])
+            self.debug_logger.info(
+                f"crash after round {crash_state.round_idx} "
+                f"({type(err).__name__}: {err}); state saved to "
+                f"{checkpoint_file(autosave_path)}; run again with resume=True")
+        except Exception as save_err:  # noqa: BLE001 - keep the original error
+            rec.event("crash_checkpoint_failed", error=str(save_err)[:300])
+            self.debug_logger.info(f"crash autosave failed: {save_err!r}")
+
+    def _start_trace(self, resume, model, fault_model, audit_monitor, async_config, run_kw):
+        """Mint the run's identity, install a recorder writing
+        ``<log_path>/telemetry.jsonl`` with the JAX ``meta`` fields, reset
+        the dispatch accounting, attach the alert engine and append the
+        ledger's ``started`` record (``blades_tpu/simulator.py:481-570``);
+        returns the recorder and the ledger entry. A fresh run starts the
+        trace anew; a resumed one appends to it, and so does a supervised
+        one (``BLADES_SUPERVISED=1``: its supervisor may have written
+        there). The meta record is written at once, so a run that dies
+        before its first round leaves a trace."""
         context.activate(fresh=True)
         run_config = {
             "kind": "simulator",
@@ -729,7 +754,7 @@ class Simulator:
             **({"async_config": repr(async_config)} if async_config is not None else {}),
         }
         trace_path = os.path.join(self.log_path, "telemetry.jsonl")
-        if not resume:
+        if not resume and os.environ.get(heartbeat.SUPERVISED_ENV) != "1":
             try:
                 os.unlink(trace_path)
             except OSError:
@@ -752,8 +777,14 @@ class Simulator:
         rec = Recorder(path=trace_path, meta=meta)
         self.telemetry = rec
         set_recorder(rec)  # the engine's dispatch spans land here
+        # a previous run's unemitted launch splits must not reach round 1
+        timeline.reset()
+        # the alert rules ride the records the run writes anyway (None when
+        # telemetry or alerting is off)
+        self.alert_engine = alerts.install(rec)
         rec.flush()
-        return rec
+        entry = ledger.run_started("simulator", config=run_config, artifacts=[trace_path])
+        return rec, entry
 
     def _sync(self) -> None:
         """Wait for the device (the round's execution lands in the ``sync``
@@ -784,16 +815,19 @@ class Simulator:
         return metrics
 
     def _flush_rounds(self, rounds, walls, metrics) -> None:
-        """Each round's ``round`` record (the device's memory gauges riding
-        it) and the trace's one buffered write."""
+        """The round's (block's) ``timeline`` record, each round's ``round``
+        record (the device's memory gauges riding it), the trace's one
+        buffered write, and the heartbeat."""
         rec = self.telemetry
         profiling.record_live_bytes(rec, self.device)
+        timeline.emit(rec, round_idx=rounds[-1])
         for i, (r, wall) in enumerate(zip(rounds, walls)):
             loss, top1 = metrics.train_loss, metrics.train_top1
             if np.ndim(loss):  # a block's [R]
                 loss, top1 = loss[i], top1[i]
             rec.round_record(r, wall_s=wall, train_loss=float(loss), train_top1=float(top1))
         rec.flush()
+        heartbeat.beat(round_idx=rounds[-1])
 
     def _remove_autosave(self, autosave_path: str, why: str) -> None:
         stale = checkpoint_file(autosave_path)
@@ -836,6 +870,7 @@ class Simulator:
                 self.server.state = state
                 with rec.span("sync"):
                     self._sync()
+                timeline.launch_ready()
                 # the block's one host read: every round's metrics and forensics
                 host = self._round_records(rounds, local_steps,
                                            (ms,) + tuple(diags[k] for k in BLOCK_DIAGS))

@@ -1,9 +1,25 @@
-"""Warm-engine reuse for sweeps that run many Simulators in one process.
+"""Sweep serving: attack-search cells grouped by program shape, and
+warm-engine reuse for sweeps that run many Simulators in one process.
 
 Counterpart: ``blades_tpu/sweeps/__init__.py`` — ``static_fingerprint``,
-``contains_callables`` and ``program_fingerprint`` (:77-187) and
-``EngineCache`` (:342-423), with the ledger's ``config_fingerprint``
-(``blades_tpu/telemetry/ledger.py:61-64``); the port keeps its own copies.
+``contains_callables`` and ``program_fingerprint`` (:77-187),
+``SweepCell``, ``group_key``, ``plan_groups`` and ``run_grouped``
+(:172-340) and ``EngineCache`` (:342-423), with the ledger's
+``config_fingerprint`` (``blades_tpu/telemetry/ledger.py:61-64``, the
+port's one copy, which ``telemetry/ledger.py`` imports from here); the
+port keeps its own copies.
+
+**Cell grouping.** :func:`plan_groups` groups attack-search cells
+(``examples/certify.py``) by :func:`group_key`: the defense's
+configuration by value, the trial tensor's shape and dtype, the context's
+keys and the presence of a participation mask, the JAX package's rule, so
+a sweep groups its cells as the JAX package does. :func:`run_grouped` runs
+each group through one :func:`~blades_tpu_torch.audit.attack_search.
+search_cells` call. There it amortizes one compile a group; here it
+amortizes nothing but the one host read of a group's deviations, and the
+results equal a cell-by-cell walk bit for bit. The resilient executor and
+the sweep journal (``blades_tpu/sweeps/resilient.py``, ``journal.py``) are
+``ROADMAP.md`` queue A, slice 13.
 A :class:`EngineCache` maps a :func:`program_fingerprint` of an engine's
 static configuration to the built ``RoundEngine``, so a run whose
 configuration matches an earlier one reuses that engine and whatever it
@@ -15,7 +31,6 @@ builds the key (``blades_tpu/simulator.py:640-715``).
 ``.cpu()``) the way it collapses an array. The JAX package reports an
 eviction to its compile-provenance registry, which comes with slice 13
 (``ROADMAP.md`` queue A); here it is counted in ``EngineCache.evictions``.
-``SweepCell``, ``plan_groups`` and ``run_grouped`` belong to slice 13.
 """
 
 from __future__ import annotations
@@ -25,16 +40,20 @@ import hashlib
 import json
 import time
 import types
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
     "EngineCache",
+    "SweepCell",
     "config_fingerprint",
     "contains_callables",
+    "group_key",
+    "plan_groups",
     "program_fingerprint",
+    "run_grouped",
     "static_fingerprint",
 ]
 
@@ -114,6 +133,110 @@ def program_fingerprint(**parts: Any) -> str:
     """Short stable hash of a configuration's static view: the engine-cache
     key (the JAX package's, on the same parts)."""
     return config_fingerprint(static_fingerprint(parts))
+
+
+# -- attack-search cell grouping ----------------------------------------------
+
+
+@dataclasses.dataclass
+class SweepCell:
+    """One attack-search cell awaiting execution: ``agg`` (with the trial
+    shape and the context's structure) sets its group; ``f``,
+    ``part_mask``, ``ctx`` and ``trials`` are its data; ``payload`` rides
+    along for the caller."""
+
+    label: str
+    agg: Any
+    trials: Any
+    f: int
+    ctx: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    part_mask: Any = None
+    payload: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+def group_key(cell: SweepCell) -> str:
+    """The program-shape fingerprint of a cell: the defense's configuration
+    by value, the ``[T, K, D]`` trial shape and dtype (the dtype's name
+    without ``torch.``), the context's keys and whether a participation
+    mask is given."""
+    trials = cell.trials
+    shape = tuple(trials.shape[-3:]) if trials.dim() == 3 else (1,) + tuple(trials.shape)
+    return program_fingerprint(
+        agg=cell.agg,
+        trial_shape=list(shape),
+        trial_dtype=str(trials.dtype).replace("torch.", ""),
+        ctx_keys=sorted(cell.ctx or {}),
+        has_part=cell.part_mask is not None,
+    )
+
+
+def plan_groups(cells: Sequence[SweepCell]) -> List[Tuple[str, List[int]]]:
+    """Cell indices grouped by :func:`group_key`, groups in first-seen
+    order, cells in input order within a group."""
+    order: List[str] = []
+    groups: Dict[str, List[int]] = {}
+    for i, cell in enumerate(cells):
+        key = group_key(cell)
+        if key not in groups:
+            groups[key] = []
+            order.append(key)
+        groups[key].append(i)
+    return [(key, groups[key]) for key in order]
+
+
+def run_grouped(cells: Sequence[SweepCell], *, grids: Optional[dict] = None, sweep=None,
+                return_walls: bool = False):
+    """The cells' search results in input order, each group through one
+    ``search_cells`` call (bit for bit what :func:`search_cell` gives each
+    cell). ``sweep``: a ``telemetry.timeline.SweepAccounting``; each cell
+    is recorded with its share of the group's wall and the shared
+    ``batch`` key, and a failed group records every cell as failed before
+    the error propagates. ``return_walls``: also return each cell's share
+    of its group's wall."""
+    from blades_tpu_torch.audit.attack_search import search_cells
+    from blades_tpu_torch.telemetry import recorder as _trecorder
+    from blades_tpu_torch.telemetry.timeline import counter_delta
+
+    cells = list(cells)
+    results: List[Optional[Dict[str, Any]]] = [None] * len(cells)
+    walls: List[float] = [0.0] * len(cells)
+    for key, idxs in plan_groups(cells):
+        group = [cells[i] for i in idxs]
+        t0 = time.perf_counter()
+        counters0 = _trecorder.process_counters()
+        try:
+            outs = search_cells(
+                group[0].agg,
+                [{"trials": c.trials, "f": c.f, "ctx": c.ctx, "part_mask": c.part_mask,
+                  "label": c.label} for c in group],
+                grids=grids, batch_label=key,
+            )
+        except Exception as e:
+            if sweep is not None:
+                wall = time.perf_counter() - t0
+                delta = counter_delta(counters0)
+                for j, c in enumerate(group):
+                    sweep.record(c.label, wall / len(group),
+                                 counter_delta=delta if j == 0 else None, batch=key,
+                                 batch_size=len(group), error=f"{type(e).__name__}: {e}",
+                                 error_type=type(e).__name__)
+            raise
+        wall = time.perf_counter() - t0
+        delta = counter_delta(counters0)
+        exec_share = max(0.0, wall - delta.get("compile_s", 0.0)) / len(group)
+        for i, out in zip(idxs, outs):
+            results[i] = out
+            walls[i] = wall / len(group)
+        if sweep is not None:
+            for j, c in enumerate(group):
+                sweep.record(c.label, wall / len(group), counter_delta=delta if j == 0 else None,
+                             execute_s=round(exec_share, 6), batch=key, batch_size=len(group))
+    if return_walls:
+        return results, walls
+    return results
+
+
+# -- warm engine cache ---------------------------------------------------------
 
 
 class EngineCache:

@@ -1,11 +1,17 @@
 """Zero-dependency telemetry recorder: spans, counters, gauges -> JSONL.
 
-Counterpart: ``blades_tpu/telemetry/recorder.py:95-300`` (``Recorder``,
-``NULL_RECORDER``, ``get_recorder`` / ``set_recorder``), copied: the port
-imports nothing of the JAX package. The JAX module's
-``install_jax_monitoring`` (:363), which counts XLA compiles, is left out:
-the port compiles no XLA programs (``ROADMAP.md`` queue A, slice 13 holds
-a compile-event feed for the port).
+Counterpart: ``blades_tpu/telemetry/recorder.py:95-345`` (``Recorder``
+with its per-record ``observer`` :117-121 and :199, ``NULL_RECORDER``,
+``get_recorder`` / ``set_recorder``, the process-wide counter mirror
+``process_counters`` and ``add_counter_observer`` :321-345), copied: the
+port imports nothing of the JAX package. The JAX module's
+``install_jax_monitoring`` (:363), which feeds that mirror from XLA's
+compile events, has no source here: the port compiles no XLA programs.
+Its mirror is fed by :func:`count_process` instead, from the port's own
+builds: a CUDA-graph capture (``core/graphs.py``) and a kernel library
+built by ``nvcc`` or found up to date on disk (``ops/_build.py``); see
+:data:`PROCESS_COUNTER_NAMES`. ``ROADMAP.md`` queue A, slice 13 holds the
+full compile feed.
 
 Design constraints (the recorder lives inside the round loop):
 
@@ -34,7 +40,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 from blades_tpu_torch.telemetry import context as _context
 
@@ -108,6 +114,10 @@ class Recorder:
         self.counters: Dict[str, float] = {}
         self.gauges: Dict[str, Any] = {}
         self.dropped = 0
+        #: optional per-record observer (the alert engine,
+        #: ``telemetry/alerts.py``): called from :meth:`_emit` with each
+        #: record as it enters the buffer; pure Python, no I/O
+        self.observer: Optional[Callable[[Dict[str, Any]], None]] = None
         self._stack: list = []
         self._pending: list = []  # records not yet flushed to the sink
         self._fh = None
@@ -175,6 +185,15 @@ class Recorder:
             # a record carrying its own field of the same name wins
             record.setdefault(k, v)
         self._pending.append(record)
+        obs = self.observer
+        if obs is not None:
+            try:
+                # the alert engine may emit `alert` records back into this
+                # recorder (not a type it watches, so no recursion); a
+                # broken rule must never take down the run
+                obs(record)
+            except Exception:  # noqa: BLE001 - observability must not raise
+                pass
         if len(self._pending) > self.max_buffer:
             # bound the buffer, never the run: the oldest unflushed records
             # drop first, counted in `dropped`
@@ -257,3 +276,53 @@ def set_recorder(rec: Optional[Recorder]) -> Recorder:
         prev.close()
     _global_recorder = rec if rec is not None else NULL_RECORDER
     return prev
+
+
+# -- process-wide build counters ------------------------------------------------
+
+#: the counters :func:`count_process` feeds, and what each counts:
+#:
+#: - ``cuda.graph_captures`` / ``cuda.graph_capture_s``: CUDA graphs of a
+#:   round captured (``core/graphs.py:RoundGraph._capture``), and their
+#:   wall seconds;
+#: - ``cuda.kernel_builds`` / ``cuda.kernel_build_s``: kernel libraries
+#:   compiled by ``nvcc`` (``ops/_build.py:build``), and their seconds;
+#: - ``cuda.kernel_reuses``: kernel libraries found up to date on disk
+#:   instead (the build cache's hits).
+PROCESS_COUNTER_NAMES = (
+    "cuda.graph_captures", "cuda.graph_capture_s", "cuda.kernel_builds",
+    "cuda.kernel_build_s", "cuda.kernel_reuses",
+)
+
+#: process-wide cumulative mirror of the build counters, fed whichever
+#: recorder is active (or none): the timeline's launch and sweep accounting
+#: takes deltas of it, which a recorder swap cannot tear
+_PROCESS_COUNTERS: Dict[str, float] = {}
+
+_counter_observers: list = []
+
+
+def process_counters() -> Dict[str, float]:
+    """Snapshot of the process-wide build counters (cumulative)."""
+    return dict(_PROCESS_COUNTERS)
+
+
+def add_counter_observer(fn: Callable[[str, float], None]) -> None:
+    """Register ``fn(counter_name, inc)`` on the process-counter feed
+    (once per function object)."""
+    if fn not in _counter_observers:
+        _counter_observers.append(fn)
+
+
+def count_process(name: str, inc: float = 1) -> None:
+    """Add ``inc`` to the process counter ``name``, tell the observers, and
+    count it on the active recorder too (so it rides the next ``round``
+    record's counter deltas; a no-op there when telemetry is off). Dict
+    operations only: no clock read, no I/O, no device work."""
+    _PROCESS_COUNTERS[name] = _PROCESS_COUNTERS.get(name, 0) + inc
+    for fn in _counter_observers:
+        try:
+            fn(name, inc)
+        except Exception:  # noqa: BLE001 - observability must not raise
+            pass
+    get_recorder().counter(name, inc)

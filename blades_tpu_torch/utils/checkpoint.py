@@ -22,9 +22,9 @@ import numpy as np
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
 
-#: ``BLADES_RESUME=1`` makes ``Simulator.run`` resume (a copy of the JAX
-#: package's ``supervision/heartbeat.py:RESUME_ENV``)
-RESUME_ENV = "BLADES_RESUME"
+# ``BLADES_RESUME=1`` makes ``Simulator.run`` resume; defined beside the
+# other supervision variables
+from blades_tpu_torch.supervision.heartbeat import RESUME_ENV  # noqa: F401
 
 _HOST_KINDS = {int: "int", float: "float", bool: "bool"}
 

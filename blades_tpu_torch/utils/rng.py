@@ -77,6 +77,16 @@ def generator(
         seed_of(seed, round_idx, purpose, client=client, chunk=chunk))
 
 
+def clone(generator: Optional[torch.Generator]) -> Optional[torch.Generator]:
+    """A new generator at ``generator``'s current state (None stays None):
+    two calls that each get a clone draw the same numbers."""
+    if generator is None:
+        return None
+    out = torch.Generator(device=generator.device)
+    out.set_state(generator.get_state())
+    return out
+
+
 class RoundStreams:
     """A round's generators, one per ``(purpose, chunk, copy)``, made on
     first request and handed out again on a later one.

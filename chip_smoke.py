@@ -143,6 +143,32 @@ peak memory and client chunks. Then one f32 round of ResNet-18 (K=4) and
 of WideResNet-28-10 (K=2) at full width on the card and on the CPU, and
 one client's float64 gradient on both.
 
+The run's own records (slice 10b), right after the forensics phases on the
+same store: 3 bf16 CCT-2 rounds at K=1000 (ALIE f=5, trimmed mean b=5)
+with the run ledger, alerts, the dispatch timeline and the heartbeat on
+(``BLADES_LEDGER`` and ``BLADES_HEARTBEAT_FILE`` in the run's temporary
+directory) and then off (``BLADES_TELEMETRY=0``): the ledger's started and
+finished records, a ``timeline`` record a round, the heartbeat at the last
+round, no alert, every record valid, the same host syncs on and off; a
+graph block of 2 captured, then replayed with the records on and off (the
+same host syncs) and held to an eager block record for record but times;
+and an MLP at K=10 whose loss goes non-finite, with its critical alert
+and alert file.
+
+Then defense certification (slice 10b): one attack-search cell each at
+K=100 and D = 283,723 (trimmed mean at f=10, the kernel once an
+evaluation, and at f=20, the sort; the median and Krum at f=10), and the
+kernel at [100, 283723], b=10, against its plain version and timed beside
+its bound and the library call; then the certify script
+(``blades_tpu_torch/examples/certify.py``) in its committed configuration
+on the card through its ``main``, against a CPU run of the same (a
+subprocess, run to its end first): verdicts exactly, ratios at CERT_TOL,
+the kernel's launches equal to the plan's unmasked trimmed-mean
+evaluations; timed in one run, its host syncs counted in a second, whose
+every kernel launch is then held against the plain version on its own
+input ([8, 32], b = 1-3) and each such shape timed. The run never appends to the checkout's ledger: every ledger
+record goes to its temporary directory.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -152,6 +178,8 @@ non-zero; without CUDA it exits non-zero before doing anything.
 earlier version of ``csrc/trimmed_mean.cu``); it is built beside the
 kernel, at the same time, and timed in turns with it (other, this, this,
 other) at every timed shape, in the ``kernel_compare`` records.
+``--certify-only`` builds the kernel and runs only the certification
+phases (about 3 minutes on the card), with no ``kernels`` or result line.
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -296,6 +324,21 @@ WRN_CLIENTS, WRN_CHUNKS, WRN_ROUNDS = 1000, 20, 2
 # 1e-6. The phase records each backend's f32-to-f64 distance beside them
 RESNET_CPU = (("resnet18", 10, 4), ("wrn_28_10", 100, 2))
 RESNET_ROW_REL, RESNET_F64_REL, RESNET_F64_BATCH = 2e-3, 1e-6, 16
+# the run's records (slice 10b): the bf16 CCT-2 rounds with the ledger,
+# alerts, timeline and heartbeat on and then off, a graph block of 2, and
+# the MLP at K=10 whose client learning rate overflows the weights
+RECORDS_ROUNDS, RECORDS_BLOCK, NAN_CLIENTS, NAN_CLIENT_LR = 3, 2, 10, 1e20
+# defense certification (slice 10b): the certify script's committed
+# configuration (its defaults: the whole pool, the default grids, K=8,
+# D=32, 3 trials, seed 0, both staleness columns) on the card against a
+# CPU run of the same (a subprocess on CERT_CPU_THREADS threads, running
+# beside the card phases); the search ratios at CERT_TOL. Then one search
+# cell each at K=100 (BASELINE config 2's population) and CCT-2's D
+CERT_TOL = dict(rtol=1e-4, atol=1e-6)
+CERT_CPU_THREADS = 4
+CERT_SCALE_CLIENTS, CERT_SCALE_TRIALS = 100, 3
+CERT_SCALE_CELLS = (("trimmedmean", 10), ("trimmedmean", 20), ("median", 10), ("krum", 10))
+CERT_SCALE_B = 10  # the kernel's b at that shape (trimmed mean at f=10)
 
 
 def emit(record: dict) -> None:
@@ -3831,6 +3874,477 @@ def phase_resnet_card_vs_cpu(torch, dev, card: str) -> None:
         gc.collect()
 
 
+# -- the run's records (slice 10b) ------------------------------------------------
+
+
+def _strip_times(rec: dict) -> dict:
+    """A ``timeline`` or ``round`` record without its times (and the memory
+    gauges, which depend on the allocator), so two runs' records compare."""
+    times = ("enqueue_s", "ready_s", "dispatch_share", "compile_s", "wall_s", "ts", "run_id",
+             "attempt")
+    out = {n: v for n, v in rec.items() if n not in times}
+    if "gauges" in out:
+        out["gauges"] = {n: v for n, v in out["gauges"].items()
+                         if not n.startswith(("mem.", "heartbeat."))}
+    return out
+
+
+def phase_run_records(torch, trimmed, fl, card: str, log_root: Path) -> dict:
+    """The run's own records on the main path (cuDNN deterministic): the
+    bf16 CCT-2 round at K=1000 (ALIE f=5, trimmed mean b=5) through
+    Simulator.run, RECORDS_ROUNDS rounds with the ledger, alerts, timeline
+    and heartbeat on (``BLADES_LEDGER`` and ``BLADES_HEARTBEAT_FILE`` in
+    the run's temporary directory), then the same rounds with
+    ``BLADES_TELEMETRY=0``: one started and one finished ledger record, one
+    ``timeline`` record a round, the heartbeat at the last round with
+    ``interval_s`` near that round's wall, no alert, every record valid,
+    and the run's host syncs the same on and off. Then a graph block of
+    RECORDS_BLOCK rounds: captured once (its ``timeline`` record counts the
+    capture), replayed from an ``EngineCache`` hit with the records on and
+    off (the same host syncs), and run as an eager block: the replayed
+    block's ``timeline`` and ``round`` records equal the eager block's in
+    every field but times. Last, the MLP at K=10 with client learning rate
+    NAN_CLIENT_LR: its loss goes non-finite, a critical ``loss_nonfinite``
+    alert is recorded and the alert file written."""
+    import os
+
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.core.engine import RoundEngine
+    from blades_tpu_torch.datasets import Synthetic
+    from blades_tpu_torch.supervision import heartbeat
+    from blades_tpu_torch.sweeps import EngineCache
+    from blades_tpu_torch.telemetry import alerts, ledger, schema
+
+    base = log_root / "run_records"
+    base.mkdir()
+    env = {ledger.LEDGER_ENV: str(base / "ledger.jsonl"),
+           heartbeat.HEARTBEAT_ENV: str(base / "heartbeat.json"),
+           alerts.ALERT_FILE_ENV: str(base / "alert.json")}
+    saved = {n: os.environ.get(n) for n in (*env, "BLADES_TELEMETRY")}
+    os.environ.update(env)
+    run = dict(model="cct_2_3x2_32", local_steps=1, server_lr=1.0, client_lr=0.1,
+               client_chunks=CCT2_CHUNKS, compute_dtype="bfloat16")
+
+    def one(name, rounds, telemetry=True, **kw):
+        os.environ["BLADES_TELEMETRY"] = "1" if telemetry else "0"
+        gc.collect()
+        torch.cuda.empty_cache()
+        sim = forensics_sim(fl, base, name)
+        out = {}
+        trimmed.trimmed_mean_launches = 0
+        sites = host_syncs(torch, lambda: out.update(times=sim.run(
+            global_rounds=rounds, validate_interval=rounds + 1, **run, **kw)))
+        torch.cuda.synchronize()
+        recs = forensics_records(base / name) if telemetry else {"errors": [], "by_type": {}}
+        return dict(sim=sim, round_s=out["times"], syncs=sum(sites.values()), sites=sites,
+                    launches=trimmed.trimmed_mean_launches, recs=recs)
+
+    def ledger_events():
+        return [r["event"] for r in ledger.read_ledger(env[ledger.LEDGER_ENV])]
+
+    out = {}
+    try:
+        on = one("records_on", RECORDS_ROUNDS)
+        check(ledger_events() == ["started", "finished"], f"run_records: ledger {ledger_events()}")
+        led = ledger.read_ledger(env[ledger.LEDGER_ENV])
+        beat = heartbeat.read(env[heartbeat.HEARTBEAT_ENV])
+        tl = on["recs"]["by_type"].get("timeline", [])
+        errors = (on["recs"]["errors"] + schema.validate_records(led)
+                  + schema.validate_records([beat]))
+        check(errors == [], f"run_records: schema errors {errors[:5]}")
+        check([r["round"] for r in tl] == list(range(1, RECORDS_ROUNDS + 1))
+              and all(r["kind"] == "round" for r in tl), f"run_records: timeline {tl}")
+        check(not on["recs"]["by_type"].get("alert"), "run_records: an alert on a healthy run")
+        last_wall = on["round_s"][-1]
+        check(beat["round"] == RECORDS_ROUNDS
+              and abs(beat["interval_s"] - last_wall) <= 0.25 * last_wall + 0.02,
+              f"run_records: heartbeat {beat} against the last round's {last_wall} s")
+        check(on["launches"] == RECORDS_ROUNDS, f"run_records: launches {on['launches']}")
+        off = one("records_off", RECORDS_ROUNDS, telemetry=False)
+        check(not (base / "records_off" / "telemetry.jsonl").exists(),
+              "run_records: a trace with BLADES_TELEMETRY=0")
+        check(on["syncs"] == off["syncs"], f"run_records: host syncs on {on['sites']} "
+              f"off {off['sites']}")
+        check(ledger_events() == ["started", "finished"] * 2, f"ledger {ledger_events()}")
+
+        # a graph block: captured, then replayed from the cache on and off
+        cache = EngineCache()
+        blk = dict(block_size=RECORDS_BLOCK, engine_cache=cache)
+        cold = one("block_capture", RECORDS_BLOCK, **blk)
+        graph = one("block_graph", RECORDS_BLOCK, **blk)
+        graph_off = one("block_graph_off", RECORDS_BLOCK, telemetry=False, **blk)
+        modes = [r["sim"].engine.last_block_mode for r in (cold, graph, graph_off)]
+        check(modes == ["graph"] * 3 and cache.hits == 2, f"run_records: blocks {modes}, "
+              f"cache hits {cache.hits}")
+        check(graph["syncs"] == graph_off["syncs"], f"run_records: block host syncs on "
+              f"{graph['sites']} off {graph_off['sites']}")
+        cold_tl = cold["recs"]["by_type"]["timeline"]
+        check(cold_tl[0].get("compiles", 0) >= 1 and "compiles" not in
+              graph["recs"]["by_type"]["timeline"][0],
+              f"run_records: capture counts {cold_tl} {graph['recs']['by_type']['timeline']}")
+        reason = RoundEngine.graph_block_reason
+        RoundEngine.graph_block_reason = lambda self: "eager on purpose (chip_smoke run_records)"
+        try:
+            eager = one("block_eager", RECORDS_BLOCK, block_size=RECORDS_BLOCK)
+        finally:
+            RoundEngine.graph_block_reason = reason
+        check(eager["sim"].engine.last_block_mode == "eager", "run_records: eager block")
+        differ = {}
+        for t in ("timeline", "round"):
+            a = [_strip_times(r) for r in graph["recs"]["by_type"][t]]
+            b = [_strip_times(r) for r in eager["recs"]["by_type"][t]]
+            if a != b:
+                differ[t] = {"graph": a, "eager": b}
+        check(not differ, f"run_records: graph block records differ from eager: {differ}")
+
+        # a loss that goes non-finite: the critical alert and its file
+        os.environ["BLADES_TELEMETRY"] = "1"
+        ds = Synthetic(num_clients=NAN_CLIENTS, train_size=200, test_size=40, cache=False)
+        sim = Simulator(ds, aggregator="mean", seed=0, device=fl.device,
+                        log_path=str(base / "nan"))
+        sim.run("mlp", global_rounds=3, train_batch_size=8, client_lr=NAN_CLIENT_LR,
+                validate_interval=99)
+        nan = forensics_records(base / "nan")
+        losses = [r["train_loss"] for r in nan["by_type"]["round"]]
+        fired = nan["by_type"].get("alert", [])
+        body = json.loads((base / "alert.json").read_text())
+        check(not all(map(math.isfinite, losses)) and len(fired) == 1
+              and fired[0]["rule"] == "loss_nonfinite" and fired[0]["severity"] == "critical"
+              and body["rule"] == "loss_nonfinite" and nan["errors"] == [],
+              f"run_records: nan losses {losses}, alerts {fired}, schema {nan['errors']}")
+        out = {"cct2_bf16_run_records": on["launches"],
+               "cct2_bf16_run_records_block": graph["launches"]}
+        emit({"phase": "run_records", "rounds": RECORDS_ROUNDS,
+              "round_s_records_on": on["round_s"], "round_s_records_off": off["round_s"],
+              "host_syncs_run_on": on["syncs"], "host_syncs_run_off": off["syncs"],
+              "host_sync_sites": on["sites"], "ledger": led, "heartbeat": beat,
+              "timeline": tl, "block_round_s": graph["round_s"],
+              "block_round_s_off": graph_off["round_s"], "block_eager_round_s": eager["round_s"],
+              "block_host_syncs_on": graph["syncs"], "block_host_syncs_off": graph_off["syncs"],
+              "block_timeline": graph["recs"]["by_type"]["timeline"],
+              "capture_timeline": cold_tl, "nan_losses": [repr(x) for x in losses],
+              "nan_alert": fired[0], "launches": out, "card": card})
+        del on, off, cold, graph, graph_off, eager, sim
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+    return out
+
+
+# -- defense certification (slice 10b) --------------------------------------------
+
+
+def cpu_certify(out_path: str) -> int:
+    """``--cpu-certify OUT``: the certify script's default configuration on
+    the CPU, every cell's search result and the matrix, as JSON in OUT (the
+    card phase's reference; run as a subprocess of the card run)."""
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from blades_tpu_torch.examples import certify
+
+    torch.set_num_threads(CERT_CPU_THREADS)
+    args = certify.parse_args(["--device", "cpu", "--out", str(Path(out_path).parent)])
+    t0 = time.perf_counter()
+    plans, specs = certify.enumerate_cells(args, "cpu")
+    results, walls = certify.execute_cells(args, specs)
+    matrix = certify.assemble_matrix(args, plans, specs, results, walls, "cpu")
+    with open(out_path, "w") as fh:
+        json.dump({"labels": [s.label for s in specs], "results": results, "matrix": matrix,
+                   "wall_s": time.perf_counter() - t0}, fh)
+    return 0
+
+
+def run_cpu_certify(log_root: Path) -> dict:
+    """The certify phase's CPU reference: ``--cpu-certify`` in a subprocess,
+    waited for, with nothing else running beside it; returns what it wrote."""
+    out = log_root / "certify_cpu" / "raw.json"
+    out.parent.mkdir(parents=True)
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cpu-certify",
+                           str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                          text=True, timeout=900)
+    check(proc.returncode == 0, f"the CPU certify run failed:\n{proc.stdout[-3000:]}")
+    return json.loads(out.read_text())
+
+
+def certify_expected_launches(specs, k: int, trials: int, grids: dict) -> tuple:
+    """The kernel launches a certify run must make: each trimmed-mean search
+    evaluation without a participation mask and with 1 <= b <= 16 (and
+    K - 2b > 0), and the battery's 4 defense calls (permutation and
+    translation, 2 each) of such a trimmed mean."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.ops.trimmed import MAX_KERNEL_B
+
+    per_item = (len(grids["ipm_eps"]) + len(grids["alie_z"]) + len(grids["signflip_s"]) + 6)
+    search = battery = 0
+    for spec in specs:
+        if not isinstance(spec.agg, Trimmedmean):
+            continue
+        b = spec.agg._effective_b(k)
+        if not (1 <= b <= MAX_KERNEL_B and k - 2 * b > 0):
+            continue
+        if spec.part_mask is None:
+            search += trials * per_item
+        if spec.label.startswith("battery/"):
+            battery += 4
+    return search, battery
+
+
+def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool) -> dict:
+    """One run of the certify script's ``main`` on the card in its committed
+    configuration, the matrix into ``out_dir``: its wall, kernel launches,
+    summary line, matrix, cells and results. With ``count`` it also counts
+    the host syncs (sync debug mode, which slows the host: that run's wall
+    is not the script's) and keeps every kernel launch's input, b and
+    output (``seen``)."""
+    import contextlib
+    import io
+
+    kept, seen = {}, []
+    orig_enum, orig_exec = certify.enumerate_cells, certify.execute_cells
+    orig_kernel = trimmed.trimmed_mean_cuda
+
+    def enumerate_cells(*a, **kw):
+        kept["plans"], kept["specs"] = orig_enum(*a, **kw)
+        return kept["plans"], kept["specs"]
+
+    def execute_cells(*a, **kw):
+        kept["results"], kept["walls"] = orig_exec(*a, **kw)
+        return kept["results"], kept["walls"]
+
+    def kernel(x, b):
+        out = orig_kernel(x, b)
+        seen.append((x.clone(), b, out.clone()))
+        return out
+
+    def run():
+        kept["rc"] = certify.main(["--device", str(dev), "--out", str(out_dir)])
+
+    certify.enumerate_cells, certify.execute_cells = enumerate_cells, execute_cells
+    if count:
+        trimmed.trimmed_mean_cuda = kernel
+    buf = io.StringIO()
+    sites = None
+    torch.cuda.synchronize()
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            if count:
+                sites = host_syncs(torch, run)
+            else:
+                run()
+        torch.cuda.synchronize()
+    finally:
+        certify.enumerate_cells, certify.execute_cells = orig_enum, orig_exec
+        trimmed.trimmed_mean_cuda = orig_kernel
+    wall = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    summary = json.loads(lines[-1])
+    check(kept["rc"] == 0 and summary["ok"] and len(lines) == 1,
+          f"certify on the card: rc {kept['rc']}, {lines}")
+    return dict(kept, wall=wall, launches=trimmed.trimmed_mean_launches, summary=summary,
+                matrix=json.loads((out_dir / "cert_matrix.json").read_text()), sites=sites,
+                seen=seen)
+
+
+def certify_differences(run: dict, ref: dict) -> tuple:
+    """A card run's departures from the CPU run: the matrix and async cells
+    whose verdict differs, the battery contracts whose verdict differs, and
+    the cells whose worst ratio (overall or a template's) is off CERT_TOL."""
+    import numpy as np
+
+    from blades_tpu_torch.audit import TEMPLATE_NAMES
+
+    labels = [s.label for s in run["specs"]]
+    check(labels == ref["labels"], "certify: the CPU run enumerated other cells")
+    ratios = []
+    for lab, got, want in zip(labels, run["results"], ref["results"]):
+        pairs = [("worst_ratio", got["worst_ratio"], want["worst_ratio"])]
+        pairs += [(f"{n}.worst_ratio", got["templates"][n]["worst_ratio"],
+                   want["templates"][n]["worst_ratio"]) for n in TEMPLATE_NAMES]
+        ratios += [{"cell": lab, "field": t, "card": a, "cpu": b}
+                   for t, a, b in pairs if not np.isclose(a, b, **CERT_TOL)]
+    matrix, ref_matrix = run["matrix"], ref["matrix"]
+    rows = {(r["agg"], r["f"], r.get("scenario")): r["certified"]
+            for r in matrix["cells"] + matrix["async_cells"]}
+    ref_rows = {(r["agg"], r["f"], r.get("scenario")): r["certified"]
+                for r in ref_matrix["cells"] + ref_matrix["async_cells"]}
+    verdicts = [list(key) for key in rows if rows[key] != ref_rows.get(key)]
+    battery = [[n, c] for n, e in matrix["battery"].items() for c, r in e["contracts"].items()
+               if r["ok"] != ref_matrix["battery"][n]["contracts"][c]["ok"]]
+    return verdicts, battery, ratios
+
+
+def certify_kernel_shapes(torch, trimmed, seen: list, card: str) -> tuple:
+    """Every kernel launch of a certify run held against the plain version
+    on its own input (the search's attacked [8, 32] matrices and the
+    battery's), grouped by [K, D, b]; then each shape's kernel timed on its
+    first input beside its bound, the plain version and torch.sort + slice
+    + mean. Returns ``{(k, d, b): timings}`` and the largest error."""
+    groups = {}
+    for x, b, out in seen:
+        groups.setdefault((*x.shape, b), []).append((x, out))
+    shapes, max_err = {}, 0.0
+    for (k, d, b), items in sorted(groups.items()):
+        xs = torch.stack([x for x, _ in items])  # [N, K, D]
+        got = torch.stack([out for _, out in items])
+        ref = trimmed.trimmed_mean_plain(xs.transpose(0, 1).reshape(k, -1), b).reshape(-1, d)
+        err = float((got - ref).abs().max())
+        ok = bool(torch.allclose(got, ref, **TOL))
+        x = items[0][0]
+        kern = time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20)
+        plain = time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=20)
+        lib = time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=20)
+        bnd, by = bound_ms(k, d)
+        shapes[(k, d, b)] = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd,
+                                 bound_by=by)
+        emit({"phase": "certify_kernel", "shape_kdb": [k, d, b], "launches_compared": len(items),
+              "max_abs_err": err, "ok": ok, **shapes[(k, d, b)], "card": card})
+        check(ok, f"certify: the kernel at [{k}, {d}], b={b} differs from its plain version "
+              f"by {err} on the search's own inputs")
+        max_err = max(max_err, err)
+    return shapes, max_err
+
+
+def phase_certify(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """The certify script (``blades_tpu_torch/examples/certify.py``) on the
+    card through its ``main``, in its committed configuration, the matrix
+    into the run's temporary directory, against the same run on the CPU
+    (a subprocess, run to its end first): ``ok`` (the headline expectations
+    hold), every cell's verdict equal to the CPU run's and its worst ratio
+    at CERT_TOL (each template's too), every battery verdict equal, and the
+    kernel's launches equal to the trimmed-mean evaluations the plan makes
+    with 1 <= b <= 16 and no mask. The timed run is alone on the machine
+    with the sync debug mode off; a second run counts its host syncs and
+    keeps every launch's input, and each launch is then held against the
+    plain version (``certify_kernel_shapes``). Returns the timed run's
+    launches, the timings at each [K, D, b] and the kernel's largest
+    error."""
+    from blades_tpu_torch.audit import DEFAULT_GRIDS
+    from blades_tpu_torch.examples import certify
+
+    ref = run_cpu_certify(log_root)
+    timed = certify_on_card(torch, trimmed, certify, dev, log_root / "certify", count=False)
+    counted = certify_on_card(torch, trimmed, certify, dev, log_root / "certify_counted",
+                              count=True)
+    args = certify.parse_args([])
+    search, battery = certify_expected_launches(timed["specs"], args.clients, args.trials,
+                                                DEFAULT_GRIDS)
+    for name, run in (("timed", timed), ("counted", counted)):
+        check(run["launches"] == search + battery, f"certify ({name} run): {run['launches']} "
+              f"launches, the plan makes {search} + {battery}")
+    check(len(counted["seen"]) == counted["launches"], "certify: a launch was not kept")
+    differ = {name: certify_differences(run, ref) for name, run in (("timed", timed),
+                                                                    ("counted", counted))}
+    sites = counted["sites"]
+    n_cells = len(timed["specs"])
+    summary = timed["summary"]
+    emit({"phase": "certify", "ok": summary["ok"], "cells": n_cells,
+          "matrix_cells": summary["cells"], "async_cells": summary["async_cells"],
+          "certified_cells": summary["certified_cells"], "wall_s": timed["wall"],
+          "wall_s_per_cell": timed["wall"] / n_cells, "search_s": sum(timed["walls"]),
+          "wall_s_counted_run": counted["wall"],
+          "host_syncs": sum(sites.values()), "host_syncs_per_cell": sum(sites.values()) / n_cells,
+          "host_sync_sites": dict(sorted(sites.items(), key=lambda kv: -kv[1])[:12]),
+          "launches": timed["launches"], "launches_planned_search": search,
+          "launches_planned_battery": battery, "cpu_wall_s": ref["wall_s"],
+          "cpu_threads": CERT_CPU_THREADS,
+          **{f"{what}_differ_{name}": d[i][:20] for name, d in differ.items()
+             for i, what in enumerate(("verdicts", "battery", "ratios"))},
+          "card": card})
+    for name, (verdicts, battery_differ, ratios) in differ.items():
+        check(not verdicts and not battery_differ, f"certify ({name} run): verdicts differ "
+              f"from the CPU run: {verdicts} {battery_differ}")
+        check(not ratios, f"certify ({name} run): ratios differ from the CPU run at "
+              f"{CERT_TOL}: {ratios[:10]}")
+    shapes, err = certify_kernel_shapes(torch, trimmed, counted["seen"], card)
+    return timed["launches"], shapes, err
+
+
+def phase_certify_scale(torch, trimmed, dev, card: str) -> tuple:
+    """One search cell each of CERT_SCALE_CELLS at K=100 and D = 283,723
+    (CERT_SCALE_TRIALS trials, the default grids, sync): wall, peak memory,
+    host syncs and kernel launches each (trimmed mean at f=10 launches the
+    kernel once per evaluation, at f=20 it sorts). Then the kernel at that
+    shape, b=10, on an ALIE-attacked trial matrix against its plain
+    version, and timed beside its bound and torch.sort + slice + mean.
+    Returns the f=10 cell's launches, the timings and the kernel's error."""
+    from blades_tpu_torch.audit import (
+        DEFAULT_GRIDS,
+        battery_ctx,
+        search_cell,
+        synthetic_honest,
+    )
+    from blades_tpu_torch.audit.attack_search import alie_rows
+    from blades_tpu_torch.examples.certify import build_aggregator
+
+    k, d, b = CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B
+    g = DEFAULT_GRIDS
+    per_item = len(g["ipm_eps"]) + len(g["alie_z"]) + len(g["signflip_s"]) + 6
+    trials = synthetic_honest(torch.Generator(device=dev).manual_seed(0), CERT_SCALE_TRIALS,
+                              k, d, device=dev)
+    ctx = battery_ctx(None, k, d, device=dev)
+    kernel_launches = None
+    for name, f in CERT_SCALE_CELLS:
+        agg = build_aggregator(name, k, f)
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trimmed.trimmed_mean_launches = 0
+        res = {}
+        # the first call counts host syncs (sync debug mode slows the host)
+        # and the peak memory, the second is timed alone
+        sites = host_syncs(torch, lambda: res.update(search_cell(agg, trials, f, ctx=ctx,
+                                                                 grids=g)))
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = trimmed.trimmed_mean_launches
+        t0 = time.perf_counter()
+        search_cell(agg, trials, f, ctx=ctx, grids=g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kernel = name == "trimmedmean" and 1 <= agg._effective_b(k) <= 16
+        expect = CERT_SCALE_TRIALS * per_item if kernel else 0
+        emit({"phase": "certify_scale", "cell": f"{name}/f{f}", "k": k, "d": d,
+              "trials": CERT_SCALE_TRIALS, "wall_s": wall,
+              "evaluations": CERT_SCALE_TRIALS * per_item, "peak_extra_bytes": peak,
+              "host_syncs": sum(sites.values()), "host_sync_sites": sites,
+              "launches": launches, "worst_ratio": res["worst_ratio"],
+              "templates": {t: v["worst_ratio"] for t, v in res["templates"].items()},
+              "rho": res["rho"], "card": card})
+        check(launches == expect and trimmed.trimmed_mean_launches == 2 * expect,
+              f"certify_scale {name}/f{f}: {launches} launches, then "
+              f"{trimmed.trimmed_mean_launches - launches}, expected {expect} each")
+        check(math.isfinite(res["worst_ratio"]) and res["rho"] > 0,
+              f"certify_scale {name}/f{f}: {res}")
+        if kernel:
+            kernel_launches = launches
+    # the kernel at this shape, on an attacked trial matrix
+    byz = torch.arange(k, device=dev) < b
+    x = alie_rows(trials[0], byz, torch.tensor(1.0, device=dev)).contiguous()
+    del trials
+    got = trimmed.trimmed_mean_cuda(x, b)
+    ref = trimmed.trimmed_mean_plain(x, b)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    ok = bool(torch.allclose(got, ref, **TOL))
+    kern = time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20)
+    plain = time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=3, warmup=1)
+    lib = time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=5, warmup=1)
+    bnd, by = bound_ms(k, d)
+    timings = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    emit({"phase": "certify_scale_kernel", "shape_kdb": [k, d, b], "max_abs_err": err,
+          "ok": ok, **timings, "share_of_bound": bnd / kern, "card": card})
+    check(ok, f"certify_scale: kernel and plain version differ by {err}")
+    return kernel_launches, timings, err
+
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -3887,7 +4401,16 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--compare-with", type=Path, default=None,
                         help="another trimmed_mean.cu to time in turns with this one")
+    parser.add_argument("--cpu-certify", default=None, metavar="OUT",
+                        help="(the certify phase's CPU reference, run as a subprocess)")
+    parser.add_argument("--certify-only", action="store_true",
+                        help="build the kernel, run only the certify_scale and certify "
+                             "phases and print no result line")
     args = parser.parse_args()
+    if args.cpu_certify:
+        return cpu_certify(args.cpu_certify)
+    import os
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3895,6 +4418,9 @@ def main() -> int:
               "needs an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    # no run of this script may append to a ledger outside its temporary
+    # directory (below): until then the ledger is off
+    os.environ["BLADES_LEDGER"] = "0"
     from blades_tpu_torch.ops import _build, trimmed
 
     dev = torch.device("cuda")
@@ -3918,9 +4444,16 @@ def main() -> int:
           "ptxas": re.findall(r"(?:Compiling entry function|Used \d+ registers|"
                               r"\d+ bytes stack frame)[^\n]*", built.log)})
 
+    if args.certify_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            phase_certify_scale(torch, trimmed, dev, card)
+            phase_certify(torch, trimmed, dev, card, Path(tmp))
+        return 0
     max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+        os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
         launches = {}
         launches["mlp_k1000"], sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
         phase_profile(torch, trimmed, sim, card, other)
@@ -3987,6 +4520,12 @@ def main() -> int:
             stream_forensics = phase_stream_forensics(torch, trimmed, fl, card, Path(tmp))
             launches["cct2_bf16_forensics_dense_median_fallback"] = stream_forensics["dense"]
             stream_launches["stream_forensics"] = stream_forensics["stream"]
+            # the run's own records (slice 10b): the ledger, alerts, timeline
+            # and heartbeat on the main path, eager and in a graph block
+            records = phase_run_records(torch, trimmed, fl, card, Path(tmp))
+            launches["cct2_bf16_run_records"] = records["cct2_bf16_run_records"]
+            graph_launches["cct2_bf16_run_records_block"] = records[
+                "cct2_bf16_run_records_block"]
             # real data from files and resume: the CIFAR-10 round (kernel
             # once a round, eager and in a graph block), the MNIST MLP and
             # the mini example, then checkpoint and resume under faults
@@ -4027,10 +4566,16 @@ def main() -> int:
         phase_fault_card_vs_cpu(torch, *fault_sample, dev)
         phase_stream_card_vs_cpu(torch, *fault_sample, dev)
         phase_async_card_vs_cpu(torch, dev)
+        # defense certification (slice 10b): the scale cells, then the
+        # certify script on the CPU and on the card, one after the other
+        launches["certify_scale"], cert_timings, cert_err = phase_certify_scale(
+            torch, trimmed, dev, card)
+        launches["certify"], search_shapes, search_err = phase_certify(
+            torch, trimmed, dev, card, Path(tmp))
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
-    max_err = max(max_err, resnet_err)
+    max_err = max(max_err, resnet_err, cert_err, search_err)
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
     check(async_launches["async_static"] > 0 and not any(
@@ -4038,17 +4583,20 @@ def main() -> int:
         f"async launches: {async_launches}")
 
     # the main paths are the CCT-2 round, under ALIE in f32 and bf16 and
-    # under each catalog attack in bf16, and this slice's ResNet-18 round
-    # under ALIE + trimmed mean: their launches, and the kernel timed at
-    # CCT-2's [K, D, b] (the top-level times) and at each path's shape
-    shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings}
+    # under each catalog attack in bf16, the ResNet-18 round under ALIE +
+    # trimmed mean, and this slice's certification sweep and scale cell:
+    # their launches, and the kernel timed at CCT-2's [K, D, b] (the
+    # top-level times) and at each path's shape
+    cert_shape = (CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B)
+    shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings,
+              cert_shape: cert_timings, **search_shapes}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
-                        if path.startswith(("cct2", "resnet18"))),
+                        if path.startswith(("cct2", "resnet18", "certify"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,
@@ -4070,6 +4618,10 @@ def main() -> int:
         # the forensics path (slice 10a): the defense and the audit's
         # fallback, 2 a round, eager and replayed
         "launches_under_forensics": forensics,
+        # the certification paths (slice 10b): every unmasked trimmed-mean
+        # evaluation of the search with 1 <= b <= 16 ("certify", K=8, and
+        # "certify_scale", K=100 at b=10) and the battery's contract calls;
+        # by_shape holds the kernel at each of their [K, D, b]
         "shape_kdb": list(CCT2_SHAPE),
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],

@@ -255,3 +255,72 @@ def test_baseline_models_are_covered_and_a_resnet_round_loads_no_jax(tmp_path):
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_certification_and_run_record_modules_are_covered_and_load_no_jax(tmp_path):
+    """The certification path (``audit/attack_search.py``,
+    ``audit/contracts.py``, ``sweeps/``, ``examples/certify.py``) and the
+    run's records (``telemetry/ledger.py``, ``alerts.py``, ``timeline.py``,
+    ``supervision/``) are among the checked sources, and a quick
+    certification plus a Simulator run with the ledger, alerts and the
+    heartbeat on leave no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("audit/attack_search.py", "audit/contracts.py", "sweeps/__init__.py",
+                "examples/certify.py", "telemetry/ledger.py", "telemetry/alerts.py",
+                "telemetry/timeline.py", "supervision/__init__.py",
+                "supervision/heartbeat.py"):
+        assert pkg / rel in files
+    code = (
+        "import json, os, sys\n"
+        "os.environ['BLADES_LEDGER'] = 'ledger.jsonl'\n"
+        "os.environ['BLADES_HEARTBEAT_FILE'] = 'hb.json'\n"
+        "from blades_tpu_torch import Simulator\n"
+        "from blades_tpu_torch.datasets import Synthetic\n"
+        "from blades_tpu_torch.examples import certify\n"
+        "rc = certify.main(['--device', 'cpu', '--quick', '--clients', '6', '--dim', '8',\n"
+        "                   '--trials', '1', '--aggs', 'mean', 'trimmedmean', 'dnc',\n"
+        "                   '--out', 'cert'])\n"
+        "assert rc == 0\n"
+        "ds = Synthetic(num_clients=6, train_size=120, test_size=30, cache=False)\n"
+        "sim = Simulator(ds, attack='alie', num_byzantine=2, aggregator='trimmedmean',\n"
+        "                device='cpu', log_path='out')\n"
+        "sim.run(model='mlp', global_rounds=2, train_batch_size=4)\n"
+        "events = [json.loads(l)['event'] for l in open('ledger.jsonl')]\n"
+        "assert events == ['started', 'finished'] * 2, events\n"
+        "assert json.load(open('hb.json'))['round'] == 2\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=tmp_path, env=env,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+
+
+def test_the_ports_outputs_never_name_the_jax_packages_committed_files(tmp_path,
+                                                                      monkeypatch):
+    """With ``BLADES_LEDGER`` set the port's ledger is that file, and the
+    certify script's default output is its own directory: neither names
+    ``results/certification/cert_matrix.json`` or the checkout's
+    ``results/ledger.jsonl`` (and the ledger's default is another file)."""
+    from blades_tpu_torch.examples import certify
+    from blades_tpu_torch.telemetry import ledger
+
+    committed = {(ROOT / "results" / "certification").resolve(),
+                 (ROOT / "results" / "certification" / "cert_matrix.json").resolve(),
+                 (ROOT / "results" / "ledger.jsonl").resolve()}
+    monkeypatch.setenv(ledger.LEDGER_ENV, str(tmp_path / "ledger.jsonl"))
+    assert Path(ledger.ledger_path()).resolve() == (tmp_path / "ledger.jsonl").resolve()
+    out = Path(certify.parse_args([]).out).resolve()
+    assert out not in committed and (out / "cert_matrix.json").resolve() not in committed
+    assert out == (ROOT / "results" / "certification_torch").resolve()
+    monkeypatch.delenv(ledger.LEDGER_ENV)
+    monkeypatch.chdir(ROOT)
+    assert Path(ledger.ledger_path()).resolve() not in committed
