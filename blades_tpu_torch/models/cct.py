@@ -42,6 +42,7 @@ from blades_tpu_torch.models.common import (
 from blades_tpu_torch.ops.pytree import CONV2D, DENSE
 
 LN_EPS = 1e-6  # flax nn.LayerNorm; torch defaults to 1e-5
+NEG_INF = -1e9  # masked attention logits (blades_tpu/models/text.py:37)
 Masks = Optional[Dict[str, torch.Tensor]]
 
 
@@ -120,12 +121,20 @@ class Attention(nn.Module):
                  "proj": ((batch, n, self.proj.out_features), 1.0 - self.projection_dropout)}
         return {k: v for k, v in sites.items() if v[1] < 1.0}
 
-    def forward(self, x: torch.Tensor, noise: Masks = None, prefix: str = "") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise: Masks = None, prefix: str = "",
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``mask`` (``[B, N]`` bool, the text models): a logit whose query
+        or key is padding is filled with :data:`NEG_INF` before the softmax
+        (``blades_tpu/models/text.py:177-181``), so a row with no valid key
+        is uniform, not NaN."""
         b, n, c = x.shape
         head_dim = c // self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, N, H, Dh]
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * (head_dim**-0.5)
+        if mask is not None:
+            pair = mask[:, :, None] & mask[:, None, :]  # [B, N, N]
+            attn = torch.where(pair[:, None], attn, NEG_INF)
         rate = self.attention_dropout
         attn = dropout(attn.softmax(dim=-1), _mask(noise, prefix + "attn", rate), rate)
         out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(b, n, c)
@@ -158,9 +167,10 @@ class TransformerEncoderLayer(nn.Module):
                       "path2": ((batch,), 1.0 - self.drop_path_rate)})
         return {k: v for k, v in sites.items() if v[1] < 1.0}
 
-    def forward(self, x: torch.Tensor, noise: Masks = None, prefix: str = "") -> torch.Tensor:
+    def forward(self, x: torch.Tensor, noise: Masks = None, prefix: str = "",
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         dp, drop = self.drop_path_rate, self.dropout
-        h = self.self_attn(self.pre_norm(x), noise, prefix + "attn.")
+        h = self.self_attn(self.pre_norm(x), noise, prefix + "attn.", mask)
         x = x + drop_path(h, _mask(noise, prefix + "path1", dp), dp)
         x = self.norm1(x)
         h = F.gelu(self.linear1(x), approximate="tanh")  # flax nn.gelu's default form
@@ -249,53 +259,69 @@ class CCT(nn.Module):
     # -- the flax tree --------------------------------------------------------
 
     def jax_paths(self) -> Dict[str, Tuple[Tuple[str, ...], Tuple[int, ...]]]:
-        """torch name -> (flax path, perm). flax numbers Dense layers in
-        call order: with sequence pooling the pool is ``Dense_0`` and the
-        head ``Dense_1``, otherwise the head is ``Dense_0``."""
+        """torch name -> (flax path, perm)."""
         paths = {}
         for i, conv in enumerate(self.tokenizer.convs):
             tok = ("Tokenizer_0", f"Conv_{i}")
             paths[f"tokenizer.convs.{i}.weight"] = (tok + ("kernel",), CONV2D)
             if conv.bias is not None:
                 paths[f"tokenizer.convs.{i}.bias"] = (tok + ("bias",), ())
-        if self.class_emb is not None:
-            paths["class_emb"] = (("class_emb",), ())
-        if self.positional_emb is not None:
-            paths["positional_emb"] = (("positional_emb",), ())
-        for i in range(len(self.layers)):
-            layer, lp = f"layers.{i}", (f"TransformerEncoderLayer_{i}",)
-            paths.update(_norm_paths(f"{layer}.pre_norm", lp + ("LayerNorm_0",)))
-            paths.update(_dense_paths(f"{layer}.self_attn.qkv", lp + ("Attention_0", "Dense_0"),
-                                      bias=False))
-            paths.update(_dense_paths(f"{layer}.self_attn.proj", lp + ("Attention_0", "Dense_1")))
-            paths.update(_norm_paths(f"{layer}.norm1", lp + ("LayerNorm_1",)))
-            paths.update(_dense_paths(f"{layer}.linear1", lp + ("Dense_0",)))
-            paths.update(_dense_paths(f"{layer}.linear2", lp + ("Dense_1",)))
-        paths.update(_norm_paths("norm", ("LayerNorm_0",)))
-        head = 0
-        if self.attention_pool is not None:
-            paths.update(_dense_paths("attention_pool", ("Dense_0",)))
-            head = 1
-        paths.update(_dense_paths("fc", (f"Dense_{head}",)))
-        return paths
+        return {**paths, **encoder_paths(self, "TransformerEncoderLayer", "Attention_0")}
 
     def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
-        """flax's inits: conv kernels ``kaiming_normal`` (fan_in =
-        kh*kw*in), Dense kernels ``truncated_normal(0.02)``, the positional
-        embedding ``truncated_normal(0.2)``, LayerNorm scales 1, biases and
-        the class token 0."""
-        params = {n: torch.zeros(p.shape) for n, p in self.named_parameters()}
-        for name, m in self.named_modules():
-            w = params.get(f"{name}.weight")
-            if isinstance(m, nn.Conv2d):
-                kaiming_normal_(w, math.prod(w.shape[1:]), generator)
-            elif isinstance(m, nn.Linear):
-                trunc_normal_(w, 0.02, generator)
-            elif isinstance(m, nn.LayerNorm):
-                w.fill_(1.0)
-        if self.positional_emb is not None:
-            trunc_normal_(params["positional_emb"], 0.2, generator)
-        return params
+        return flax_init(self, generator)
+
+
+def encoder_paths(model: nn.Module, layer_name: str, attn_name: str) -> dict:
+    """The flax paths of what follows the tokenizer in a CCT or a text
+    model: the class token, the learnable positional embedding, the encoder
+    layers (``{layer_name}_{i}``, their attention ``attn_name``), the final
+    LayerNorm and the head. flax numbers Dense layers in call order: with
+    sequence pooling the pool is ``Dense_0`` and the head ``Dense_1``,
+    otherwise the head is ``Dense_0``."""
+    paths = {}
+    if model.class_emb is not None:
+        paths["class_emb"] = (("class_emb",), ())
+    if model.positional_emb is not None:
+        paths["positional_emb"] = (("positional_emb",), ())
+    for i in range(len(model.layers)):
+        layer, lp = f"layers.{i}", (f"{layer_name}_{i}",)
+        paths.update(_norm_paths(f"{layer}.pre_norm", lp + ("LayerNorm_0",)))
+        paths.update(_dense_paths(f"{layer}.self_attn.qkv", lp + (attn_name, "Dense_0"),
+                                  bias=False))
+        paths.update(_dense_paths(f"{layer}.self_attn.proj", lp + (attn_name, "Dense_1")))
+        paths.update(_norm_paths(f"{layer}.norm1", lp + ("LayerNorm_1",)))
+        paths.update(_dense_paths(f"{layer}.linear1", lp + ("Dense_0",)))
+        paths.update(_dense_paths(f"{layer}.linear2", lp + ("Dense_1",)))
+    paths.update(_norm_paths("norm", ("LayerNorm_0",)))
+    head = 0
+    if model.attention_pool is not None:
+        paths.update(_dense_paths("attention_pool", ("Dense_0",)))
+        head = 1
+    paths.update(_dense_paths("fc", (f"Dense_{head}",)))
+    return paths
+
+
+def flax_init(model: nn.Module, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """flax's inits of a CCT or a text model: conv kernels
+    ``kaiming_normal`` (fan_in = the kernel's size over its input
+    channels), Dense kernels ``truncated_normal(0.02)``, word embeddings
+    ``normal(1.0)``, the positional embedding ``truncated_normal(0.2)``,
+    LayerNorm scales 1, biases and the class token 0."""
+    params = {n: torch.zeros(p.shape) for n, p in model.named_parameters()}
+    for name, m in model.named_modules():
+        w = params.get(f"{name}.weight")
+        if isinstance(m, (nn.Conv1d, nn.Conv2d)):
+            kaiming_normal_(w, math.prod(w.shape[1:]), generator)
+        elif isinstance(m, nn.Linear):
+            trunc_normal_(w, 0.02, generator)
+        elif isinstance(m, nn.LayerNorm):
+            w.fill_(1.0)
+        elif isinstance(m, nn.Embedding):
+            w.normal_(0.0, 1.0, generator=generator)
+    if model.positional_emb is not None:
+        trunc_normal_(params["positional_emb"], 0.2, generator)
+    return params
 
 
 # -- variant factories (reference cctnets/cct.py:121-254, cvt.py, vit.py) -----

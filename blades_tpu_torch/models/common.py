@@ -91,6 +91,7 @@ def build_fns(
     module: nn.Module,
     loss: str = "crossentropy",
     compute_dtype: Optional[torch.dtype] = None,
+    pad_id: Optional[int] = None,
 ) -> ModelSpec:
     """Adapt a module that defines ``init_params(generator)`` and
     ``jax_paths()`` (its map ``torch name -> (flax path, perm)``) to the
@@ -99,7 +100,11 @@ def build_fns(
     ``compute_dtype`` (e.g. ``torch.bfloat16``): mixed precision. Float
     params and inputs are cast to it inside the loss, so the forward and
     backward run in it while the master params and the gradients (through
-    the cast) stay float32; the loss is taken in float32."""
+    the cast) stay float32; the loss is taken in float32; int token ids
+    pass uncast. ``pad_id`` (text models, ``blades_tpu/models/common.py:
+    72-73``): the loss and eval functions derive the validity mask ``x !=
+    pad_id`` from each batch and pass it to the module as ``mask``, so
+    padded positions never reach attention or pooling."""
     if loss != "crossentropy":
         raise NotImplementedError(f"loss {loss!r} (reference parity: crossentropy only)")
     sites = getattr(module, "noise_sites", lambda batch: {})
@@ -111,6 +116,8 @@ def build_fns(
 
     def forward(params, x, noise):
         kwargs = {"noise": noise} if noise else {}
+        if pad_id is not None:
+            kwargs["mask"] = x != pad_id
         return functional_call(module, {n: cast(p) for n, p in params.items()}, (cast(x),), kwargs)
 
     def train_loss_fn(params, x, y, noise=None):

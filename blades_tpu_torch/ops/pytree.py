@@ -11,10 +11,11 @@ package lays it out, so that attacks and aggregators compare row for row.
 ``ravel_pytree`` walks the flax params dict with its keys sorted at every
 level (``Dense_0/bias`` before ``Dense_0/kernel``) and flattens each leaf
 row-major in flax's layout (a Dense kernel is ``[in, out]``, a Conv kernel
-``[kh, kw, in, out]``). A :class:`FlatLayout` records that walk once per
-model: the torch name of each leaf in flat order, its torch shape, and the
-permutation that takes the flax leaf to the torch one (:data:`DENSE`,
-:data:`CONV2D`, or ``()`` where the two layouts agree).
+``[kh, kw, in, out]``, a 1-D Conv kernel ``[k, in, out]``). A
+:class:`FlatLayout` records that walk once per model: the torch name of each
+leaf in flat order, its torch shape, and the permutation that takes the flax
+leaf to the torch one (:data:`DENSE`, :data:`CONV2D`, :data:`CONV1D`, or
+``()`` where the two layouts agree, as for ``nn.Embed``'s ``[V, E]`` table).
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ Params = Dict[str, torch.Tensor]
 DENSE = (1, 0)
 #: torch OIHW ``[out, in, kh, kw]`` from flax's Conv kernel HWIO ``[kh, kw, in, out]``
 CONV2D = (3, 2, 0, 1)
+#: torch ``conv1d`` ``[out, in, k]`` from flax's 1-D Conv kernel ``[k, in, out]``
+CONV1D = (2, 1, 0)
 
 
 @dataclasses.dataclass(frozen=True)

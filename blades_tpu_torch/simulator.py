@@ -359,6 +359,9 @@ class Simulator:
         but only when its functions are stock ``build_fns`` products: a
         rebuild would drop a custom loss or eval function."""
         dtype = _torch_dtype(compute_dtype)
+        # text stores hold int32 token ids and a padding id: the model gets
+        # the mask ``x != pad_id`` (JAX: ``_build_spec``, :1221-1237)
+        pad_id = getattr(self.dataset, "pad_id", None)
         if isinstance(model, ModelSpec):
             if dtype is None:
                 return model
@@ -369,16 +372,19 @@ class Simulator:
                     "discard; build the spec with the desired compute_dtype "
                     "instead (build_fns(..., compute_dtype=...))"
                 )
-            rebuilt = build_fns(model.module, loss=loss or "crossentropy", compute_dtype=dtype)
+            rebuilt = build_fns(model.module, loss=loss or "crossentropy", compute_dtype=dtype,
+                                pad_id=pad_id)
             rebuilt.init = model.init
             return rebuilt
         if isinstance(model, str):
             # sized from the store's sample shape (its dtype may be uint8:
-            # the model sees the sampler's normalized float batches)
+            # the model sees the sampler's normalized float batches; a text
+            # store's shape is its token length)
             model = create_model(model, num_classes=self._num_classes,
                                  sample_shape=self.dataset.sample_shape)
         if isinstance(model, nn.Module):
-            return build_fns(model, loss=loss or "crossentropy", compute_dtype=dtype)
+            return build_fns(model, loss=loss or "crossentropy", compute_dtype=dtype,
+                             pad_id=pad_id)
         raise TypeError(f"model must be a registry name, an nn.Module or a ModelSpec, got {model!r}")
 
     def run(

@@ -143,6 +143,28 @@ peak memory and client chunks. Then one f32 round of ResNet-18 (K=4) and
 of WideResNet-28-10 (K=2) at full width on the card and on the CPU, and
 one client's float64 gradient on both.
 
+The text models (slice 11b) run first, after the kernel's own checks, on
+a card nothing else has used yet (their K=100 round peaks at 61 GB), on
+SyntheticText stores with a 100,000-word vocabulary and rows of 8 to 64
+tokens padded with 0 (10,000 / 2,000 rows over K=100, 32,000 over
+K=1000): ``text_cct_2`` at its registry defaults (D = 30,352,643, the word
+table 30,000,000 of it) at K=100 under ALIE f=10 and trimmed mean b=10, 3
+rounds in f32 and in bf16, the kernel once a round on [100, 30352643]
+(K*D = 3.04e9, past 2^31), held against its plain version on the f32
+round's own matrix in column slices and timed there beside the bound, the
+library call and an untied matrix of that shape; a profiled warm round of
+each dtype; 2 bf16 rounds one by one and as one captured graph block (4
+client chunks), bit for bit; the streaming round at K=1000 in 10 chunks of
+100 (sign flipping f=100, the median; the dense matrix would be 121 GB);
+each other family at full width (``text_cvt_2``, ``text_vit_2``,
+``text_transformer_2``, ``text_cct_6``, ``long_text_transformer``):
+logits and gradient on a padded batch on the card against the CPU; one
+K=6 ``text_cct_2`` round on the card against the CPU; and the pretrained
+path: a reference-named ``cct_7_3x1_32`` state dict written to a
+temporary ``BLADES_TPU_WEIGHTS`` and loaded offline through
+``create_model(..., pretrained=True)``, its logits on the card against
+the CPU.
+
 The run's own records (slice 10b), right after the forensics phases on the
 same store: 3 bf16 CCT-2 rounds at K=1000 (ALIE f=5, trimmed mean b=5)
 with the run ledger, alerts, the dispatch timeline and the heartbeat on
@@ -179,7 +201,9 @@ earlier version of ``csrc/trimmed_mean.cu``); it is built beside the
 kernel, at the same time, and timed in turns with it (other, this, this,
 other) at every timed shape, in the ``kernel_compare`` records.
 ``--certify-only`` builds the kernel and runs only the certification
-phases (about 3 minutes on the card), with no ``kernels`` or result line.
+phases (about 3 minutes on the card), with no ``kernels`` or result line;
+``--text-only`` likewise runs only the text and pretrained phases (about
+2.7 minutes with the build).
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -339,6 +363,32 @@ CERT_CPU_THREADS = 4
 CERT_SCALE_CLIENTS, CERT_SCALE_TRIALS = 100, 3
 CERT_SCALE_CELLS = (("trimmedmean", 10), ("trimmedmean", 20), ("median", 10), ("krum", 10))
 CERT_SCALE_B = 10  # the kernel's b at that shape (trimmed mean at f=10)
+# the text models (slice 11b): SyntheticText with a 100,000-word vocabulary
+# (every row of text_cct_2's word table can be drawn) and rows of 8 to 64
+# tokens; TEXT_TRAIN / TEXT_TEST rows at K=100 and TEXT_STREAM_TRAIN (32 a
+# client) at K=1000. text_cct_2 at its registry defaults (D = 30,352,643)
+# at K=100 under ALIE f=10 and trimmed mean b=10: K*D = 3.04e9, past 2^31;
+# the rounds and client chunks by dtype, the column slices of the plain
+# version's check, the graph block's rounds; the streaming round at K=1000
+# (sign flipping f=100, the median); the other families' card-vs-CPU batch
+# and its gradient bar (a ReLU input or max-pool window within rounding
+# takes the other branch on the other backend, as RESNET_ROW_REL says);
+# the K=6 card-vs-CPU round
+TEXT_VOCAB, TEXT_SEQ, TEXT_MIN_LEN = 100_000, 64, 8
+TEXT_TRAIN, TEXT_TEST, TEXT_STREAM_TRAIN = 10_000, 2_000, 32_000
+TEXT_SHAPE = (100, 30_352_643, 10)
+TEXT_ROUNDS, TEXT_KERNEL_SLICES, TEXT_BLOCK_ROUNDS = 3, 8, 2
+TEXT_CHUNKS = {"float32": 1, "bfloat16": 1}
+# the graph block's chunks: a captured round keeps its peak in the graph's
+# private pool beside the eager rounds' memory, and one chunk of 100 (48.9
+# GB eager in bf16) ran out of the card's 80 GB while capturing
+TEXT_BLOCK_CHUNKS = 4
+TEXT_STREAM_CLIENTS, TEXT_STREAM_CHUNKS, TEXT_STREAM_ROUNDS = 1000, 10, 2
+TEXT_STREAM_BYZANTINE = 100
+TEXT_FAMILIES = ("text_cvt_2", "text_vit_2", "text_transformer_2", "text_cct_6",
+                 "long_text_transformer")
+TEXT_FAMILY_BATCH, TEXT_GRAD_REL = 32, 2e-3
+TEXT_CPU_CLIENTS, TEXT_MAX_KINK_ROWS = 6, 2
 
 
 def emit(record: dict) -> None:
@@ -3874,6 +3924,404 @@ def phase_resnet_card_vs_cpu(torch, dev, card: str) -> None:
         gc.collect()
 
 
+# -- the text models and the pretrained loader (slice 11b) ----------------------
+
+
+def text_stores(torch, dev) -> dict:
+    """The text phases' SyntheticText stores on the card: TEXT_TRAIN /
+    TEXT_TEST rows over TEXT_CLIENTS clients and TEXT_STREAM_TRAIN rows over
+    TEXT_STREAM_CLIENTS (every one of the 100,000 words can be drawn; rows
+    of TEXT_MIN_LEN to TEXT_SEQ tokens, padded with 0). Emits the seconds
+    of each store's generation, split and copy to the card."""
+    from blades_tpu_torch.datasets import SyntheticText
+
+    stores, gen_s = {}, {}
+    for name, k, train in (("k100", TEXT_SHAPE[0], TEXT_TRAIN),
+                           ("k1000", TEXT_STREAM_CLIENTS, TEXT_STREAM_TRAIN)):
+        ds = SyntheticText(vocab_size=TEXT_VOCAB, seq_len=TEXT_SEQ, min_len=TEXT_MIN_LEN,
+                           train_size=train, test_size=TEXT_TEST, num_clients=k, train_bs=32,
+                           seed=0, cache=False)
+        t0 = time.perf_counter()
+        stores[name] = fl = ds.get_dls(dev)
+        torch.cuda.synchronize()
+        gen_s[name] = time.perf_counter() - t0
+        check(fl.train_x.dtype == torch.int32 and fl.pad_id == 0, f"text store {name}")
+        check(int(fl.train_counts.min()) >= 32, f"text store {name}: a client under 32 rows")
+    fl = stores["k100"]
+    emit({"phase": "text_data", "vocab": TEXT_VOCAB, "seq_len": TEXT_SEQ,
+          "min_len": TEXT_MIN_LEN, "generate_split_copy_s": gen_s,
+          "stores": {n: [s.num_clients, list(s.train_x.shape), list(s.test_x.shape)]
+                     for n, s in stores.items()},
+          "pad_share": float((fl.train_x == 0).float().mean()),
+          "distinct_tokens_k100": int(torch.unique(fl.train_x).numel())})
+    return stores
+
+
+def phase_text_round(torch, trimmed, fl, card: str, log_root: Path) -> tuple:
+    """``text_cct_2`` at its registry defaults (D = 30,352,643) at K=100,
+    ALIE f=10 and trimmed mean b=10, 1 local step of batch 32: a cold round
+    and TEXT_ROUNDS - 1 warm rounds through Simulator.run in f32 and in bf16
+    (``compute_dtype``), the kernel once a round on [100, 30352643], then
+    one warm round under torch.profiler (wall, device busy share, the
+    kernel's events against its counted launch). The f32 run's last matrix
+    is held against the plain version before that profiled round
+    (``text_kernel_check``) and timed once the run is freed
+    (``phase_text_kernel``), before the bf16 run. Returns the launches by
+    dtype, the kernel's timings and its max error."""
+    k, d, b = TEXT_SHAPE
+    launches = {}
+    for dtype in ("float32", "bfloat16"):
+        run = baseline_run(torch, trimmed, fl, log_root, f"text_round_{dtype}", "text_cct_2",
+                           TEXT_ROUNDS, TEXT_CHUNKS[dtype],
+                           None if dtype == "float32" else dtype,
+                           keep_updates=dtype == "float32", attack="alie", byzantine=b,
+                           aggregator="trimmedmean", aggregator_kws={"num_byzantine": b})
+        held = text_kernel_check(torch, trimmed, run) if dtype == "float32" else None
+        prof = profiled_block(torch, trimmed, eager_round(run["sim"]))
+        emit({"phase": "text_round", "model": "text_cct_2", "dtype": dtype, "attack": "alie",
+              "byzantine": b, "aggregator": "trimmedmean", "b": b, **baseline_record(run),
+              "profiled_wall_ms": prof["wall_ms"], "device_busy_ms": prof["dev"]["busy_ms"],
+              "device_busy_share": prof["dev"]["busy_ms"] / prof["wall_ms"],
+              "device_streams": prof["dev"]["streams"],
+              "other_top_ms": prof["dev"]["other_top_ms"][:6],
+              "profiled_kernel_events": prof["events"],
+              "profiled_counted_launches": prof["counted"],
+              "update_matrix_elements": k * d, "card": card})
+        check(run["dim"] == d and run["clients"] == k, f"text_round: [{run['clients']}, "
+              f"{run['dim']}]")
+        check(k * d > 2**31, "text_round: K*D does not pass 2^31")
+        check(run["launches"] == TEXT_ROUNDS,
+              f"text_round {dtype}: {run['launches']} launches in {TEXT_ROUNDS} rounds")
+        check(prof["counted"] == 1 and prof["events"] == 1,
+              f"text_round {dtype}: {prof['events']} profiler events, {prof['counted']} launches")
+        launches[f"text_cct2_{dtype}"] = run["launches"]
+        run.clear()  # the simulator, its engine and state
+        del run, prof
+        if held is not None:
+            timings, err = phase_text_kernel(torch, trimmed, held, card)
+            del held
+    return launches, timings, err
+
+
+def text_kernel_check(torch, trimmed, run: dict) -> dict:
+    """The kernel on the f32 text round's own [100, 30352643] matrix (K*D
+    past 2^31), b=10, held against its plain version at TOL in
+    TEXT_KERNEL_SLICES column slices beside the round's engine (the plain
+    version's masks, and the library's sort with its int64 indices, take
+    about 36 GB on the whole matrix); this launch is not counted. Returns
+    the matrix, the kernel's output and what the check found."""
+    k, d, b = TEXT_SHAPE
+    u = run["sim"].engine.last_updates
+    check(tuple(u.shape) == (k, d) and u.dtype == torch.float32 and u.is_contiguous(),
+          f"text matrix {tuple(u.shape)}")
+    got = trimmed.trimmed_mean_cuda(u, b)
+    err, bad, width = 0.0, 0, -(-d // TEXT_KERNEL_SLICES)
+    for lo in range(0, d, width):
+        ref = trimmed.trimmed_mean_plain(u[:, lo:lo + width], b)
+        err = max(err, float((got[lo:lo + width] - ref).abs().max()))
+        bad += int((~torch.isclose(got[lo:lo + width], ref, **TOL)).sum())
+        del ref
+    return dict(u=u, got=got, err=err, bad=bad,
+                # the round applied this aggregate: its norm is the round's
+                applied=math.isclose(float(torch.linalg.vector_norm(got)),
+                                     run["seen"][-1]["agg_norm"], rel_tol=1e-6),
+                ties=int((u[:b] == u[0]).all(dim=0).sum()),  # ALIE's f identical rows
+                tail=float(u[:, -1].abs().max()))  # the last column, past 2^31 flat
+
+
+def phase_text_kernel(torch, trimmed, held: dict, card: str) -> tuple:
+    """The text round's matrix alone on the card (its run freed): the
+    kernel timed on the whole [100, 30352643] beside the bound, the plain
+    version and the library call (those launches are not counted), with
+    what ``text_kernel_check`` found. Returns the timings and the max
+    error."""
+    k, d, b = TEXT_SHAPE
+    u = held.pop("u")
+    del held["got"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kern = time_ms(lambda: trimmed.trimmed_mean_cuda(u, b), reps=10)
+    plain = time_ms(lambda: trimmed.trimmed_mean_plain(u, b), reps=2, warmup=1)
+    lib = time_ms(lambda: torch.sort(u, 0)[0][b:k - b].mean(0), reps=2, warmup=1)
+    bnd, by = bound_ms(k, d)
+    timings = dict(ms=kern, plain_ms=plain, library_ms=lib, bound_ms=bnd, bound_by=by)
+    # the same shape without ties, made on the card: what ALIE's ties cost
+    g = torch.Generator(device=u.device).manual_seed(0)
+    untied = torch.randn(k, d, device=u.device, generator=g) * 1e-2
+    untied_ms = time_ms(lambda: trimmed.trimmed_mean_cuda(untied, b), reps=5)
+    got, width, untied_bad = trimmed.trimmed_mean_cuda(untied, b), -(-d // TEXT_KERNEL_SLICES), 0
+    for lo in range(0, d, width):
+        ref = trimmed.trimmed_mean_plain(untied[:, lo:lo + width], b)
+        untied_bad += int((~torch.isclose(got[lo:lo + width], ref, **TOL)).sum())
+    del untied, got, ref
+    emit({"phase": "text_kernel", "shape_kdb": [k, d, b], "elements": k * d,
+          "kernel_vs_plain_max_abs_err": held["err"], "entries_outside_tol": held["bad"],
+          "tol": TOL, "slices": TEXT_KERNEL_SLICES, "alie_tied_columns": held["ties"],
+          "last_column_max_abs": held["tail"],
+          "round_applied_this_aggregate": held["applied"], **timings,
+          "share_of_bound": bnd / kern, "untied_matrix_ms": untied_ms,
+          "untied_entries_outside_tol": untied_bad,
+          "profiler_ms": profiled_kernel_ms(torch, lambda: trimmed.trimmed_mean_cuda(u, b),
+                                            reps=5),
+          "tile_rows": trimmed.kernel_tile_rows(k), "card": card})
+    check(held["bad"] == 0, f"text_kernel: {held['bad']} entries differ from the plain version "
+          f"(max {held['err']})")
+    check(held["applied"], "text_kernel: the round applied another aggregate")
+    check(untied_bad == 0, f"text_kernel: {untied_bad} untied entries differ")
+    del u
+    gc.collect()
+    torch.cuda.empty_cache()
+    return timings, held["err"]
+
+
+def phase_text_block(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """TEXT_BLOCK_ROUNDS bf16 rounds of the text_round configuration (in
+    TEXT_BLOCK_CHUNKS client chunks) one by one and as one block
+    (``run_block``; a captured CUDA graph where ``graph_block_reason`` is
+    None), cuDNN's deterministic algorithms on,
+    held bit for bit. Should they differ, the rounds run a second time: if
+    the eager rounds differ between the two runs, the round is not
+    deterministic on the card and that is recorded; otherwise the phase
+    fails. Returns the block's launches."""
+    b = TEXT_SHAPE[2]
+    block_kw = dict(model="text_cct_2", byzantine=b, aggregator_kws={"num_byzantine": b},
+                    chunks=TEXT_BLOCK_CHUNKS, warm_block=False)
+    blocks = [engine_blocks(torch, trimmed, fl, log_root, "text_block", TEXT_BLOCK_ROUNDS,
+                            **block_kw)]
+    if blocks[0]["differs"]:
+        del blocks[0]["engine"]
+        blocks.append(engine_blocks(torch, trimmed, fl, log_root, "text_block_again",
+                                    TEXT_BLOCK_ROUNDS, **block_kw))
+    first = blocks[0]
+    eager_repeats = (None if len(blocks) == 1 else
+                     not _states_differ(torch, first["seq_state"], blocks[1]["seq_state"]))
+    rec = {"phase": "text_block", "model": "text_cct_2", "dtype": "bfloat16",
+           "client_chunks": TEXT_BLOCK_CHUNKS, "block_mode": first["mode"], "block_reason": first["reason"],
+           "block_differs": first["differs"][:10], "round_s": first["round_s"],
+           "block_s": first["block_s"], "block_launches": first["launches"],
+           "block_capture_s": first["capture_s"], "block_warmup_s": first["warmup_s"],
+           "seq_peak_bytes": first["seq_peak"], "block_peak_bytes": first["peak"],
+           "eager_rounds_repeat": eager_repeats, "card": card}
+    if eager_repeats is False:
+        rec["block_note"] = ("the eager rounds differ between two runs with cuDNN's "
+                             "deterministic algorithms: the round is not deterministic on "
+                             "the card, so the block cannot be held bit for bit")
+    emit(rec)
+    check(first["mode"] == "graph" or first["reason"],
+          f"text block ran {first['mode']} without a reason")
+    check(not first["differs"] or eager_repeats is False,
+          f"text block differs from its rounds: {first['differs'][:5]}")
+    check(first["launches"] == TEXT_BLOCK_ROUNDS,
+          f"text block: {first['launches']} launches in {TEXT_BLOCK_ROUNDS} rounds")
+    return first["launches"]
+
+
+def phase_text_stream(torch, trimmed, fl, card: str, log_root: Path) -> int:
+    """``text_cct_2`` at TEXT_STREAM_CLIENTS clients, the streaming round in
+    TEXT_STREAM_CHUNKS chunks (one [chunk, D] slab at a time: the dense
+    [1000, 30352643] matrix would be 121 GB), sign flipping f=100 and the
+    median, bf16, TEXT_STREAM_ROUNDS rounds. Returns the kernel's launches
+    (0)."""
+    run = baseline_run(torch, trimmed, fl, log_root, "text_stream", "text_cct_2",
+                       TEXT_STREAM_ROUNDS, TEXT_STREAM_CHUNKS, "bfloat16",
+                       attack="signflipping", byzantine=TEXT_STREAM_BYZANTINE,
+                       aggregator="median", streaming=True)
+    emit({"phase": "text_stream", "model": "text_cct_2", "dtype": "bfloat16",
+          "attack": "signflipping", "byzantine": TEXT_STREAM_BYZANTINE, "aggregator": "median",
+          **baseline_record(run), "dense_matrix_bytes": run["clients"] * run["dim"] * 4,
+          "card": card})
+    check(run["dim"] == TEXT_SHAPE[1], f"text_stream: D = {run['dim']}")
+    check(run["peak_update_bytes"] == run["chunk_size"] * run["dim"] * 4,
+          f"text_stream: peak_update_bytes {run['peak_update_bytes']}")
+    check(run["launches"] == 0, f"text_stream: {run['launches']} kernel launches")
+    return run["launches"]
+
+
+def _leaf_rel_l2(torch, a: dict, b: dict) -> dict:
+    """Each leaf's relative L2 distance of ``a`` from ``b``, over the
+    leaves whose norm in ``b`` is above 1e-6 of the whole gradient's (a
+    leaf whose exact gradient is 0, as the seq-pool's bias, holds rounding
+    alone on both backends)."""
+    whole = float(torch.sqrt(sum(t.double().square().sum() for t in b.values())))
+    return {n: float((a[n] - b[n]).double().norm() / b[n].double().norm())
+            for n in b if float(b[n].double().norm()) > 1e-6 * whole}
+
+
+def phase_text_families(torch, fl, dev, card: str) -> None:
+    """Each other text family at its registry defaults (100,000 words, 64
+    tokens): eval logits and the training loss's gradient (its keep-masks
+    drawn once on the CPU) on TEXT_FAMILY_BATCH padded rows of the store
+    (the first row made all padding), on the card and on the CPU from the
+    same params. Logits within ROUND_TOL; the whole gradient within a
+    relative L2 of TEXT_GRAD_REL, the largest leaf distance reported."""
+    from blades_tpu_torch.models import build_fns, create_model
+    from blades_tpu_torch.utils import rng
+
+    x = fl.test_x_raw[:TEXT_FAMILY_BATCH].cpu().clone()
+    x[0] = 0
+    y = fl.test_y[:TEXT_FAMILY_BATCH].cpu()
+    for i, name in enumerate(TEXT_FAMILIES):
+        spec = build_fns(create_model(name, num_classes=2, sample_shape=(TEXT_SEQ,)), pad_id=0)
+        params = spec.init(torch.Generator().manual_seed(40 + i))
+        masks = rng.keep_masks(spec.noise_sites(len(x)), torch.Generator().manual_seed(50 + i))
+        out = {}
+        for where in ("cpu", dev):
+            p = {n: t.to(where) for n, t in params.items()}
+            logits = spec.eval_logits_fn(p, x.to(where))
+            grads, (loss, _) = torch.func.grad_and_value(
+                lambda q: spec.train_loss_fn(q, x.to(where), y.to(where),
+                                             {n: m.to(where) for n, m in masks.items()}),
+                has_aux=True)(p)
+            out[str(where)] = (logits.detach().cpu(), {n: g.cpu() for n, g in grads.items()},
+                               float(loss))
+            del p, grads
+        (l_cpu, g_cpu, loss_cpu), (l_gpu, g_gpu, loss_gpu) = out["cpu"], out[str(dev)]
+        flat = lambda g: torch.cat([t.reshape(-1) for t in g.values()])  # noqa: E731
+        rel = float((flat(g_gpu) - flat(g_cpu)).double().norm() / flat(g_cpu).double().norm())
+        leaves = _leaf_rel_l2(torch, g_gpu, g_cpu)
+        worst = max(leaves, key=leaves.get)
+        emit({"phase": "text_families", "model": name, "dim": spec.param_count,
+              "mask_sites": list(masks), "logits_max_abs_err": float((l_gpu - l_cpu).abs().max()),
+              "logits_finite": bool(torch.isfinite(l_gpu).all()), "loss": [loss_cpu, loss_gpu],
+              "grad_rel_l2": rel, "bar": TEXT_GRAD_REL, "worst_leaf": [worst, leaves[worst]],
+              "card": card})
+        check(bool(torch.isfinite(l_gpu).all()), f"{name}: non-finite logits on the card")
+        check(torch.allclose(l_gpu, l_cpu, **ROUND_TOL), f"{name}: logits differ")
+        check(math.isclose(loss_gpu, loss_cpu, rel_tol=ROUND_TOL["rtol"]), f"{name}: loss")
+        check(rel <= TEXT_GRAD_REL, f"{name}: gradients {rel} apart")
+        del out, g_cpu, g_gpu
+        gc.collect()
+
+
+def phase_text_card_vs_cpu(torch, fl, dev, card: str) -> None:
+    """One ``text_cct_2`` round at full width and K=TEXT_CPU_CLIENTS (ALIE
+    f=2, trimmed mean b=2, 1 step of batch 32) on the card and on the CPU
+    from the same params, the same batches (the store's first clients'
+    rows) and the same keep-masks (drawn once on the CPU and handed to both
+    engines). The aggregate and the new params within ROUND_TOL; every
+    update row within ROUND_TOL but for at most TEXT_MAX_KINK_ROWS, which
+    are reported."""
+    from blades_tpu_torch.aggregators import Trimmedmean
+    from blades_tpu_torch.attackers import Alie
+    from blades_tpu_torch.core import RoundEngine
+    from blades_tpu_torch.models import build_fns, create_model
+    from blades_tpu_torch.ops.pytree import ravel
+    from blades_tpu_torch.utils import rng
+
+    k, f = TEXT_CPU_CLIENTS, 2
+    spec = build_fns(create_model("text_cct_2", num_classes=2, sample_shape=(TEXT_SEQ,)),
+                     pad_id=0)
+    params = spec.init(torch.Generator().manual_seed(61))
+    cx, cy = fl.sample_round(torch.Generator(device=fl.device).manual_seed(62), 1, 32)
+    cx, cy = cx[:k].cpu(), cy[:k].cpu()
+    masks = rng.keep_masks(spec.noise_sites(32), torch.Generator().manual_seed(63), (k,))
+    drawn = rng.keep_masks
+
+    def same_masks(sites, generator, lead=()):
+        check(list(sites) == list(masks) and tuple(lead) == (k,), f"mask sites {list(sites)}")
+        return {n: m.to(generator.device) for n, m in masks.items()}
+
+    out, secs = {}, {}
+    rng.keep_masks = same_masks
+    try:
+        for where in ("cpu", dev):
+            eng = RoundEngine(spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                              num_clients=k, num_byzantine=f,
+                              attack=Alie(num_clients=k, num_byzantine=f),
+                              aggregator=Trimmedmean(num_byzantine=f), device=where,
+                              noise_sites=spec.noise_sites)
+            t0 = time.perf_counter()
+            state, _ = eng.run_round(eng.init(params), cx.to(where), cy.to(where), 0.1, 1.0)
+            agg, _ = eng.aggregator.aggregate(eng.last_updates)  # what the round applied
+            out[str(where)] = (eng.last_updates.cpu(), agg.cpu(),
+                               ravel(state.params, spec.layout).cpu())
+            secs[str(where)] = time.perf_counter() - t0
+            del eng, state
+    finally:
+        rng.keep_masks = drawn
+    (u_cpu, a_cpu, p_cpu), (u_gpu, a_gpu, p_gpu) = out["cpu"], out[str(dev)]
+    row_ok = torch.isclose(u_gpu, u_cpu, **ROUND_TOL).all(dim=1)
+    emit({"phase": "text_card_vs_cpu", "model": "text_cct_2", "clients": k, "byzantine": f,
+          "b": f, "dim": u_cpu.shape[1], "tol": ROUND_TOL, "mask_sites": list(masks),
+          "pad_share": float((cx == 0).float().mean()),
+          "updates_max_abs_err": float((u_gpu - u_cpu).abs().max()),
+          "updates_max_abs": float(u_cpu.abs().max()),
+          "update_rows_outside_tol": torch.nonzero(~row_ok).flatten().tolist(),
+          "agg_max_abs_err": float((a_gpu - a_cpu).abs().max()),
+          "params_max_abs_err": float((p_gpu - p_cpu).abs().max()), "round_s": secs,
+          "card": card})
+    check(int((~row_ok).sum()) <= TEXT_MAX_KINK_ROWS,
+          f"{int((~row_ok).sum())} text update rows differ (allowed {TEXT_MAX_KINK_ROWS})")
+    check(torch.allclose(a_gpu, a_cpu, **ROUND_TOL), "text aggregates differ")
+    check(torch.allclose(p_gpu, p_cpu, **ROUND_TOL), "text new params differ")
+
+
+def phase_pretrained(torch, dev, card: str, weights: Path) -> None:
+    """The pretrained path with no network and no real weights: a
+    reference-named state dict of ``cct_7_3x1_32`` (the port's params from
+    a seed, through ``import_torch.to_reference_state_dict``) saved under a
+    temporary ``BLADES_TPU_WEIGHTS``, loaded with ``BLADES_TPU_OFFLINE=1``
+    through ``create_model("cct_7_3x1_32", pretrained=True)``: the loaded
+    params equal the written ones, and the card's logits equal the CPU's
+    within ROUND_TOL."""
+    import os
+
+    from blades_tpu_torch.models import build_fns, create_model
+    from blades_tpu_torch.models.import_torch import to_reference_state_dict
+    from blades_tpu_torch.models.pretrained import weights_path
+
+    saved = {k: os.environ.get(k) for k in ("BLADES_TPU_WEIGHTS", "BLADES_TPU_OFFLINE")}
+    os.environ["BLADES_TPU_WEIGHTS"], os.environ["BLADES_TPU_OFFLINE"] = str(weights), "1"
+    try:
+        source = build_fns(create_model("cct_7_3x1_32", sample_shape=(32, 32, 3))).init(
+            torch.Generator().manual_seed(71))
+        weights.mkdir(parents=True, exist_ok=True)
+        path = weights_path("cct_7_3x1_32")
+        torch.save({"state_dict": to_reference_state_dict(source)}, path)
+        t0 = time.perf_counter()
+        spec = create_model("cct_7_3x1_32", sample_shape=(32, 32, 3), pretrained=True)
+        params = spec.init(torch.Generator().manual_seed(0))
+        load_s = time.perf_counter() - t0
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    same = all(torch.equal(params[n], source[n]) for n in source)
+    x = torch.randn(8, 32, 32, 3, generator=torch.Generator().manual_seed(72))
+    on_cpu = spec.eval_logits_fn(params, x).detach()
+    on_card = spec.eval_logits_fn({n: t.to(dev) for n, t in params.items()},
+                                  x.to(dev)).detach().cpu()
+    emit({"phase": "pretrained", "model": "cct_7_3x1_32", "file_bytes": os.path.getsize(path),
+          "load_s": load_s, "params_equal_written": same, "dim": spec.param_count,
+          "logits_max_abs_err": float((on_card - on_cpu).abs().max()), "card": card})
+    check(same, "pretrained: the loaded params differ from the written checkpoint")
+    check(torch.allclose(on_card, on_cpu, **ROUND_TOL), "pretrained: card and CPU logits differ")
+
+
+def text_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
+    """The text and pretrained phases (slice 11b) in order: the stores, the
+    K=100 round and its kernel, the graph block (cuDNN deterministic), the
+    K=1000 streaming round, the other families and the round on the card
+    against the CPU, the pretrained loader. Returns the kernel's launches
+    by path, the kernel's timings at TEXT_SHAPE and its max error."""
+    stores = text_stores(torch, dev)
+    launches, timings, err = phase_text_round(torch, trimmed, stores["k100"], card, log_root)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        block = phase_text_block(torch, trimmed, stores["k100"], card, log_root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    stream = phase_text_stream(torch, trimmed, stores["k1000"], card, log_root)
+    phase_text_families(torch, stores["k100"], dev, card)
+    phase_text_card_vs_cpu(torch, stores["k100"], dev, card)
+    del stores
+    phase_pretrained(torch, dev, card, log_root / "weights")
+    return dict(launches=launches, block=block, stream=stream, timings=timings, err=err)
+
+
 # -- the run's records (slice 10b) ------------------------------------------------
 
 
@@ -4406,6 +4854,9 @@ def main() -> int:
     parser.add_argument("--certify-only", action="store_true",
                         help="build the kernel, run only the certify_scale and certify "
                              "phases and print no result line")
+    parser.add_argument("--text-only", action="store_true",
+                        help="build the kernel, run only the text and pretrained phases "
+                             "and print no result line")
     args = parser.parse_args()
     if args.cpu_certify:
         return cpu_certify(args.cpu_certify)
@@ -4450,11 +4901,23 @@ def main() -> int:
             phase_certify_scale(torch, trimmed, dev, card)
             phase_certify(torch, trimmed, dev, card, Path(tmp))
         return 0
+    if args.text_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            text_phases(torch, trimmed, dev, card, Path(tmp))
+        return 0
     max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
         os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
-        launches = {}
+        # the text models (slice 11b) first, on a card nothing else has
+        # used yet: text_cct_2 at K=100 peaks at 61 GB in one chunk, and
+        # after the later phases the allocator's cache (about 1.5 GB still
+        # held, and partly used segments) left it 0.2 GB short; the kernel
+        # once a round on [100, 30352643], eager and in a graph block; the
+        # streaming round at K=1000 never launches it
+        text = text_phases(torch, trimmed, dev, card, Path(tmp))
+        launches = dict(text["launches"])
         launches["mlp_k1000"], sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
         phase_profile(torch, trimmed, sim, card, other)
         phase_card_vs_cpu(torch, dev)
@@ -4472,7 +4935,7 @@ def main() -> int:
         fault_sample = phase_fault_aggregators(torch, trimmed, fl, card, Path(tmp))
         # the streaming round: the dense paths launch the kernel, the
         # streaming ones never do
-        stream_launches = {}
+        stream_launches = {"text_stream": text["stream"]}
         launches["cct2_bf16_stream_round_dense"], stream_launches["stream_round"] = (
             phase_stream_round(torch, trimmed, fl, card, Path(tmp)))
         stream_launches["stream_exact"] = phase_stream_exact(torch, trimmed, fl, card, Path(tmp))
@@ -4499,6 +4962,7 @@ def main() -> int:
         try:
             graph_launches, graph_events = phase_block_mlp(torch, trimmed, mlp_fl, card,
                                                            Path(tmp))
+            graph_launches["text_cct2_bf16_block"] = text["block"]
             cct2_blocks, cct2_events = phase_block_cct2(torch, trimmed, fl, card, Path(tmp))
             graph_launches.update(cct2_blocks)
             graph_events.update(cct2_events)
@@ -4575,7 +5039,7 @@ def main() -> int:
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
-    max_err = max(max_err, resnet_err, cert_err, search_err)
+    max_err = max(max_err, resnet_err, cert_err, search_err, text["err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
     check(async_launches["async_static"] > 0 and not any(
@@ -4584,19 +5048,20 @@ def main() -> int:
 
     # the main paths are the CCT-2 round, under ALIE in f32 and bf16 and
     # under each catalog attack in bf16, the ResNet-18 round under ALIE +
-    # trimmed mean, and this slice's certification sweep and scale cell:
+    # trimmed mean, the certification sweep and scale cell, and the text
+    # round (K*D past 2^31) in f32 and bf16:
     # their launches, and the kernel timed at CCT-2's [K, D, b] (the
     # top-level times) and at each path's shape
     cert_shape = (CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B)
     shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings,
-              cert_shape: cert_timings, **search_shapes}
+              cert_shape: cert_timings, TEXT_SHAPE: text["timings"], **search_shapes}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
-                        if path.startswith(("cct2", "resnet18", "certify"))),
+                        if path.startswith(("cct2", "resnet18", "certify", "text"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,

@@ -29,7 +29,6 @@ from blades_tpu_torch.telemetry import (
     Recorder,
     alerts,
     context,
-    get_recorder,
     ledger,
     set_recorder,
     timeline,
@@ -56,7 +55,10 @@ def clean_ctx(monkeypatch):
 
 @pytest.fixture(autouse=True)
 def _clean_timeline_state():
-    prev = get_recorder()
+    # each test starts with no active recorder: a recorder that an earlier
+    # Simulator run in this process left installed is flushed here, not
+    # inside the test (where it would count among the test's flushes)
+    prev = set_recorder(None)
     timeline.reset()
     yield
     timeline.reset()

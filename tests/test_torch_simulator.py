@@ -205,7 +205,9 @@ def test_unported_choices_raise(tmp_path):
                     num_byzantine=1)
     sim.register_attackers([ByzantineClient(attack=sim.attack) for _ in range(2)])
     assert sim.num_byzantine == 2 and sim.get_clients()[1].is_byzantine()
-    with pytest.raises(NotImplementedError, match="slice 11b"):
+    # the text models are ported (slice 11b) and take token rows: an image
+    # store is refused by name
+    with pytest.raises(ValueError, match="sample shape"):
         sim.run(model="text_cct_2")
     with pytest.raises(TypeError, match="unexpected keyword"):
         sim.run(model="mlp", bogus=1)
