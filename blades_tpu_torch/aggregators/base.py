@@ -124,6 +124,40 @@ class Aggregator:
             "aggregation (_masked_aggregate)"
         )
 
+    # -- S experiments at once (ExperimentBatch(mode="vmap")) --------------------
+
+    def aggregate_masked_batched(
+        self, updates: torch.Tensor, states: list, *, masks: Optional[torch.Tensor] = None,
+        ctxs: list, diagnostics: bool = False,
+    ) -> Tuple[torch.Tensor, list, Optional[list]]:
+        """S experiments' :meth:`aggregate_masked` (and, with
+        ``diagnostics``, their :meth:`diagnostics`): ``updates`` ``[S, K,
+        D]``, ``states`` and ``ctxs`` (each experiment's context: its
+        generator, its flat params) lists of S, ``masks`` ``[S, K]`` or
+        None. Returns ``([S, D] aggregates, new states, diagnostics or
+        None)``. By default each experiment runs on its row ``s``; a defense
+        with a batched form overrides this (mean, median, trimmed mean)."""
+        aggs, new_states, diags = [], [], []
+        for s, (state, ctx) in enumerate(zip(states, ctxs)):
+            mask = None if masks is None else masks[s]
+            if diagnostics:
+                agg, state, diag = self.aggregate_masked_with_diagnostics(
+                    updates[s], state, mask=mask, **ctx)
+                diags.append(diag)
+            else:
+                agg, state = self.aggregate_masked(updates[s], state, mask=mask, **ctx)
+            aggs.append(agg)
+            new_states.append(state)
+        return torch.stack(aggs), new_states, diags if diagnostics else None
+
+    def _dense_batched(self, agg, updates, states, ctxs, diagnostics):
+        """The return of :meth:`aggregate_masked_batched` for a stateless
+        defense's batched unmasked ``[S, D]`` aggregate ``agg``; the
+        diagnostics per experiment."""
+        diags = ([self.diagnostics(updates[s], st, **ctx)
+                  for s, (st, ctx) in enumerate(zip(states, ctxs))] if diagnostics else None)
+        return agg, list(states), diags
+
     # -- forensics ----------------------------------------------------------------
 
     def diagnostics(self, updates: torch.Tensor, state: Any = (), **ctx) -> dict:

@@ -26,6 +26,14 @@ class Mean(Aggregator):
     def _masked_aggregate(self, updates, state, *, mask, **ctx):
         return masked_mean(updates, mask), state
 
+    def aggregate_masked_batched(self, updates, states, *, masks=None, ctxs,
+                                 diagnostics=False):
+        """Unmasked: one row reduction of the ``[S, K, D]`` stack."""
+        if masks is not None:
+            return super().aggregate_masked_batched(updates, states, masks=masks, ctxs=ctxs,
+                                                    diagnostics=diagnostics)
+        return self._dense_batched(updates.mean(dim=1), updates, states, ctxs, diagnostics)
+
     def streaming_init(self, num_clients, num_chunks, chunk_size, dim, state=(), *,
                        device="cpu"):
         return {"sum": torch.zeros(dim, dtype=torch.float32, device=device),

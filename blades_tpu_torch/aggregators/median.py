@@ -22,12 +22,13 @@ from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.masked import masked_median
 
 
-def midpoint_median(x: torch.Tensor) -> torch.Tensor:
-    """``jnp.median(x, axis=0)``: the midpoint of the two central values
-    along dim 0; NaN where the slice holds a NaN (sorted last)."""
-    k = x.shape[0]
-    s = torch.sort(x, dim=0).values
-    return torch.where(torch.isnan(s[-1]), s[-1], (s[(k - 1) // 2] + s[k // 2]) * 0.5)
+def midpoint_median(x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+    """``jnp.median(x, axis=dim)``: the midpoint of the two central values
+    along ``dim``; NaN where the slice holds a NaN (sorted last)."""
+    k = x.shape[dim]
+    s = torch.sort(x, dim=dim).values
+    last, lo, hi = (s.select(dim, i) for i in (k - 1, (k - 1) // 2, k // 2))
+    return torch.where(torch.isnan(last), last, (lo + hi) * 0.5)
 
 
 class Median(TwoLevelStreaming, Aggregator):
@@ -36,3 +37,12 @@ class Median(TwoLevelStreaming, Aggregator):
 
     def _masked_aggregate(self, updates, state, *, mask, **ctx):
         return masked_median(updates, mask), state
+
+    def aggregate_masked_batched(self, updates, states, *, masks=None, ctxs,
+                                 diagnostics=False):
+        """Unmasked: one sort of the ``[S, K, D]`` stack along the clients."""
+        if masks is not None:
+            return super().aggregate_masked_batched(updates, states, masks=masks, ctxs=ctxs,
+                                                    diagnostics=diagnostics)
+        return self._dense_batched(midpoint_median(updates, dim=1), updates, states, ctxs,
+                                   diagnostics)

@@ -20,7 +20,7 @@ import torch
 
 from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.masked import masked_trimmed_mean
-from blades_tpu_torch.ops.trimmed import trimmed_mean
+from blades_tpu_torch.ops.trimmed import trimmed_mean, trimmed_mean_batched
 
 #: ``diagnostics`` sorts this many elements at a time (columns in slabs of
 #: ``TRIM_SLAB_ELEMS // K``), which bounds the sort's buffers
@@ -42,6 +42,17 @@ class Trimmedmean(TwoLevelStreaming, Aggregator):
 
     def aggregate(self, updates, state=(), **ctx):
         return trimmed_mean(updates, self._effective_b(updates.shape[0])), state
+
+    def aggregate_masked_batched(self, updates, states, *, masks=None, ctxs,
+                                 diagnostics=False):
+        """Unmasked: ONE launch of the kernel's batched entry for the S
+        experiments (``ops/trimmed.py:trimmed_mean_batched``); masked, per
+        experiment."""
+        if masks is not None:
+            return super().aggregate_masked_batched(updates, states, masks=masks, ctxs=ctxs,
+                                                    diagnostics=diagnostics)
+        agg = trimmed_mean_batched(updates, self._effective_b(updates.shape[1]))
+        return self._dense_batched(agg, updates, states, ctxs, diagnostics)
 
     def _masked_aggregate(self, updates, state, *, mask, **ctx):
         # b is further clamped to the participant count inside

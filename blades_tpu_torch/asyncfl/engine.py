@@ -71,19 +71,20 @@ def _rows_where(mask, new, old):
     return tree_map(pick, new, old)
 
 
-@torch.no_grad()
-def async_round(engine, state, batch, inputs, streams):
-    """One buffered-asynchronous tick (module docstring) on ``batch``
-    (``[cx, cy]``, emptied once training has consumed it), with the round's
-    0-d ``inputs`` (``core/engine.py:RoundInputs``; the tick index ``t`` is
+def async_round(engine, state, inputs, streams, steps_batch):
+    """One buffered-asynchronous tick (module docstring) as a round body
+    (``RoundEngine._round_body``: it yields its training, attack,
+    aggregation and server-step requests), with the round's 0-d ``inputs``
+    (``core/engine.py:RoundInputs``; the tick index ``t`` is
     ``inputs.round_t``, a device tensor, so that a captured tick reads the
-    tick it replays) and generators ``streams``; returns ``(new state,
-    metrics)`` as ``run_round`` does, and sets the engine's
+    tick it replays), generators ``streams`` and the batch's local steps
+    and batch size ``steps_batch``; returns ``(new state, metrics)`` as
+    ``run_round`` does, and sets the engine's
     ``last_updates`` (the matrix the server received this tick, under
     ``keep_updates``), ``last_fault_diag``, ``last_async_diag`` and the
     forensics ``last_diagnostics``, ``last_audit_diag`` and
     ``last_metric_pack``."""
-    from blades_tpu_torch.core.engine import RoundState
+    from blades_tpu_torch.core.engine import RoundState, TrainRequest
 
     cfg, astate = engine.async_config, state.async_state
     k, t, dev = engine.num_clients, inputs.round_t, engine.device
@@ -98,14 +99,12 @@ def async_round(engine, state, batch, inputs, streams):
         lag = (hist, torch.remainder(astate["version"], h))
 
     # -- 2. every client trains; the attack and the faults as in the dense round
-    updates, losses, top1s, new_client_opt = engine._train_clients(
-        state.params, state.client_opt_state, inputs.client_lr, batch,
-        streams(rng.DROPOUT), lag=lag,
-    )
+    updates, losses, top1s, new_client_opt = (yield "train", TrainRequest(
+        state.params, flat, state.client_opt_state, inputs.client_lr,
+        engine._draw_noise(streams(rng.DROPOUT), *steps_batch), lag=lag)).pop()
     updates = torch.nan_to_num(updates)
-    updates, attack_state = engine.attack.on_updates(
-        updates, engine.byz_mask, streams(rng.ATTACK), state.attack_state,
-    )
+    updates, attack_state = (yield "attack", (
+        updates, engine.byz_mask, streams(rng.ATTACK), state.attack_state)).pop()
     sent = updates
     fault_state, part_mask, fault_diag = state.fault_state, None, None
     if engine.fault_model is not None:
@@ -143,13 +142,8 @@ def async_round(engine, state, batch, inputs, streams):
         agg_mask, weights = cfg.staleness_mask_weights(tau, buf_mask)
         weighted = buf if cfg.weights_are_identity else buf * weights[:, None]
         n_agg, mask = _count(agg_mask), agg_mask
-    agg_diag = audit_diag = None
-    if engine.collect_diagnostics:
-        agg, agg_state, agg_diag = engine.aggregator.aggregate_masked_with_diagnostics(
-            weighted, state.agg_state, mask=mask, **agg_ctx)
-    else:
-        agg, agg_state = engine.aggregator.aggregate_masked(
-            weighted, state.agg_state, mask=mask, **agg_ctx)
+    audit_diag = None
+    agg, agg_state, agg_diag = (yield "aggregate", (weighted, state.agg_state, mask, agg_ctx)).pop()
     if not static_sync:
         # an empty aggregated set applies the zero update
         agg = torch.where(n_agg > 0, agg, torch.zeros_like(agg))
@@ -175,7 +169,8 @@ def async_round(engine, state, batch, inputs, streams):
                                  engine.client_chunks, engine.chunk_size)
     del weighted
 
-    params, server_opt_state = engine._server_step(state, inputs.server_lr, agg)
+    params, server_opt_state = (yield "server", (state.params, state.server_opt_state,
+                                                inputs.server_lr, agg)).pop()
     if not static_sync:
         params = _tree_where(fired, params, state.params)
         server_opt_state = _tree_where(fired, server_opt_state, state.server_opt_state)

@@ -61,3 +61,8 @@ class Alie(Attack):
         mu, std, _ = honest_stats(updates, byz_mask)
         malicious = mu - z_max * std
         return torch.where(byz_mask[:, None], malicious[None, :], updates), state
+
+    def on_updates_batched(self, updates, byz_mask, generators, states):
+        """ALIE draws nothing: one ``torch.func.vmap`` of :meth:`on_updates`
+        over the ``[S, K, D]`` stack."""
+        return torch.func.vmap(lambda u: self.on_updates(u, byz_mask)[0])(updates), list(states)

@@ -66,6 +66,17 @@ class Attack:
     ) -> Tuple[torch.Tensor, Any]:
         return updates, state
 
+    def on_updates_batched(self, updates: torch.Tensor, byz_mask: torch.Tensor,
+                           generators: list, states: list) -> Tuple[torch.Tensor, list]:
+        """S experiments' :meth:`on_updates` (``ExperimentBatch(mode="vmap")``):
+        ``updates`` ``[S, K, D]``, each experiment's generator and state.
+        By default each experiment runs on its row ``s`` with its own
+        generator (an attack that draws must, so that it draws what its own
+        round draws); an attack that draws nothing may batch it."""
+        outs = [self.on_updates(updates[s], byz_mask, g, st)
+                for s, (g, st) in enumerate(zip(generators, states))]
+        return torch.stack([u for u, _ in outs]), [st for _, st in outs]
+
     def __repr__(self) -> str:
         return type(self).__name__
 

@@ -96,11 +96,21 @@ closes after its own wait on the card (``Simulator.run``'s ``sync``).
 Sharding plans are not ported (``ROADMAP.md`` queue
 A, slice 12).
 
-``remat`` (the JAX engine's ``jax.checkpoint`` around each client's loss)
-is not ported (``ROADMAP.md`` queue A, slice 2b): ``torch.func.grad``
-refuses ``torch.utils.checkpoint`` in both its forms (saved-tensor hooks,
-and an ``autograd.Function`` without ``setup_context``). ``client_chunks``
-bounds activation memory instead.
+``remat=True`` (the JAX engine's ``jax.checkpoint`` around each client's
+loss, ``blades_tpu/core/engine.py:599-607``) wraps the same function, the
+clamped loss of one local step, in ``ops/remat.py:remat``: an
+``autograd.Function`` with ``setup_context`` and a generated vmap rule whose
+backward recomputes the forward under ``torch.func.vjp``
+(``torch.utils.checkpoint`` works under ``torch.func.grad`` in neither of
+its forms). ``client_chunks`` bounds activation memory too.
+
+Each round body (the dense round, the streaming round, the async tick) is
+a generator that yields its local training, the attack's ``on_updates``,
+the aggregation and the server step as requests
+(:meth:`RoundEngine._round_body`): :meth:`RoundEngine._round` answers one
+body's requests, and ``ExperimentBatch(mode="vmap")`` runs S bodies in
+lockstep and answers each kind of request once for the S experiments
+(``core/batched.py``).
 """
 
 from __future__ import annotations
@@ -118,6 +128,7 @@ from blades_tpu_torch.attackers.base import Attack, NoAttack
 from blades_tpu_torch.audit import AuditMonitor
 from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.ops.pytree import FlatLayout, Params, make_unraveler, ravel
+from blades_tpu_torch.ops.remat import remat as remat_fn
 from blades_tpu_torch.ops.streaming import (
     chunk_layout,
     moments_init,
@@ -314,6 +325,24 @@ class RoundSpec(NamedTuple):
     server_lr: float
 
 
+class TrainRequest(NamedTuple):
+    """A round body's request for local training (``RoundEngine._serve``):
+    every client of every chunk (``rows`` None) or the clients ``rows`` of
+    one chunk (the streaming round; ``last`` on its final chunk, after
+    which the batch is dropped). ``flat0``: the params flat; ``noise``:
+    each local step's keep-masks for all K; ``lag``: the async round's
+    ``(hist, slot)``, or None."""
+
+    params: Params
+    flat0: torch.Tensor
+    opt_state: Any
+    client_lr: torch.Tensor
+    noise: list
+    rows: Optional[slice] = None
+    lag: Optional[tuple] = None
+    last: bool = False
+
+
 class RoundEngine:
     """Runs federated rounds and evaluation on one device.
 
@@ -351,6 +380,9 @@ class RoundEngine:
     ``last_diagnostics`` / ``last_audit_diag`` / ``last_metric_pack`` (None
     when off); a block returns them stacked ``[R]``.
 
+    ``remat``: rematerialize each client's clamped loss (module
+    docstring); the results do not change.
+
     ``async_config``: an :class:`~blades_tpu_torch.asyncfl.AsyncConfig`;
     each round is then one buffered-asynchronous tick (module docstring),
     and its 10 counters are ``self.last_async_diag`` (0-d tensors).
@@ -385,6 +417,7 @@ class RoundEngine:
         collect_diagnostics: bool = False,
         audit_monitor: Optional[AuditMonitor] = None,
         round_metrics: bool = False,
+        remat: bool = False,
     ):
         if int(client_chunks) < 1:
             raise ValueError(f"client_chunks must be >= 1, got {client_chunks}")
@@ -458,8 +491,10 @@ class RoundEngine:
             # attack-induced blowups
             return torch.clamp(loss, 0.0, self.loss_clamp), aux
 
+        self.remat = bool(remat)
+        loss_fn = remat_fn(clamped_loss) if self.remat else clamped_loss
         # one client's (grads, (loss, aux)), mapped over the client axis
-        self._grad_fn = vmap(grad_and_value(clamped_loss, has_aux=True))
+        self._grad_fn = vmap(grad_and_value(loss_fn, has_aux=True))
         self._ravel_rows = vmap(lambda p: ravel(p, self.layout))
         self._unravel_rows = vmap(self.unravel)
 
@@ -567,7 +602,9 @@ class RoundEngine:
         the persistent client state (``persist=True``), else ``()`` and each
         client starts from a fresh one. ``start``: the chunk's ``[n, D]``
         flat start params (the async round's version lag), else every
-        client starts from ``params``."""
+        client starts from ``params``. No host sync and no draw: the
+        batched round (``core/batched.py``) maps it over experiments with
+        ``torch.func.vmap``."""
         ids = torch.arange(self.num_clients, device=self.device)[rows]
         byz = self.byz_mask[rows]
         if start is None:
@@ -591,36 +628,34 @@ class RoundEngine:
         return (self._ravel_rows(p) - flat0, over_steps(losses), over_steps(top1s),
                 opt_state if self.client_opt.persist else ())
 
-    def _train_clients(self, params, client_opt_state, client_lr, batch, noise_gen,
-                       lag=None):
+    def _train_clients(self, req: TrainRequest, batch):
         """Local training of all K clients, chunk by chunk: ``(updates [K,
         D], losses [K], top1s [K], client_opt_state)``, the last the
         chunks' new persistent rows concatenated (``()`` without
         ``persist``). ``batch``: the list ``[cx, cy]``, emptied once every
         chunk has trained, so that a batch nobody else holds is freed
         before the attack and the aggregation (``run_round_donated``).
-        ``lag``: ``(hist [h, D], slot [K])``, each client's start params the
-        ring row ``hist[slot]``, gathered per chunk (the async round); None
-        trains every client from ``params``."""
+        ``req.lag``: ``(hist [h, D], slot [K])``, each client's start params
+        the ring row ``hist[slot]``, gathered per chunk (the async round);
+        None trains every client from ``req.params``."""
         cx, cy = batch
-        noise = self._draw_noise(noise_gen, cx.shape[1], cx.shape[2])
-        flat0 = ravel(params, self.layout)
+        lag = req.lag
         out = []
         for rows in self._chunk_rows():
-            opt = tree_map(lambda t: t[rows], client_opt_state)
+            opt = tree_map(lambda t: t[rows], req.opt_state)
             start = None if lag is None else lag[0][lag[1][rows]]
-            out.append(self._train_chunk(params, flat0, client_lr, cx, cy, rows, noise, opt,
-                                         start))
+            out.append(self._train_chunk(req.params, req.flat0, req.client_lr, cx, cy, rows,
+                                         req.noise, opt, start))
         del cx, cy
         batch.clear()
         updates, losses, top1s = (torch.cat(parts) for parts in list(zip(*out))[:3])
         return updates, losses, top1s, self._cat_opt_states([o[3] for o in out])
 
-    def _cat_opt_states(self, states):
+    def _cat_opt_states(self, states, dim: int = 0):
         """The chunks' persistent client states, concatenated along K."""
         if not self.client_opt.persist:
             return ()
-        return tree_map(lambda *rows: torch.cat(rows), *states)
+        return tree_map(lambda *rows: torch.cat(rows, dim), *states)
 
     def _inputs(self, client_lr, server_lr, round_idx: int) -> RoundInputs:
         """The round's :class:`RoundInputs` on the engine's device: fills,
@@ -684,26 +719,69 @@ class RoundEngine:
         """The round body shared by the eager and the captured round: the
         async tick, the streaming round or the dense round, each drawing
         from ``streams`` and reading its scalars from ``inputs``."""
+        cx = batch[0]
+        body = self._round_body(state, inputs, streams, (cx.shape[1], cx.shape[2]))
+        box = None
+        try:
+            while True:
+                kind, req = body.send(box)
+                box = [self._serve(kind, req, batch)]
+                del req  # the body alone holds what it handed over (the pre-attack matrix)
+        except StopIteration as stop:
+            return stop.value
+
+    def _round_body(self, state, inputs, streams, steps_batch):
+        """The round as a generator (``core/batched.py`` drives S of them in
+        lockstep): it yields ``(kind, request)`` where it trains
+        (``"train"``, a :class:`TrainRequest`), rewrites the updates
+        (``"attack"``), aggregates (``"aggregate"``) and steps the server
+        (``"server"``), is sent what :meth:`_serve` answers in a one-item
+        list that it empties (so the driver keeps no reference to a matrix
+        the body goes on to replace), and returns
+        ``(new state, metrics)``. ``steps_batch``: the batch's local steps and
+        batch size, for the keep-masks."""
         if self.async_config is not None:
             from blades_tpu_torch.asyncfl.engine import async_round
 
-            return async_round(self, state, batch, inputs, streams)
+            return async_round(self, state, inputs, streams, steps_batch)
         if self.streaming:
-            return self._round_streaming(state, batch, inputs, streams)
-        return self._round_dense(state, batch, inputs, streams)
+            return self._round_streaming(state, inputs, streams, steps_batch)
+        return self._round_dense(state, inputs, streams, steps_batch)
 
-    def _round_dense(self, state, batch, inputs, streams):
-        """The dense round (module docstring, steps 1-6)."""
-        updates, losses, top1s, client_opt_state = self._train_clients(
-            state.params, state.client_opt_state, inputs.client_lr, batch,
-            streams(rng.DROPOUT),
-        )
+    def _serve(self, kind, req, batch):
+        """One experiment's answer to a round body's request."""
+        if kind == "train":
+            if req.rows is None:
+                return self._train_clients(req, batch)
+            out = self._train_chunk(req.params, req.flat0, req.client_lr, batch[0], batch[1],
+                                    req.rows, req.noise, req.opt_state)
+            if req.last:
+                batch.clear()
+            return out
+        if kind == "attack":
+            updates, byz, generator, attack_state = req
+            return self.attack.on_updates(updates, byz, generator, attack_state)
+        if kind == "aggregate":
+            updates, agg_state, mask, ctx = req
+            if self.collect_diagnostics:
+                return self.aggregator.aggregate_masked_with_diagnostics(
+                    updates, agg_state, mask=mask, **ctx)
+            return (*self.aggregator.aggregate_masked(updates, agg_state, mask=mask, **ctx), None)
+        if kind == "server":
+            return self._server_step(*req)
+        raise ValueError(f"unknown round request {kind!r}")
+
+    def _round_dense(self, state, inputs, streams, steps_batch):
+        """The dense round (module docstring, steps 1-6), as a round body."""
+        flat0 = ravel(state.params, self.layout)
+        updates, losses, top1s, client_opt_state = (yield "train", TrainRequest(
+            state.params, flat0, state.client_opt_state, inputs.client_lr,
+            self._draw_noise(streams(rng.DROPOUT), *steps_batch))).pop()
 
         # parity: the reference nan_to_num's every uploaded update
         updates = torch.nan_to_num(updates)
-        updates, attack_state = self.attack.on_updates(
-            updates, self.byz_mask, streams(rng.ATTACK), state.attack_state,
-        )
+        updates, attack_state = (yield "attack", (
+            updates, self.byz_mask, streams(rng.ATTACK), state.attack_state)).pop()
         # the variance metrics stay on the matrix the clients sent
         sent_updates = updates
         fault_state, part_mask, fault_diag = state.fault_state, None, None
@@ -713,17 +791,12 @@ class RoundEngine:
             )
         agg_ctx = dict(
             trusted_mask=self.trusted_mask,
-            params_flat=ravel(state.params, self.layout),
+            params_flat=flat0,
             generator=streams(rng.AGG),
         )
         # mask None: the unmasked aggregate (the trimmed mean's kernel)
-        agg_diag = None
-        if self.collect_diagnostics:
-            agg, agg_state, agg_diag = self.aggregator.aggregate_masked_with_diagnostics(
-                updates, state.agg_state, mask=part_mask, **agg_ctx)
-        else:
-            agg, agg_state = self.aggregator.aggregate_masked(
-                updates, state.agg_state, mask=part_mask, **agg_ctx)
+        agg, agg_state, agg_diag = (yield "aggregate", (updates, state.agg_state, part_mask,
+                                                       agg_ctx)).pop()
         if part_mask is not None:
             # a round with no participant applies the zero update
             agg = torch.where(part_mask.any(), agg, torch.zeros_like(agg))
@@ -737,8 +810,9 @@ class RoundEngine:
         self.last_diagnostics = agg_diag
         self.last_audit_diag = audit_diag
         self.last_metric_pack = metric_pack
-        return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
-                                  fault_state, losses, top1s, var, client_opt_state)
+        return (yield from self._finish_round(
+            state, inputs.server_lr, agg, agg_state, attack_state, fault_state, losses, top1s,
+            var, client_opt_state))
 
     def _fallback_ctx(self, agg_ctx: dict, streams: rng.RoundStreams) -> dict:
         """The audit fallback's aggregation context: the round's, with a
@@ -767,13 +841,12 @@ class RoundEngine:
                                      self.chunk_size)
         return agg, audit_diag, metric_pack
 
-    def _round_streaming(self, state, batch, inputs, streams):
-        """The streaming round (module docstring): one ``[chunk_size, D]``
-        slab at a time, in the JAX chunk body's order. Counts stay device
-        tensors; the chunk loop itself is a host loop. The batch is dropped
-        once the last chunk has trained."""
+    def _round_streaming(self, state, inputs, streams, steps_batch):
+        """The streaming round (module docstring), as a round body: one
+        ``[chunk_size, D]`` slab at a time, in the JAX chunk body's order.
+        Counts stay device tensors; the chunk loop itself is a host loop.
+        The batch is dropped once the last chunk has trained."""
         k, dev = self.num_clients, self.device
-        cx, cy = batch
         fm = self.fault_model
 
         def padded(mask):  # a [K] mask, False on the final chunk's padding
@@ -804,13 +877,14 @@ class RoundEngine:
         aud_ss = audit.streaming_init(*layout, device=dev) if audit is not None else None
         mp = pack_init(self.client_chunks, self.dim, device=dev) if self.round_metrics else None
         mp_norms, mp_masks = [], []
-        noise = self._draw_noise(streams(rng.DROPOUT), cx.shape[1], cx.shape[2])
+        noise = self._draw_noise(streams(rng.DROPOUT), *steps_batch)
         mom = moments_init(self.dim, device=dev)
         attack_state, losses, top1s, opt_states = state.attack_state, [], [], []
-        for j, rows in enumerate(self._chunk_rows()):
-            upd, loss, top1, opt = self._train_chunk(
-                state.params, flat0, inputs.client_lr, cx, cy, rows, noise,
-                tree_map(lambda t: t[rows], state.client_opt_state))
+        chunks = self._chunk_rows()
+        for j, rows in enumerate(chunks):
+            upd, loss, top1, opt = (yield "train", TrainRequest(
+                state.params, flat0, tree_map(lambda t: t[rows], state.client_opt_state),
+                inputs.client_lr, noise, rows=rows, last=j == len(chunks) - 1)).pop()
             losses.append(loss)
             top1s.append(top1)
             opt_states.append(opt)
@@ -818,9 +892,8 @@ class RoundEngine:
                 upd = torch.cat([upd, upd.new_zeros(self.chunk_size - upd.shape[0], self.dim)])
             sl = slice(j * self.chunk_size, (j + 1) * self.chunk_size)
             upd = torch.nan_to_num(upd)
-            upd, attack_state = self.attack.on_updates(
-                upd, byz[sl], streams(rng.ATTACK, chunk=j), attack_state,
-            )
+            upd, attack_state = (yield "attack", (
+                upd, byz[sl], streams(rng.ATTACK, chunk=j), attack_state)).pop()
             # the variance metrics stay on what the clients sent
             mom = moments_update(mom, upd, valid[sl])
             part = valid[sl]
@@ -848,8 +921,7 @@ class RoundEngine:
                 mp_norms.append(norms)
                 mp_masks.append(mask)
             del safe
-        del noise, cx, cy
-        batch.clear()
+        del noise
         agg, agg_state = self.aggregator.streaming_finalize(agg_ss, state.agg_state, **sctx)
         # a round with no participant applies the zero update
         agg = torch.where(n_part > 0, agg, torch.zeros_like(agg))
@@ -876,19 +948,18 @@ class RoundEngine:
         self.last_diagnostics = None
         self.last_audit_diag = audit_diag
         self.last_metric_pack = metric_pack
-        return self._finish_round(state, inputs.server_lr, agg, agg_state, attack_state,
-                                  state.fault_state, torch.cat(losses), torch.cat(top1s),
-                                  moments_var(mom), self._cat_opt_states(opt_states))
+        return (yield from self._finish_round(
+            state, inputs.server_lr, agg, agg_state, attack_state, state.fault_state,
+            torch.cat(losses), torch.cat(top1s), moments_var(mom),
+            self._cat_opt_states(opt_states)))
 
-    def _server_step(self, state, server_lr, agg):
+    def _server_step(self, params, server_opt_state, server_lr, agg):
         """``(params, server_opt_state)`` after the server step with ``agg``
         as pseudo-gradient (``grad := -agg``)."""
         server_updates, server_opt_state = self._server_tx.update(
-            self.unravel(-agg), state.server_opt_state, state.params
+            self.unravel(-agg), server_opt_state, params
         )
-        params = {
-            n: p - server_lr * server_updates[n] for n, p in state.params.items()
-        }
+        params = {n: p - server_lr * server_updates[n] for n, p in params.items()}
         return params, server_opt_state
 
     def _metrics(self, losses, top1s, var, agg) -> RoundMetrics:
@@ -905,8 +976,10 @@ class RoundEngine:
 
     def _finish_round(self, state, server_lr, agg, agg_state, attack_state, fault_state,
                       losses, top1s, var, client_opt_state):
-        """The server step, the round's metrics, and the next state."""
-        params, server_opt_state = self._server_step(state, server_lr, agg)
+        """The server step (a round body's ``"server"`` request), the round's
+        metrics, and the next state."""
+        params, server_opt_state = (yield "server", (state.params, state.server_opt_state,
+                                                    server_lr, agg)).pop()
         new_state = RoundState(
             params=params,
             server_opt_state=server_opt_state,

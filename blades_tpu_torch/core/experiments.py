@@ -13,8 +13,18 @@ engine's round: on a graph-safe CUDA engine (``RoundEngine.
 graph_block_reason``) each experiment is one replay of the engine's
 captured round (``core/graphs.py``), elsewhere an eager round. Column ``s``
 equals that experiment's own ``run_round`` / ``run_block`` bit for bit.
-``mode="vmap"`` (one batched computation over the experiment axis) is not
-ported: ``ROADMAP.md`` queue A, item 7b.
+
+``mode="vmap"`` runs one round of the S experiments as one batched round
+(``core/batched.py``, JAX ``:112-118``): local training is one
+``torch.func.vmap`` over the experiment axis a client chunk, the trimmed
+mean one launch of the kernel's batched entry for the S experiments, and
+each experiment draws from its own generators what its own round draws.
+The results equal map mode's up to the rounding of the batched
+computations, as in the JAX package. On a graph-safe CUDA engine the
+batched round is captured once and replayed (``core/graphs.py:
+BatchRoundGraph``), elsewhere it runs eagerly; ``engine.last_block_mode``
+and ``last_block_reason`` say which and why. ``run_block_batch`` is map
+mode's only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -25,6 +35,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from blades_tpu_torch.core.engine import RoundSpec, block_diags
+from blades_tpu_torch.utils import rng
 
 _MODES = ("map", "vmap")
 
@@ -72,12 +83,6 @@ class ExperimentBatch:
     def __init__(self, engine, num_experiments: int, mode: str = "map"):
         if mode not in _MODES:
             raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
-        if mode == "vmap":
-            raise NotImplementedError(
-                "ExperimentBatch(mode='vmap') is not ported to blades_tpu_torch yet "
-                "(ROADMAP.md queue A, item 7b: a vmap rule for the trimmed-mean kernel and "
-                "randomness under torch.func.vmap); mode='map' gives the same results"
-            )
         if int(num_experiments) < 1:
             raise ValueError(f"num_experiments must be >= 1, got {num_experiments}")
         self.engine = engine
@@ -119,6 +124,8 @@ class ExperimentBatch:
         c_lrs = self._per_experiment(client_lrs, "client_lrs")
         s_lrs = self._per_experiment(server_lrs, "server_lrs")
         seeds = self._per_experiment(seeds, "seeds")
+        if self.mode == "vmap":
+            return self._run_vmap(states, [cx, cy], c_lrs, s_lrs, seeds, shared_data)
         outs = []
         for i, state in enumerate(unstack_experiments(states, s)):
             batch = (cx, cy) if shared_data else (cx[i], cy[i])
@@ -139,6 +146,11 @@ class ExperimentBatch:
         metrics, diags)`` with metric and counter leaves ``[R, S]``."""
         if sampler is None:
             raise ValueError("run_block_batch needs the dataset's sampler")
+        if self.mode != "map":
+            raise ValueError(
+                "run_block_batch supports mode='map' only (the vmap schedule cannot keep "
+                "the per-experiment sampler draws bit-identical to run_block's)"
+            )
         eng = self.engine
         seeds = self._per_experiment(seeds, "seeds")
         col = lambda table, s: [row[s] for row in table]  # noqa: E731
@@ -150,6 +162,31 @@ class ExperimentBatch:
                      for i, (r, c, v) in enumerate(zip(*(col(t, s) for t in tables)))]
             outs.append(eng._run_rounds(state, specs, sampler=sampler))
         return self._collect(outs, squeeze=False)
+
+    @torch.no_grad()
+    def _run_vmap(self, states, batch, c_lrs, s_lrs, seeds, shared_data):
+        """One batched round of the S experiments (module docstring)."""
+        from blades_tpu_torch.core import batched
+
+        eng = self.engine
+        eng._check_runnable()
+        s = self.num_experiments
+        spec = batched.batch_spec(seeds, states.round_idx, c_lrs, s_lrs)
+        reason = eng.graph_block_reason()
+        if reason is None:
+            from blades_tpu_torch.core.graphs import run_batch_graph
+
+            states, outs = run_batch_graph(eng, states, spec, batch, shared_data, s)
+            outs = tree_map(lambda a: None if a is None else a[0], outs)
+            eng.last_updates = None
+        else:
+            streams = rng.StreamStack(seeds, states.round_idx, eng.device)
+            inputs = batched.batch_inputs(eng, c_lrs, s_lrs, states.round_idx)
+            states, outs = batched.run_batched(eng, states, list(batch), inputs, streams,
+                                               shared_data)
+        eng.last_block_mode = "graph" if reason is None else "eager"
+        eng.last_block_reason = reason
+        return states, outs[0], block_diags(outs)
 
     def _collect(self, outs, squeeze: bool):
         """Stack the experiments' states and their ``[R]`` outputs along S

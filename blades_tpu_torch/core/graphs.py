@@ -42,7 +42,13 @@ fallback for it.
 Launch counts: a wrapper counts its kernel where it launches it, in
 Python, and a replay runs no Python. The launches counted during the
 capture (which launches nothing) are taken back and added once per replay,
-so ``ops/trimmed.py:trimmed_mean_launches`` counts the kernel's real runs.
+so ``ops/trimmed.py:trimmed_mean_launches`` (and its batched entry's
+``trimmed_mean_batched_launches``) count the kernel's real runs.
+
+:class:`BatchRoundGraph` captures the batched round of
+``ExperimentBatch(mode="vmap")`` (``core/batched.py``) the same way: the
+stacked ``[S]`` state, ``[S]`` learning rates, one ``StreamStack`` of the S
+experiments' generators, all registered, and the batch.
 """
 
 from __future__ import annotations
@@ -185,8 +191,10 @@ class RoundGraph:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.packer: Optional[_Packer] = None
         self.out_vecs: Dict[torch.dtype, torch.Tensor] = {}
-        #: trimmed-mean launches recorded in the graph (added per replay)
+        #: trimmed-mean launches recorded in the graph (added per replay),
+        #: and the batched entry's among them
         self.kernel_launches = 0
+        self.batched_kernel_launches = 0
         #: wall seconds of the capture, and of the eager warm-up round
         self.capture_seconds: Optional[float] = None
         self.warmup_seconds: Optional[float] = None
@@ -236,7 +244,7 @@ class RoundGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.streams.generators():
             graph.register_generator_state(gen)
-        before = trimmed.trimmed_mean_launches
+        before = (trimmed.trimmed_mean_launches, trimmed.trimmed_mean_batched_launches)
         mode = torch.cuda.get_sync_debug_mode()
         # torch.cuda.graph collects garbage as it enters; none may be
         # collected during the capture (freeing another graph's memory
@@ -260,12 +268,14 @@ class RoundGraph:
         finally:
             if collecting:
                 gc.enable()
-            captured = trimmed.trimmed_mean_launches - before
-            trimmed.trimmed_mean_launches = before
+            captured = (trimmed.trimmed_mean_launches - before[0],
+                        trimmed.trimmed_mean_batched_launches - before[1])
+            trimmed.trimmed_mean_launches, trimmed.trimmed_mean_batched_launches = before
         del outs
         eng.last_updates = eng.last_fault_diag = eng.last_async_diag = None
         eng.last_diagnostics = eng.last_audit_diag = eng.last_metric_pack = None
-        self.graph, self.kernel_launches = graph, captured
+        self.graph = graph
+        self.kernel_launches, self.batched_kernel_launches = captured
         self.capture_seconds = time.perf_counter() - t0
         # the port's "compile": the timeline and the alert engine read these
         count_process("cuda.graph_captures")
@@ -287,6 +297,7 @@ class RoundGraph:
                 self.graph.replay()
                 self.replays += 1
                 trimmed.trimmed_mean_launches += self.kernel_launches
+                trimmed.trimmed_mean_batched_launches += self.batched_kernel_launches
                 vecs = self.out_vecs
             if rows is None:
                 rows = self.packer.rows(len(specs), self.device)
@@ -294,6 +305,55 @@ class RoundGraph:
                 rows[dt][i].copy_(vec)
         new_state = _clone_state(self.state)._replace(round_idx=specs[-1].round_idx + 1)
         return new_state, self.packer.unpack(rows)
+
+
+class BatchRoundGraph(RoundGraph):
+    """The batched round of S experiments (``core/batched.py:run_batched``)
+    captured once and replayed: ``shared`` says whether the static batch is
+    one ``[K, ...]`` draw or ``[S, K, ...]`` stacks. Each spec of
+    :meth:`run` is a ``core/batched.py:BatchSpec``."""
+
+    def __init__(self, engine, state, key, batch, shared: bool, num_experiments: int):
+        from blades_tpu_torch.core.batched import batch_inputs
+
+        super().__init__(engine, state, key, batch=batch)
+        n = int(num_experiments)
+        self.shared = bool(shared)
+        self.streams = rng.StreamStack([0] * n, 0, engine.device)
+        self.inputs = batch_inputs(engine, [0.0] * n, [0.0] * n, 0)
+
+    def _body(self, eng):
+        from blades_tpu_torch.core.batched import run_batched
+
+        new_state, outs = run_batched(eng, self.state, list(self.batch), self.inputs,
+                                      self.streams, self.shared)
+        write_back(self.state, new_state)
+        return outs
+
+    def _set_inputs(self, spec, batch) -> None:
+        specs = spec.specs
+        self.streams.reseed([sp.seed for sp in specs], spec.round_idx, specs[0].data_round)
+        for dst, name in ((self.inputs.client_lr, "client_lr"),
+                          (self.inputs.server_lr, "server_lr")):
+            dst.copy_(torch.tensor([getattr(sp, name) for sp in specs], dtype=torch.float32))
+        self.inputs.round_t.fill_(spec.round_idx)
+        for dst, src in zip(self.batch, batch):
+            dst.copy_(src)
+
+
+def run_batch_graph(engine, state, spec, batch, shared: bool, num_experiments: int):
+    """``ExperimentBatch(mode="vmap")``'s round on the card: the engine's
+    :class:`BatchRoundGraph` (its one graph, ``engine.last_graph``, as
+    :func:`run_graph` keeps it) run once on ``spec``."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("a CUDA graph needs the card")
+    key = ("vmap", int(num_experiments), bool(shared)) + graph_key(engine, state, batch=batch)
+    graph = engine.last_graph
+    if graph is None or graph.key != key:
+        engine.last_graph = graph = None
+        engine.last_graph = graph = BatchRoundGraph(engine, state, key, batch, shared,
+                                                    num_experiments)
+    return graph.run(engine, state, [spec], [batch])
 
 
 def graph_key(engine, state, sampler=None, batch=None) -> tuple:

@@ -72,6 +72,7 @@ constexpr int kPitch = kCols + 1;       // tile row pitch, floats: a column walk
 constexpr int kCap = 32;                // entries of a candidate list: one a lane
 constexpr int kStreamRows = 960;        // rows of a chunk when K exceeds kMaxTileRows
 constexpr int kMaxSmem = 227 * 1024;    // static + dynamic shared memory of a block
+constexpr int64_t kMaxExperiments = 65535;  // the grid's y extent
 constexpr int kStaticSmem = kWarps * kSlots * 2 * kCap * (sizeof(float) + sizeof(int));
 constexpr int kMaxTileRows = (kMaxSmem - kStaticSmem) / (kPitch * sizeof(float));
 constexpr unsigned kFull = 0xffffffffu;
@@ -269,6 +270,10 @@ __global__ void __launch_bounds__(kThreads, 3)  // three tiles of K=1000 share a
     trimmed_mean_kernel(const float* __restrict__ x, float* __restrict__ out, int K, int64_t D,
                         int R) {
   extern __shared__ float tile_smem[];
+  // experiment blockIdx.y of a batched launch: its [K, D] slab and [D] output
+  // (64-bit offsets: S*K*D passes 2^31 well before one slab does)
+  x += static_cast<int64_t>(blockIdx.y) * K * D;
+  out += static_cast<int64_t>(blockIdx.y) * D;
   // candidate lists of each column: [0] top, [1] bottom
   __shared__ float cand_v[kWarps][kSlots][2][kCap];
   __shared__ int cand_r[kWarps][kSlots][2][kCap];
@@ -450,36 +455,43 @@ cudaError_t configure() {
   return e;
 }
 
+// n experiments' [K, d] slabs, back to back: the grid's y axis is the
+// experiment, its x axis the column tiles of one slab.
 template <int B>
-cudaError_t launch(const float* x, float* out, int K, int64_t d, cudaStream_t s) {
+cudaError_t launch(const float* x, float* out, int K, int64_t d, unsigned n, cudaStream_t s) {
   const cudaError_t e = configure<B>();
   if (e != cudaSuccess) return e;
   const int R = K <= kMaxTileRows ? K : kStreamRows;
   const size_t smem = static_cast<size_t>(R) * kPitch * sizeof(float);
-  const dim3 grid(static_cast<unsigned>((d + kCols - 1) / kCols));
+  const dim3 grid(static_cast<unsigned>((d + kCols - 1) / kCols), n);
   trimmed_mean_kernel<B><<<grid, kThreads, smem, s>>>(x, out, K, d, R);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// C interface, bound with ctypes (blades_tpu_torch/ops/trimmed.py). Launches
-// on `stream`, does not synchronise, and returns the cudaError_t of the
-// launch (0 on success); an unsupported b returns cudaErrorInvalidValue
-// without launching.
-extern "C" int blades_trimmed_mean_f32(const float* x, float* out, int64_t k, int64_t d, int b,
-                                       void* stream) {
+// C interface, bound with ctypes (blades_tpu_torch/ops/trimmed.py). Each
+// entry launches on `stream`, does not synchronise, and returns the
+// cudaError_t of the launch (0 on success); an unsupported b or shape returns
+// cudaErrorInvalidValue without launching.
+//
+// The batched entry: n experiments' contiguous [k, d] slabs at x + i*k*d, one
+// [d] result each at out + i*d, in ONE launch; each column of each slab is
+// computed as the single entry computes it.
+extern "C" int blades_trimmed_mean_batched_f32(const float* x, float* out, int64_t n, int64_t k,
+                                               int64_t d, int b, void* stream) {
   if (k <= 2 * static_cast<int64_t>(b) || k > INT32_MAX || d < 0 ||
-      (d + kCols - 1) / kCols > INT32_MAX) {
+      (d + kCols - 1) / kCols > INT32_MAX || n < 1 || n > kMaxExperiments) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (d == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int K = static_cast<int>(k);
+  const unsigned n32 = static_cast<unsigned>(n);
   switch (b) {
 #define BLADES_TM_CASE(N) \
   case N:                 \
-    return static_cast<int>(launch<N>(x, out, K, d, s));
+    return static_cast<int>(launch<N>(x, out, K, d, n32, s));
     BLADES_TM_CASE(1)
     BLADES_TM_CASE(2)
     BLADES_TM_CASE(3)
@@ -500,6 +512,12 @@ extern "C" int blades_trimmed_mean_f32(const float* x, float* out, int64_t k, in
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The single entry: one [k, d] matrix, the batched entry with n = 1.
+extern "C" int blades_trimmed_mean_f32(const float* x, float* out, int64_t k, int64_t d, int b,
+                                       void* stream) {
+  return blades_trimmed_mean_batched_f32(x, out, 1, k, d, b, stream);
 }
 
 // The rows a block keeps in shared memory at once: K when the whole column

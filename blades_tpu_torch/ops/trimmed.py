@@ -22,6 +22,22 @@ Counterpart: ``blades_tpu/ops/pallas_trimmed.py`` — the Pallas TPU kernel
   and chunks of a larger K streamed through it, so it takes any K. There is
   no compile probe and no switch to turn the kernel off: on a CUDA tensor
   the kernel runs or the call raises.
+
+The batch over S experiments (``ExperimentBatch(mode="vmap")``; JAX's
+``jax.vmap`` of the ``pallas_call`` adds a grid axis):
+
+- :func:`trimmed_mean_batched_plain` is :func:`trimmed_mean_plain` per
+  experiment of an ``[S, K, D]`` stack, stacked;
+- :func:`trimmed_mean_batched_cuda` makes ONE launch of the kernel's
+  batched entry (``blades_trimmed_mean_batched_f32``: the grid's y axis is
+  the experiment) over the contiguous stack, counted once in
+  :data:`trimmed_mean_launches` and once in
+  :data:`trimmed_mean_batched_launches`;
+- :func:`trimmed_mean_batched` dispatches as :func:`trimmed_mean` does;
+- the kernel route of :func:`trimmed_mean` goes through the custom op
+  ``blades::trimmed_mean``, whose vmap rule sends an ``[S, K, D]`` batch
+  to :func:`trimmed_mean_batched`, so ``torch.func.vmap(trimmed_mean)``
+  is one launch too.
 """
 
 from __future__ import annotations
@@ -38,9 +54,16 @@ from blades_tpu_torch.ops import _build
 #: ``pallas_trimmed._MAX_UNROLL_B``)
 MAX_KERNEL_B = 16
 
+#: experiments of one batched launch (the grid's y extent)
+MAX_BATCH = 65535
+
 #: launches of the CUDA kernel in this process: incremented by
-#: :func:`trimmed_mean_cuda` where it launches, and nowhere else
+#: :func:`trimmed_mean_cuda` and :func:`trimmed_mean_batched_cuda` where they
+#: launch it, and nowhere else
 trimmed_mean_launches = 0
+
+#: the batched entry's launches among them (one per :func:`trimmed_mean_batched_cuda`)
+trimmed_mean_batched_launches = 0
 
 
 def trimmed_mean_plain(updates: torch.Tensor, b: int) -> torch.Tensor:
@@ -58,13 +81,23 @@ def trimmed_mean_plain(updates: torch.Tensor, b: int) -> torch.Tensor:
     return torch.where(removed, 0.0, x).sum(dim=0) / (k - 2 * b)
 
 
-def _check_kernel_args(updates: torch.Tensor, b: int) -> None:
-    if updates.dim() != 2 or not updates.is_contiguous():
+def trimmed_mean_batched_plain(updates: torch.Tensor, b: int) -> torch.Tensor:
+    """:func:`trimmed_mean_plain` of each ``[K, D]`` slab of an ``[S, K, D]``
+    stack: ``[S, D]``."""
+    return torch.stack([trimmed_mean_plain(u, b) for u in updates])
+
+
+def _check_kernel_args(updates: torch.Tensor, b: int, batched: bool = False) -> None:
+    name, dims, what = (("trimmed_mean_batched_cuda", 3, "[S, K, D] stack") if batched
+                        else ("trimmed_mean_cuda", 2, "[K, D] matrix"))
+    if updates.dim() != dims or not updates.is_contiguous():
         raise ValueError(
-            f"trimmed_mean_cuda takes a contiguous [K, D] matrix, got shape "
+            f"{name} takes a contiguous {what}, got shape "
             f"{tuple(updates.shape)} (contiguous={updates.is_contiguous()})"
         )
-    k = updates.shape[0]
+    if batched and not 1 <= updates.shape[0] <= MAX_BATCH:
+        raise ValueError(f"{name} takes 1 to {MAX_BATCH} experiments, got {updates.shape[0]}")
+    k = updates.shape[-2]
     if not 1 <= b <= MAX_KERNEL_B or 2 * b >= k:
         raise ValueError(
             f"trimmed_mean_cuda needs 1 <= b <= {MAX_KERNEL_B} and 2b < K; "
@@ -85,6 +118,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_void_p,
     ]
     lib.blades_trimmed_mean_f32.restype = ctypes.c_int
+    lib.blades_trimmed_mean_batched_f32.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    lib.blades_trimmed_mean_batched_f32.restype = ctypes.c_int
     lib.blades_trimmed_mean_tile_rows.argtypes = [ctypes.c_int64]
     lib.blades_trimmed_mean_tile_rows.restype = ctypes.c_int
     return lib
@@ -116,16 +154,83 @@ def trimmed_mean_cuda(updates: torch.Tensor, b: int) -> torch.Tensor:
     return out
 
 
+def trimmed_mean_batched_cuda(updates: torch.Tensor, b: int) -> torch.Tensor:
+    """ONE launch of the kernel's batched entry over an ``[S, K, D]`` stack
+    on PyTorch's current stream: ``[S, D]``."""
+    global trimmed_mean_launches, trimmed_mean_batched_launches
+    _check_kernel_args(updates, b, batched=True)
+    n, k, d = updates.shape
+    out = torch.empty((n, d), dtype=torch.float32, device=updates.device)
+    fn = _library().blades_trimmed_mean_batched_f32
+    with torch.cuda.device(updates.device):
+        stream = torch.cuda.current_stream(updates.device).cuda_stream
+        status = fn(updates.data_ptr(), out.data_ptr(), n, k, d, b, stream)
+    if status != 0:
+        raise RuntimeError(
+            f"batched trimmed_mean kernel launch failed: cudaError_t {status} "
+            f"(S={n}, K={k}, D={d}, b={b})"
+        )
+    trimmed_mean_launches += 1
+    trimmed_mean_batched_launches += 1
+    return out
+
+
+def _kernel_route(k: int, b: int) -> bool:
+    """The kernel (or, on the CPU, its plain version) serves this K and b."""
+    return 1 <= b <= MAX_KERNEL_B and 2 * b < k
+
+
+@torch.library.custom_op("blades::trimmed_mean", mutates_args=())
+def _trimmed_mean_op(updates: torch.Tensor, b: int) -> torch.Tensor:
+    """The kernel route of :func:`trimmed_mean` as an operator, so that
+    ``torch.func.vmap`` reaches its batching rule below."""
+    if updates.device.type == "cuda":
+        return trimmed_mean_cuda(updates.contiguous(), b)
+    if updates.device.type == "cpu":
+        return trimmed_mean_plain(updates, b)
+    raise ValueError(f"no trimmed-mean path for device {updates.device}")
+
+
+@_trimmed_mean_op.register_fake
+def _(updates, b):
+    return updates.new_empty(updates.shape[1:], dtype=torch.float32)
+
+
+@_trimmed_mean_op.register_vmap
+def _(info, in_dims, updates, b):
+    """``[..., K, D]`` under vmap: the batch dims in front, flattened into
+    one experiment axis of :func:`trimmed_mean_batched` (one launch)."""
+    if in_dims[0] is None:
+        return _trimmed_mean_op(updates, b), None
+    lead = updates.movedim(in_dims[0], 0)
+    k, d = lead.shape[-2:]
+    out = trimmed_mean_batched(lead.reshape(-1, k, d), b)
+    return out.reshape(lead.shape[:-2] + (d,)), 0
+
+
 def trimmed_mean(updates: torch.Tensor, b: int) -> torch.Tensor:
     """Coordinate-wise mean of the middle ``K - 2b`` values of ``[K, D]``."""
     k = updates.shape[0]
     if b == 0:
         return updates.mean(dim=0)
-    if 2 * b < k and b <= MAX_KERNEL_B:
-        if updates.device.type == "cuda":
-            return trimmed_mean_cuda(updates.contiguous(), b)
-        if updates.device.type == "cpu":
-            return trimmed_mean_plain(updates, b)
-        raise ValueError(f"no trimmed-mean path for device {updates.device}")
+    if _kernel_route(k, b):
+        return _trimmed_mean_op(updates, b)
     s = torch.sort(updates, dim=0).values
     return s[b : k - b].mean(dim=0)
+
+
+def trimmed_mean_batched(updates: torch.Tensor, b: int) -> torch.Tensor:
+    """:func:`trimmed_mean` of each ``[K, D]`` slab of an ``[S, K, D]``
+    stack: ``[S, D]``; on a CUDA tensor the kernel route is ONE launch for
+    the S slabs, on a CPU tensor :func:`trimmed_mean_batched_plain`."""
+    k = updates.shape[1]
+    if b == 0:
+        return updates.mean(dim=1)
+    if _kernel_route(k, b):
+        if updates.device.type == "cuda":
+            return trimmed_mean_batched_cuda(updates.contiguous(), b)
+        if updates.device.type == "cpu":
+            return trimmed_mean_batched_plain(updates, b)
+        raise ValueError(f"no trimmed-mean path for device {updates.device}")
+    s = torch.sort(updates, dim=1).values
+    return s[:, b : k - b].mean(dim=1)

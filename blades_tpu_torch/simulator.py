@@ -99,13 +99,6 @@ from blades_tpu_torch.utils.metrics import top1_accuracy
 
 _IGNORED_KWARGS = ("num_actors", "num_trainers", "gpu_per_actor", "mode", "use_cuda")
 
-#: run() options of the JAX Simulator whose path is not ported yet:
-#: name -> (the value that leaves it off, the ROADMAP.md queue-A slice)
-_UNPORTED_RUN_OPTIONS = {
-    "remat": (False, "slice 2b (remat under torch.func)"),
-}
-
-
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
     """``None``, a ``torch.dtype`` or its name (``"bfloat16"``) as a float
@@ -404,6 +397,7 @@ class Simulator:
         train_batch_size: Optional[int] = None,
         retain_updates: bool = False,
         client_chunks: int = 1,
+        remat: bool = False,
         on_round_end: Optional[Callable] = None,
         compute_dtype: Optional[Union[str, torch.dtype]] = None,
         fault_model: Optional[Union[FaultModel, Dict]] = None,
@@ -427,7 +421,11 @@ class Simulator:
         ``jax_paths``, or a :class:`ModelSpec`. ``retain_updates``: copy each
         round's update rows onto the client handles. ``client_chunks``:
         train the client axis in this many sequential chunks (activation
-        memory scales with the chunk). ``on_round_end(round, state,
+        memory scales with the chunk). ``remat``: rematerialize each
+        client's loss in local training (``ops/remat.py``, the JAX
+        package's ``jax.checkpoint``): the forward keeps no activations and
+        the backward recomputes them; the results do not change.
+        ``on_round_end(round, state,
         metrics)``: called after every round; the round's post-attack
         ``[K, D]`` matrix is ``self.engine.last_updates``.
         ``compute_dtype``: ``"bfloat16"`` runs local training's forward and
@@ -509,13 +507,8 @@ class Simulator:
         ``<profile_dir>/trace.json``; a capture that fails is a ``profile``
         record with ``ok: false``, not a failed run.
         """
-        for name, value in options.items():
-            if name not in _UNPORTED_RUN_OPTIONS:
-                raise TypeError(f"run() got an unexpected keyword argument {name!r}")
-            off, slice_name = _UNPORTED_RUN_OPTIONS[name]
-            is_off = value in (None, False) if off is None else value == off
-            if not is_off:
-                raise _unported(f"run({name}={value!r})", slice_name)
+        for name in options:
+            raise TypeError(f"run() got an unexpected keyword argument {name!r}")
         resume = resume or os.environ.get(RESUME_ENV) == "1"
         if collect_diagnostics is None:
             collect_diagnostics = os.environ.get("BLADES_TELEMETRY_DIAG") == "1"
@@ -561,6 +554,7 @@ class Simulator:
                 num_classes=self._num_classes,
                 trusted_mask=trusted,
                 client_chunks=client_chunks,
+                remat=bool(remat),
                 keep_updates=retain_updates or on_round_end is not None,
                 device=self.device,
                 fault_model=fault_model,

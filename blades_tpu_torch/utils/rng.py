@@ -138,6 +138,33 @@ class RoundStreams:
         return list(self._held.values())
 
 
+class StreamStack:
+    """S experiments' :class:`RoundStreams`, one per experiment seed, for
+    the batched round of ``ExperimentBatch(mode="vmap")``: experiment ``s``
+    draws from its own generators exactly what its own round draws, and the
+    draws are stacked on a leading ``[S]`` axis only after they are made
+    (``torch.func.vmap(randomness="different")`` would draw from one shared
+    generator instead)."""
+
+    def __init__(self, seeds, round_idx: int, device="cpu",
+                 data_round: Optional[int] = None):
+        self.streams = [RoundStreams(s, round_idx, device, data_round=data_round)
+                        for s in seeds]
+
+    def __len__(self) -> int:
+        return len(self.streams)
+
+    def __getitem__(self, s: int) -> RoundStreams:
+        return self.streams[s]
+
+    def reseed(self, seeds, round_idx: int, data_round: Optional[int] = None) -> None:
+        for st, seed in zip(self.streams, seeds):
+            st.reseed(seed, round_idx, data_round)
+
+    def generators(self) -> list:
+        return [g for st in self.streams for g in st.generators()]
+
+
 def keep_masks(sites, generator: torch.Generator, lead=()) -> dict:
     """One boolean keep-mask per noise site (``{name: (shape, keep)}``, as a
     model's ``noise_sites`` gives them), of shape ``lead + shape``, each entry

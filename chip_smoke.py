@@ -191,6 +191,19 @@ every kernel launch is then held against the plain version on its own
 input ([8, 32], b = 1-3) and each such shape timed. The run never appends to the checkout's ledger: every ledger
 record goes to its temporary directory.
 
+Last, ``ExperimentBatch(mode="vmap")`` (slice 7b) against map mode, S
+experiments of one engine on one shared batch: the MLP at K=1000 (S=8),
+BASELINE config 1's shape (K=10, 50 local steps, S=64) and bf16 CCT-2 at
+K=1000 in 4 chunks (S=2), under ALIE and trimmed mean, each mode's warm
+round timed, profiled and counted (one launch of the kernel's batched
+entry a vmap round, S single launches a map round), the batched launch
+held to S single launches (``torch.equal``) and to the plain version, and
+timed at [8, 1000, 59850]; a fault-model and a GeoMed round at K=1000
+(S=4); a batched launch past 2^31 elements; and remat (slice 2b): CCT-2
+at K=1000 in 4 chunks in f32 and bf16 (and, among the text phases,
+``text_cct_2`` at K=100 in f32), each with and without ``remat=True``:
+cold and warm rounds, peak memory and the updates compared.
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -389,6 +402,13 @@ TEXT_FAMILIES = ("text_cvt_2", "text_vit_2", "text_transformer_2", "text_cct_6",
                  "long_text_transformer")
 TEXT_FAMILY_BATCH, TEXT_GRAD_REL = 32, 2e-3
 TEXT_CPU_CLIENTS, TEXT_MAX_KINK_ROWS = 6, 2
+# ExperimentBatch(mode="vmap") (slice 7b) against map mode: the experiments
+# of the MLP at K=1000, of BASELINE config 1's shape (K=10, 50 local steps),
+# of bf16 CCT-2 at K=1000 and of the looping cells (a fault model, GeoMed);
+# the warm rounds timed in each mode; remat (slice 2b): the warm rounds
+VMAP_MLP_S, VMAP_CONFIG1_S, VMAP_CONFIG1_STEPS, VMAP_CCT2_S, VMAP_LOOP_S = 8, 64, 50, 2, 4
+VMAP_WARM, REMAT_WARM = 2, 2
+VMAP_BIG_SHAPE = (2, 100, 10_800_000, 10)  # [S, K, D, b]: S*K*D past 2^31 (8.64 GB)
 
 
 def emit(record: dict) -> None:
@@ -877,16 +897,24 @@ def phase_cct2_profile(torch, sim, runs: dict, card: str) -> None:
             rng.generator(sim.seed, 99, rng.DATA, device=eng.device), 1, 32)
         conv_fwd, conv_all = conv_kernel_names(torch, eng, state, cx, dtype)
         eng.run_round(state, cx, cy, 0.1, 1.0)  # warm
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            eng.run_round(state, cx, cy, 0.1, 1.0)
+        # the profiler loses device events (see profiled_block): the round
+        # is profiled again, up to PROFILE_ATTEMPTS times, until the
+        # kernel's launch is among its events
+        kernel_seen = []
+        for _ in range(PROFILE_ATTEMPTS):
             torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        peak = torch.cuda.max_memory_allocated()
-        dev = device_breakdown(torch, prof, conv_fwd, conv_all)
-        busy = dev["busy_ms"]
+            torch.cuda.reset_peak_memory_stats()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                eng.run_round(state, cx, cy, 0.1, 1.0)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            peak = torch.cuda.max_memory_allocated()
+            dev = device_breakdown(torch, prof, conv_fwd, conv_all)
+            busy = dev["busy_ms"]
+            kernel_seen.append(dev["by_class_union_ms"]["trimmed_mean_kernel"] > 0)
+            if kernel_seen[-1]:
+                break
         by_name = {}
         for e in device_kernels(torch, prof):
             ms, n = by_name.get(e.name, (0.0, 0))
@@ -900,9 +928,10 @@ def phase_cct2_profile(torch, sim, runs: dict, card: str) -> None:
               "top_kernels_ms": [[name[:110], ms, n] for name, (ms, n) in top[:12]],
               "conv_kernels_ms": [["forward" if name in conv_fwd else "backward", name[:300],
                                    ms, n] for name, (ms, n) in top if name in conv_all],
-              "peak_mem_bytes": peak, "card": card})
-        check(busy == 0 or dev["by_class_union_ms"]["trimmed_mean_kernel"] > 0,
-              f"{dtype}: the profiled round shows no trimmed-mean kernel")
+              "peak_mem_bytes": peak, "kernel_event_by_attempt": kernel_seen, "card": card})
+        check(busy == 0 or kernel_seen[-1],
+              f"{dtype}: the profiled round shows no trimmed-mean kernel in "
+              f"{len(kernel_seen)} attempts")
         warm = []
         for _ in range(3):
             t0 = time.perf_counter()
@@ -4303,8 +4332,9 @@ def phase_pretrained(torch, dev, card: str, weights: Path) -> None:
 def text_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
     """The text and pretrained phases (slice 11b) in order: the stores, the
     K=100 round and its kernel, the graph block (cuDNN deterministic), the
-    K=1000 streaming round, the other families and the round on the card
-    against the CPU, the pretrained loader. Returns the kernel's launches
+    K=1000 streaming round, the f32 round with and without remat (slice
+    2b), the other families and the round on the card against the CPU, the
+    pretrained loader. Returns the kernel's launches
     by path, the kernel's timings at TEXT_SHAPE and its max error."""
     stores = text_stores(torch, dev)
     launches, timings, err = phase_text_round(torch, trimmed, stores["k100"], card, log_root)
@@ -4315,6 +4345,15 @@ def text_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     stream = phase_text_stream(torch, trimmed, stores["k1000"], card, log_root)
+    # remat (slice 2b) on the f32 round at one chunk: after the streaming
+    # round, whose median sort needed the allocator as the block left it
+    # (ahead of the block, the remat runs left 12.7 GB reserved and unused,
+    # and the sort's 22.6 GB did not fit)
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_remat_text(torch, stores["k100"], card, log_root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
     phase_text_families(torch, stores["k100"], dev, card)
     phase_text_card_vs_cpu(torch, stores["k100"], dev, card)
     del stores
@@ -4793,6 +4832,351 @@ def phase_certify_scale(torch, trimmed, dev, card: str) -> tuple:
 
 
 
+# -- ExperimentBatch(mode="vmap") and remat (slices 7b and 2b) ---------------------
+
+
+class _BatchedRecorder:
+    """Keeps the input, b and output of the first ``keep`` batched launches
+    made outside a capture (a captured launch's buffers hold no data yet),
+    while installed over ``trimmed.trimmed_mean_batched_cuda``."""
+
+    def __init__(self, torch, trimmed, keep: int = 1):
+        self.torch, self.trimmed, self.keep, self.held = torch, trimmed, keep, []
+        self.real = trimmed.trimmed_mean_batched_cuda
+
+    def __call__(self, x, b):
+        out = self.real(x, b)
+        if len(self.held) < self.keep and not self.torch.cuda.is_current_stream_capturing():
+            self.held.append((x.clone(), b, out.clone()))
+        return out
+
+    def __enter__(self):
+        self.trimmed.trimmed_mean_batched_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.trimmed.trimmed_mean_batched_cuda = self.real
+
+
+def batched_launch_check(torch, trimmed, x, b: int) -> dict:
+    """One batched launch on ``[S, K, D]`` against S single launches
+    (``torch.equal``: each column's arithmetic is the same) and against
+    ``trimmed_mean_batched_plain`` (TOL). Not counted on any path."""
+    got = trimmed.trimmed_mean_batched_cuda(x, b)
+    singles = torch.stack([trimmed.trimmed_mean_cuda(u, b) for u in x])
+    plain = trimmed.trimmed_mean_batched_plain(x, b)
+    torch.cuda.synchronize()
+    return dict(equal_to_single_launches=bool(torch.equal(got, singles)),
+                max_abs_err=float((got - plain).abs().max()),
+                within_tol=bool(torch.allclose(got, plain, **TOL)))
+
+
+def batched_bound_ms(s: int, k: int, d: int) -> tuple:
+    """:func:`bound_ms` of S slabs: S*K*D*4 bytes read and S*D*4 written, or
+    the compares at the f32 rate, the larger."""
+    bytes_ms = (s * k * d * 4 + s * d * 4) / HBM_BYTES_PER_S * 1e3
+    ops_ms = 2 * s * k * d / F32_FLOPS * 1e3
+    return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def batched_kernel_timings(torch, trimmed, x, b: int) -> dict:
+    """The batched launch on ``x`` [S, K, D] timed beside S single launches,
+    the batched plain version, the library call (one sort along the client
+    axis, a slice and a mean) and the bound."""
+    s, k, d = x.shape
+    bnd, by = batched_bound_ms(s, k, d)
+    return dict(ms=time_ms(lambda: trimmed.trimmed_mean_batched_cuda(x, b), reps=10),
+                single_launches_ms=time_ms(
+                    lambda: [trimmed.trimmed_mean_cuda(u, b) for u in x], reps=10),
+                plain_ms=time_ms(lambda: trimmed.trimmed_mean_batched_plain(x, b), reps=2,
+                                 warmup=1),
+                library_ms=time_ms(lambda: torch.sort(x, 1)[0][:, b:k - b].mean(1), reps=3,
+                                   warmup=1),
+                bound_ms=bnd, bound_by=by)
+
+
+def vmap_cell(torch, trimmed, fl, log_root: Path, name: str, model: str, s: int,
+              local_steps: int = 1, dtype=None, chunks: int = 1, aggregator="trimmedmean",
+              byzantine: int = MAIN_BYZANTINE, fault_model=None) -> dict:
+    """One round of S experiments (client rates 0.1 * (1 + i / S), seeds i,
+    one shared batch of ``local_steps`` x 32) in map mode and in vmap mode
+    on one engine: each mode cold (its graph captured, or eager), then
+    VMAP_WARM warm rounds timed, with the launches of each warm round
+    counted, the peak memory above what was resident of the cold round
+    (the eager round and the capture) and of a warm one, and a profiled warm
+    round; the two modes' params compared. Returns the record."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.core import ExperimentBatch
+    from blades_tpu_torch.utils import rng
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    kws = {"num_byzantine": byzantine} if aggregator == "trimmedmean" else {}
+    sim = Simulator(dataset=fl, attack="alie", num_byzantine=byzantine, aggregator=aggregator,
+                    aggregator_kws=kws, seed=1, log_path=str(log_root / name))
+    sim.run(model=model, global_rounds=0, client_chunks=chunks, compute_dtype=dtype,
+            fault_model=fault_model)
+    eng = sim.engine
+    p0 = {n: t.clone() for n, t in sim.server.state.params.items()}
+    cx, cy = fl.sample_round(rng.generator(1, 501, rng.DATA, device=eng.device), local_steps, 32)
+    c_lrs = [0.1 * (1 + i / s) for i in range(s)]
+    s_lrs, seeds = [1.0] * s, list(range(s))
+    rec, params = {"phase": "experiments_vmap", "cell": name, "model": model, "experiments": s,
+                   "clients": eng.num_clients, "dim": eng.dim, "local_steps": local_steps,
+                   "dtype": str(dtype or "float32"), "client_chunks": eng.client_chunks,
+                   "aggregator": aggregator, "fault_model": fault_model is not None}, {}
+    recorder = None
+    for mode in ("map", "vmap"):
+        eb = ExperimentBatch(eng, s, mode=mode)
+        init = eb.init_batch(p0)
+
+        def one():
+            return eb.run_round_batch(init, cx, cy, c_lrs, s_lrs, seeds, shared_data=True)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        if mode == "vmap":
+            with _BatchedRecorder(torch, trimmed) as recorder:
+                states, _, _ = one()
+        else:
+            states, _, _ = one()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        # the cold round's peak: its eager round (a graph's warm-up) and the
+        # capture into the graph's pool, which a replay then reuses
+        cold_peak = torch.cuda.max_memory_allocated() - base
+        params[mode] = states.params
+        warm, counts = [], []
+        for _ in range(VMAP_WARM):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            before = (trimmed.trimmed_mean_launches, trimmed.trimmed_mean_batched_launches)
+            t0 = time.perf_counter()
+            one()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            counts.append((trimmed.trimmed_mean_launches - before[0],
+                           trimmed.trimmed_mean_batched_launches - before[1]))
+        peak = torch.cuda.max_memory_allocated() - base
+        prof = profiled_block(torch, trimmed, one)
+        rec[mode] = dict(cold_round_s=cold, warm_round_s=warm,
+                         warm_per_experiment_round_s=[w / s for w in warm],
+                         cold_peak_mem_above_resident_bytes=cold_peak,
+                         warm_peak_mem_above_resident_bytes=peak, launches_per_round=counts,
+                         block_mode=eng.last_block_mode, block_reason=eng.last_block_reason,
+                         profiled_wall_ms=prof["wall_ms"],
+                         device_busy_ms=prof["dev"]["busy_ms"],
+                         device_busy_share=prof["dev"]["busy_ms"] / prof["wall_ms"],
+                         profiled_kernel_events=prof["events"],
+                         profiled_counted_launches=prof["counted"])
+    eng.last_graph = None
+    bf16 = dtype is not None
+    errs = []
+    for i in range(s):
+        for n in p0:
+            a, b = params["vmap"][n][i], params["map"][n][i]
+            errs.append(_rel_l2(a, b) if bf16 else float(((a - b).abs() - 1e-5 * b.abs()).max()))
+    rec["params_vs_map"] = ({"max_rel_l2": max(errs), "bar": BF16_ROW_REL} if bf16 else
+                            {"max_abs_err_above_rtol": max(errs), "rtol": 1e-5, "atol": 1e-6})
+    rec["speedup_per_experiment_round"] = min(rec["map"]["warm_round_s"]) / min(
+        rec["vmap"]["warm_round_s"])
+    kernel = aggregator == "trimmedmean" and fault_model is None
+    if kernel:
+        x, b, out = recorder.held[0]
+        rec["batched_launch"] = dict(shape_skdb=[*x.shape, b],
+                                     equal_to_recorded_output=bool(torch.equal(
+                                         out, trimmed.trimmed_mean_batched_cuda(x, b))),
+                                     **batched_launch_check(torch, trimmed, x, b))
+        rec["_held"] = (x, b)
+    sim = None
+    check(all(c == (s, 0) for c in rec["map"]["launches_per_round"]) if kernel else True,
+          f"{name}: map-mode launches {rec['map']['launches_per_round']}")
+    want = (1, 1) if kernel else (0, 0)
+    check(all(c == want for c in rec["vmap"]["launches_per_round"]),
+          f"{name}: vmap-mode launches {rec['vmap']['launches_per_round']}, want {want} a round")
+    if kernel:
+        bl = rec["batched_launch"]
+        check(bl["equal_to_single_launches"] and bl["within_tol"] and
+              bl["equal_to_recorded_output"], f"{name}: batched launch {bl}")
+    check(max(errs) <= (BF16_ROW_REL if bf16 else 1e-6),
+          f"{name}: vmap and map params differ: {rec['params_vs_map']}")
+    return rec
+
+
+def phase_experiments_vmap(torch, trimmed, mlp_fl, cifar_fl, dev, card: str,
+                           log_root: Path) -> tuple:
+    """``ExperimentBatch(mode="vmap")`` against map mode: the MLP at K=1000
+    (S=8), BASELINE config 1's shape (the MLP at K=10, 50 local steps,
+    S=64), bf16 CCT-2 at K=1000 in 4 chunks (S=2), each under ALIE and
+    trimmed mean, the kernel's batched entry once a vmap round against S
+    single launches a map round; then a fault-model round and a GeoMed
+    round (an eager, looping defense) at K=1000 (MLP, S=4). The batched
+    launch of each kernel cell is held to S single launches and to the
+    plain version; the one at [8, 1000, 59850] is timed; a batched input
+    past 2^31 elements is held the same way. Returns the batched launches
+    by cell, the timings and the max error."""
+    from blades_tpu_torch.datasets import Synthetic
+
+    config1 = Synthetic(num_clients=10, train_bs=32, train_size=60_000, test_size=10_000,
+                        cache=False).get_dls(dev)
+    cells = [("mlp_k1000_s8", mlp_fl, "mlp", VMAP_MLP_S, {}),
+             ("config1_k10_s64", config1, "mlp", VMAP_CONFIG1_S,
+              dict(local_steps=VMAP_CONFIG1_STEPS, byzantine=4)),
+             ("cct2_bf16_k1000_s2", cifar_fl, "cct_2_3x2_32", VMAP_CCT2_S,
+              dict(dtype="bfloat16", chunks=CCT2_CHUNKS)),
+             ("mlp_k1000_fault_s4", mlp_fl, "mlp", VMAP_LOOP_S,
+              dict(fault_model=FAULTS)),
+             ("mlp_k1000_geomed_s4", mlp_fl, "mlp", VMAP_LOOP_S, dict(aggregator="geomed"))]
+    trimmed.trimmed_mean_batched_launches = 0
+    launches, timings, max_err = {}, None, 0.0
+    for name, fl, model, s, kw in cells:
+        before = trimmed.trimmed_mean_batched_launches
+        rec = vmap_cell(torch, trimmed, fl, log_root, name, model, s, **kw)
+        held = rec.pop("_held", None)
+        if held is not None:
+            max_err = max(max_err, rec["batched_launch"]["max_abs_err"])
+            if name == "mlp_k1000_s8":
+                timings = batched_kernel_timings(torch, trimmed, *held)
+                rec["batched_kernel"] = timings
+        launches[name] = sum(c[1] for c in rec["vmap"]["launches_per_round"])
+        rec.update(card=card)
+        emit(rec)
+        del held
+        check(trimmed.trimmed_mean_batched_launches >= before, name)
+    del config1
+    # S*K*D past 2^31
+    gc.collect()
+    torch.cuda.empty_cache()
+    *shape, b = VMAP_BIG_SHAPE
+    big = torch.empty(*shape, device=dev)
+    for i in range(shape[0]):
+        big[i].normal_(generator=torch.Generator(device=dev).manual_seed(i))
+    got = trimmed.trimmed_mean_batched_cuda(big, b)
+    equal = all(bool(torch.equal(got[i], trimmed.trimmed_mean_cuda(big[i], b)))
+                for i in range(shape[0]))
+    cols = slice(max(0, shape[2] - 65_536), shape[2])
+    err = float((got[:, cols] - trimmed.trimmed_mean_batched_plain(
+        big[:, :, cols].contiguous(), b)).abs().max())
+    emit({"phase": "experiments_vmap_2e31", "shape_skdb": [*big.shape, b],
+          "elements": big.numel(), "equal_to_single_launches": equal,
+          "max_abs_err_last_columns": err, "card": card})
+    check(big.numel() > 2**31 and equal and err <= TOL["atol"],
+          f"experiments_vmap_2e31: equal {equal}, err {err}")
+    del big, got
+    return launches, timings, max(max_err, err)
+
+
+def remat_cell(torch, fl, log_root: Path, name: str, model: str, dtype, chunks: int,
+               byzantine: int, rows=None) -> dict:
+    """``remat=False`` then ``remat=True`` on one store (ALIE, trimmed mean):
+    for each, the engine built through Simulator.run, then a cold and
+    REMAT_WARM warm rounds from one state on one batch (not applied), their
+    walls and peak memory above what was resident; the updates of the two
+    (``rows`` of them, or all) compared."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.utils import rng
+
+    rec, ups = {"phase": "remat", "cell": name, "model": model,
+                "dtype": str(dtype or "float32"), "client_chunks": chunks}, {}
+    for flag in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        sim = Simulator(dataset=fl, attack="alie", num_byzantine=byzantine,
+                        aggregator="trimmedmean", aggregator_kws={"num_byzantine": byzantine},
+                        seed=1, log_path=str(log_root / f"{name}_{flag}"))
+        sim.run(model=model, global_rounds=0, client_chunks=chunks, compute_dtype=dtype,
+                remat=flag, retain_updates=True)
+        eng, state = sim.engine, sim.server.state
+        check(eng.remat is flag, f"{name}: engine remat {eng.remat}")
+        cx, cy = fl.sample_round(rng.generator(1, 601, rng.DATA, device=eng.device), 1, 32)
+        walls, peaks = [], []
+        for _ in range(1 + REMAT_WARM):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            t0 = time.perf_counter()
+            eng.run_round(state, cx, cy, 0.1, 1.0, seed=1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peaks.append(torch.cuda.max_memory_allocated() - base)
+        ups[flag] = eng.last_updates[rows].clone() if rows else eng.last_updates.clone()
+        rec["remat" if flag else "no_remat"] = dict(
+            cold_round_s=walls[0], warm_round_s=walls[1:], peak_mem_above_resident_bytes=peaks,
+            clients=eng.num_clients, dim=eng.dim)
+        eng.last_updates = None
+        del sim, eng, state, cx, cy
+    diff = (ups[True] - ups[False]).abs()
+    rec.update(update_rows_compared=rows.stop if rows else ups[True].shape[0],
+               max_abs_diff_updates=float(diff.max()),
+               max_abs_update=float(ups[False].abs().max()),
+               bit_identical=bool(torch.equal(ups[True], ups[False])),
+               warm_ratio=min(rec["remat"]["warm_round_s"]) / min(
+                   rec["no_remat"]["warm_round_s"]),
+               peak_ratio=max(rec["remat"]["peak_mem_above_resident_bytes"]) / max(
+                   rec["no_remat"]["peak_mem_above_resident_bytes"]))
+    tol = ROUND_TOL if dtype is None else dict(rtol=BF16_ROW_REL, atol=1e-3)
+    check(bool(torch.allclose(ups[True], ups[False], **tol)),
+          f"{name}: remat changes the updates by {rec['max_abs_diff_updates']}")
+    return rec
+
+
+def phase_remat(torch, fl, card: str, log_root: Path) -> None:
+    """``run(remat=True)`` against ``remat=False``: CCT-2 at K=1000 in 4
+    chunks (bench.py's defaults), f32 and bf16."""
+    k, _, b = CCT2_SHAPE
+    for dtype in (None, "bfloat16"):
+        rec = remat_cell(torch, fl, log_root, f"cct2_{dtype or 'float32'}_k{k}", "cct_2_3x2_32",
+                         dtype, CCT2_CHUNKS, b)
+        emit({**rec, "card": card})
+
+
+def phase_remat_text(torch, fl, card: str, log_root: Path) -> None:
+    """``text_cct_2`` at K=100, f32, one chunk (61 GB without remat), with
+    and without remat; the updates of the first 10 clients compared."""
+    k, _, b = TEXT_SHAPE
+    rec = remat_cell(torch, fl, log_root, f"text_cct2_float32_k{k}", "text_cct_2", None,
+                     TEXT_CHUNKS["float32"], b, rows=slice(0, 10))
+    emit({**rec, "card": card})
+
+
+
+def vmap_remat_phases(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """The MLP K=1000 and CIFAR-shaped K=1000 stores of the main path,
+    built anew, and ``phase_experiments_vmap`` and ``phase_remat`` on them
+    (cuDNN deterministic). Returns what ``phase_experiments_vmap`` does."""
+    from blades_tpu_torch.datasets import Synthetic
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        mlp = Synthetic(num_clients=MAIN_CLIENTS, train_bs=32, train_size=50_000,
+                        cache=False).get_dls(dev)
+        cifar = Synthetic(num_clients=CCT2_SHAPE[0], sample_shape=(32, 32, 3), train_bs=32,
+                          train_size=50_000, test_size=10_000, cache=False).get_dls(dev)
+        out = phase_experiments_vmap(torch, trimmed, mlp, cifar, dev, card, log_root)
+        phase_remat(torch, cifar, card, log_root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return out
+
+
+def vmap_phases(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """``--vmap-only``: the text remat cell on its store, then
+    :func:`vmap_remat_phases`."""
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        phase_remat_text(torch, text_stores(torch, dev)["k100"], card, log_root)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return vmap_remat_phases(torch, trimmed, dev, card, log_root)
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -4854,6 +5238,9 @@ def main() -> int:
     parser.add_argument("--certify-only", action="store_true",
                         help="build the kernel, run only the certify_scale and certify "
                              "phases and print no result line")
+    parser.add_argument("--vmap-only", action="store_true",
+                        help="build the kernel, run only the experiments_vmap and remat "
+                             "phases on stores of their own and print no result line")
     parser.add_argument("--text-only", action="store_true",
                         help="build the kernel, run only the text and pretrained phases "
                              "and print no result line")
@@ -4900,6 +5287,11 @@ def main() -> int:
             os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
             phase_certify_scale(torch, trimmed, dev, card)
             phase_certify(torch, trimmed, dev, card, Path(tmp))
+        return 0
+    if args.vmap_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            vmap_phases(torch, trimmed, dev, card, Path(tmp))
         return 0
     if args.text_only:
         with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
@@ -5036,11 +5428,23 @@ def main() -> int:
             torch, trimmed, dev, card)
         launches["certify"], search_shapes, search_err = phase_certify(
             torch, trimmed, dev, card, Path(tmp))
+        # vmap mode (slice 7b): the kernel's batched entry once a round for
+        # S experiments, against S launches in map mode; remat (slice 2b) on
+        # the CCT-2 round. Last, on stores of their own: ahead of the
+        # BASELINE phases their graphs and batched rounds left the
+        # allocator too fragmented for WRN-28-10's streaming round (47.7 GB
+        # reserved and unused)
+        batched_launches, batched_timings, batched_err = vmap_remat_phases(
+            torch, trimmed, dev, card, Path(tmp))
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     max_err = max(max_err, resnet_err, cert_err, search_err, text["err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
+    check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
+              "geomed" not in p) and not any(n for p, n in batched_launches.items()
+                                            if "fault" in p or "geomed" in p),
+          f"batched launches: {batched_launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
     check(async_launches["async_static"] > 0 and not any(
         n for p, n in async_launches.items() if p != "async_static"),
@@ -5091,6 +5495,19 @@ def main() -> int:
         "max_abs_err": max_err,
         **timings[CCT2_SHAPE],
         "by_shape": [{"shape_kdb": list(shape), **t} for shape, t in shapes.items()],
+    }, {
+        # the batched entry (ExperimentBatch(mode="vmap"); JAX's vmap of the
+        # pallas_call adds a grid axis): one launch for S experiments' [K, D]
+        # slabs, timed at [8, 1000, 59850], b=5, beside 8 single launches
+        "name": "trimmed_mean_batched",
+        "route": "cuda",
+        "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+        "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+        "launches": sum(batched_launches.values()),
+        "launches_by_path": batched_launches,
+        "shape_skdb": [VMAP_MLP_S, MAIN_CLIENTS, 59_850, MAIN_BYZANTINE],
+        "max_abs_err": batched_err,
+        **batched_timings,
     }]})
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})

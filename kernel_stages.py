@@ -52,11 +52,13 @@ PATCH = [
      "  for (int s = 0; s < kSlots; ++s) if (lane == 0 && general[s]) atomicAdd(dbg + 1, 1u);\n"
      "  if (stage == 2) { for (int s = 0; s < kSlots; ++s) { if (lane == 0 && active[s])"
      " out[col0 + warp + s * kWarps] = acc[s]; } return; }\n  // 3. rank the lists:"),
-    ("int64_t d, cudaStream_t s) {", "int64_t d, cudaStream_t s, int stage, unsigned* dbg) {"),
+    ("unsigned n, cudaStream_t s) {", "unsigned n, cudaStream_t s, int stage, unsigned* dbg) {"),
     ("(x, out, K, d, R);", "(x, out, K, d, R, stage, dbg);"),
+    ("int64_t d, int b, void* stream) {", "int64_t d, int b, void* stream, int stage, unsigned* dbg) {"),
+    ("launch<N>(x, out, K, d, n32, s)", "launch<N>(x, out, K, d, n32, s, stage, dbg)"),
     ("                                       void* stream) {",
      "                                       void* stream, int stage, unsigned* dbg) {"),
-    ("launch<N>(x, out, K, d, s)", "launch<N>(x, out, K, d, s, stage, dbg)"),
+    ("(x, out, 1, k, d, b, stream);", "(x, out, 1, k, d, b, stream, stage, dbg);"),
 ]
 
 

@@ -27,6 +27,7 @@ from blades_tpu.ops import distances as jax_distances
 from blades_tpu_torch.aggregators import AGGREGATORS, UNPORTED, get_aggregator
 from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.ops import clustering, distances
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 LOOP_TOL = dict(rtol=1e-4, atol=1e-6)  # GeoMed, AutoGM

@@ -54,6 +54,7 @@ from blades_tpu_torch.faults import FaultModel, draw_faults
 from blades_tpu_torch.models import create_mnist_model, params_from_jax
 from blades_tpu_torch.ops.pytree import ravel
 from blades_tpu_torch.utils import rng as port_rng
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 K, F, S, B, D = 10, 4, 1, 8, 59_850
 CLIENT_LR, SERVER_LR = 0.1, 1.0

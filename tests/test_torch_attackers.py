@@ -21,6 +21,7 @@ from blades_tpu_torch.attackers import (
     get_attack, honest_stats,
 )
 from blades_tpu_torch.attackers.noise import draw_normals
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -20,6 +20,7 @@ from blades_tpu_torch.aggregators import get_aggregator
 from blades_tpu_torch.attackers.base import Attack
 from blades_tpu_torch.audit import CERTIFICATE_NAMES, AuditMonitor
 from blades_tpu_torch.ops.streaming import chunk_layout
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 K, D = 12, 41

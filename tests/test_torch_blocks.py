@@ -29,6 +29,7 @@ from blades_tpu_torch.ops.pytree import FlatLayout, LeafSpec
 from blades_tpu_torch.simulator import _CompositeAttack
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.logging import read_stats
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 K, F, C, SEED = 6, 12, 4, 7
 S, B = 2, 4

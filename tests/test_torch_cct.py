@@ -41,6 +41,7 @@ from blades_tpu_torch.models import build_fns, cct, create_model, params_from_ja
 from blades_tpu_torch.models.common import drop_path, dropout
 from blades_tpu_torch.ops.pytree import CONV2D, DENSE, make_unraveler, ravel
 from blades_tpu_torch.utils import rng
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 SHAPE = (32, 32, 3)
 FACTORIES = ["cct_2_3x2_32", "cct_4_3x2_32", "cct_6_3x1_32", "cct_7_3x1_32",

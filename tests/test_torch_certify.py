@@ -42,6 +42,7 @@ from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.audit import attack_search, contracts
 from blades_tpu_torch.examples import certify
 from blades_tpu_torch.sweeps import SweepCell, group_key, plan_groups, run_grouped
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))

@@ -26,6 +26,7 @@ from blades_tpu_torch.utils.checkpoint import (
     save_state,
 )
 from blades_tpu_torch.utils.logging import read_stats
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 def _tree():

@@ -62,6 +62,7 @@ from blades_tpu_torch.models import build_fns, cct, create_mnist_model, params_f
 from blades_tpu_torch.ops.pytree import ravel
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.logging import read_stats
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 #: the erasing box's pre-truncation float32 value this close to an integer

@@ -17,6 +17,7 @@ import torch
 
 from blades_tpu.aggregators import get_aggregator as jax_get_aggregator
 from blades_tpu_torch.aggregators import AGGREGATORS, get_aggregator, trimmedmean
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 K, D = 11, 53

@@ -33,6 +33,7 @@ from torch_engine_helpers import (
     _check_metrics,
     _flat_params,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("attack,aggregator", [

@@ -48,6 +48,7 @@ from torch_engine_helpers import (
     _round,
     jax_params,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("name,kw", FAULT_AGGS,

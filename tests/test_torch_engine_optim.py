@@ -33,6 +33,7 @@ from torch_engine_helpers import (
     _well_conditioned,
     jax_params,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("client_chunks", [1, 3])

@@ -51,6 +51,7 @@ from blades_tpu_torch.sweeps import (
 )
 from blades_tpu_torch.utils import rng
 from test_torch_blocks import SEED, _assert_states_equal, _engine, _fixture, _same
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 K, F, SE, B = 10, 4, 2, 8
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -160,8 +161,8 @@ def test_shared_data_and_validation():
         eb6.run_round_batch(eb6.init_batch(w0), cx, cy, [0.1] * 6, [1.0] * 6, list(range(6)))
     with pytest.raises(ValueError, match="seeds"):
         eb.run_round_batch(eb.init_batch(w0), cx, cy, [0.1] * 2, [1.0] * 2, [1])
-    with pytest.raises(NotImplementedError, match="7b"):
-        ExperimentBatch(eng, 2, mode="vmap")
+    # vmap mode is ported (tests/test_torch_experiments_vmap.py)
+    assert ExperimentBatch(eng, 2, mode="vmap").mode == "vmap"
     with pytest.raises(ValueError, match="mode"):
         ExperimentBatch(eng, 2, mode="pmap")
 

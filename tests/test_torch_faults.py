@@ -36,6 +36,7 @@ from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.faults import FaultModel, draw_faults
 from blades_tpu_torch.models import state_from_jax
 from blades_tpu_torch.ops import masked
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 K, D = 12, 64
 TOL = dict(rtol=1e-5, atol=1e-5)

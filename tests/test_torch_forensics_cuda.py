@@ -16,6 +16,7 @@ from blades_tpu_torch.aggregators import get_aggregator
 from blades_tpu_torch.audit import AuditMonitor
 from blades_tpu_torch.ops.streaming import chunk_layout
 from blades_tpu_torch.telemetry.metric_pack import _EDGES, MetricPack, edges, pack_dense
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -8,9 +8,20 @@ import subprocess
 import sys
 from pathlib import Path
 
+from torch_threads_helpers import worker_threads
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "blades_tpu")
+
+
+def _subprocess_env() -> dict:
+    """A subprocess round's environment: this checkout on the path, and
+    the test worker's share of the cores for torch's threads
+    (``tests/torch_threads_helpers.py``)."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(ROOT)
+    env["OMP_NUM_THREADS"] = str(worker_threads())
+    return env
 
 
 def _port_files():
@@ -60,8 +71,7 @@ def test_round_in_subprocess_loads_no_jax(tmp_path):
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -89,8 +99,7 @@ def test_streaming_module_is_covered_and_a_streaming_round_loads_no_jax(tmp_path
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -124,8 +133,7 @@ def test_asyncfl_package_is_covered_and_an_async_round_loads_no_jax(tmp_path):
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -178,8 +186,7 @@ def test_data_and_checkpoint_modules_are_covered_and_a_resumed_cifar_run_loads_n
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -215,8 +222,7 @@ def test_forensics_modules_are_covered_and_a_traced_run_loads_no_jax(tmp_path):
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -247,8 +253,7 @@ def test_baseline_models_are_covered_and_a_resnet_round_loads_no_jax(tmp_path):
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,
@@ -294,8 +299,7 @@ def test_certification_and_run_record_modules_are_covered_and_load_no_jax(tmp_pa
         "print('LEAKED', leaked)\n"
         "assert not leaked, leaked\n"
     )
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    env["PYTHONPATH"] = str(ROOT)
+    env = _subprocess_env()
     proc = subprocess.run(
         [sys.executable, "-c", code], cwd=tmp_path, env=env,
         capture_output=True, text=True, timeout=300,

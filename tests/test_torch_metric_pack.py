@@ -24,6 +24,7 @@ from blades_tpu_torch.ops.pytree import FlatLayout, LeafSpec
 from blades_tpu_torch.ops.streaming import chunk_layout
 from blades_tpu_torch.telemetry import metric_pack as mp
 from blades_tpu_torch.utils import rng
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ELEMENTWISE = ("norm_q", "norm_hist", "n_participants", "n_masked_out", "slab_absmax",

@@ -17,6 +17,7 @@ from jax.flatten_util import ravel_pytree
 from blades_tpu.models.mlp import create_mnist_model as jax_mlp
 from blades_tpu_torch.models import create_mnist_model, params_from_jax, params_to_jax
 from blades_tpu_torch.ops.pytree import flat_dim, make_unraveler, ravel
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-6)
 

@@ -35,6 +35,7 @@ from blades_tpu_torch.models.import_torch import (
 )
 from blades_tpu_torch.models.pretrained import weights_path
 from blades_tpu_torch.utils.fetch import fetch_to
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 CIFAR = (32, 32, 3)
 

@@ -65,6 +65,7 @@ from blades_tpu_torch.models import (
 )
 from blades_tpu_torch.ops.pytree import CONV2D, DENSE, ravel
 from blades_tpu_torch.utils import rng
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 GRAD_REL_L2 = 1e-4

@@ -19,6 +19,7 @@ import torch
 
 from blades_tpu_torch.models import build_fns, resnet, wrn
 from blades_tpu_torch.ops.pytree import ravel
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 CIFAR = (32, 32, 3)
 TWINS = {

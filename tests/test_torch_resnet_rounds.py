@@ -27,6 +27,7 @@ from blades_tpu_torch.attackers import get_attack
 from blades_tpu_torch.core import RoundEngine, RoundMetrics
 from blades_tpu_torch.models import build_fns, params_from_jax, resnet
 from blades_tpu_torch.ops.pytree import ravel
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 F, S, B = 2, 1, 4

@@ -35,6 +35,7 @@ from blades_tpu_torch.telemetry import (
 )
 from blades_tpu_torch.telemetry import recorder as recorder_mod
 from blades_tpu_torch.telemetry.schema import load_trace, validate_records
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

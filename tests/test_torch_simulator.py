@@ -18,6 +18,7 @@ from blades_tpu_torch.client import ByzantineClient
 from blades_tpu_torch.core import ClientOptSpec
 from blades_tpu_torch.datasets import FLDataset, Synthetic
 from blades_tpu_torch.utils.logging import read_stats
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("iid", [True, False])
@@ -115,13 +116,17 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
     ],
 )
 def test_unported_run_options_raise(tmp_path, option, value, slice_no):
-    """``remat`` (slice 2b) is still unported and raises naming its slice;
-    the options of slice 10 are ported and run, each writing its surface."""
+    """Every run() option of the JAX Simulator is ported: ``remat`` (slice
+    2b, since PR 14) runs and reaches the engine, and the options of slice
+    10 run, each writing its surface; an unknown keyword still raises
+    ``TypeError``."""
     sim = Simulator(Synthetic(num_clients=4, train_size=100, cache=False),
                     device="cpu", log_path=str(tmp_path))
     if slice_no != "slice 10":
-        with pytest.raises(NotImplementedError, match=slice_no):
-            sim.run(model="mlp", **{option: value})
+        times = sim.run(model="mlp", **{option: value})
+        assert len(times) == 1 and sim.engine.remat is True
+        with pytest.raises(TypeError, match="unexpected keyword"):
+            sim.run(model="mlp", rematerialize=True)
         return
     if option == "profile_dir":
         value = str(tmp_path / value)
@@ -235,9 +240,19 @@ def test_cct2_bf16_round_runs(tmp_path):
 
 
 def test_cct2_remat_still_raises(tmp_path):
-    sim = _cifar_sim(tmp_path, "remat")
-    with pytest.raises(NotImplementedError, match="slice 2b"):
-        sim.run(model="cct_2_3x2_32", remat=True)
+    """(The name is kept from when ``remat`` raised.) A CCT-2 round with
+    ``remat=True`` runs, its dropout and DropPath masks drawn before
+    training, and equals the round without remat within ``rtol=1e-5,
+    atol=1e-7`` (bit for bit on the CPU here, which is not required)."""
+    ups = {}
+    for flag in (True, False):
+        sim = _cifar_sim(tmp_path, f"remat{flag}")
+        sim.run(model="cct_2_3x2_32", global_rounds=1, train_batch_size=4, remat=flag,
+                retain_updates=True)
+        assert sim.engine.remat is flag
+        ups[flag] = sim.engine.last_updates
+    assert ups[True].shape == (6, 283_723) and bool(torch.isfinite(ups[True]).all())
+    torch.testing.assert_close(ups[True], ups[False], rtol=1e-5, atol=1e-7)
 
 
 def test_compute_dtype_rebuilds_stock_specs_only(tmp_path):

@@ -50,6 +50,7 @@ from torch_streaming_helpers import (
     _queue_bernoulli,
     _tol,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("name", sorted(AGGREGATORS))

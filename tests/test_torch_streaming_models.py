@@ -42,6 +42,7 @@ from torch_streaming_helpers import (
     _stream_engines,
     jax_params,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 @pytest.mark.parametrize("case", CASES, ids=_id)

@@ -40,6 +40,7 @@ from torch_streaming_helpers import (
     _stream_engines,
     jax_params,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 
 def test_build_time_validation():

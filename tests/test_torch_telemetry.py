@@ -39,6 +39,7 @@ from blades_tpu_torch.audit import AuditMonitor
 from blades_tpu_torch.datasets import Synthetic
 from blades_tpu_torch.telemetry import NULL_RECORDER, Recorder, get_recorder, set_recorder
 from blades_tpu_torch.telemetry import context, profiling, schema
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

@@ -38,6 +38,7 @@ from blades_tpu_torch.datasets import SyntheticText
 from blades_tpu_torch.models import MODELS, build_fns, create_model, params_from_jax, text
 from blades_tpu_torch.ops.pytree import CONV1D, ravel
 from blades_tpu_torch.utils import rng
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 L, VOCAB, CLASSES = 8, 40, 3
 NARROW = dict(vocab_size=VOCAB, word_embedding_dim=8, embedding_dim=16)

@@ -36,6 +36,7 @@ from blades_tpu_torch.attackers import get_attack
 from blades_tpu_torch.core import RoundEngine, RoundMetrics
 from blades_tpu_torch.models import build_fns, text
 from blades_tpu_torch.ops.pytree import ravel
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -30,6 +30,7 @@ from blades_tpu_torch.ops.trimmed import (
     trimmed_mean_cuda,
     trimmed_mean_plain,
 )
+from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
