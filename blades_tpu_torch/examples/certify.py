@@ -2,10 +2,12 @@
 
 The port's counterpart of ``scripts/certify.py``: ``CERT_POOL`` (:61),
 ``build_aggregator`` (:73), ``total_cells`` (:84), ``enumerate_cells``
-(:218), the cells' execution (:305, here through ``sweeps.run_grouped``,
-each cell a group of its own under ``--sequential``), ``assemble_matrix``
-(:408) with its headline check, and ``main`` (:607). Over the pooled
-defenses it computes
+(:218), the cells' execution (``execute_cells`` :305-401, under
+``sweeps.resilient.run_grouped_resilient``, or ``run_cells_resilient``
+with each cell a group of its own under ``--sequential``),
+``assemble_matrix`` (:408) with its headline check and quarantined rows,
+and ``main`` (:607) with its sweep journal. Over the pooled defenses it
+computes
 
 1. the contract battery of each (``audit/contracts.py``): permutation
    invariance, translation equivariance, (f, c)-resilience, with the
@@ -29,22 +31,31 @@ Run it on the card, or on the CPU with ``--device cpu``::
 It writes ``<out>/cert_matrix.json`` (``--out``, default
 ``results/certification_torch`` in the checkout, never the JAX package's
 ``results/certification``), a per-cell ``sweep`` trace
-``<out>/sweep_trace.jsonl``, and a ``started`` and a terminal record in
+``<out>/sweep_trace.jsonl``, the sweep journal
+``<out>/sweep_journal.jsonl``, and a ``started`` and a terminal record in
 the run ledger (``telemetry/ledger.py``: ``BLADES_LEDGER``, by default
 ``results/ledger_torch.jsonl`` under the working directory). Standard
 output is one JSON summary line, an error included; the exit code is 0
 when ``ok``.
 
-Not ported (``ROADMAP.md`` queue A, slice 13, with the service and the
-resilient executor they need): ``--via-service``, ``--attempts`` and
-``--cell-deadline``, which raise ``NotImplementedError``; the matrix has no
-quarantine or resume fields.
+The cells run resiliently (``sweeps/resilient.py``): a failed group is
+retried (``--attempts``, 2 by default), then bisected, and a cell that
+still fails is quarantined, a row of ``quarantined_cells`` that makes
+``ok`` false; ``--cell-deadline`` bounds each cell's execution (C cells
+get C times it). Under ``BLADES_RESUME=1`` (a supervisor's relaunch) the
+journaled cells are recovered and only the rest run; the journal's
+fingerprint of the configuration keeps another configuration's cells out.
+A dead CUDA context raises at once and quarantines nothing.
+
+``--via-service`` (the simulation service, ``ROADMAP.md`` queue A, slice
+13b) is not ported and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 from pathlib import Path
@@ -68,7 +79,14 @@ from blades_tpu_torch.audit import (
 )
 from blades_tpu_torch.audit.attack_search import staleness_info
 from blades_tpu_torch.core.engine import resolve_device
-from blades_tpu_torch.sweeps import SweepCell, run_grouped
+from blades_tpu_torch.sweeps import SweepCell, _execute_group, group_key, program_fingerprint
+from blades_tpu_torch.sweeps.journal import SweepJournal
+from blades_tpu_torch.sweeps.resilient import (
+    ResilienceOptions,
+    run_cells_resilient,
+    run_grouped_resilient,
+)
+from blades_tpu_torch.supervision.heartbeat import RESUME_ENV
 from blades_tpu_torch.telemetry import context, ledger, set_recorder, timeline
 from blades_tpu_torch.utils import rng
 
@@ -197,32 +215,58 @@ def enumerate_cells(args, device="cpu"):
     return plans, specs
 
 
-def execute_cells(args, specs, sweep=None):
-    """The cells' results and per-cell walls through ``sweeps.run_grouped``:
-    grouped by program shape, or each cell a group of its own under
-    ``--sequential`` (the same numbers)."""
+def execute_cells(args, plans, specs, sweep=None, journal=None, resilience=None):
+    """The cells under the resilient executor: ``(results, walls, report)``,
+    a quarantined cell's slot None. Grouped by program shape, or each cell
+    a group of its own under ``--sequential`` (the same numbers).
+    ``journal``: a :class:`~blades_tpu_torch.sweeps.journal.SweepJournal`
+    whose cells are recovered, not run; ``resilience``: the
+    :class:`~blades_tpu_torch.sweeps.resilient.ResilienceOptions` (by
+    default from ``--attempts`` and ``--cell-deadline``). ``plans`` rides
+    along as in ``scripts/certify.py``."""
     grids = _grids(args)
-    if not getattr(args, "sequential", False):
-        return run_grouped(specs, grids=grids, sweep=sweep, return_walls=True)
-    results, walls = [], []
-    for spec in specs:
-        (out,), (wall,) = run_grouped([spec], grids=grids, sweep=sweep, return_walls=True)
-        results.append(out)
-        walls.append(wall)
-    return results, walls
+    if journal is not None and journal.resumed and sweep is not None:
+        # the resume record leads the attempt's records: every later sweep
+        # record without ``resumed`` is a cell this attempt ran
+        recovered = journal.recovered([s.label for s in specs])
+        sweep.resume(len(recovered), journal=journal.path,
+                     quarantined=sum(journal.entry(lab) is None for lab in recovered))
+    options = resilience or ResilienceOptions(
+        attempts=getattr(args, "attempts", 2) or 2,
+        cell_deadline_s=getattr(args, "cell_deadline", None))
+    if getattr(args, "sequential", False):
+        return run_cells_resilient(
+            [(spec.label, spec) for spec in specs],
+            lambda spec: _execute_group([spec], group_key(spec), grids=grids)[0],
+            sweep=sweep, journal=journal, options=options, kind="certify")
+    return run_grouped_resilient(specs, grids=grids, sweep=sweep, journal=journal,
+                                 options=options)
 
 
-def assemble_matrix(args, plans, specs, results, walls, device="cpu") -> dict:
+def assemble_matrix(args, plans, specs, results, walls, report, device="cpu") -> dict:
     """The matrix from the executed cells, in the row order of ``scripts/certify.py``;
-    runs each defense's contract battery on its executed resilience cell."""
+    runs each defense's contract battery on its executed resilience cell. A
+    quarantined cell is a row of ``quarantined_cells`` (its error, never a
+    result), which the headline checks skip and which makes ``ok`` false."""
     k, d, trials = args.clients, args.dim, args.trials
     c = args.c if args.c is not None else DEFAULT_C
     f_max = (k - 1) // 2
     names = tuple(args.aggs) if args.aggs else CERT_POOL
-    battery, cells, async_cells = {}, [], []
+    qinfo = {q["cell"]: q for q in report.quarantined}
+    battery, cells, async_cells, quarantined = {}, [], [], []
     for plan, spec, cell, wall in zip(plans, specs, results, walls):
         kind, name, agg, f_nom, f, extra = plan
         base, _, _ = name.partition(":")
+        if cell is None:
+            q = qinfo.get(spec.label, {})
+            row = {"cell": spec.label, "kind": kind, "agg": name, "f": f,
+                   "error": q.get("error", ""), "error_type": q.get("error_type", "Exception")}
+            if q.get("batch"):
+                row["batch"] = q["batch"]
+            if kind == "async":
+                row["scenario"] = extra[0]
+            quarantined.append(row)
+            continue
         if kind == "battery":
             res = run_battery(agg, k=k, d=d, f=max(1, f_nom), name=base, c=c, trials=trials,
                               seed=args.seed, grids=_grids(args),
@@ -281,16 +325,32 @@ def assemble_matrix(args, plans, specs, results, walls, device="cpu") -> dict:
         "battery": battery,
         "cells": cells,
         "async_cells": async_cells,
+        # a quarantined, retried or resumed sweep is not the evidence a
+        # clean one is, and says so
+        "quarantined_cells": quarantined,
+        "resumed_skipped": report.resumed_skipped,
+        "retried": report.retried,
+        "degraded_groups": report.degraded_groups,
         "headline_failures": failures,
-        "ok": not failures,
+        "ok": not failures and not quarantined,
     }
 
 
-def certify_matrix(args, sweep=None, device="cpu") -> dict:
+def certify_matrix(args, sweep=None, device="cpu", journal=None, resilience=None) -> dict:
     """The whole matrix: enumerate, execute, assemble."""
     plans, specs = enumerate_cells(args, device)
-    results, walls = execute_cells(args, specs, sweep=sweep)
-    return assemble_matrix(args, plans, specs, results, walls, device)
+    results, walls, report = execute_cells(args, plans, specs, sweep=sweep, journal=journal,
+                                           resilience=resilience)
+    return assemble_matrix(args, plans, specs, results, walls, report, device)
+
+
+def journal_fingerprint(args, device) -> str:
+    """The configuration a journal's cells belong to: a resume under
+    another one starts fresh."""
+    return program_fingerprint(
+        kind="certify", clients=args.clients, dim=args.dim, trials=args.trials, seed=args.seed,
+        c=args.c, quick=bool(args.quick), no_async=bool(args.no_async), tau_max=args.tau_max,
+        aggs=sorted(args.aggs) if args.aggs else None, device=str(device))
 
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
@@ -312,19 +372,22 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--out", default=str(DEFAULT_OUT),
                    help="the directory of cert_matrix.json and sweep_trace.jsonl")
-    p.add_argument("--attempts", type=int, default=None, help="not ported (slice 13)")
-    p.add_argument("--cell-deadline", type=float, default=None, help="not ported (slice 13)")
-    p.add_argument("--via-service", default=None, metavar="SOCK", help="not ported (slice 13)")
+    p.add_argument("--attempts", type=int, default=2,
+                   help="the retry budget of a batched group, and of an isolated cell before "
+                        "its quarantine (sweeps/resilient.py)")
+    p.add_argument("--cell-deadline", type=float, default=None,
+                   help="a soft deadline a cell, in seconds (a group of C cells gets C times "
+                        "it); a tripped deadline retries, then degrades")
+    p.add_argument("--via-service", default=None, metavar="SOCK",
+                   help="not ported: the simulation service is slice 13b")
     return p.parse_args(argv)
 
 
 def _check_ported(args) -> None:
-    for flag, value in (("--via-service", args.via_service), ("--attempts", args.attempts),
-                        ("--cell-deadline", args.cell_deadline)):
-        if value is not None:
-            raise NotImplementedError(
-                f"{flag} needs the resilient executor and the simulation service, not ported "
-                "to blades_tpu_torch yet (ROADMAP.md queue A, slice 13)")
+    if args.via_service is not None:
+        raise NotImplementedError(
+            "--via-service needs the simulation service, not ported to blades_tpu_torch yet "
+            "(ROADMAP.md queue A, slice 13b)")
     unknown = [n for n in (args.aggs or ()) if n not in CERT_POOL]
     if unknown:
         raise ValueError(f"unknown aggregators {unknown}; the pool is {list(CERT_POOL)}")
@@ -336,15 +399,22 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = Path(args.out)
     sweep_trace = out / "sweep_trace.jsonl"
     context.activate(fresh=True)
-    sweep = prev_recorder = entry = None
+    sweep = prev_recorder = entry = journal = None
     try:
         _check_ported(args)
         device = resolve_device(args.device)
         out.mkdir(parents=True, exist_ok=True)
-        try:
-            sweep_trace.unlink()  # a fresh sweep is a new trace
-        except OSError:
-            pass
+        # under BLADES_RESUME=1 (a supervisor's relaunch) the journaled
+        # cells are recovered and the trace goes on; otherwise both start
+        # anew
+        journal = SweepJournal(str(out / "sweep_journal.jsonl"),
+                               fingerprint=journal_fingerprint(args, device),
+                               resume=os.environ.get(RESUME_ENV) == "1")
+        if not journal.resumed:
+            try:
+                sweep_trace.unlink()
+            except OSError:
+                pass
         sweep = timeline.SweepAccounting(
             "certify", total=total_cells(args), path=str(sweep_trace),
             meta={"clients": args.clients, "dim": args.dim, "quick": bool(args.quick),
@@ -357,10 +427,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                     "trials": args.trials, "seed": args.seed, "quick": bool(args.quick),
                     "batched": not args.sequential, "device": str(device),
                     "aggs": sorted(args.aggs) if args.aggs else None},
-            artifacts=[str(sweep_trace)])
+            artifacts=[str(sweep_trace), journal.path])
         t0 = time.time()
-        matrix = certify_matrix(args, sweep=sweep, device=device)
+        matrix = certify_matrix(args, sweep=sweep, device=device, journal=journal)
         matrix["wall_s"] = round(time.time() - t0, 1)
+        matrix["resumed"] = journal.resumed
         artifact = out / "cert_matrix.json"
         with open(artifact, "w") as fh:
             json.dump(matrix, fh, indent=1)
@@ -381,6 +452,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             "artifact": str(artifact),
             "sweep_cells": sweep.done,
             "sweep_trace": str(sweep_trace),
+            "resumed": journal.resumed,
+            "resumed_skipped": matrix["resumed_skipped"],
+            "retried": matrix["retried"],
+            "quarantined": [r["cell"] for r in matrix["quarantined_cells"]],
             "ok": matrix["ok"],
         }
         entry.ended("finished", metrics={"cells": summary["cells"],
@@ -402,6 +477,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             set_recorder(prev_recorder)
         if sweep is not None:
             sweep.close()
+        if journal is not None:
+            journal.close()
 
 
 if __name__ == "__main__":

@@ -36,7 +36,10 @@ accounting (``telemetry/timeline.py``), closed at the round's existing
 and one terminal (``finished`` / ``crashed`` / ``killed``) record in the
 run ledger (``telemetry/ledger.py``, the path in ``BLADES_LEDGER``); and a
 heartbeat beat at each flush (``supervision/heartbeat.py``, when
-``BLADES_HEARTBEAT_FILE`` is set). ``BLADES_RESUME=1`` resumes.
+``BLADES_HEARTBEAT_FILE`` is set). ``BLADES_RESUME=1`` resumes. Under a
+run supervisor (``BLADES_SUPERVISED=1``, ``supervision/supervisor.py``)
+SIGTERM becomes :class:`SupervisorTermination` in the round loop (:61,
+:728-745), so the crash autosave fires before the supervisor's SIGKILL.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
 ``device="cpu"`` to run on the CPU. Options that select a path not ported
@@ -48,6 +51,8 @@ from __future__ import annotations
 
 import logging
 import os
+import signal
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Union
 
@@ -98,6 +103,31 @@ from blades_tpu_torch.utils.logging import initialize_logger
 from blades_tpu_torch.utils.metrics import top1_accuracy
 
 _IGNORED_KWARGS = ("num_actors", "num_trainers", "gpu_per_actor", "mode", "use_cuda")
+
+
+class SupervisorTermination(BaseException):
+    """Raised in the round loop when the run supervisor SIGTERMs a
+    supervised run (``BLADES_SUPERVISED=1``; ``blades_tpu/simulator.py:61``).
+    A ``BaseException``, like ``KeyboardInterrupt``: an ``except Exception``
+    cannot swallow the shutdown, and the run's crash autosave still fires
+    before the process dies."""
+
+
+def _install_sigterm():
+    """Under a supervisor, on the main thread: turn SIGTERM into
+    :class:`SupervisorTermination` in the round loop. Returns the previous
+    handler to restore, or None when nothing was installed."""
+    if (os.environ.get(heartbeat.SUPERVISED_ENV) != "1"
+            or threading.current_thread() is not threading.main_thread()):
+        return None
+
+    def _on_sigterm(signum, frame):
+        raise SupervisorTermination("SIGTERM from run supervisor")
+
+    try:
+        return signal.signal(signal.SIGTERM, _on_sigterm)
+    except (ValueError, OSError):
+        return None
 
 
 def _torch_dtype(name) -> Optional[torch.dtype]:
@@ -536,6 +566,7 @@ class Simulator:
         round_times: List[float] = []
         self._capture = None  # the open profiler capture, if any
         built = False  # a failure before the round loop has no state to autosave
+        prev_sigterm = None
         try:
             spec = self._model_spec(model, loss, compute_dtype)
             batch_size = train_batch_size or self._train_bs
@@ -596,6 +627,11 @@ class Simulator:
             if async_config is not None:
                 rec.gauge("engine.async", 1)
                 rec.gauge("engine.async_buffer_m", self.engine.async_buffer_m)
+            # a supervisor's SIGTERM becomes SupervisorTermination, so the
+            # crash autosave below fires before its SIGKILL; installed only
+            # now, when every configuration error has had its chance to
+            # raise (blades_tpu/simulator.py:728-745), restored in finally
+            prev_sigterm = _install_sigterm()
             state = self.engine.init(params)
             # the crash autosave's target: the checkpoint path when given, else
             # a fixed path in the log dir (whose wipe keeps *.npz)
@@ -604,7 +640,8 @@ class Simulator:
             if resume:
                 for cand in dict.fromkeys((checkpoint_path, autosave_path)):
                     if cand and os.path.exists(checkpoint_file(cand)):
-                        state = restore_state(cand, state)
+                        with rec.span("restore"):
+                            state = restore_state(cand, state)
                         start_round = state.round_idx + 1
                         self.debug_logger.info(f"resumed from {cand} at round {start_round}")
                         break
@@ -709,6 +746,11 @@ class Simulator:
                 "rounds_completed": len(round_times),
                 **({"rounds_per_sec": round(len(round_times) / total, 4)} if total > 0 else {}),
             })
+            if prev_sigterm is not None:
+                try:
+                    signal.signal(signal.SIGTERM, prev_sigterm)
+                except (ValueError, OSError):
+                    pass
         if checkpoint_path is None:
             # the run completed: its crash autosave is stale
             self._remove_autosave(autosave_path, "run complete")

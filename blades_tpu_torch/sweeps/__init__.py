@@ -14,12 +14,13 @@ port keeps its own copies.
 configuration by value, the trial tensor's shape and dtype, the context's
 keys and the presence of a participation mask, the JAX package's rule, so
 a sweep groups its cells as the JAX package does. :func:`run_grouped` runs
-each group through one :func:`~blades_tpu_torch.audit.attack_search.
-search_cells` call. There it amortizes one compile a group; here it
-amortizes nothing but the one host read of a group's deviations, and the
-results equal a cell-by-cell walk bit for bit. The resilient executor and
-the sweep journal (``blades_tpu/sweeps/resilient.py``, ``journal.py``) are
-``ROADMAP.md`` queue A, slice 13.
+each group through :func:`_execute_group`, one :func:`~blades_tpu_torch.
+audit.attack_search.search_cells` call. There it amortizes one compile a
+group; here it amortizes nothing but the one host read of a group's
+deviations, and the results equal a cell-by-cell walk bit for bit. The
+resilient executor (:mod:`.resilient`: retry, deadlines, bisection,
+quarantine) re-enters the same :func:`_execute_group`, and :mod:`.journal`
+keeps each finished cell for a resumed sweep.
 A :class:`EngineCache` maps a :func:`program_fingerprint` of an engine's
 static configuration to the built ``RoundEngine``, so a run whose
 configuration matches an earlier one reuses that engine and whatever it
@@ -29,7 +30,7 @@ builds the key (``blades_tpu/simulator.py:640-715``).
 
 ``static_fingerprint`` also collapses a ``torch.Tensor`` (through
 ``.cpu()``) the way it collapses an array. The JAX package reports an
-eviction to its compile-provenance registry, which comes with slice 13
+eviction to its compile-provenance registry, which comes with slice 13b
 (``ROADMAP.md`` queue A); here it is counted in ``EngineCache.evictions``.
 """
 
@@ -184,16 +185,31 @@ def plan_groups(cells: Sequence[SweepCell]) -> List[Tuple[str, List[int]]]:
     return [(key, groups[key]) for key in order]
 
 
+def _execute_group(group: Sequence[SweepCell], key: str, *, grids: Optional[dict] = None):
+    """One execution of ``group`` (cells sharing the program shape ``key``)
+    through one ``search_cells`` call: the body :func:`run_grouped` and the
+    resilient executor (``sweeps/resilient.py``) share, so a retry or a
+    bisection half re-enters exactly the call that failed
+    (``blades_tpu/sweeps/__init__.py:224-253``)."""
+    from blades_tpu_torch.audit.attack_search import search_cells
+
+    return search_cells(
+        group[0].agg,
+        [{"trials": c.trials, "f": c.f, "ctx": c.ctx, "part_mask": c.part_mask,
+          "label": c.label} for c in group],
+        grids=grids, batch_label=key,
+    )
+
+
 def run_grouped(cells: Sequence[SweepCell], *, grids: Optional[dict] = None, sweep=None,
                 return_walls: bool = False):
     """The cells' search results in input order, each group through one
-    ``search_cells`` call (bit for bit what :func:`search_cell` gives each
+    :func:`_execute_group` (bit for bit what :func:`search_cell` gives each
     cell). ``sweep``: a ``telemetry.timeline.SweepAccounting``; each cell
     is recorded with its share of the group's wall and the shared
     ``batch`` key, and a failed group records every cell as failed before
     the error propagates. ``return_walls``: also return each cell's share
     of its group's wall."""
-    from blades_tpu_torch.audit.attack_search import search_cells
     from blades_tpu_torch.telemetry import recorder as _trecorder
     from blades_tpu_torch.telemetry.timeline import counter_delta
 
@@ -205,12 +221,7 @@ def run_grouped(cells: Sequence[SweepCell], *, grids: Optional[dict] = None, swe
         t0 = time.perf_counter()
         counters0 = _trecorder.process_counters()
         try:
-            outs = search_cells(
-                group[0].agg,
-                [{"trials": c.trials, "f": c.f, "ctx": c.ctx, "part_mask": c.part_mask,
-                  "label": c.label} for c in group],
-                grids=grids, batch_label=key,
-            )
+            outs = _execute_group(group, key, grids=grids)
         except Exception as e:
             if sweep is not None:
                 wall = time.perf_counter() - t0

@@ -5,7 +5,7 @@ Counterpart: ``blades_tpu/telemetry/profiling.py`` — ``profile_dir_from_env``,
 ``start_capture`` / ``stop_capture``. The JAX module's
 ``record_program_profile`` (XLA's cost and memory analysis of a compiled
 program) has no torch counterpart and is not here (``ROADMAP.md`` queue
-A, slice 13).
+A, slice 13b).
 
 - :func:`record_live_bytes` — ``torch.cuda.memory_stats`` watermarks
   (``mem.bytes_in_use``, ``mem.peak_bytes_in_use``,

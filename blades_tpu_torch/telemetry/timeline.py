@@ -3,7 +3,7 @@ sweep cell goes.
 
 Counterpart: ``blades_tpu/telemetry/timeline.py``, copied: launch
 accounting (``launch_begin`` / ``launch_enqueued`` / ``launch_ready`` /
-``emit`` / ``reset``, :126-240) and sweep accounting (``SweepAccounting``,
+``emit`` / ``reset``, :126-240) and sweep accounting (``SweepAccounting`` with ``resume``,
 ``sweep_cell_event``, ``sweep_batch_events``, :256-489). Stdlib only.
 
 **Launch accounting** splits each round (or block) the engine issues into
@@ -207,6 +207,20 @@ class SweepAccounting:
         )
         # the trace file exists from the start: a sweep killed in cell 0
         # still leaves one
+        self.rec.flush()
+
+    def resume(self, skipped: int, journal: Optional[str] = None, quarantined: int = 0) -> None:
+        """Mark this attempt a journaled resume (``sweeps/journal.py``): one
+        ``resume`` record, how many cells were recovered instead of run.
+        The executor then writes a zero-wall ``resumed: true`` sweep record
+        for each recovered cell, so the i-of-N trail stays monotone."""
+        fields: Dict[str, Any] = {"sweep": self.kind, "skipped": int(skipped),
+                                  "total": self.total, "ts": time.time()}
+        if quarantined:
+            fields["quarantined"] = int(quarantined)
+        if journal:
+            fields["journal"] = journal
+        self.rec.event("resume", **fields)
         self.rec.flush()
 
     def cell(self, key: str, **fields):

@@ -184,7 +184,7 @@ kernel at [100, 283723], b=10, against its plain version and timed beside
 its bound and the library call; then the certify script
 (``blades_tpu_torch/examples/certify.py``) in its committed configuration
 on the card through its ``main``, against a CPU run of the same (a
-subprocess, run to its end first): verdicts exactly, ratios at CERT_TOL,
+subprocess started before the text phases): verdicts exactly, ratios at CERT_TOL,
 the kernel's launches equal to the plan's unmasked trimmed-mean
 evaluations; timed in one run, its host syncs counted in a second, whose
 every kernel launch is then held against the plain version on its own
@@ -204,6 +204,29 @@ at K=1000 in 4 chunks in f32 and bf16 (and, among the text phases,
 ``text_cct_2`` at K=100 in f32), each with and without ``remat=True``:
 cold and warm rounds, peak memory and the updates compared.
 
+Then resilient sweeps and the run supervisor (slice 13a), after the vmap
+phases: the certify driver's committed configuration again through its
+``main`` with ``--attempts 2`` and a runner that fails one cell
+(RESIL_POISON): that cell alone quarantined by bisection, every other
+result bit for bit the ``certify`` phase's, the launches the plan's; a
+group of 8 trimmed-mean search cells at K=100 and CCT-2's D under an
+allocator capped between the peaks of half the group and the whole
+(``torch.cuda.set_per_process_memory_fraction``): a real
+``torch.cuda.OutOfMemoryError``, retried, bisected, every cell salvaged
+bit for bit; a supervised child (``--sticky-child``) whose runner kills
+its CUDA context with the kernel's raw entry on an address nothing owns:
+``DeviceLost``, no quarantine journaled, and the relaunch under
+``BLADES_RESUME=1`` finishes with none; CCT-2 at K=1000 (4 chunks, bf16,
+ALIE f=5 + trimmed mean b=5, a checkpoint a round) through
+``examples/supervised_run.py --child`` under the run supervisor, hung at
+round 2 of 4: the heartbeat kill, no process left, the crash autosave
+naming ``SupervisorTermination``, the relaunch ``torch.equal`` to an
+uninterrupted child, the time to recover split and the card's free
+memory before and after the kill; and ``examples/chaos.py --sweep 14``
+on the card with zero violations, then a chaos child SIGKILLed at round 2
+and resumed bit for bit. Every kernel launch of these paths is held
+against the plain version (the children hold theirs).
+
 Each phase prints one JSON line. The line before the last is the
 ``kernels`` record, and the last line is ``{"ok": true, "device": {...}}``,
 printed only when every phase passed. Any failure raises and exits
@@ -216,7 +239,8 @@ other) at every timed shape, in the ``kernel_compare`` records.
 ``--certify-only`` builds the kernel and runs only the certification
 phases (about 3 minutes on the card), with no ``kernels`` or result line;
 ``--text-only`` likewise runs only the text and pretrained phases (about
-2.7 minutes with the build).
+2.7 minutes with the build), and ``--resilient-only`` a certify run on the
+card and the slice 13a phases.
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -409,6 +433,27 @@ TEXT_CPU_CLIENTS, TEXT_MAX_KINK_ROWS = 6, 2
 VMAP_MLP_S, VMAP_CONFIG1_S, VMAP_CONFIG1_STEPS, VMAP_CCT2_S, VMAP_LOOP_S = 8, 64, 50, 2, 4
 VMAP_WARM, REMAT_WARM = 2, 2
 VMAP_BIG_SHAPE = (2, 100, 10_800_000, 10)  # [S, K, D, b]: S*K*D past 2^31 (8.64 GB)
+# resilient sweeps and supervision (slice 13a): the poison cell of the
+# certify driver's committed configuration; the OOM group (OOM_CELLS
+# trimmed-mean cells, b = OOM_B, at K=100 and CCT-2's D, OOM_TRIALS trials
+# each on the host, staged onto the card by the group's runner, the quick
+# grids); the cell whose group kills the CUDA context in the sticky child
+# and that child's sweep; the supervised CCT-2 run (K=1000, 4 chunks,
+# bf16, ALIE f=5 + trimmed mean b=5, a checkpoint a round) hung once at
+# SUP_HANG_AT of SUP_ROUNDS, its heartbeat timeout above a warm round with
+# its checkpoint and the child's kernel check (under 1 s on the card, PR
+# 15; a 1.14 GB checkpoint, which holds a straggler buffer, saves in
+# 1.35-1.97 s, PR 9), its SIGTERM grace above the crash autosave; the
+# chaos sweep (one seed for each defense of the pool) and its supervised
+# SIGKILL child
+RESIL_POISON = "trimmedmean/f2"
+OOM_CELLS, OOM_TRIALS, OOM_B = 8, 2, 10
+STICKY_CELL = "trimmedmean/f2"
+STICKY_ARGS = ("--quick", "--no-async", "--aggs", "mean", "trimmedmean")
+SUP_ROUNDS, SUP_HANG_AT, SUP_HEARTBEAT_S, SUP_TERM_GRACE_S = 4, 2, 5.0, 60.0
+CHAOS_SCENARIOS, CHAOS_KILL_SEED, CHAOS_KILL_AT = 14, 1, 2
+# the children that run beside the host-bound certify run keep to 2 threads
+BESIDE_ENV = {"OMP_NUM_THREADS": "2"}
 
 
 def emit(record: dict) -> None:
@@ -4537,23 +4582,35 @@ def cpu_certify(out_path: str) -> int:
     args = certify.parse_args(["--device", "cpu", "--out", str(Path(out_path).parent)])
     t0 = time.perf_counter()
     plans, specs = certify.enumerate_cells(args, "cpu")
-    results, walls = certify.execute_cells(args, specs)
-    matrix = certify.assemble_matrix(args, plans, specs, results, walls, "cpu")
+    results, walls, report = certify.execute_cells(args, plans, specs)
+    matrix = certify.assemble_matrix(args, plans, specs, results, walls, report, "cpu")
     with open(out_path, "w") as fh:
         json.dump({"labels": [s.label for s in specs], "results": results, "matrix": matrix,
                    "wall_s": time.perf_counter() - t0}, fh)
     return 0
 
 
-def run_cpu_certify(log_root: Path) -> dict:
-    """The certify phase's CPU reference: ``--cpu-certify`` in a subprocess,
-    waited for, with nothing else running beside it; returns what it wrote."""
+def start_cpu_certify(log_root: Path) -> tuple:
+    """Start the certify phase's CPU reference, ``--cpu-certify`` in a
+    subprocess. The whole script starts it before the text phases, which
+    wait on the card, so that it ends before the certify phase's card runs,
+    which are host-bound (it ran to its end at the phase's start before PR
+    15: 38 s of the script)."""
     out = log_root / "certify_cpu" / "raw.json"
     out.parent.mkdir(parents=True)
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--cpu-certify",
-                           str(out)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                          text=True, timeout=900)
-    check(proc.returncode == 0, f"the CPU certify run failed:\n{proc.stdout[-3000:]}")
+    log = open(out.with_suffix(".log"), "w")
+    proc = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--cpu-certify",
+                             str(out)], stdout=log, stderr=subprocess.STDOUT)
+    return proc, out, log
+
+
+def finish_cpu_certify(handle: tuple) -> dict:
+    """Wait for the CPU reference; returns what it wrote."""
+    proc, out, log = handle
+    rc = proc.wait(timeout=900)
+    log.close()
+    check(rc == 0, "the CPU certify run failed:\n"
+          + out.with_suffix(".log").read_text()[-3000:])
     return json.loads(out.read_text())
 
 
@@ -4599,8 +4656,9 @@ def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool) ->
         return kept["plans"], kept["specs"]
 
     def execute_cells(*a, **kw):
-        kept["results"], kept["walls"] = orig_exec(*a, **kw)
-        return kept["results"], kept["walls"]
+        out = orig_exec(*a, **kw)
+        kept["results"], kept["walls"] = out[:2]
+        return out
 
     def kernel(x, b):
         out = orig_kernel(x, b)
@@ -4697,11 +4755,12 @@ def certify_kernel_shapes(torch, trimmed, seen: list, card: str) -> tuple:
     return shapes, max_err
 
 
-def phase_certify(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple) -> tuple:
     """The certify script (``blades_tpu_torch/examples/certify.py``) on the
     card through its ``main``, in its committed configuration, the matrix
     into the run's temporary directory, against the same run on the CPU
-    (a subprocess, run to its end first): ``ok`` (the headline expectations
+    (``cpu_run``: a subprocess started before the text phases, ended by
+    now): ``ok`` (the headline expectations
     hold), every cell's verdict equal to the CPU run's and its worst ratio
     at CERT_TOL (each template's too), every battery verdict equal, and the
     kernel's launches equal to the trimmed-mean evaluations the plan makes
@@ -4709,12 +4768,12 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
     with the sync debug mode off; a second run counts its host syncs and
     keeps every launch's input, and each launch is then held against the
     plain version (``certify_kernel_shapes``). Returns the timed run's
-    launches, the timings at each [K, D, b] and the kernel's largest
-    error."""
+    launches, the timings at each [K, D, b], the kernel's largest error and
+    the timed run (``resilient_certify``'s reference)."""
     from blades_tpu_torch.audit import DEFAULT_GRIDS
     from blades_tpu_torch.examples import certify
 
-    ref = run_cpu_certify(log_root)
+    ref = finish_cpu_certify(cpu_run)
     timed = certify_on_card(torch, trimmed, certify, dev, log_root / "certify", count=False)
     counted = certify_on_card(torch, trimmed, certify, dev, log_root / "certify_counted",
                               count=True)
@@ -4749,7 +4808,7 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
         check(not ratios, f"certify ({name} run): ratios differ from the CPU run at "
               f"{CERT_TOL}: {ratios[:10]}")
     shapes, err = certify_kernel_shapes(torch, trimmed, counted["seen"], card)
-    return timed["launches"], shapes, err
+    return timed["launches"], shapes, err, timed
 
 
 def phase_certify_scale(torch, trimmed, dev, card: str) -> tuple:
@@ -5177,6 +5236,614 @@ def vmap_phases(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
     return vmap_remat_phases(torch, trimmed, dev, card, log_root)
 
 
+# -- resilient sweeps and the run supervisor (slice 13a) ----------------------------
+
+
+class _HeldKernel:
+    """The kernel's wrapper, each launch held at once against the plain
+    version on its own input (``TOL``): the errors stay on the card until
+    :meth:`result` reads them. Installed over ``trimmed.trimmed_mean_cuda``
+    (the defense's route), the launches still counted by the wrapper."""
+
+    def __init__(self, torch, trimmed):
+        self.torch, self.trimmed = torch, trimmed
+        self.orig = trimmed.trimmed_mean_cuda
+        self.errs, self.bad = [], []
+
+    def __call__(self, x, b):
+        out = self.orig(x, b)
+        ref = self.trimmed.trimmed_mean_plain(x, b)
+        self.errs.append((out - ref).abs().max())
+        self.bad.append((~self.torch.isclose(out, ref, **TOL)).sum())
+        return out
+
+    def __enter__(self):
+        self.trimmed.trimmed_mean_cuda = self
+        return self
+
+    def __exit__(self, *exc):
+        self.trimmed.trimmed_mean_cuda = self.orig
+        return False
+
+    def result(self) -> tuple:
+        """(launches held, largest error, elements off TOL)."""
+        if not self.errs:
+            return 0, 0.0, 0
+        return (len(self.errs), float(self.torch.stack(self.errs).max()),
+                int(self.torch.stack(self.bad).sum()))
+
+
+def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref: dict) -> tuple:
+    """The certify driver's committed configuration through its ``main``
+    with ``--attempts 2``, a ``ResilienceOptions.runner`` that raises for
+    RESIL_POISON and otherwise calls ``sweeps._execute_group``: that cell's
+    group is retried, bisected, and the cell alone quarantined (one
+    ``quarantine`` record, one journal line); every other cell's result,
+    verdict and ratio equal to the ``certify`` phase's run (``ref``) bit for
+    bit; the kernel's launches equal to the plan's without the poison cell,
+    each held against the plain version. Returns the launches and the
+    largest error."""
+    import contextlib
+    import functools
+    import io
+
+    from blades_tpu_torch.audit import DEFAULT_GRIDS
+    from blades_tpu_torch.examples import certify
+    from blades_tpu_torch.sweeps import _execute_group
+
+    out_dir = log_root / "resilient_certify"
+    kept, calls = {}, []
+    orig_exec, orig_opts = certify.execute_cells, certify.ResilienceOptions
+
+    def runner(group, key):
+        calls.append(len(group))
+        if any(c.label == RESIL_POISON for c in group):
+            raise RuntimeError(f"injected failure of {RESIL_POISON}")
+        return _execute_group(group, key, grids=DEFAULT_GRIDS)
+
+    def execute_cells(*a, **kw):
+        out = orig_exec(*a, **kw)
+        kept.update(specs=a[2], results=out[0], report=out[2])
+        return out
+
+    certify.execute_cells = execute_cells
+    certify.ResilienceOptions = functools.partial(orig_opts, runner=runner)
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    try:
+        with _HeldKernel(torch, trimmed) as held, contextlib.redirect_stdout(buf):
+            rc = certify.main(["--device", str(dev), "--attempts", "2", "--out", str(out_dir)])
+        torch.cuda.synchronize()
+    finally:
+        certify.execute_cells, certify.ResilienceOptions = orig_exec, orig_opts
+    wall = time.perf_counter() - t0
+    launches = trimmed.trimmed_mean_launches
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    matrix = json.loads((out_dir / "cert_matrix.json").read_text())
+    report = kept["report"]
+    labels = [s.label for s in kept["specs"]]
+    ref_by = dict(zip((s.label for s in ref["specs"]), ref["results"]))
+    differ = [lab for lab, r in zip(labels, kept["results"])
+              if lab != RESIL_POISON and r != ref_by[lab]]
+    rows = {(r["agg"], r["f"], r.get("scenario")): (r["certified"], r["worst_ratio"])
+            for r in matrix["cells"] + matrix["async_cells"]}
+    ref_rows = {(r["agg"], r["f"], r.get("scenario")): (r["certified"], r["worst_ratio"])
+                for r in ref["matrix"]["cells"] + ref["matrix"]["async_cells"]}
+    rows_differ = [list(k) for k, v in ref_rows.items() if rows.get(k) != v]
+    args = certify.parse_args([])
+    search, battery = certify_expected_launches(
+        [s for s in kept["specs"] if s.label != RESIL_POISON], args.clients, args.trials,
+        DEFAULT_GRIDS)
+    records = [json.loads(line) for line in (out_dir / "sweep_trace.jsonl").read_text()
+               .splitlines() if line.strip()]
+    journal = [json.loads(line) for line in (out_dir / "sweep_journal.jsonl").read_text()
+               .splitlines() if line.strip()]
+    held_n, err, off = held.result()
+    emit({"phase": "resilient_certify", "rc": rc, "ok": summary["ok"], "cells": len(labels),
+          "quarantined": summary["quarantined"], "retried": report.retried,
+          "degraded_groups": report.degraded_groups, "executed": report.executed,
+          "group_sizes_run": calls, "wall_s": wall, "ref_wall_s": ref["wall"],
+          "results_differ": differ[:20], "rows_differ": rows_differ[:20],
+          "launches": launches, "launches_planned_search": search,
+          "launches_planned_battery": battery, "launches_held": held_n, "max_abs_err": err,
+          "elements_off_tol": off, "card": card})
+    check(rc == 1 and summary["quarantined"] == [RESIL_POISON] and not summary["ok"],
+          f"resilient_certify: rc {rc}, {summary}")
+    check([q["cell"] for q in report.quarantined] == [RESIL_POISON]
+          and [r["cell"] for r in records if r["t"] == "quarantine"] == [RESIL_POISON]
+          and [r["cell"] for r in journal if r.get("kind") == "quarantine"] == [RESIL_POISON],
+          "resilient_certify: the quarantine records")
+    check(report.retried >= 1 and report.degraded_groups >= 1, f"resilient_certify: {report}")
+    check(not differ and rows_differ == [["trimmedmean", 2, None]],
+          f"resilient_certify: results {differ[:10]}, rows {rows_differ}")
+    check(launches == search + battery == held_n and off == 0,
+          f"resilient_certify: {launches} launches ({held_n} held, {off} elements off TOL), "
+          f"the plan makes {search} + {battery}")
+    return launches, err
+
+
+def phase_resilient_oom(torch, trimmed, dev, card: str) -> tuple:
+    """A real ``torch.cuda.OutOfMemoryError`` salvaged by bisection: a group
+    of OOM_CELLS trimmed-mean search cells at K=100 and CCT-2's D, its
+    trials on the host and staged onto the card by the group's runner (so
+    a group's memory grows with its cells), run uncapped (the whole group,
+    then a half) for the peaks of reserved memory; then the allocator is
+    capped between the two (``set_per_process_memory_fraction``) and the
+    group run under ``run_grouped_resilient``: it fails its 2 attempts,
+    bisects, and every cell's result equals the uncapped run's bit for bit.
+    Each launch is held against the plain version. Returns the capped
+    run's launches and the largest error."""
+    import dataclasses
+
+    from blades_tpu_torch.audit import QUICK_GRIDS, battery_ctx, synthetic_honest
+    from blades_tpu_torch.examples.certify import build_aggregator
+    from blades_tpu_torch.sweeps import SweepCell, _execute_group, group_key
+    from blades_tpu_torch.sweeps.resilient import ResilienceOptions, run_grouped_resilient
+
+    k, d = CERT_SCALE_CLIENTS, CCT2_SHAPE[1]
+    agg = build_aggregator("trimmedmean", k, OOM_B)
+    g = torch.Generator(device="cpu").manual_seed(0)
+    ctx = battery_ctx(None, k, d, device=dev)
+    cells = [SweepCell(f"oom/f{f}", agg=agg, f=f, ctx=ctx,
+                       trials=synthetic_honest(g, OOM_TRIALS, k, d, device="cpu"))
+             for f in range(3, 3 + OOM_CELLS)]
+    key = group_key(cells[0])
+    attempts = []
+
+    def runner(group, key_):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        n0 = trimmed.trimmed_mean_launches
+        rec = {"cells": len(group), "first": group[0].label}
+        attempts.append(rec)
+        try:
+            staged = [dataclasses.replace(c, trials=c.trials.to(dev)) for c in group]
+            return _execute_group(staged, key_, grids=QUICK_GRIDS)
+        except torch.cuda.OutOfMemoryError:
+            rec["oom"] = True
+            raise
+        finally:
+            rec.update(peak_reserved=torch.cuda.max_memory_reserved(),
+                       peak_allocated=torch.cuda.max_memory_allocated(),
+                       launches=trimmed.trimmed_mean_launches - n0)
+
+    def fresh():
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    with _HeldKernel(torch, trimmed) as held:
+        fresh()
+        whole = runner(cells, key)
+        fresh()
+        runner(cells[: OOM_CELLS // 2], key)
+        peak_whole, peak_half = attempts[0]["peak_reserved"], attempts[1]["peak_reserved"]
+        cap = (peak_half + peak_whole) // 2
+        fresh()
+        trimmed.trimmed_mean_launches = 0
+        attempts.clear()
+        torch.cuda.set_per_process_memory_fraction(cap / total, 0)
+        t0 = time.perf_counter()
+        try:
+            results, _, report = run_grouped_resilient(
+                cells, options=ResilienceOptions(attempts=2, runner=runner, base_delay_s=0.0))
+            torch.cuda.synchronize()
+        finally:
+            torch.cuda.set_per_process_memory_fraction(1.0, 0)
+        wall = time.perf_counter() - t0
+    launches = trimmed.trimmed_mean_launches
+    held_n, err, off = held.result()
+    sizes = [a["cells"] for a in attempts]
+    levels = int(math.log2(OOM_CELLS / min(sizes))) if sizes else 0
+    emit({"phase": "resilient_oom", "cells": OOM_CELLS, "k": k, "d": d, "b": OOM_B,
+          "trials": OOM_TRIALS, "peak_reserved_whole": peak_whole,
+          "peak_reserved_half": peak_half, "cap_bytes": cap, "card_bytes": total,
+          "attempts": attempts, "bisection_levels": levels, "retried": report.retried,
+          "degraded_groups": report.degraded_groups, "quarantined": report.summary()[
+              "quarantined"], "wall_s": wall, "launches": launches,
+          "launches_held_all_runs": held_n, "max_abs_err": err, "elements_off_tol": off,
+          "card": card})
+    check(peak_half < cap < peak_whole, f"resilient_oom: no cap between {peak_half} and "
+          f"{peak_whole}")
+    check(attempts[0].get("oom") and attempts[1].get("oom") and sizes[:2] == [OOM_CELLS] * 2,
+          f"resilient_oom: the capped group did not run out of memory twice: {attempts}")
+    check(report.retried >= 1 and report.degraded_groups >= 1 and not report.quarantined,
+          f"resilient_oom: {report}")
+    check(results == whole, "resilient_oom: a salvaged cell differs from the uncapped run")
+    check(launches > 0 and off == 0, f"resilient_oom: {launches} launches, {off} elements "
+          f"off TOL")
+    return launches, err
+
+
+def sticky_child(out_dir: str) -> int:
+    """``--sticky-child OUT``: the certify driver (``STICKY_ARGS``) on the
+    card, resilient, whose runner kills the CUDA context at STICKY_CELL's
+    group once (a sentinel beside OUT disarms it for the relaunch): the
+    kernel's raw entry on an address nothing owns. The executor must raise
+    ``DeviceLost`` and journal no quarantine. Each kernel launch is held
+    against the plain version; a ``STICKY`` line gives the launches."""
+    import functools
+    import os
+
+    import torch
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from blades_tpu_torch.audit import QUICK_GRIDS
+    from blades_tpu_torch.examples import certify
+    from blades_tpu_torch.ops import trimmed
+    from blades_tpu_torch.sweeps import _execute_group
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    sentinel = Path(out_dir + ".fault_fired")
+
+    def runner(group, key):
+        if any(c.label == STICKY_CELL for c in group) and not sentinel.exists():
+            sentinel.touch()
+            out = torch.empty(1 << 20, device="cuda")
+            trimmed._library().blades_trimmed_mean_f32(
+                16, out.data_ptr(), 8, 1 << 20, 1, torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()  # the illegal address surfaces here
+        return _execute_group(group, key, grids=QUICK_GRIDS)
+
+    certify.ResilienceOptions = functools.partial(certify.ResilienceOptions, runner=runner)
+    trimmed.trimmed_mean_launches = 0
+    with _HeldKernel(torch, trimmed) as held:
+        rc = certify.main([*STICKY_ARGS, "--attempts", "2", "--out", out_dir])
+        launches = trimmed.trimmed_mean_launches
+        try:
+            checked = held.result()
+        except RuntimeError as e:  # the dead context: nothing more to read
+            checked = (None, None, f"{type(e).__name__}: {e}"[:200])
+    print("STICKY " + json.dumps({"rc": rc, "launches": launches, "held": checked[0],
+                                  "max_abs_err": checked[1], "elements_off_tol": checked[2],
+                                  "attempt": os.environ.get("BLADES_ATTEMPT")}), flush=True)
+    # a dead context may hang the interpreter's teardown
+    os._exit(rc)
+
+
+def run_sticky(log_root: Path) -> dict:
+    """The sticky child (``--sticky-child``) under the run supervisor. It
+    runs beside the main thread's phases, so it only gathers: no record,
+    no check."""
+    import os
+
+    from blades_tpu_torch.supervision import Supervisor
+
+    out = log_root / "sticky"
+    log = log_root / "sticky.log"
+    t0 = time.perf_counter()
+    with open(log, "w") as fh:
+        result = Supervisor(
+            [sys.executable, str(Path(__file__).resolve()), "--sticky-child", str(out)],
+            attempts=2, base_delay_s=0.5, poll_s=0.2, startup_grace_s=600,
+            telemetry_path=str(log_root / "sticky_supervisor.jsonl"),
+            heartbeat_file=str(log_root / "sticky_hb"), env={
+                "BLADES_LEDGER": os.environ["BLADES_LEDGER"], **BESIDE_ENV},
+            cwd=str(Path(__file__).resolve().parent), stdout=fh,
+            stderr=subprocess.STDOUT).run()
+    return dict(result=result, wall=time.perf_counter() - t0, text=log.read_text(),
+                journal=_notes(out / "sweep_journal.jsonl"))
+
+
+def report_sticky(run: dict, card: str) -> tuple:
+    """``resilient_sticky``: the first attempt's device fault made the
+    executor raise (no quarantine journaled, the process exited 1), and the
+    relaunch under ``BLADES_RESUME=1`` recovered the journaled cells and
+    finished with no quarantine. Returns the kernel launches of both
+    attempts and the largest error."""
+    result, text, journal = run["result"], run["text"], run["journal"]
+    lines = [json.loads(line[7:]) for line in text.splitlines() if line.startswith("STICKY ")]
+    summaries = [json.loads(line) for line in text.splitlines()
+                 if line.startswith('{"metric": "defense_certification"')]
+    errs = [x["max_abs_err"] for x in lines if isinstance(x.get("max_abs_err"), float)]
+    emit({"phase": "resilient_sticky", "ok": result.ok,
+          "attempts": [dict(reason=a.reason, returncode=a.returncode, resumed=a.resumed,
+                            wall_s=a.wall_s) for a in result.attempts],
+          "children": lines, "first_error": summaries[0].get("error") if summaries else None,
+          "final": summaries[-1] if summaries else None,
+          "journal_quarantines": sum(r.get("kind") == "quarantine" for r in journal),
+          "journal_cells": sum(r.get("kind") == "cell" for r in journal),
+          "wall_s": run["wall"], "card": card})
+    check(result.ok and len(result.attempts) == 2 and result.attempts[0].returncode == 1
+          and result.attempts[1].resumed, f"resilient_sticky: {result}\n{text[-3000:]}")
+    check(len(summaries) == 2 and "DeviceLost" in summaries[0].get("error", "")
+          and summaries[1]["ok"] and summaries[1]["quarantined"] == []
+          and summaries[1]["resumed_skipped"] > 0, f"resilient_sticky: {summaries}")
+    check(not any(r.get("kind") == "quarantine" for r in journal),
+          "resilient_sticky: a quarantine was journaled")
+    check(len(lines) == 2 and lines[1]["elements_off_tol"] == 0 and lines[1]["launches"] > 0,
+          f"resilient_sticky: {lines}")
+    return sum(x["launches"] for x in lines), max(errs, default=0.0)
+
+
+def _notes(path: Path) -> list:
+    return [json.loads(line) for line in path.read_text().splitlines() if line.strip()]
+
+
+def recovery_split(events: list, notes: list, records: list) -> dict:
+    """The time to recover of a supervised run hung once, from the hang to
+    the relaunch's first finished round: detection (the hang to the
+    watchdog's decision), the group kill (SIGTERM, the crash autosave,
+    the exit), the backoff to the relaunch, the process's start (the launch
+    to CUDA ready: the interpreter, the imports, CUDA's start), the
+    kernel's load, the data, the restore (the ``restore`` span) and the
+    first round (the run's start to the round's end, the engine's build
+    included, the restore not)."""
+    kill = next(e for e in events if e["event"] == "kill")
+    relaunch = [e for e in events if e["event"] == "launch"][1]
+    hang = next(n for n in notes if n["event"] == "hang")
+    second = [n for n in notes if n["attempt"] == 2]
+    at = {n["event"]: n["ts"] for n in second if n["event"] != "round"}
+    first_round = next(n for n in second if n["event"] == "round")
+    restore = sum(r["dur_s"] for r in records if r.get("t") == "span"
+                  and r.get("path") == "restore" and r.get("attempt") == 2)
+    decided = kill["ts"] - kill["kill_s"]
+    split = {
+        "detection_s": decided - hang["ts"],
+        "kill_s": kill["kill_s"],
+        "backoff_s": relaunch["ts"] - kill["ts"],
+        "process_start_s": at["cuda"] - relaunch["ts"],
+        "kernel_load_s": at["kernel"] - at["cuda"],
+        "data_s": at["data"] - at["kernel"],
+        "restore_s": restore,
+        "first_round_s": first_round["ts"] - at["run"] - restore,
+    }
+    split["total_s"] = first_round["ts"] - hang["ts"]
+    split["unaccounted_s"] = split["total_s"] - sum(v for k, v in split.items()
+                                                    if k != "total_s")
+    split["first_round"] = first_round["round"]
+    return split
+
+
+def _sup_args():
+    import argparse
+
+    return argparse.Namespace(workload="cct2", device="cuda", rounds=SUP_ROUNDS)
+
+
+def run_sup_reference(log_root: Path) -> dict:
+    """The uninterrupted CCT-2 child of ``supervised_cct2``. It runs beside
+    the main thread's phases: its wall is reported, not its parts."""
+    import os
+
+    from blades_tpu_torch.examples import supervised_run
+
+    root = Path(__file__).resolve().parent
+    env = {"PYTHONPATH": str(root), "BLADES_LEDGER": os.environ["BLADES_LEDGER"], **BESIDE_ENV}
+    params, notes = log_root / "sup_ref.pt", log_root / "sup_ref_notes.jsonl"
+    t0 = time.perf_counter()
+    with open(log_root / "sup_ref.log", "w") as fh:
+        proc = subprocess.run(supervised_run.child_cmd(_sup_args(), str(log_root / "sup_ref"),
+                                                       str(params), 0, str(notes)),
+                              stdout=fh, stderr=subprocess.STDOUT, cwd=str(root),
+                              env=dict(os.environ, **env), timeout=900)
+    return dict(rc=proc.returncode, wall=time.perf_counter() - t0, params=params, notes=notes,
+                log=log_root / "sup_ref.log")
+
+
+def run_supervised(torch, log_root: Path) -> dict:
+    """The uninterrupted CCT-2 child (``run_sup_reference``), then the
+    same under the run supervisor, hung once at SUP_HANG_AT; the card's
+    free memory sampled at each poll of the supervisor. It runs beside the
+    main thread's phases, so it only gathers."""
+    import os
+
+    from blades_tpu_torch.examples import supervised_run
+    from blades_tpu_torch.supervision import Supervisor
+
+    ref = run_sup_reference(log_root)
+    root = Path(__file__).resolve().parent
+    env = {"PYTHONPATH": str(root), "BLADES_LEDGER": os.environ["BLADES_LEDGER"]}
+    samples = []
+
+    def sleep(s):
+        samples.append((time.time(), torch.cuda.mem_get_info()[0]))
+        time.sleep(s)
+
+    out = log_root / "sup"
+    params, notes = log_root / "sup.pt", log_root / "sup_notes.jsonl"
+    t0 = time.perf_counter()
+    with open(log_root / "sup.log", "w") as fh:
+        result = Supervisor(
+            supervised_run.child_cmd(_sup_args(), str(out), str(params), SUP_HANG_AT,
+                                     str(notes)),
+            heartbeat_timeout_s=SUP_HEARTBEAT_S, startup_grace_s=600.0, attempts=2,
+            base_delay_s=1.0, term_grace_s=SUP_TERM_GRACE_S, poll_s=0.2,
+            telemetry_path=str(out / "telemetry.jsonl"),
+            heartbeat_file=str(log_root / "sup_hb"), env=env, cwd=str(root), stdout=fh,
+            stderr=subprocess.STDOUT, sleep=sleep).run()
+    return dict(ref=ref, result=result, wall=time.perf_counter() - t0, samples=samples,
+                params=params, notes=notes, telemetry=out / "telemetry.jsonl",
+                log=log_root / "sup.log")
+
+
+def report_supervised(torch, run: dict, card: str) -> tuple:
+    """``supervised_cct2``: CCT-2 at K=1000 in 4 chunks, bf16, ALIE f=5 +
+    trimmed mean b=5, a checkpoint a round, SUP_ROUNDS rounds
+    (``examples/supervised_run.py --child --workload cct2``), hung at
+    SUP_HANG_AT under the run supervisor: a heartbeat kill with no process
+    left, a crash autosave naming ``SupervisorTermination``, a relaunch
+    under ``BLADES_RESUME=1`` whose final params are ``torch.equal`` to the
+    uninterrupted child's, the trace's ``launch``, ``kill``, ``retry``,
+    ``launch``, ``complete``. The time to recover split
+    (``recovery_split``), the card's free memory before and after the
+    kill, the relaunch's kernel library reused. The children count the
+    kernel's launches and hold each round's launch against the plain
+    version on the round's own update matrix. Returns the launches (both
+    children) and the largest error."""
+    ref, result, samples = run["ref"], run["result"], run["samples"]
+    check(ref["rc"] == 0, "supervised_cct2: the uninterrupted child failed:\n"
+          + ref["log"].read_text()[-3000:])
+    check(result.ok and len(result.attempts) == 2, "supervised_cct2: " + str(result) + "\n"
+          + run["log"].read_text()[-3000:])
+    first, second = result.attempts
+    records = _notes(run["telemetry"])
+    events = [r for r in records if r.get("t") == "supervisor"]
+    notes, ref_n = _notes(run["notes"]), _notes(ref["notes"])
+    split = recovery_split(events, notes, records)
+    kill = next(e for e in events if e["event"] == "kill")
+    decided = kill["ts"] - kill["kill_s"]
+    before = [f for ts, f in samples if ts <= decided]
+    after = [f for ts, f in samples if ts >= kill["ts"]]
+    exact = torch.equal(torch.load(ref["params"]), torch.load(run["params"]))
+    crash = [r for r in records if r.get("t") == "crash_checkpoint"]
+    rounds = sorted({r["round"] for r in records if r.get("t") == "round"})
+    child_rounds = [n for n in ref_n + notes if n["event"] == "round"]
+    errs = [n["max_abs_err"] for n in child_rounds if n.get("max_abs_err") is not None]
+    launches = {"uninterrupted": next(n["launches"] for n in ref_n if n["event"] == "done"),
+                "attempt_1": max(n["launches"] for n in notes
+                                 if n["event"] == "round" and n["attempt"] == 1),
+                "attempt_2": next(n["launches"] for n in notes if n["event"] == "done")}
+    kernel_notes = [n for n in notes if n["event"] == "kernel"]
+    emit({"phase": "supervised_cct2", "clients": CCT2_SHAPE[0], "rounds": SUP_ROUNDS,
+          "hang_at": SUP_HANG_AT, "heartbeat_timeout_s": SUP_HEARTBEAT_S,
+          "attempts": [dict(reason=a.reason, returncode=a.returncode, resumed=a.resumed,
+                            survivors=list(a.survivors), wall_s=a.wall_s)
+                       for a in result.attempts],
+          "events": [e["event"] for e in events], "kill": kill,
+          "crash_checkpoint": crash, "rounds_recorded": rounds, "params_equal": exact,
+          "recovery": split, "uninterrupted_wall_s": ref["wall"],
+          "supervised_wall_s": run["wall"],
+          "free_bytes_before_kill": before[-1] if before else None,
+          "free_bytes_after_kill": after[0] if after else None,
+          "given_back_bytes": (after[0] - before[-1]) if before and after else None,
+          "kernel_library": [n["counters"] for n in kernel_notes],
+          "launches": launches, "rounds_held": len(errs),
+          "max_abs_err": max(errs, default=None), "card": card})
+    kinds = [e["event"] for e in events]
+    check(first.reason == "heartbeat_stale" and first.survivors == () and second.resumed
+          and second.reason == "exit", f"supervised_cct2: {result.attempts}")
+    check(all(x in kinds for x in ("launch", "kill", "retry", "complete"))
+          and kinds.count("launch") == 2, f"supervised_cct2: {kinds}")
+    check(len(crash) == 1 and crash[0]["round"] == SUP_HANG_AT
+          and "SupervisorTermination" in crash[0]["error"], f"supervised_cct2: {crash}")
+    check(exact, "supervised_cct2: the resumed params differ from the uninterrupted run's")
+    check(rounds == [r for r in range(1, SUP_ROUNDS + 1) if r != SUP_HANG_AT],
+          f"supervised_cct2: rounds {rounds}")
+    check(len(kernel_notes) == 2 and all(n["counters"].get("cuda.kernel_reuses") == 1
+                                         and not n["counters"].get("cuda.kernel_builds")
+                                         for n in kernel_notes),
+          f"supervised_cct2: the relaunch built the kernel again: {kernel_notes}")
+    check(launches == {"uninterrupted": SUP_ROUNDS, "attempt_1": SUP_HANG_AT,
+                       "attempt_2": SUP_ROUNDS - SUP_HANG_AT}, f"supervised_cct2: {launches}")
+    check(len(errs) == 2 * SUP_ROUNDS and all(n["kernel_ok"] for n in child_rounds),
+          f"supervised_cct2: the kernel against its plain version: {child_rounds}")
+    check(before and after and after[0] > before[-1], "supervised_cct2: no memory came back")
+    return sum(launches.values()), max(errs, default=0.0)
+
+
+def run_chaos_children(log_root: Path) -> dict:
+    """A chaos child SIGKILLed at CHAOS_KILL_AT under the supervisor, and
+    the uninterrupted child beside it. Runs beside the main thread's
+    phases: it only gathers."""
+    import os
+
+    import numpy as np
+
+    from blades_tpu_torch.supervision import Supervisor
+
+    root = Path(__file__).resolve().parent
+    env = {"PYTHONPATH": str(root), "BLADES_LEDGER": os.environ["BLADES_LEDGER"], **BESIDE_ENV}
+    child = [sys.executable, "-m", "blades_tpu_torch.examples.chaos", "--child", "--seed",
+             str(CHAOS_KILL_SEED)]
+    t0 = time.perf_counter()
+    with open(log_root / "chaos_ref.log", "w") as ref_fh, \
+            open(log_root / "chaos_child.log", "w") as fh:
+        ref = subprocess.Popen(child + ["--out", str(log_root / "chaos_ref"), "--params-out",
+                                        str(log_root / "chaos_ref.npy")],
+                               stdout=ref_fh, stderr=subprocess.STDOUT, cwd=str(root),
+                               env=dict(os.environ, **env))
+        result = Supervisor(
+            child + ["--out", str(log_root / "chaos_sup"), "--params-out",
+                     str(log_root / "chaos_sup.npy"), "--kill-at", str(CHAOS_KILL_AT)],
+            attempts=2, base_delay_s=0.5, poll_s=0.2, startup_grace_s=600,
+            heartbeat_file=str(log_root / "chaos_hb"), env=env, cwd=str(root), stdout=fh,
+            stderr=subprocess.STDOUT).run()
+        ref.wait(timeout=600)
+    exact = bool(ref.returncode == 0 and result.ok and np.array_equal(
+        np.load(log_root / "chaos_ref.npy"), np.load(log_root / "chaos_sup.npy")))
+    return dict(result=result, exact=exact, wall=time.perf_counter() - t0,
+                log=(log_root / "chaos_child.log").read_text()[-3000:]
+                + (log_root / "chaos_ref.log").read_text()[-2000:])
+
+
+def phase_chaos(torch, card: str, log_root: Path, children: dict) -> int:
+    """``examples/chaos.py --sweep CHAOS_SCENARIOS`` on the card (one seed
+    for each defense of the pool, under fault weather: the masked forms,
+    no kernel launch) with zero invariant violations; and the SIGKILLed
+    child of ``run_chaos_children`` bit for bit the uninterrupted child.
+    Returns the kernel's launches."""
+    import contextlib
+    import io
+
+    from blades_tpu_torch.examples import chaos
+    from blades_tpu_torch.ops import trimmed
+
+    buf = io.StringIO()
+    trimmed.trimmed_mean_launches = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = chaos.main(["--sweep", str(CHAOS_SCENARIOS), "--out", str(log_root / "chaos")])
+    wall = time.perf_counter() - t0
+    launches = trimmed.trimmed_mean_launches
+    summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+    result = children["result"]
+    emit({"phase": "chaos", "rc": rc, "ok": summary["ok"], "scenarios": summary["scenarios"],
+          "aggregators_covered": summary["aggregators_covered"],
+          "inertness_pairs": summary["inertness_pairs"], "block_pairs": summary["block_pairs"],
+          "async_scenarios": summary["async_scenarios"], "violations": summary["violations"],
+          "quarantined": summary["quarantined_cells"], "engine_cache": {
+              k: summary["engine_cache"][k] for k in ("hits", "misses")},
+          "device": summary["device"], "sweep_wall_s": wall, "launches": launches,
+          "kill_child": {"attempts": [dict(reason=a.reason, returncode=a.returncode,
+                                           resumed=a.resumed) for a in result.attempts],
+                         "params_equal": children["exact"], "wall_s": children["wall"]},
+          "card": card})
+    check(rc == 0 and summary["ok"] and summary["violations"] == []
+          and summary["scenarios"] == CHAOS_SCENARIOS and summary["device"] == "cuda",
+          f"chaos: {summary['violations'][:10]} {summary['quarantined_cells']}")
+    check(children["exact"] and result.attempts[0].returncode == -9
+          and result.attempts[1].resumed,
+          "chaos: the SIGKILLed child did not resume bit for bit:\n" + children["log"])
+    return launches
+
+
+def resilient_phases(torch, trimmed, dev, card: str, log_root: Path, cert_ref: dict) -> dict:
+    """The slice 13a phases, each path's launches counted alone. The child
+    processes run in two threads (the sticky child, then the chaos
+    children; the CCT-2 children, uninterrupted and supervised) beside the
+    OOM group and the resilient certify run of this process, whose
+    allocations move the card's free memory by megabytes while the
+    supervised child's kill gives back gigabytes; then the chaos sweep.
+    Each thread only gathers: the records and checks are made here after.
+    Returns the launches by path and the largest error."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    launches, errs = {}, []
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        beside = pool.submit(lambda: (run_sticky(log_root), run_chaos_children(log_root)))
+        supervised = pool.submit(run_supervised, torch, log_root)
+        launches["resilient_oom"], err = phase_resilient_oom(torch, trimmed, dev, card)
+        errs.append(err)
+        launches["resilient_certify"], err = phase_resilient_certify(torch, trimmed, dev, card,
+                                                                     log_root, cert_ref)
+        errs.append(err)
+        sticky, children = beside.result()
+        sup = supervised.result()
+    launches["resilient_sticky"], err = report_sticky(sticky, card)
+    errs.append(err)
+    launches["supervised_cct2"], err = report_supervised(torch, sup, card)
+    errs.append(err)
+    chaos_launches = phase_chaos(torch, card, log_root, children)
+    return {"launches": launches, "chaos": chaos_launches, "err": max(errs)}
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -5244,9 +5911,16 @@ def main() -> int:
     parser.add_argument("--text-only", action="store_true",
                         help="build the kernel, run only the text and pretrained phases "
                              "and print no result line")
+    parser.add_argument("--resilient-only", action="store_true",
+                        help="build the kernel, run a certify run on the card and the "
+                             "slice 13a phases, and print no result line")
+    parser.add_argument("--sticky-child", default=None, metavar="OUT",
+                        help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
     if args.cpu_certify:
         return cpu_certify(args.cpu_certify)
+    if args.sticky_child:
+        return sticky_child(args.sticky_child)
     import os
 
     import torch
@@ -5286,7 +5960,8 @@ def main() -> int:
         with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
             os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
             phase_certify_scale(torch, trimmed, dev, card)
-            phase_certify(torch, trimmed, dev, card, Path(tmp))
+            phase_certify(torch, trimmed, dev, card, Path(tmp),
+                          start_cpu_certify(Path(tmp)))
         return 0
     if args.vmap_only:
         with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
@@ -5298,6 +5973,15 @@ def main() -> int:
             os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
             text_phases(torch, trimmed, dev, card, Path(tmp))
         return 0
+    if args.resilient_only:
+        from blades_tpu_torch.examples import certify
+
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            ref = certify_on_card(torch, trimmed, certify, dev, Path(tmp) / "certify",
+                                  count=False)
+            resilient_phases(torch, trimmed, dev, card, Path(tmp), ref)
+        return 0
     max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
@@ -5308,6 +5992,7 @@ def main() -> int:
         # held, and partly used segments) left it 0.2 GB short; the kernel
         # once a round on [100, 30352643], eager and in a graph block; the
         # streaming round at K=1000 never launches it
+        cpu_cert = start_cpu_certify(Path(tmp))
         text = text_phases(torch, trimmed, dev, card, Path(tmp))
         launches = dict(text["launches"])
         launches["mlp_k1000"], sim = phase_main_path(torch, trimmed, dev, card, Path(tmp))
@@ -5426,8 +6111,8 @@ def main() -> int:
         # certify script on the CPU and on the card, one after the other
         launches["certify_scale"], cert_timings, cert_err = phase_certify_scale(
             torch, trimmed, dev, card)
-        launches["certify"], search_shapes, search_err = phase_certify(
-            torch, trimmed, dev, card, Path(tmp))
+        launches["certify"], search_shapes, search_err, cert_ref = phase_certify(
+            torch, trimmed, dev, card, Path(tmp), cpu_cert)
         # vmap mode (slice 7b): the kernel's batched entry once a round for
         # S experiments, against S launches in map mode; remat (slice 2b) on
         # the CCT-2 round. Last, on stores of their own: ahead of the
@@ -5436,16 +6121,23 @@ def main() -> int:
         # reserved and unused)
         batched_launches, batched_timings, batched_err = vmap_remat_phases(
             torch, trimmed, dev, card, Path(tmp))
+        # resilient sweeps and the run supervisor (slice 13a): the kernel
+        # launched again after a failure (a quarantine's bisection, an OOM's
+        # bisection, a relaunched process), each launch held against its
+        # plain version
+        resilient = resilient_phases(torch, trimmed, dev, card, Path(tmp), cert_ref)
+        launches.update(resilient["launches"])
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
-    max_err = max(max_err, resnet_err, cert_err, search_err, text["err"])
+    max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
               "geomed" not in p) and not any(n for p, n in batched_launches.items()
                                             if "fault" in p or "geomed" in p),
           f"batched launches: {batched_launches}")
     check(not any(stream_launches.values()), f"a streaming path launched it: {stream_launches}")
+    check(resilient["chaos"] == 0, f"the chaos sweep launched it: {resilient['chaos']}")
     check(async_launches["async_static"] > 0 and not any(
         n for p, n in async_launches.items() if p != "async_static"),
         f"async launches: {async_launches}")
@@ -5465,7 +6157,8 @@ def main() -> int:
         "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
-                        if path.startswith(("cct2", "resnet18", "certify", "text"))),
+                        if path.startswith(("cct2", "resnet18", "certify", "text", "resilient",
+                                            "supervised"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,
@@ -5487,6 +6180,9 @@ def main() -> int:
         # the forensics path (slice 10a): the defense and the audit's
         # fallback, 2 a round, eager and replayed
         "launches_under_forensics": forensics,
+        # the chaos sweep runs every scenario under fault weather: the
+        # masked forms, no launch
+        "launches_under_chaos": resilient["chaos"],
         # the certification paths (slice 10b): every unmasked trimmed-mean
         # evaluation of the search with 1 <= b <= 16 ("certify", K=8, and
         # "certify_scale", K=100 at b=10) and the battery's contract calls;

@@ -155,8 +155,8 @@ def _jax_matrix(args):
 
 def _port_matrix(args):
     plans, specs = certify.enumerate_cells(args, "cpu")
-    results, walls = certify.execute_cells(args, specs)
-    matrix = certify.assemble_matrix(args, plans, specs, results, walls, "cpu")
+    results, walls, report = certify.execute_cells(args, plans, specs)
+    matrix = certify.assemble_matrix(args, plans, specs, results, walls, report, "cpu")
     return [s.label for s in specs], results, matrix
 
 
@@ -458,22 +458,25 @@ def test_run_grouped_input_order_and_walls(sweep_inputs):
 
 
 def test_certify_sequential_is_one_group_a_cell(monkeypatch):
-    """``--sequential`` walks the grouped path, each cell a group of its
-    own, and gives the grouped run's numbers."""
+    """``--sequential`` runs each cell as a group of its own (through the
+    per-cell resilient loop) and gives the grouped run's numbers."""
     args = _args(aggs=["mean", "trimmedmean", "krum", "centeredclipping"], trials=2)
-    _, specs = certify.enumerate_cells(args, "cpu")
-    grouped, _ = certify.execute_cells(args, specs)
+    plans, specs = certify.enumerate_cells(args, "cpu")
+    grouped, _, _ = certify.execute_cells(args, plans, specs)
+    assert grouped == run_grouped(specs, grids=audit.QUICK_GRIDS)
     sizes = []
+    execute = certify._execute_group
 
-    def counted(cells, **kw):
+    def counted(cells, key, **kw):
         sizes.append(len(cells))
-        return run_grouped(cells, **kw)
+        return execute(cells, key, **kw)
 
-    monkeypatch.setattr(certify, "run_grouped", counted)
-    sequential, walls = certify.execute_cells(argparse.Namespace(**{
-        **vars(args), "sequential": True}), specs)
+    monkeypatch.setattr(certify, "_execute_group", counted)
+    sequential, walls, report = certify.execute_cells(argparse.Namespace(**{
+        **vars(args), "sequential": True}), plans, specs)
     assert sizes == [1] * len(specs)
     assert sequential == grouped and len(walls) == len(specs)
+    assert report.executed == len(specs) and report.retried == 0
 
 
 def _cells(mk, get, tr, small, ctx, small_ctx, ones):
@@ -554,8 +557,9 @@ def test_certify_main_one_json_line_and_matrix(tmp_path, capsys, monkeypatch):
 @pytest.mark.parametrize("argv,needle", [
     (["--aggs", "nosuchagg"], "unknown aggregators"),
     (["--via-service", "sock"], "slice 13"),
-    (["--attempts", "3"], "slice 13"),
-    (["--cell-deadline", "10"], "slice 13"),
+    # the resilient executor's flags run, and do not carry --via-service
+    (["--via-service", "sock", "--attempts", "3"], "slice 13"),
+    (["--via-service", "sock", "--cell-deadline", "10"], "slice 13"),
 ])
 def test_certify_main_refusals_are_one_json_line(tmp_path, capsys, monkeypatch, argv, needle):
     monkeypatch.setenv("BLADES_LEDGER", str(tmp_path / "ledger.jsonl"))

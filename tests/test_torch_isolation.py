@@ -328,3 +328,47 @@ def test_the_ports_outputs_never_name_the_jax_packages_committed_files(tmp_path,
     monkeypatch.delenv(ledger.LEDGER_ENV)
     monkeypatch.chdir(ROOT)
     assert Path(ledger.ledger_path()).resolve() not in committed
+
+
+def test_resilient_and_supervision_modules_are_covered_and_a_supervised_certify_loads_no_jax(
+        tmp_path):
+    """The resilient sweeps (``sweeps/journal.py``, ``sweeps/resilient.py``,
+    ``utils/retry.py``), the supervisor and its examples are among the
+    checked sources; a supervised resilient certify, killed by the journal's
+    saboteur and relaunched under ``BLADES_RESUME=1``, finishes with no
+    ``jax`` in the supervisor's or either child's ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("sweeps/journal.py", "sweeps/resilient.py", "utils/retry.py",
+                "supervision/supervisor.py", "supervision/__main__.py",
+                "examples/chaos.py", "examples/supervised_run.py"):
+        assert pkg / rel in files
+    child = (
+        "import sys\n"
+        "from blades_tpu_torch.examples import certify\n"
+        "rc = certify.main(['--device', 'cpu', '--quick', '--clients', '6', '--dim', '8',\n"
+        "                   '--trials', '1', '--no-async', '--aggs', 'mean', 'trimmedmean',\n"
+        "                   '--attempts', '2', '--out', 'cert'])\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('CHILD LEAKED', leaked)\n"
+        "sys.exit(rc if not leaked else 3)\n"
+    )
+    code = (
+        "import json, sys\n"
+        "from blades_tpu_torch.supervision import Supervisor\n"
+        f"result = Supervisor([sys.executable, '-c', {child!r}], attempts=2, base_delay_s=0.1,\n"
+        "                    poll_s=0.1, telemetry_path='sup.jsonl', heartbeat_file='hb',\n"
+        "                    env={'BLADES_SWEEP_KILL_AT': '3', 'BLADES_LEDGER': 'ledger.jsonl'}\n"
+        "                    ).run()\n"
+        "assert result.ok and result.attempts[0].returncode == -9, result\n"
+        "assert json.load(open('cert/cert_matrix.json'))['resumed_skipped'] == 3\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=_subprocess_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout and "CHILD LEAKED []" in proc.stdout
