@@ -28,7 +28,7 @@ from blades_tpu_torch.aggregators.geomed import weiszfeld
 
 class Autogm(TwoLevelStreaming, Aggregator):
     graph_unsafe_reason = ("its outer and Weiszfeld loops test their stopping rules on the "
-                           "host, one sync an iteration (ROADMAP.md queue A, item 7c)")
+                           "host, one sync an iteration (ROADMAP.md queue B, item 7c)")
 
     def __init__(
         self,

@@ -79,7 +79,7 @@ def weiszfeld(
 
 class Geomed(TwoLevelStreaming, Aggregator):
     graph_unsafe_reason = ("its Weiszfeld loop tests the stopping rule on the host, one "
-                           "sync an iteration (ROADMAP.md queue A, item 7c)")
+                           "sync an iteration (ROADMAP.md queue B, item 7c)")
 
     def __init__(self, maxiter: int = 100, eps: float = 1e-6, ftol: float = 1e-10):
         self.maxiter = maxiter

@@ -1002,7 +1002,7 @@ class RoundEngine:
             return f"the engine runs on {self.device}; a CUDA graph needs the card"
         if self.streaming:
             return ("the streaming round draws from per-chunk generators, not yet "
-                    "registered with a graph (ROADMAP.md queue A, item 7c)")
+                    "registered with a graph (ROADMAP.md queue B, item 7c)")
         parts = [self.attack, self.aggregator]
         if self.audit_monitor is not None and self.audit_monitor.fallback_aggregator is not None:
             parts.append(self.audit_monitor.fallback_aggregator)  # runs every round

@@ -47,8 +47,14 @@ journaled cells are recovered and only the rest run; the journal's
 fingerprint of the configuration keeps another configuration's cells out.
 A dead CUDA context raises at once and quarantines nothing.
 
-``--via-service`` (the simulation service, ``ROADMAP.md`` queue A, slice
-13b) is not ported and raises ``NotImplementedError``.
+``--via-service SOCK`` submits the matrix instead as a ``sweep`` request
+to a running simulation service (``examples/serve.py``, JAX
+``scripts/certify.py:550-605``): client label ``certify``, priority
+``batch``, journaled on the server and preemptible at cell boundaries;
+the same one-line summary, the matrix written to ``--out``. The service
+runs it on its own device. Module scope imports no torch: the service's
+admission estimator loads this module (:func:`spec_namespace`,
+:func:`total_cells`) on its listener thread.
 """
 
 from __future__ import annotations
@@ -61,24 +67,6 @@ import time
 from pathlib import Path
 from typing import List, Optional
 
-import torch
-
-from blades_tpu_torch.aggregators import get_aggregator
-from blades_tpu_torch.audit import (
-    DEFAULT_C,
-    DEFAULT_GRIDS,
-    QUICK_GRIDS,
-    battery_ctx,
-    battery_kwargs,
-    battery_search_inputs,
-    nominal_f,
-    resilience_from_cell,
-    run_battery,
-    staleness_row_weights,
-    synthetic_honest,
-)
-from blades_tpu_torch.audit.attack_search import staleness_info
-from blades_tpu_torch.core.engine import resolve_device
 from blades_tpu_torch.sweeps import SweepCell, _execute_group, group_key, program_fingerprint
 from blades_tpu_torch.sweeps.journal import SweepJournal
 from blades_tpu_torch.sweeps.resilient import (
@@ -88,7 +76,6 @@ from blades_tpu_torch.sweeps.resilient import (
 )
 from blades_tpu_torch.supervision.heartbeat import RESUME_ENV
 from blades_tpu_torch.telemetry import context, ledger, set_recorder, timeline
-from blades_tpu_torch.utils import rng
 
 REPO = Path(__file__).resolve().parents[2]
 METRIC = "defense_certification"
@@ -114,6 +101,9 @@ SCENARIOS = ("fresh_byz", "stale_byz")
 def build_aggregator(name: str, k: int, f: int):
     """The defense of cell (name, f) at population ``k``; ``base:variant``
     sets the variant's ``metric``."""
+    from blades_tpu_torch.aggregators import get_aggregator
+    from blades_tpu_torch.audit import battery_kwargs
+
     base, _, variant = name.partition(":")
     kwargs = battery_kwargs(base, k, f)
     if variant:
@@ -130,10 +120,51 @@ def total_cells(args) -> int:
     return len(names) * (1 + f_cells * per_f)
 
 
+#: the knobs a service ``sweep`` request's ``spec`` may carry: the
+#: argparse surface below with its defaults (``scripts/certify.py:100``;
+#: the port has no ``--no-jit``, and its service brings the device), so a
+#: spec over the socket and the command line enumerate the same cells
+SPEC_DEFAULTS = {
+    "clients": 8, "dim": 32, "trials": 3, "seed": 0, "c": None,
+    "aggs": None, "quick": False, "no_async": False, "tau_max": 3,
+    "sequential": False, "attempts": 2, "cell_deadline": None,
+}
+
+
+def spec_namespace(spec) -> argparse.Namespace:
+    """The argparse namespace of a service ``sweep`` request's ``spec``
+    (``scripts/certify.py:108``); an unknown key is a ``ValueError``, so a
+    mistyped knob rejects the request instead of running the default
+    matrix. Stdlib only: the service calls it at admission."""
+    spec = dict(spec or {})
+    unknown = sorted(set(spec) - set(SPEC_DEFAULTS))
+    if unknown:
+        raise ValueError(f"unknown certify spec keys: {unknown}")
+    merged = {**SPEC_DEFAULTS, **spec}
+    for k in ("clients", "dim", "trials", "seed", "tau_max", "attempts"):
+        merged[k] = int(merged[k])
+    for k in ("quick", "no_async", "sequential"):
+        merged[k] = bool(merged[k])
+    if merged["c"] is not None:
+        merged["c"] = float(merged["c"])
+    if merged["cell_deadline"] is not None:
+        merged["cell_deadline"] = float(merged["cell_deadline"])
+    if merged["aggs"] is not None:
+        merged["aggs"] = [str(a) for a in merged["aggs"]]
+    if merged["clients"] < 2 or merged["dim"] < 1 or merged["trials"] < 1:
+        raise ValueError("certify spec needs clients>=2, dim>=1, trials>=1")
+    return argparse.Namespace(**merged)
+
+
 def sweep_inputs(seed: int, trials: int, k: int, d: int, device="cpu"):
     """``(trials_updates, ctx)`` of the breakdown and staleness cells: the
     ``[T, K, D]`` honest draws from a CPU generator at ``seed``, and the
     battery's context with its own CPU generator."""
+    import torch
+
+    from blades_tpu_torch.audit import battery_ctx, synthetic_honest
+    from blades_tpu_torch.utils import rng
+
     trials_updates = synthetic_honest(torch.Generator().manual_seed(int(seed)), trials, k, d,
                                       device=device)
     ctx = battery_ctx(None, k, d, generator=rng.generator(int(seed), 1, rng.AGG), device=device)
@@ -141,6 +172,8 @@ def sweep_inputs(seed: int, trials: int, k: int, d: int, device="cpu"):
 
 
 def _grids(args):
+    from blades_tpu_torch.audit import DEFAULT_GRIDS, QUICK_GRIDS
+
     return QUICK_GRIDS if args.quick else DEFAULT_GRIDS
 
 
@@ -178,6 +211,9 @@ def enumerate_cells(args, device="cpu"):
     :class:`~blades_tpu_torch.sweeps.SweepCell` list, ``plans`` the
     parallel assembly directives ``(kind, name, agg, f_nom, f, extra)``,
     in the order of ``scripts/certify.py``."""
+    from blades_tpu_torch.audit import battery_search_inputs, nominal_f, staleness_row_weights
+    from blades_tpu_torch.audit.attack_search import staleness_info
+
     k, d, trials = args.clients, args.dim, args.trials
     names = tuple(args.aggs) if args.aggs else CERT_POOL
     f_max = (k - 1) // 2
@@ -248,6 +284,8 @@ def assemble_matrix(args, plans, specs, results, walls, report, device="cpu") ->
     runs each defense's contract battery on its executed resilience cell. A
     quarantined cell is a row of ``quarantined_cells`` (its error, never a
     result), which the headline checks skip and which makes ``ok`` false."""
+    from blades_tpu_torch.audit import DEFAULT_C, nominal_f, resilience_from_cell, run_battery
+
     k, d, trials = args.clients, args.dim, args.trials
     c = args.c if args.c is not None else DEFAULT_C
     f_max = (k - 1) // 2
@@ -379,15 +417,51 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                    help="a soft deadline a cell, in seconds (a group of C cells gets C times "
                         "it); a tripped deadline retries, then degrades")
     p.add_argument("--via-service", default=None, metavar="SOCK",
-                   help="not ported: the simulation service is slice 13b")
+                   help="submit the matrix as a sweep request to a running simulation service "
+                        "(examples/serve.py) instead of running it in this process")
+    p.add_argument("--service-timeout", type=float, default=3600.0,
+                   help="--via-service: how long to wait for the reply (seconds)")
     return p.parse_args(argv)
 
 
+def _main_via_service(args) -> int:
+    """The matrix as a ``sweep`` request of a running service
+    (``scripts/certify.py:550-605``): one JSON line, 0 when ``ok``."""
+    try:
+        from blades_tpu_torch.service.client import ServiceClient
+
+        spec = {key: getattr(args, key) for key in SPEC_DEFAULTS
+                if getattr(args, key) != SPEC_DEFAULTS[key]}
+        request = {"kind": "sweep", "sweep": "certify", "spec": spec, "client": "certify",
+                   "priority": "batch"}
+        reply = ServiceClient(args.via_service).submit(request, timeout=args.service_timeout)
+        matrix = (reply.get("sweep") or {}).get("matrix")
+        if not reply.get("ok") or matrix is None:
+            print(json.dumps({"metric": METRIC, "via_service": True, "ok": False,
+                              "id": reply.get("id"),
+                              "error": str(reply.get("error") or reply.get("reason")
+                                           or reply)[:1000]}))
+            return 1
+        os.makedirs(args.out, exist_ok=True)
+        artifact = os.path.join(args.out, "cert_matrix.json")
+        with open(artifact, "w") as fh:
+            json.dump(matrix, fh, indent=1)
+            fh.write("\n")
+        print(json.dumps({
+            "metric": METRIC, "via_service": True, "id": reply.get("id"),
+            "cells": len(matrix["cells"]), "async_cells": len(matrix["async_cells"]),
+            "headline_failures": matrix["headline_failures"],
+            "quarantined": [r["cell"] for r in matrix["quarantined_cells"]],
+            "resumed_skipped": matrix["resumed_skipped"], "artifact": artifact,
+            "ok": matrix["ok"]}))
+        return 0 if matrix["ok"] else 1
+    except Exception as e:  # noqa: BLE001 - the one-line contract is the catch-all
+        print(json.dumps({"metric": METRIC, "via_service": True, "ok": False,
+                          "error": f"{type(e).__name__}: {e}"[:1000]}))
+        return 1
+
+
 def _check_ported(args) -> None:
-    if args.via_service is not None:
-        raise NotImplementedError(
-            "--via-service needs the simulation service, not ported to blades_tpu_torch yet "
-            "(ROADMAP.md queue A, slice 13b)")
     unknown = [n for n in (args.aggs or ()) if n not in CERT_POOL]
     if unknown:
         raise ValueError(f"unknown aggregators {unknown}; the pool is {list(CERT_POOL)}")
@@ -396,12 +470,16 @@ def _check_ported(args) -> None:
 def main(argv: Optional[List[str]] = None) -> int:
     """One JSON line on standard output whatever happens; 0 when ``ok``."""
     args = parse_args(argv)
+    if args.via_service is not None:
+        return _main_via_service(args)
     out = Path(args.out)
     sweep_trace = out / "sweep_trace.jsonl"
     context.activate(fresh=True)
     sweep = prev_recorder = entry = journal = None
     try:
         _check_ported(args)
+        from blades_tpu_torch.core.engine import resolve_device
+
         device = resolve_device(args.device)
         out.mkdir(parents=True, exist_ok=True)
         # under BLADES_RESUME=1 (a supervisor's relaunch) the journaled

@@ -2,7 +2,9 @@
 defense registry, with the robustness invariants checked end to end.
 
 Counterpart: ``scripts/chaos.py`` — ``make_scenario`` (:97) through
-``summarize_rows`` (:521), ``child_main`` (:1140) and ``main`` (:1226).
+``summarize_rows`` (:521), the service drills and ``service_chaos``
+(:557-1139), ``child_main`` (:1140), ``_main_via_service`` (:1190) and
+``main`` (:1226).
 Each scenario is a function of its integer seed alone (numpy draws, the
 same scenario as the JAX package's for the same seed): a defense drawn
 round-robin from :data:`AGG_POOL`, randomized fault weather (dropout, a
@@ -35,9 +37,22 @@ recovered and only the rest run. Usage::
     python -m blades_tpu_torch.examples.chaos --child --seed 3 --out DIR \\
         [--kill-at R | --hang-at R] [--params-out F]
 
-The service part of the JAX suite (``service_chaos`` :1101,
-``--service`` and ``--via-service``) needs the simulation service,
-``ROADMAP.md`` queue A, slice 13b, and raises ``NotImplementedError``.
+``--service reduced|full`` runs the simulation service's drills
+(:func:`service_chaos`) against real server subprocesses
+(``examples/serve.py``, probe cells only, so no server imports torch):
+a poison cell quarantined while its neighbours complete, backpressure
+past the queue bound, a hung cell tripping the soft deadline, a drain
+that loses nothing, a flooding tenant held to its quota, a batch request
+preempted by an interactive one and resumed to the same reply, and, in
+``full``, a supervised server SIGKILLed mid-request that resumes from its
+spool and journal. The JAX suite's ``worker_crash`` and ``worker_hang``
+drills need the worker pool (``ROADMAP.md`` queue A, slice 13b.2) and are
+not in the list. ``--via-service SOCK`` submits the sweep instead as a
+``sweep`` request to a running service (the chaos driver as a batch
+tenant). Usage::
+
+    python -m blades_tpu_torch.examples.chaos --service reduced
+    python -m blades_tpu_torch.examples.chaos --sweep 24 --via-service SOCK
 """
 
 from __future__ import annotations
@@ -66,9 +81,6 @@ DEV_FACTOR = 8.0
 #: recorded, not bounded: asyncmean's 1/K damping pulls toward the origin
 #: by design when clients drop
 DEV_EXEMPT = ("asyncmean",)
-
-_SLICE_13B = ("the simulation service, not ported to blades_tpu_torch yet "
-              "(ROADMAP.md queue A, slice 13b)")
 
 
 def make_scenario(seed: int) -> dict:
@@ -369,9 +381,365 @@ def summarize_rows(n: int, rows, report, cache_stats) -> dict:
     }
 
 
+# -- the service drills --------------------------------------------------------
+# Each drill starts a real server subprocess (examples/serve.py; probe
+# cells only, so the server never imports torch) and checks the service's
+# contract end to end, the metrics surface (`op: metrics`) included: its
+# counters equal the replies the clients saw.
+
+
+def _server_env(env_extra=None) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [REPO] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep) if p])
+    # a drill's server starts fresh even where this process was relaunched
+    # (the SIGKILL drill's supervisor sets the variable for its relaunch)
+    env.pop("BLADES_RESUME", None)
+    env.update(env_extra or {})
+    return env
+
+
+def _serve_argv(out_dir: str, extra_args=()) -> list:
+    return [sys.executable, "-m", "blades_tpu_torch.examples.serve", "start", "--out", out_dir,
+            "--base-delay", "0.05", *extra_args]
+
+
+def _start_server(out_dir: str, extra_args=(), env_extra=None):
+    """A server subprocess and a client that waits for its socket."""
+    import subprocess
+
+    from blades_tpu_torch.service.client import ServiceClient
+    from blades_tpu_torch.service.protocol import socket_path_for
+
+    proc = subprocess.Popen(_serve_argv(out_dir, extra_args), env=_server_env(env_extra),
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    client = ServiceClient(socket_path_for(out_dir), timeout=60, connect_retries=50,
+                           connect_delay_s=0.2)
+    return proc, client
+
+
+def _finish_server(proc, client) -> int:
+    """Drain (if still up) and reap; the server's exit code."""
+    from blades_tpu_torch.service.client import ServiceClient
+
+    if proc.poll() is None:
+        try:
+            # a short-fused client: the drill's own may carry a long
+            # relaunch-window retry budget
+            ServiceClient(client.socket_path, timeout=10, connect_retries=2,
+                          connect_delay_s=0.1).drain()
+        except Exception:  # noqa: BLE001 - may already be draining or gone
+            pass
+    try:
+        proc.communicate(timeout=60)
+    except Exception:  # noqa: BLE001 - reap hard rather than leak
+        proc.kill()
+        proc.communicate()
+    return proc.returncode
+
+
+def _scn_poison(out_dir: str) -> dict:
+    """A poison cell is quarantined with its error while its request's other
+    cells and a neighbouring request complete; the metrics' quarantine
+    counts equal the replies'."""
+    proc, client = _start_server(os.path.join(out_dir, "poison"))
+    try:
+        neighbor = client.submit({"kind": "probe", "cells": [{"label": "n0", "op": "ok"}]},
+                                 wait=False)
+        poison = client.submit({"kind": "probe", "cells": [
+            {"label": "good0", "op": "ok", "value": 1},
+            {"label": "bad", "op": "fail", "message": "poison cell"},
+            {"label": "good1", "op": "ok", "value": 2},
+        ]})
+        neighbor_reply = client.wait_result(neighbor["id"], timeout=30)
+        after = client.submit({"kind": "probe", "cells": [{"label": "a0", "op": "ok"}]})
+        cells = {c["label"]: c for c in poison.get("cells", [])}
+        quarantined_cells = [c for c in poison.get("cells", []) if c.get("quarantined")]
+        metrics = client.metrics()
+        m_reqs = metrics.get("requests") or {}
+        m_cells = metrics.get("cells") or {}
+        metrics_consistent = (m_reqs.get("quarantined") == 1
+                              and m_cells.get("quarantined") == len(quarantined_cells)
+                              and m_reqs.get("rejected") == 0)
+        ok = (poison.get("status") == "done" and not poison.get("ok")
+              and cells["bad"].get("quarantined")
+              and "poison cell" in cells["bad"].get("error", "")
+              and cells["bad"].get("error_type") == "RuntimeError"
+              and "result" in cells["good0"] and "result" in cells["good1"]
+              and neighbor_reply["reply"]["ok"] and after.get("ok") and metrics_consistent)
+        return {"name": "poison_isolated", "ok": bool(ok),
+                "quarantined": [c for c in cells if cells[c].get("quarantined")],
+                "metrics_consistent": bool(metrics_consistent),
+                "metrics_quarantined_requests": m_reqs.get("quarantined"),
+                "metrics_quarantined_cells": m_cells.get("quarantined")}
+    finally:
+        _finish_server(proc, client)
+
+
+def _scn_backpressure(out_dir: str) -> dict:
+    """Past the queue bound the server answers ``rejected: backpressure``."""
+    import time as _time
+
+    proc, client = _start_server(os.path.join(out_dir, "backpressure"), ("--max-queue", "1"))
+    try:
+        busy = client.submit({"kind": "probe",
+                              "cells": [{"label": "s", "op": "sleep", "sleep_s": 2.0}]},
+                             wait=False)
+        _time.sleep(0.2)  # the sleeper is picked up
+        queued = client.submit({"kind": "probe", "cells": [{"label": "q", "op": "ok"}]},
+                               wait=False)
+        rejected = client.submit({"kind": "probe", "cells": [{"label": "r", "op": "ok"}]},
+                                 wait=False)
+        drained = client.wait_result(queued["id"], timeout=30)
+        metrics = client.metrics()
+        backpressure_replies = 1 if rejected.get("rejected") else 0
+        metrics_consistent = (
+            (metrics.get("requests") or {}).get("rejected") == backpressure_replies
+            and (metrics.get("rejected_by_reason") or {}).get("backpressure")
+            == backpressure_replies
+            and (metrics.get("queue") or {}).get("depth_hwm", 0) >= 1)
+        ok = (busy.get("status") == "accepted" and queued.get("status") == "accepted"
+              and rejected.get("rejected") == "backpressure" and drained["reply"]["ok"]
+              and metrics_consistent)
+        return {"name": "backpressure", "ok": bool(ok), "rejected_reply": rejected,
+                "metrics_consistent": bool(metrics_consistent),
+                "metrics_rejected_by_reason": metrics.get("rejected_by_reason")}
+    finally:
+        _finish_server(proc, client)
+
+
+def _scn_deadline(out_dir: str) -> dict:
+    """A hung cell trips the soft deadline, is retried, then quarantined,
+    and the server goes on serving."""
+    proc, client = _start_server(os.path.join(out_dir, "deadline"),
+                                 ("--cell-deadline", "0.3", "--attempts", "2"))
+    try:
+        hung = client.submit({"kind": "probe", "cells": [
+            {"label": "hang", "op": "sleep", "sleep_s": 60},
+            {"label": "after", "op": "ok", "value": 7},
+        ]}, timeout=60)
+        alive = client.submit({"kind": "probe", "cells": [{"label": "ok", "op": "ok"}]})
+        cells = {c["label"]: c for c in hung.get("cells", [])}
+        metrics = client.metrics()
+        m_cells = metrics.get("cells") or {}
+        metrics_consistent = m_cells.get("quarantined") == 1 and m_cells.get("retried", 0) >= 1
+        ok = (hung.get("status") == "done" and cells["hang"].get("quarantined")
+              and cells["hang"].get("error_type") == "DeadlineExceeded"
+              and cells["after"].get("result", {}).get("value") == 7
+              and alive.get("ok") and metrics_consistent)
+        return {"name": "deadline_hang", "ok": bool(ok),
+                "metrics_consistent": bool(metrics_consistent), "metrics_cells": m_cells}
+    finally:
+        _finish_server(proc, client)
+
+
+def _scn_drain(out_dir: str) -> dict:
+    """A drain exits 0 and loses nothing: every request admitted before it
+    ran, and its reply is in the spool."""
+    from blades_tpu_torch.service.spool import RequestSpool
+
+    served_dir = os.path.join(out_dir, "drain")
+    proc, client = _start_server(served_dir)
+    try:
+        ids = [client.submit({"kind": "probe",
+                              "cells": [{"label": f"c{i}", "op": "ok", "value": i}]},
+                             wait=False)["id"] for i in range(3)]
+        client.drain()
+    except BaseException:
+        _finish_server(proc, client)
+        raise
+    rc = _finish_server(proc, client)
+    spool = RequestSpool(os.path.join(served_dir, "spool.jsonl"), resume=True)
+    replies = {rid: spool.reply(rid) for rid in ids}
+    spool.close()
+    ok = rc == 0 and all(r is not None and r.get("ok") for r in replies.values())
+    return {"name": "drain_no_loss", "ok": bool(ok), "rc": rc, "requests": len(ids)}
+
+
+def _scn_sigkill_resume(out_dir: str) -> dict:
+    """A supervised server SIGKILLed mid-request (after its 2nd journaled
+    cell) is relaunched, runs only the unjournaled cells, and the reply
+    equals an uninterrupted run's."""
+    import subprocess
+
+    from blades_tpu_torch.service.client import ServiceClient
+    from blades_tpu_torch.service.protocol import mint_request_id, socket_path_for
+    from blades_tpu_torch.sweeps.journal import KILL_AT_ENV
+
+    request = {"kind": "probe",
+               "cells": [{"label": f"c{i}", "op": "ok", "value": i} for i in range(4)]}
+    proc, client = _start_server(os.path.join(out_dir, "kill_ref"))
+    try:
+        ref = client.submit(request, request_id="kill-ref")
+    finally:
+        _finish_server(proc, client)
+
+    sup_dir = os.path.join(out_dir, "kill_sup")
+    sup = subprocess.Popen(
+        [sys.executable, "-m", "blades_tpu_torch.supervision", "--attempts", "2",
+         "--heartbeat-timeout", "120", "--base-delay", "0.1",
+         "--heartbeat-file", os.path.join(out_dir, "kill_hb"), "--", *_serve_argv(sup_dir)],
+        env=_server_env({KILL_AT_ENV: "2"}), cwd=REPO, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    client = ServiceClient(socket_path_for(sup_dir), timeout=60, connect_retries=100,
+                           connect_delay_s=0.2)
+    rid = mint_request_id()
+    try:
+        try:
+            client.submit(request, request_id=rid)
+        except Exception:  # noqa: BLE001 - the connection dies with the SIGKILL
+            pass
+        recovered = client.wait_result(rid, timeout=120)
+        client.drain()
+    finally:
+        try:
+            sup.communicate(timeout=120)
+        except Exception:  # noqa: BLE001 - reap hard rather than leak
+            sup.kill()
+            sup.communicate()
+    reply = recovered["reply"]
+    summary = reply.get("summary", {})
+    ok = (sup.returncode == 0 and reply["cells"] == ref["cells"]
+          and summary.get("resumed_skipped", 0) >= 1
+          and summary.get("executed", 9) <= len(request["cells"]) - 1)
+    return {"name": "sigkill_resume", "ok": bool(ok), "supervisor_rc": sup.returncode,
+            "resumed_skipped": summary.get("resumed_skipped"),
+            "executed": summary.get("executed"),
+            "content_identical": reply["cells"] == ref["cells"]}
+
+
+def _scn_tenant_flood(out_dir: str) -> dict:
+    """A flooding tenant is held to its quota: every backpressure reply
+    names it, the victim's interactive request completes without a
+    rejection, and the per-tenant counters equal the replies."""
+    import time as _time
+
+    proc, client = _start_server(os.path.join(out_dir, "flood"),
+                                 ("--max-queue", "8", "--tenant-quota", "2"))
+    try:
+        busy = client.submit({"kind": "probe",
+                              "cells": [{"label": "s", "op": "sleep", "sleep_s": 1.5}]},
+                             wait=False, client="flood", priority="batch")
+        _time.sleep(0.2)  # the sleeper is picked up
+        flood_replies = [client.submit({"kind": "probe",
+                                        "cells": [{"label": f"f{i}", "op": "ok", "value": i}]},
+                                       wait=False, client="flood", priority="batch")
+                         for i in range(5)]
+        rejects = [r for r in flood_replies if r.get("rejected")]
+        t0 = _time.monotonic()
+        victim = client.submit({"kind": "probe",
+                                "cells": [{"label": "v", "op": "ok", "value": 42}]},
+                               client="victim", priority="interactive", timeout=60)
+        victim_wall = _time.monotonic() - t0
+        rejects_attributed = all(r.get("rejected") == "backpressure"
+                                 and r.get("tenant") == "flood" and r.get("scope") == "tenant"
+                                 for r in rejects)
+        by_client = client.metrics().get("by_client") or {}
+        flood_m = by_client.get("flood") or {}
+        victim_m = by_client.get("victim") or {}
+        metrics_consistent = (flood_m.get("rejected") == len(rejects)
+                              and victim_m.get("rejected", 0) == 0)
+        ok = (busy.get("status") == "accepted" and len(rejects) >= 1 and rejects_attributed
+              and victim.get("ok") and victim_wall < 20.0 and metrics_consistent)
+        return {"name": "tenant_flood", "ok": bool(ok),
+                "flood_submitted": len(flood_replies) + 1, "flood_rejected": len(rejects),
+                "rejects_attributed": bool(rejects_attributed),
+                "victim_wall_s": round(victim_wall, 3),
+                "victim_rejected": victim_m.get("rejected", 0),
+                "metrics_consistent": bool(metrics_consistent)}
+    finally:
+        _finish_server(proc, client)
+
+
+def _scn_preempt_resume(out_dir: str) -> dict:
+    """A long batch request yields to interactive work at a cell boundary,
+    is requeued, resumes from its journal, and its reply equals an
+    unpreempted run's."""
+    import time as _time
+
+    request = {"kind": "probe", "cells": [
+        {"label": f"c{i}", "op": "sleep", "sleep_s": 0.3, "value": i} for i in range(6)]}
+    proc, client = _start_server(os.path.join(out_dir, "preempt_ref"))
+    try:
+        ref = client.submit(request, request_id="preempt-ref", client="batcher",
+                            priority="batch", timeout=60)
+    finally:
+        _finish_server(proc, client)
+
+    proc, client = _start_server(os.path.join(out_dir, "preempt"))
+    try:
+        batch = client.submit(request, request_id="preempt-main", wait=False,
+                              client="batcher", priority="batch")
+        _time.sleep(0.5)  # mid-request when the interactive one lands
+        inter = client.submit({"kind": "probe", "cells": [{"label": "i", "op": "ok", "value": 1}]},
+                              client="human", priority="interactive", timeout=60)
+        reply = client.wait_result(batch["id"], timeout=60)["reply"]
+        summary = reply.get("summary", {})
+        preemptions = (client.metrics().get("sched") or {}).get("preemptions", 0)
+        content_identical = reply.get("cells") == ref.get("cells")
+        ok = (inter.get("ok") and reply.get("ok") and content_identical
+              and summary.get("resumed_skipped", 0) >= 1
+              and summary.get("executed", -1)
+              == len(request["cells"]) - summary.get("resumed_skipped", 0)
+              and preemptions >= 1)
+        return {"name": "preempt_resume", "ok": bool(ok),
+                "content_identical": bool(content_identical),
+                "resumed_skipped": summary.get("resumed_skipped"),
+                "executed": summary.get("executed"), "preemptions": preemptions}
+    finally:
+        _finish_server(proc, client)
+
+
 def service_chaos(out_dir: str, full: bool = False) -> dict:
-    """The simulation service's drills: not ported (slice 13b)."""
-    raise NotImplementedError(f"service_chaos needs {_SLICE_13B}")
+    """The service drills; a summary dict. ``full`` adds the supervised
+    SIGKILL resume. The JAX suite's ``worker_crash`` and ``worker_hang``
+    drills test the worker pool, which is not ported (``ROADMAP.md`` queue
+    A, slice 13b.2), and are left out."""
+    import shutil
+
+    scenarios = [_scn_poison, _scn_backpressure, _scn_deadline, _scn_drain,
+                 _scn_tenant_flood, _scn_preempt_resume]
+    if full:
+        scenarios.append(_scn_sigkill_resume)
+    # the drills use fixed request ids: a stale journal or spool of an
+    # earlier run would resume instead of exercising the saboteur
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir, exist_ok=True)
+    rows = []
+    for scn in scenarios:
+        try:
+            rows.append(scn(out_dir))
+        except Exception as e:  # noqa: BLE001 - a failed drill is a row
+            rows.append({"name": scn.__name__.replace("_scn_", ""), "ok": False,
+                         "error": f"{type(e).__name__}: {e}"[:300]})
+    return {"metric": "chaos_service", "scenarios": rows, "ok": all(r["ok"] for r in rows)}
+
+
+def _main_via_service(args) -> int:
+    """The chaos sweep as a tenant of a running service: one ``sweep``
+    request (priority ``batch``), the summary in its reply; one JSON line
+    either way."""
+    from blades_tpu_torch.service.client import ServiceClient, ServiceError
+
+    n = args.sweep if args.sweep is not None else 24
+    try:
+        client = ServiceClient(args.via_service, timeout=args.service_timeout)
+        reply = client.submit({"kind": "sweep", "sweep": "chaos", "spec": {"scenarios": n}},
+                              client="chaos", priority="batch", timeout=args.service_timeout)
+        if not reply.get("ok") or "sweep" not in reply:
+            print(json.dumps({"metric": "chaos_scenarios", "ok": False,
+                              "via_service": args.via_service, "reply": reply}))
+            return 1
+        summary = reply["sweep"]["summary"]
+        summary["via_service"] = args.via_service
+        summary["request_id"] = reply.get("id")
+        print(json.dumps(summary))
+        return 0 if summary.get("ok") else 1
+    except ServiceError as e:
+        print(json.dumps({"metric": "chaos_scenarios", "ok": False,
+                          "via_service": args.via_service,
+                          "error": f"{type(e).__name__}: {e}"[:500]}))
+        return 1
 
 
 # -- the supervised child ---------------------------------------------------------
@@ -436,17 +804,23 @@ def main(argv=None) -> int:
     p.add_argument("--params-out", default=None)
     p.add_argument("--device", default="cuda", help="cuda (the default) or cpu")
     p.add_argument("--service", choices=("reduced", "full"), default=None,
-                   help="not ported: the simulation service is slice 13b")
+                   help="run the simulation service's drills (full adds the supervised "
+                        "SIGKILL resume); alone (no --sweep) prints just their JSON line")
     p.add_argument("--via-service", default=None, metavar="SOCK",
-                   help="not ported: the simulation service is slice 13b")
+                   help="submit the sweep as a sweep request to a running simulation service")
+    p.add_argument("--service-timeout", type=float, default=3600.0,
+                   help="--via-service: how long to wait for the reply (seconds)")
     args = p.parse_args(argv)
 
-    if args.via_service is not None or args.service is not None:
-        flag = "--via-service" if args.via_service is not None else "--service"
-        raise NotImplementedError(f"{flag} needs {_SLICE_13B}")
+    if args.via_service is not None:
+        return _main_via_service(args)
     if args.child:
         child_main(args)
         return 0
+    if args.service is not None and args.sweep is None:
+        summary = service_chaos(os.path.join(args.out, "service"), full=args.service == "full")
+        print(json.dumps(summary))
+        return 0 if summary["ok"] else 1
     n = args.sweep if args.sweep is not None else 24
 
     from blades_tpu_torch.core.engine import resolve_device
@@ -482,6 +856,10 @@ def main(argv=None) -> int:
     finally:
         accounting.close()
         journal.close()
+    if args.service is not None:
+        summary["service"] = service_chaos(os.path.join(args.out, "service"),
+                                           full=args.service == "full")
+        summary["ok"] = summary["ok"] and summary["service"]["ok"]
     ledger_entry.ended("finished", metrics={
         "scenarios": summary["scenarios"], "violations": len(summary["violations"]),
         "quarantined": len(summary["quarantined_cells"]), "ok": summary["ok"]})

@@ -166,7 +166,7 @@ class _CompositeAttack(Attack):
     its end), as in the JAX streaming round."""
 
     graph_unsafe_reason = ("each callback's generator is set to the round's entry state "
-                           "inside the round (rng.clone) (ROADMAP.md queue A, item 7c)")
+                           "inside the round (rng.clone) (ROADMAP.md queue B, item 7c)")
 
     def __init__(self, entries):
         # entries: [(client index, ByzantineClient)]; attacks built once

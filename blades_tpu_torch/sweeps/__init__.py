@@ -4,10 +4,10 @@ warm-engine reuse for sweeps that run many Simulators in one process.
 Counterpart: ``blades_tpu/sweeps/__init__.py`` — ``static_fingerprint``,
 ``contains_callables`` and ``program_fingerprint`` (:77-187),
 ``SweepCell``, ``group_key``, ``plan_groups`` and ``run_grouped``
-(:172-340) and ``EngineCache`` (:342-423), with the ledger's
-``config_fingerprint`` (``blades_tpu/telemetry/ledger.py:61-64``, the
-port's one copy, which ``telemetry/ledger.py`` imports from here); the
-port keeps its own copies.
+(:172-340) and ``EngineCache`` (:342-423); the port keeps its own copies.
+``config_fingerprint`` lives in ``telemetry/ledger.py``, as in the JAX
+package (``blades_tpu/telemetry/ledger.py:61-64``), and is re-exported
+here.
 
 **Cell grouping.** :func:`plan_groups` groups attack-search cells
 (``examples/certify.py``) by :func:`group_key`: the defense's
@@ -29,22 +29,24 @@ package reuses its compiled programs. ``Simulator.run(engine_cache=...)``
 builds the key (``blades_tpu/simulator.py:640-715``).
 
 ``static_fingerprint`` also collapses a ``torch.Tensor`` (through
-``.cpu()``) the way it collapses an array. The JAX package reports an
-eviction to its compile-provenance registry, which comes with slice 13b
-(``ROADMAP.md`` queue A); here it is counted in ``EngineCache.evictions``.
+``.cpu()``) the way it collapses an array. The module imports neither
+torch nor numpy at its top (a probe-only service imports it): a tensor is
+recognised through ``sys.modules``, since a process that never imported
+torch holds none. The JAX package reports an eviction to its
+compile-provenance registry, which comes with slice 13b.2 (``ROADMAP.md``
+queue A); here it is counted in ``EngineCache.evictions``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import hashlib
-import json
+import sys
 import time
 import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
-import numpy as np
-import torch
+from blades_tpu_torch.telemetry.ledger import config_fingerprint
 
 __all__ = [
     "EngineCache",
@@ -61,12 +63,6 @@ __all__ = [
 
 def _hash_bytes(raw: bytes) -> str:
     return hashlib.sha256(raw).hexdigest()[:12]
-
-
-def config_fingerprint(config: Dict[str, Any]) -> str:
-    """Stable short hash of a canonical (JSON-serializable) config dict."""
-    blob = json.dumps(config, sort_keys=True, default=repr)
-    return hashlib.sha256(blob.encode()).hexdigest()[:12]
 
 
 def static_fingerprint(obj: Any, _depth: int = 0) -> Any:
@@ -93,9 +89,12 @@ def static_fingerprint(obj: Any, _depth: int = 0) -> Any:
         }
     if isinstance(obj, (list, tuple)):
         return [static_fingerprint(v, _depth + 1) for v in obj]
-    if isinstance(obj, torch.Tensor):
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(obj, torch.Tensor):
         obj = obj.detach().cpu().numpy()
     if hasattr(obj, "shape") and hasattr(obj, "dtype"):
+        import numpy as np
+
         arr = np.asarray(obj)
         return {"__array__": [list(arr.shape), str(arr.dtype), _hash_bytes(arr.tobytes())]}
     if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
@@ -254,7 +253,9 @@ class EngineCache:
     """Maps a :func:`program_fingerprint` to a built value (a
     ``RoundEngine``), with hit, miss and eviction counts and per-key stats;
     ``max_entries`` bounds it, evicting the least recently used entry
-    (never the one just inserted)."""
+    (never the one just inserted). ``builds`` and ``build_s`` total the
+    builds :meth:`put` was told of: the service's cold/warm accounting
+    (``telemetry/reqpath.py:build_counters``) takes their deltas."""
 
     def __init__(self, max_entries: Optional[int] = None):
         self._entries: Dict[str, Any] = {}
@@ -267,6 +268,8 @@ class EngineCache:
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.builds = 0
+        self.build_s = 0.0
 
     def _touch(self, key: str) -> Dict[str, Any]:
         ks = self._stats.setdefault(
@@ -292,6 +295,8 @@ class EngineCache:
         ks = self._touch(key)
         if build_s is not None:
             ks["build_s"] = round(float(build_s), 6)
+            self.builds += 1
+            self.build_s += float(build_s)
         if self.max_entries is not None and len(self._entries) > self.max_entries:
             victims = sorted((k for k in self._entries if k != key),
                              key=lambda k: self._order.get(k, 0))

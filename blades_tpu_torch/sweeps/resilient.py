@@ -3,7 +3,8 @@ journaled resume.
 
 Counterpart: ``blades_tpu/sweeps/resilient.py`` — ``DeadlineExceeded`` and
 ``soft_deadline`` (:119), ``ResilienceOptions`` (:143),
-``ResilienceReport`` (:212), ``_emit_retry`` (:270), ``_quarantine_cell``
+``ResilienceReport`` (:212, with ``preempted`` :223-225),
+``_emit_retry`` (:270), ``_quarantine_cell``
 (:292), ``_recover_cell`` (:336), ``run_cells_resilient`` (:373) and
 ``run_grouped_resilient`` (:495, with ``_attempt`` :537, ``_commit`` :575
 and the bisection ``_solve`` :603). The same records (``retry``,
@@ -34,7 +35,9 @@ Two rules are the port's own, for a CUDA card:
   So after every failed attempt the executor probes the device
   (:func:`probe_device`, a synchronize); if the probe fails too it raises
   :class:`DeviceLost` at once and journals nothing. The process dies, and
-  its supervisor relaunches it under ``BLADES_RESUME=1``.
+  its supervisor relaunches it under ``BLADES_RESUME=1``. A process that
+  never imported torch has no CUDA context to lose and is not probed: a
+  failing cell of a probe-only service must not load torch into it.
 - **A failed attempt holds no memory into the next.** The failure is
   kept as its type and message only (:class:`_Failure`); the exception's
   frames, and the device tensors in them, are cleared before the backoff
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import dataclasses
 import signal
+import sys
 import threading
 import time
 import traceback
@@ -89,9 +93,11 @@ class DeviceLost(RuntimeError):
 
 def probe_device() -> None:
     """Raise when the CUDA context of this process is dead: a synchronize,
-    where the process has initialized CUDA (a no-op otherwise)."""
-    import torch
-
+    where the process has initialized CUDA (a no-op otherwise, and in a
+    process that never imported torch)."""
+    torch = sys.modules.get("torch")
+    if torch is None:
+        return
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         torch.cuda.synchronize()
 
@@ -167,10 +173,18 @@ class ResilienceOptions:
     bisection half gets one attempt). ``cell_deadline_s`` scales with the
     unit: C cells get C times it. ``sleep`` and ``runner`` (``runner(group,
     key)`` in place of :func:`~blades_tpu_torch.sweeps._execute_group`)
-    are for tests and for the card's fault injection. The JAX package's
-    service hooks (``should_yield``, ``deadline="external"``,
-    ``on_cell_start``) come with the service (``ROADMAP.md`` queue A,
-    slice 13b)."""
+    are for tests and for the card's fault injection.
+
+    ``should_yield``: polled at cell (per-cell executor) or group (batched
+    executor) boundaries after at least one unit of new work; ``True``
+    stops the sweep with ``report.preempted`` set and every remaining slot
+    ``None``, not quarantined: the caller requeues, and a later execution
+    recovers the journaled cells and runs the rest (the service's
+    cell-boundary preemption, ``service/scheduler.py``). The one unit of
+    progress makes back-to-back preemptions advance the journal. The JAX
+    package's worker-pool hooks (``deadline="external"``,
+    ``on_cell_start``) come with the pool (``ROADMAP.md`` queue A, slice
+    13b.2)."""
 
     attempts: int = 2
     base_delay_s: float = 0.5
@@ -178,6 +192,7 @@ class ResilienceOptions:
     cell_deadline_s: Optional[float] = None
     sleep: Callable[[float], None] = time.sleep
     runner: Optional[Callable[[Sequence[SweepCell], str], list]] = None
+    should_yield: Optional[Callable[[], bool]] = None
 
     def __post_init__(self):
         # a budget below 1 would skip every attempt and quarantine every
@@ -194,6 +209,9 @@ class ResilienceReport:
     degraded_groups: int = 0
     executed: int = 0
     resumed_skipped: int = 0
+    #: the sweep stopped at a boundary because ``options.should_yield``
+    #: asked it to; the remaining slots are None and not quarantined
+    preempted: bool = False
     quarantined: List[Dict[str, Any]] = dataclasses.field(default_factory=list)
 
     def summary(self) -> Dict[str, Any]:
@@ -296,7 +314,8 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
 
     ``cells``: ``(label, payload)`` pairs; ``run_cell(payload)`` runs one
     and returns its JSON-serializable result. Returns ``(results, walls,
-    report)``, a quarantined cell's slot ``None``."""
+    report)``, a quarantined (or, preempted, an unrun) cell's slot
+    ``None``."""
     options = options or ResilienceOptions()
     cells = list(cells)
     kind = kind or getattr(sweep, "kind", "sweep")
@@ -309,11 +328,21 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
     if cell_ddl and not _alarm_usable():
         _note_deadline_unenforced(rec, kind, deadline_s=cell_ddl)
 
+    progressed = 0
     for label, payload in cells:
         if journal is not None and journal.has(label):
             result, wall = _recover_cell(journal, sweep, report, label)
             results.append(result)
             walls.append(wall)
+            continue
+
+        # cell-boundary preemption, after one cell of new work (a recovered
+        # cell is none); the remaining slots pad to None
+        if report.preempted or (progressed and options.should_yield is not None
+                                and options.should_yield()):
+            report.preempted = True
+            results.append(None)
+            walls.append(0.0)
             continue
 
         out = None
@@ -344,6 +373,7 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
                              attempts=options.attempts, wall=wall, delta=delta)
             results.append(None)
             walls.append(wall)
+            progressed += 1
             continue
         if journal is not None:
             journal.record(label, out, wall_s=wall)
@@ -353,6 +383,7 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
         results.append(out)
         walls.append(wall)
         report.executed += 1
+        progressed += 1
 
     return results, walls, report
 
@@ -450,6 +481,7 @@ def run_grouped_resilient(cells: Sequence[SweepCell], *, grids: Optional[dict] =
         for half in (idxs[:mid], idxs[mid:]):
             _solve(half, key, options.attempts if len(half) == 1 else 1)
 
+    progressed = 0
     for key, idxs in plan_groups(cells):
         pending: List[int] = []
         for i in idxs:
@@ -458,7 +490,14 @@ def run_grouped_resilient(cells: Sequence[SweepCell], *, grids: Optional[dict] =
                 results[i], walls[i] = _recover_cell(journal, sweep, report, c.label, batch=key)
             else:
                 pending.append(i)
-        if pending:
-            _solve(pending, key, options.attempts)
+        if not pending:
+            continue
+        # group-boundary preemption, after one group of new work
+        if report.preempted or (progressed and options.should_yield is not None
+                                and options.should_yield()):
+            report.preempted = True
+            continue
+        _solve(pending, key, options.attempts)
+        progressed += 1
 
     return results, walls, report

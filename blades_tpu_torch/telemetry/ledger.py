@@ -11,7 +11,9 @@ Counterpart: ``blades_tpu/telemetry/ledger.py`` (``LEDGER_ENV``,
 ``results/ledger.jsonl``: a port run from the checkout's root never
 appends to that committed file. A record carries the run identity
 (``telemetry/context.py``), a fingerprint of the run's configuration
-(``sweeps.config_fingerprint``, the port's one copy), the checked-out git
+(:func:`config_fingerprint`, the port's one copy, which ``sweeps``
+re-exports, as ``blades_tpu/telemetry/ledger.py:61-64`` is the JAX
+package's), the checked-out git
 sha, an environment fingerprint (:func:`env_fingerprint`), and at the end
 the outcome, headline metrics and artifact paths.
 
@@ -21,13 +23,13 @@ ledger write never raises.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import sys
 import time
 from typing import Any, Dict, List, Optional
 
-from blades_tpu_torch.sweeps import config_fingerprint
 from blades_tpu_torch.telemetry import context as _context
 
 #: the ledger's path; "0" turns ledger writes off
@@ -45,6 +47,12 @@ __all__ = [
     "config_fingerprint", "env_fingerprint", "ledger_path", "pair_runs", "read_ledger",
     "record_event", "run_started",
 ]
+
+
+def config_fingerprint(config: Dict[str, Any]) -> str:
+    """Stable short hash of a canonical (JSON-serializable) config dict."""
+    blob = json.dumps(config, sort_keys=True, default=repr)
+    return hashlib.sha256(blob.encode()).hexdigest()[:12]
 
 
 def ledger_path() -> Optional[str]:

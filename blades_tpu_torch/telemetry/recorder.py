@@ -10,7 +10,7 @@ compile events, has no source here: the port compiles no XLA programs.
 Its mirror is fed by :func:`count_process` instead, from the port's own
 builds: a CUDA-graph capture (``core/graphs.py``) and a kernel library
 built by ``nvcc`` or found up to date on disk (``ops/_build.py``); see
-:data:`PROCESS_COUNTER_NAMES`. ``ROADMAP.md`` queue A, slice 13b holds the
+:data:`PROCESS_COUNTER_NAMES`. ``ROADMAP.md`` queue A, slice 13b.2 holds the
 full compile feed.
 
 Design constraints (the recorder lives inside the round loop):

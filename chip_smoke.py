@@ -240,7 +240,24 @@ other) at every timed shape, in the ``kernel_compare`` records.
 phases (about 3 minutes on the card), with no ``kernels`` or result line;
 ``--text-only`` likewise runs only the text and pretrained phases (about
 2.7 minutes with the build), and ``--resilient-only`` a certify run on the
-card and the slice 13a phases.
+card and the slice 13a phases. ``--service-only`` runs only the
+simulation service's phases (slice 13b.1), then the ``kernels`` line (the
+service path alone) and the result line.
+
+The service phases: ``service_simulate`` starts a server
+(``examples/serve.py start``, a fresh interpreter) and submits the main
+path's MLP at K=1000 (ALIE f=5 + trimmed mean b=5, 3 rounds) twice under
+two ids, cold then warm, then the first id again (the spool answers):
+the server's start to its socket and to the first cell's CUDA work, each
+request's queue wait / build / execute split, the client's walls; the
+two replies equal, the warm one with ``build_s`` 0; a drain exits 0.
+``service_kernel`` runs the same request twice through
+``SimulationService._execute`` in this process, 6 kernel launches each
+held against the plain version, the cell bit for bit a direct
+``Simulator`` run. ``service_certify`` submits the certify driver's
+``--quick`` matrix with ``--via-service`` and holds it to an in-process
+run on the card (verdicts exact, ratios CERT_TOL). ``service_chaos``
+runs the service drills and the supervised SIGKILL resume.
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -410,7 +427,7 @@ CERT_SCALE_B = 10  # the kernel's b at that shape (trimmed mean at f=10)
 # (sign flipping f=100, the median); the other families' card-vs-CPU batch
 # and its gradient bar (a ReLU input or max-pool window within rounding
 # takes the other branch on the other backend, as RESNET_ROW_REL says);
-# the K=6 card-vs-CPU round
+# the card-vs-CPU round
 TEXT_VOCAB, TEXT_SEQ, TEXT_MIN_LEN = 100_000, 64, 8
 TEXT_TRAIN, TEXT_TEST, TEXT_STREAM_TRAIN = 10_000, 2_000, 32_000
 TEXT_SHAPE = (100, 30_352_643, 10)
@@ -425,7 +442,9 @@ TEXT_STREAM_BYZANTINE = 100
 TEXT_FAMILIES = ("text_cvt_2", "text_vit_2", "text_transformer_2", "text_cct_6",
                  "long_text_transformer")
 TEXT_FAMILY_BATCH, TEXT_GRAD_REL = 32, 2e-3
-TEXT_CPU_CLIENTS, TEXT_MAX_KINK_ROWS = 6, 2
+# the card-vs-CPU text round: 3 clients, f=1, b=1 (K=6, f=2 took 79-83 s
+# of the host's CPU)
+TEXT_CPU_CLIENTS, TEXT_CPU_BYZANTINE, TEXT_MAX_KINK_ROWS = 3, 1, 1
 # ExperimentBatch(mode="vmap") (slice 7b) against map mode: the experiments
 # of the MLP at K=1000, of BASELINE config 1's shape (K=10, 50 local steps),
 # of bf16 CCT-2 at K=1000 and of the looping cells (a fault model, GeoMed);
@@ -454,6 +473,17 @@ SUP_ROUNDS, SUP_HANG_AT, SUP_HEARTBEAT_S, SUP_TERM_GRACE_S = 4, 2, 5.0, 60.0
 CHAOS_SCENARIOS, CHAOS_KILL_SEED, CHAOS_KILL_AT = 14, 1, 2
 # the children that run beside the host-bound certify run keep to 2 threads
 BESIDE_ENV = {"OMP_NUM_THREADS": "2"}
+# the simulation service (slice 13b.1): the main path's MLP configuration as
+# one simulate cell (the service's Synthetic is MNIST-shaped: D = 59,850),
+# K=1000, ALIE f=5 + trimmed mean b=5, 3 rounds of batch 32; the certify
+# driver's quick matrix as a sweep request
+SERVICE_CELL = {"label": "main", "model": "mlp", "clients": MAIN_CLIENTS, "train_size": 50_000,
+                "attack": "alie", "num_byz": MAIN_BYZANTINE, "agg": "trimmedmean",
+                "agg_kws": {"num_byzantine": MAIN_BYZANTINE}, "rounds": 3,
+                "train_batch_size": 32, "seed": 1}
+SERVICE_REQUEST = {"kind": "simulate", "cells": [SERVICE_CELL]}
+SERVICE_CERT_ARGS = ("--quick",)
+SERVICE_SHAPE = (MAIN_CLIENTS, 59_850, MAIN_BYZANTINE)
 
 
 def emit(record: dict) -> None:
@@ -4269,10 +4299,10 @@ def phase_text_families(torch, fl, dev, card: str) -> None:
 
 def phase_text_card_vs_cpu(torch, fl, dev, card: str) -> None:
     """One ``text_cct_2`` round at full width and K=TEXT_CPU_CLIENTS (ALIE
-    f=2, trimmed mean b=2, 1 step of batch 32) on the card and on the CPU
-    from the same params, the same batches (the store's first clients'
-    rows) and the same keep-masks (drawn once on the CPU and handed to both
-    engines). The aggregate and the new params within ROUND_TOL; every
+    and trimmed mean with f = b = TEXT_CPU_BYZANTINE, 1 step of batch 32)
+    on the card and on the CPU from the same params, the same batches (the
+    store's first clients' rows) and the same keep-masks (drawn once on the
+    CPU and handed to both engines). The aggregate and the new params within ROUND_TOL; every
     update row within ROUND_TOL but for at most TEXT_MAX_KINK_ROWS, which
     are reported."""
     from blades_tpu_torch.aggregators import Trimmedmean
@@ -4282,7 +4312,7 @@ def phase_text_card_vs_cpu(torch, fl, dev, card: str) -> None:
     from blades_tpu_torch.ops.pytree import ravel
     from blades_tpu_torch.utils import rng
 
-    k, f = TEXT_CPU_CLIENTS, 2
+    k, f = TEXT_CPU_CLIENTS, TEXT_CPU_BYZANTINE
     spec = build_fns(create_model("text_cct_2", num_classes=2, sample_shape=(TEXT_SEQ,)),
                      pad_id=0)
     params = spec.init(torch.Generator().manual_seed(61))
@@ -5245,13 +5275,16 @@ class _HeldKernel:
     :meth:`result` reads them. Installed over ``trimmed.trimmed_mean_cuda``
     (the defense's route), the launches still counted by the wrapper."""
 
-    def __init__(self, torch, trimmed):
+    def __init__(self, torch, trimmed, keep_first: bool = False):
         self.torch, self.trimmed = torch, trimmed
         self.orig = trimmed.trimmed_mean_cuda
         self.errs, self.bad = [], []
+        self.keep_first, self.first = keep_first, None  # the first launch's input and b
 
     def __call__(self, x, b):
         out = self.orig(x, b)
+        if self.keep_first and self.first is None:
+            self.first = (x.clone(), b)
         ref = self.trimmed.trimmed_mean_plain(x, b)
         self.errs.append((out - ref).abs().max())
         self.bad.append((~self.torch.isclose(out, ref, **TOL)).sum())
@@ -5844,6 +5877,318 @@ def resilient_phases(torch, trimmed, dev, card: str, log_root: Path, cert_ref: d
     return {"launches": launches, "chaos": chaos_launches, "err": max(errs)}
 
 
+# -- the simulation service (slice 13b.1) --------------------------------------------
+
+
+def _service_env() -> dict:
+    import os
+
+    root = Path(__file__).resolve().parent
+    return dict(os.environ, PYTHONPATH=str(root))
+
+
+def _trace_records(path: Path) -> list:
+    out = []
+    if path.exists():
+        for line in path.read_text().splitlines():
+            try:
+                out.append(json.loads(line))
+            except ValueError:
+                pass
+    return out
+
+
+def run_service_server(log_root: Path, device: str) -> dict:
+    """The ``service_simulate`` and ``service_certify`` phases' server, a
+    fresh interpreter (``examples/serve.py start`` on the card, nothing
+    forked from this process): its start to its socket; SERVICE_REQUEST
+    submitted twice under two ids (cold, then warm), then the first id
+    again (the spool answers); the certify driver's ``--quick`` matrix
+    through ``--via-service``; ``op: metrics``; a drain. Each submit's wall
+    as the client sees it. Runs beside the main thread's phases: it only
+    gathers."""
+    from blades_tpu_torch.service.client import ServiceClient
+
+    root = Path(__file__).resolve().parent
+    out = log_root / "service_simulate"
+    sock = out / "service.sock"
+    log = open(log_root / "service_server.log", "w")
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                             "--out", str(out), "--device", device, "--health-interval", "5"],
+                            cwd=str(root),
+                            env=_service_env(), stdout=subprocess.PIPE, stderr=log, text=True)
+    run = {"t0": t0, "out": out, "walls": {}, "replies": {}}
+    try:
+        client = ServiceClient(str(sock), timeout=900, connect_retries=1)
+        while True:
+            try:
+                client.ping()
+                break
+            except Exception:  # noqa: BLE001 - not listening yet
+                check(proc.poll() is None and time.time() - t0 < 120,
+                      "service: the server did not open its socket")
+                time.sleep(0.01)
+        run["socket_s"] = time.time() - t0
+        for name, rid in (("cold", "svc-cold"), ("warm", "svc-warm"), ("resubmit", "svc-cold")):
+            t = time.perf_counter()
+            run["replies"][name] = client.submit(SERVICE_REQUEST, request_id=rid)
+            run["walls"][name] = time.perf_counter() - t
+        run["metrics_after_simulate"] = client.metrics()
+        # the driver as a client process of its own (this thread must not
+        # take over the script's standard output)
+        t = time.perf_counter()
+        cert = subprocess.run([sys.executable, "-m", "blades_tpu_torch.examples.certify",
+                               *SERVICE_CERT_ARGS, "--via-service", str(sock), "--out",
+                               str(log_root / "service_certify")], cwd=str(root),
+                              env=_service_env(), capture_output=True, text=True, timeout=900)
+        run["walls"]["certify"] = time.perf_counter() - t
+        run["certify_rc"] = cert.returncode
+        run["certify_summary"] = json.loads((cert.stdout.strip().splitlines() or ["{}"])[-1])
+        run["metrics"] = client.metrics()
+        run["drain"] = client.drain()
+        stdout, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+        log.close()
+    run["rc"] = proc.returncode
+    run["exit_line"] = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+    run["trace"] = _trace_records(out / "service_trace.jsonl")
+    cell_trace = _trace_records(out / "requests" / "svc-cold" / SERVICE_CELL["label"]
+                                / "telemetry.jsonl")
+    run["first_cell_meta_ts"] = next((r["ts"] for r in cell_trace if r.get("t") == "meta"),
+                                     None)
+    run["cell_spans"] = {rid: cell_spans(out / "requests" / rid / SERVICE_CELL["label"])
+                         for rid in ("svc-cold", "svc-warm")}
+    run["log"] = (log_root / "service_server.log").read_text()[-3000:]
+    return run
+
+
+def cell_spans(log_dir: Path) -> dict:
+    """A served cell's Simulator trace: each round's wall (its ``round``
+    spans) and the seconds by span path."""
+    by_path, rounds = {}, []
+    for r in _trace_records(log_dir / "telemetry.jsonl"):
+        if r.get("t") == "span":
+            by_path[r["path"]] = by_path.get(r["path"], 0.0) + r["dur_s"]
+            if r["path"] == "round":
+                rounds.append(r["dur_s"])
+    return {"round_s": rounds, "by_path_s": by_path}
+
+
+def _finished(trace: list) -> dict:
+    return {r["id"]: r for r in trace if r.get("t") == "request" and r.get("event") == "finished"}
+
+
+def report_service_simulate(run: dict, card: str) -> None:
+    """``service_simulate``: the records and checks of the served main
+    path (from :func:`run_service_server`)."""
+    fin = _finished(run["trace"])
+    started = {r["id"]: r["ts"] for r in run["trace"]
+               if r.get("t") == "request" and r.get("event") == "started"}
+    split = ("queue_wait_s", "build_s", "execute_s", "total_s", "warm", "compiles")
+    cells = {n: run["replies"][n].get("cells") for n in ("cold", "warm")}
+    resub = run["replies"]["resubmit"]
+    m = run["metrics_after_simulate"]
+    emit({"phase": "service_simulate", "request": SERVICE_CELL,
+          "socket_s": run["socket_s"],
+          "first_request_started_s": (started.get("svc-cold", run["t0"]) - run["t0"]),
+          "first_cuda_s": (run["first_cell_meta_ts"] - run["t0"]
+                           if run["first_cell_meta_ts"] else None),
+          "requests": {rid: {k: fin[rid].get(k) for k in split}
+                       for rid in ("svc-cold", "svc-warm") if rid in fin},
+          "submit_wall_s": {n: run["walls"][n] for n in ("cold", "warm", "resubmit")},
+          "cell_spans": run["cell_spans"],
+          "served": resub.get("served"), "cells": cells["cold"],
+          "metrics": {"requests": m.get("requests"), "split": m.get("split"),
+                      "latency": m.get("latency"), "engine_cache": {
+                          k: (m.get("engine_cache") or {}).get(k) for k in ("hits", "misses")}},
+          "drain_rc": run["rc"], "card": card})
+    check(run["replies"]["cold"].get("ok") and run["replies"]["warm"].get("ok"),
+          f"service_simulate: {run['replies']['cold']} {run['replies']['warm']}\n{run['log']}")
+    result = [c["result"] for c in cells["cold"]]
+    check(cells["cold"] == cells["warm"] and result[0]["finite"],
+          f"service_simulate: the warm reply differs: {cells}")
+    check(fin["svc-cold"]["warm"] is False and fin["svc-warm"]["warm"] is True
+          and fin["svc-warm"]["build_s"] == 0, f"service_simulate: cold/warm {fin}")
+    check(resub.get("served") == "spool" and resub["reply"]["cells"] == cells["cold"]
+          and m["requests"]["admitted"] == 2 and m["cells"]["done"] == 2,
+          f"service_simulate: the resubmit ran again: {resub} {m['requests']}")
+    check(run["rc"] == 0 and run["drain"].get("draining"),
+          f"service_simulate: drain rc {run['rc']}\n{run['log']}")
+
+
+def direct_service_cell(torch, dev, log_root: Path, dataset) -> dict:
+    """SERVICE_CELL through a port ``Simulator`` built here (the service's
+    defaults for what the cell leaves out) on ``dataset``, the service's
+    seeded Synthetic store (its draws are keyed by the Simulator's seed,
+    not by the store), hashed as the service hashes it."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.ops.pytree import ravel
+
+    c = SERVICE_CELL
+    sim = Simulator(dataset, aggregator=c["agg"], aggregator_kws=c["agg_kws"], attack=c["attack"],
+                    num_byzantine=c["num_byz"], log_path=str(log_root / "service_direct"),
+                    seed=c["seed"], device=dev)
+    sim.run("mlp", global_rounds=c["rounds"], local_steps=1,
+            train_batch_size=c["train_batch_size"], client_lr=0.2, server_lr=1.0,
+            validate_interval=c["rounds"])
+    params = ravel(sim.server.state.params, sim.engine.layout).detach().float().cpu().numpy()
+    ev = sim.evaluate(c["rounds"], 64)
+    return {"loss": round(float(ev["Loss"]), 6),
+            "params_sha": hashlib.sha256(params.tobytes()).hexdigest()[:16]}
+
+
+def phase_service_kernel(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """``SimulationService(out, device="cuda")._execute`` of SERVICE_REQUEST
+    twice in this process (the JAX package's ``tests/test_service.py:721``
+    drive): the kernel's launches (3 a request), each held against the
+    plain version; the reply's cell bit for bit a direct ``Simulator`` run
+    of the payload here. Returns the launches, the largest error and the
+    kernel timed on the first launch's input."""
+    from blades_tpu_torch.service.server import SimulationService
+
+    gc.collect()
+    torch.cuda.synchronize()
+    svc = SimulationService(str(log_root / "service_kernel"), device=str(dev))
+    walls, replies = {}, {}
+    try:
+        trimmed.trimmed_mean_launches = 0
+        with _HeldKernel(torch, trimmed, keep_first=True) as held:
+            for rid in ("k-cold", "k-warm"):
+                t = time.perf_counter()
+                replies[rid] = svc._execute(rid, SERVICE_REQUEST)
+                torch.cuda.synchronize()
+                walls[rid] = time.perf_counter() - t
+        launches = trimmed.trimmed_mean_launches
+        (dataset,) = svc._datasets.values()
+        spans = {rid: cell_spans(log_root / "service_kernel" / "requests" / rid
+                                 / SERVICE_CELL["label"]) for rid in replies}
+        split = {rid: {k: v for k, v in r.items() if k in ("queue_wait_s", "build_s",
+                                                           "execute_s", "total_s", "warm")}
+                 for rid, r in _finished(_trace_records(
+                     log_root / "service_kernel" / "service_trace.jsonl")).items()}
+    finally:
+        svc.rec.close()
+        svc.spool.close()
+    n_held, err, bad = held.result()
+    check(held.first is not None, f"service_kernel: no kernel launch in {replies}")
+    x, b = held.first
+    k, d = x.shape
+    bnd, by = bound_ms(k, d)
+    timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
+                   plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1),
+                   library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=5,
+                                      warmup=1),
+                   bound_ms=bnd, bound_by=by)
+    direct = direct_service_cell(torch, dev, log_root, dataset)
+    cell = replies["k-cold"]["cells"][0].get("result", {})
+    emit({"phase": "service_kernel", "launches": launches, "held": n_held,
+          "max_abs_err": err, "elements_off_tol": bad, "wall_s": walls, "split": split,
+          "cell_spans": spans,
+          "cell": cell, "direct": direct, "shape_kdb": [k, d, b], **timings, "card": card})
+    check(all(r.get("ok") for r in replies.values()), f"service_kernel: {replies}")
+    check(launches == 2 * SERVICE_CELL["rounds"] and n_held == launches and bad == 0,
+          f"service_kernel: {launches} launches, {n_held} held, {bad} elements off {TOL}")
+    check(replies["k-cold"]["cells"] == replies["k-warm"]["cells"]
+          and {n: cell.get(n) for n in ("loss", "params_sha")} == direct,
+          f"service_kernel: the served cell {cell} is not the direct run's {direct}")
+    check(split["k-cold"]["warm"] is False and split["k-warm"]["warm"] is True
+          and split["k-warm"]["build_s"] == 0, f"service_kernel: cold/warm {split}")
+    return launches, err, timings
+
+
+def report_service_certify(run: dict, ref: dict, device: str, card: str) -> None:
+    """``service_certify``: the ``--via-service`` matrix against the
+    in-process ``certify_matrix`` of the same spec on the card (``ref``):
+    verdicts exact, ratios within CERT_TOL."""
+    import numpy as np
+
+    served = json.loads((Path(run["out"]).parent / "service_certify" / "cert_matrix.json")
+                        .read_text())
+    fin = _finished(run["trace"])
+    rid = run["certify_summary"].get("id")
+    same = all([(r["agg"], r["f"], r.get("scenario"), r["certified"]) for r in served[key]]
+               == [(r["agg"], r["f"], r.get("scenario"), r["certified"])
+                   for r in ref["matrix"][key]] for key in ("cells", "async_cells"))
+    battery = ({n: {c: r["ok"] for c, r in b["contracts"].items()}
+                for n, b in served["battery"].items()}
+               == {n: {c: r["ok"] for c, r in b["contracts"].items()}
+                   for n, b in ref["matrix"]["battery"].items()})
+    ratios = [(a["worst_ratio"], b["worst_ratio"]) for key in ("cells", "async_cells")
+              for a, b in zip(served[key], ref["matrix"][key])]
+    worst = max((abs(a - b) - CERT_TOL["rtol"] * abs(b) for a, b in ratios), default=0.0)
+    emit({"phase": "service_certify", "spec": list(SERVICE_CERT_ARGS), "id": rid,
+          "cells": len(served["cells"]), "async_cells": len(served["async_cells"]),
+          "verdicts_equal": same, "battery_equal": battery, "worst_ratio_excess": worst,
+          "submit_wall_s": run["walls"]["certify"], "in_process_wall_s": ref["wall"],
+          "split": {k: fin.get(rid, {}).get(k) for k in ("queue_wait_s", "build_s",
+                                                         "execute_s", "total_s", "warm")},
+          "device": served["device"], "card": card})
+    check(run["certify_rc"] == 0 and run["certify_summary"]["ok"] and served["device"] == device,
+          f"service_certify: {run['certify_summary']}")
+    check(same and battery and np.allclose([a for a, _ in ratios], [b for _, b in ratios],
+                                           **CERT_TOL),
+          f"service_certify: the served matrix is not the in-process one (excess {worst})")
+
+
+def certify_reference(torch, dev, log_root: Path) -> dict:
+    """The in-process ``certify_matrix`` of SERVICE_CERT_ARGS on the card."""
+    from blades_tpu_torch.examples import certify
+
+    args = certify.parse_args([*SERVICE_CERT_ARGS, "--out", str(log_root / "service_cert_ref")])
+    t0 = time.perf_counter()
+    matrix = certify.certify_matrix(args, device=dev)
+    torch.cuda.synchronize()
+    return {"matrix": matrix, "wall": time.perf_counter() - t0}
+
+
+def phase_service_chaos(drills: dict, card: str) -> None:
+    """``service_chaos``: the reduced drills and the supervised SIGKILL
+    resume (``examples/chaos.py:service_chaos(full=True)``) against servers
+    started on this machine (probe cells: no server imports torch)."""
+    rows = {r["name"]: r for r in drills["summary"]["scenarios"]}
+    kill = rows.get("sigkill_resume", {})
+    emit({"phase": "service_chaos", "ok": drills["summary"]["ok"],
+          "failed": [n for n, r in rows.items() if not r["ok"]],
+          "scenarios": drills["summary"]["scenarios"], "wall_s": drills["wall"], "card": card})
+    check(drills["summary"]["ok"] and len(rows) == 7 and kill.get("content_identical")
+          and kill.get("resumed_skipped") == 2 and kill.get("executed") == 2,
+          f"service_chaos: {drills['summary']}")
+
+
+def run_service_drills(log_root: Path) -> dict:
+    """The service drills, gathered only (they start their own servers)."""
+    from blades_tpu_torch.examples import chaos
+
+    t0 = time.perf_counter()
+    summary = chaos.service_chaos(str(log_root / "service_chaos"), full=True)
+    return {"summary": summary, "wall": time.perf_counter() - t0}
+
+
+def service_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
+    """The slice 13b.1 phases: the server subprocess (``service_simulate``,
+    then ``service_certify``'s request) and the drills' servers run in two
+    threads beside this process's ``service_kernel`` and the certify
+    reference; the records and checks are made here after. Returns the
+    service path's launches, the largest error and the kernel's timings."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        server = pool.submit(run_service_server, log_root, str(dev))
+        drills = pool.submit(run_service_drills, log_root)
+        launches, err, timings = phase_service_kernel(torch, trimmed, dev, card, log_root)
+        ref = certify_reference(torch, dev, log_root)
+        run = server.result()
+        drill = drills.result()
+    report_service_simulate(run, card)
+    report_service_certify(run, ref, str(dev), card)
+    phase_service_chaos(drill, card)
+    return {"launches": launches, "err": err, "timings": timings}
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -5914,6 +6259,9 @@ def main() -> int:
     parser.add_argument("--resilient-only", action="store_true",
                         help="build the kernel, run a certify run on the card and the "
                              "slice 13a phases, and print no result line")
+    parser.add_argument("--service-only", action="store_true",
+                        help="build the kernel, run only the simulation service's phases, "
+                             "then the kernels line and the result line")
     parser.add_argument("--sticky-child", default=None, metavar="OUT",
                         help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
@@ -5981,6 +6329,21 @@ def main() -> int:
             ref = certify_on_card(torch, trimmed, certify, dev, Path(tmp) / "certify",
                                   count=False)
             resilient_phases(torch, trimmed, dev, card, Path(tmp), ref)
+        return 0
+    if args.service_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            service = service_phases(torch, trimmed, dev, card, Path(tmp))
+        check(service["launches"] > 0, "the service path ran without the kernel")
+        emit({"kernels": [{
+            "name": "trimmed_mean", "route": "cuda",
+            "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+            "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+            "launches": service["launches"], "launches_by_path": {"service": service["launches"]},
+            "shape_kdb": list(SERVICE_SHAPE), "max_abs_err": service["err"],
+            **service["timings"]}]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
         return 0
     max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
@@ -6127,10 +6490,17 @@ def main() -> int:
         # plain version
         resilient = resilient_phases(torch, trimmed, dev, card, Path(tmp), cert_ref)
         launches.update(resilient["launches"])
+        # the simulation service (slice 13b.1): the main path's MLP served
+        # cold and warm by a server process, the same request in this
+        # process (the kernel 3 times a request, each launch held), the
+        # certify driver as a tenant and the service drills
+        service = service_phases(torch, trimmed, dev, card, Path(tmp))
+        launches["service"] = service["launches"]
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
-    max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"])
+    max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"],
+                  service["err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
               "geomed" not in p) and not any(n for p, n in batched_launches.items()
@@ -6150,7 +6520,8 @@ def main() -> int:
     # top-level times) and at each path's shape
     cert_shape = (CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B)
     shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings,
-              cert_shape: cert_timings, TEXT_SHAPE: text["timings"], **search_shapes}
+              cert_shape: cert_timings, TEXT_SHAPE: text["timings"], **search_shapes,
+              SERVICE_SHAPE: service["timings"]}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
@@ -6158,7 +6529,7 @@ def main() -> int:
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
                         if path.startswith(("cct2", "resnet18", "certify", "text", "resilient",
-                                            "supervised"))),
+                                            "supervised", "service"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,

@@ -42,7 +42,7 @@ from blades_tpu_torch.aggregators.dnc import draw_subspaces
 from blades_tpu_torch.audit import attack_search, contracts
 from blades_tpu_torch.examples import certify
 from blades_tpu_torch.sweeps import SweepCell, group_key, plan_groups, run_grouped
-from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
+from torch_threads_helpers import torch_threads_per_worker, worker_threads  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
@@ -556,10 +556,10 @@ def test_certify_main_one_json_line_and_matrix(tmp_path, capsys, monkeypatch):
 
 @pytest.mark.parametrize("argv,needle", [
     (["--aggs", "nosuchagg"], "unknown aggregators"),
-    (["--via-service", "sock"], "slice 13"),
-    # the resilient executor's flags run, and do not carry --via-service
-    (["--via-service", "sock", "--attempts", "3"], "slice 13"),
-    (["--via-service", "sock", "--cell-deadline", "10"], "slice 13"),
+    # with no server at ``sock``: the client's connection error, one line
+    (["--via-service", "sock"], "unreachable"),
+    (["--via-service", "sock", "--attempts", "3"], "unreachable"),
+    (["--via-service", "sock", "--cell-deadline", "10"], "unreachable"),
 ])
 def test_certify_main_refusals_are_one_json_line(tmp_path, capsys, monkeypatch, argv, needle):
     monkeypatch.setenv("BLADES_LEDGER", str(tmp_path / "ledger.jsonl"))
@@ -567,6 +567,48 @@ def test_certify_main_refusals_are_one_json_line(tmp_path, capsys, monkeypatch, 
                                      str(tmp_path / "c"), *argv])
     assert rc != 0 and summary["ok"] is False
     assert needle in summary["error"]
+
+
+def test_certify_via_service_equals_the_in_process_matrix(tmp_path, capsys, monkeypatch):
+    """``--via-service`` against a port server on the CPU: the served
+    matrix's verdicts equal an in-process ``certify_matrix`` of the same
+    spec exactly, its ratios within ``rtol=1e-4, atol=1e-6``."""
+    import subprocess
+
+    from blades_tpu_torch.service.client import ServiceClient
+
+    ledger = str(tmp_path / "ledger.jsonl")
+    monkeypatch.setenv("BLADES_LEDGER", ledger)
+    env = {k: v for k, v in os.environ.items() if k not in ("PYTHONPATH", "BLADES_RESUME")}
+    env.update(PYTHONPATH=ROOT, OMP_NUM_THREADS=str(worker_threads()))
+    sock = tmp_path / "svc" / "service.sock"
+    server = subprocess.Popen([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                               "--out", str(tmp_path / "svc"), "--device", "cpu"], cwd=ROOT,
+                              env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    argv = ["--quick", "--clients", "6", "--aggs", "mean", "median", "--out",
+            str(tmp_path / "c")]
+    try:
+        ServiceClient(str(sock), connect_retries=100, connect_delay_s=0.1).ping()
+        rc, summary = _run_main(capsys, argv + ["--via-service", str(sock)])
+        ServiceClient(str(sock)).drain()
+        server.communicate(timeout=60)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    assert rc == 0 and summary["ok"] is True and summary["via_service"] is True
+    served = json.loads((tmp_path / "c" / "cert_matrix.json").read_text())
+    local = certify.certify_matrix(certify.parse_args(argv + ["--device", "cpu"]))
+    assert served["device"] == local["device"] == "cpu"
+    for key in ("cells", "async_cells"):
+        assert [(r["agg"], r["f"], r["certified"]) for r in served[key]] == [
+            (r["agg"], r["f"], r["certified"]) for r in local[key]]
+        np.testing.assert_allclose([r["worst_ratio"] for r in served[key]],
+                                   [r["worst_ratio"] for r in local[key]], rtol=1e-4, atol=1e-6)
+    assert {n: {c: r["ok"] for c, r in b["contracts"].items()}
+            for n, b in served["battery"].items()} == {
+        n: {c: r["ok"] for c, r in b["contracts"].items()} for n, b in local["battery"].items()}
+    assert served["headline_failures"] == local["headline_failures"] == []
 
 
 def test_certify_main_asks_for_the_card_by_default(tmp_path, capsys, monkeypatch):

@@ -111,11 +111,56 @@ def test_block_scheduling_neutral_under_faults_tier1(tmp_path):
 
 
 def test_the_service_part_raises_naming_slice_13b(tmp_path):
-    with pytest.raises(NotImplementedError, match="slice 13b"):
-        chaos.service_chaos(str(tmp_path))
-    for flag in (["--via-service", "sock"], ["--service", "reduced"]):
-        with pytest.raises(NotImplementedError, match="slice 13b"):
-            chaos.main(flag + ["--out", str(tmp_path)])
+    """Only the worker pool (slice 13b.2) is left of the service: a
+    ``SimulationService(workers=2)`` and ``examples/serve.py start
+    --workers 2`` raise and name it; the drills and ``--via-service`` run
+    (the cases below)."""
+    from blades_tpu_torch.service.server import SimulationService
+
+    with pytest.raises(NotImplementedError, match="slice 13b.2"):
+        SimulationService(str(tmp_path / "svc"), workers=2)
+    proc = subprocess.run([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                           "--out", str(tmp_path / "svc2"), "--workers", "2"],
+                          capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=120)
+    (line,) = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    assert proc.returncode == 1 and "slice 13b.2" in json.loads(line)["error"]
+
+
+def test_service_flag_runs_the_drills(tmp_path_factory, capsys):
+    # a short base directory: each drill's socket path must stay within
+    # the 108 bytes a unix socket's path may take
+    rc = chaos.main(["--service", "reduced", "--out", str(tmp_path_factory.mktemp("d"))])
+    summary = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == 0 and summary["ok"] is True and summary["metric"] == "chaos_service"
+    assert [r["name"] for r in summary["scenarios"]] == [
+        "poison_isolated", "backpressure", "deadline_hang", "drain_no_loss", "tenant_flood",
+        "preempt_resume"]
+
+
+def test_via_service_runs_the_sweep_on_a_live_server(tmp_path, capsys):
+    """``--via-service`` against a port server on the CPU: the summary's
+    rows equal the same sweep run in this process."""
+    out = tmp_path / "svc"
+    server = subprocess.Popen([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                               "--out", str(out), "--device", "cpu"], cwd=ROOT,
+                              env=_env(BLADES_LEDGER=str(tmp_path / "l.jsonl")),
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        from blades_tpu_torch.service.client import ServiceClient
+
+        ServiceClient(str(out / "service.sock"), connect_retries=100,
+                      connect_delay_s=0.1).ping()
+        rc = chaos.main(["--sweep", "1", "--via-service", str(out / "service.sock")])
+        served = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        ServiceClient(str(out / "service.sock")).drain()
+        server.communicate(timeout=60)
+    finally:
+        if server.poll() is None:
+            server.kill()
+            server.communicate()
+    assert rc == 0 and served["ok"] is True and server.returncode == 0
+    local = chaos.sweep(1, str(tmp_path / "local"), device="cpu")
+    assert served["results"] == local["results"] and served["violations"] == []
 
 
 def _chaos(argv, env, timeout=420):

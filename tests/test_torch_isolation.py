@@ -372,3 +372,39 @@ def test_resilient_and_supervision_modules_are_covered_and_a_supervised_certify_
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout and "CHILD LEAKED []" in proc.stdout
+
+
+def test_service_modules_are_covered_and_a_served_simulate_loads_no_jax(tmp_path):
+    """The service (``service/``, ``telemetry/reqpath.py``, the
+    ``serve`` and ``service_client`` examples) is among the checked
+    sources; a ``simulate`` and a ``certify`` sweep request served on the
+    CPU by a ``SimulationService`` leave no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("service/__init__.py", "service/protocol.py", "service/spool.py",
+                "service/client.py", "service/scheduler.py", "service/handlers.py",
+                "service/server.py", "telemetry/reqpath.py", "examples/serve.py",
+                "examples/service_client.py"):
+        assert pkg / rel in files
+    code = (
+        "import sys\n"
+        "from blades_tpu_torch.service.server import SimulationService\n"
+        "svc = SimulationService('svc', device='cpu')\n"
+        "sim = svc._execute('r1', {'kind': 'simulate', 'cells': [{'agg': 'trimmedmean',\n"
+        "                   'agg_kws': {'num_byzantine': 1}, 'attack': 'alie', 'num_byz': 1,\n"
+        "                   'rounds': 1}]})\n"
+        "cert = svc._execute('r2', {'kind': 'sweep', 'sweep': 'certify', 'spec': {\n"
+        "                    'quick': True, 'clients': 6, 'dim': 8, 'trials': 1,\n"
+        "                    'no_async': True, 'aggs': ['mean']}})\n"
+        "assert sim['ok'] and cert['ok'], (sim, cert)\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    env = _subprocess_env()
+    env["BLADES_LEDGER"] = str(tmp_path / "ledger.jsonl")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout

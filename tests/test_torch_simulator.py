@@ -115,7 +115,7 @@ def test_default_device_without_cuda_raises(tmp_path, monkeypatch):
         ("round_metrics", True, "slice 10"),
     ],
 )
-def test_unported_run_options_raise(tmp_path, option, value, slice_no):
+def test_every_jax_run_option_runs(tmp_path, option, value, slice_no):
     """Every run() option of the JAX Simulator is ported: ``remat`` (slice
     2b, since PR 14) runs and reaches the engine, and the options of slice
     10 run, each writing its surface; an unknown keyword still raises
@@ -239,9 +239,8 @@ def test_cct2_bf16_round_runs(tmp_path):
     assert all(np.isfinite(r["Loss"]) for r in recs if r["_meta"]["type"] in ("train", "test"))
 
 
-def test_cct2_remat_still_raises(tmp_path):
-    """(The name is kept from when ``remat`` raised.) A CCT-2 round with
-    ``remat=True`` runs, its dropout and DropPath masks drawn before
+def test_cct2_remat_round_equals_the_round_without(tmp_path):
+    """A CCT-2 round with ``remat=True`` runs, its dropout and DropPath masks drawn before
     training, and equals the round without remat within ``rtol=1e-5,
     atol=1e-7`` (bit for bit on the CPU here, which is not required)."""
     ups = {}
