@@ -53,6 +53,7 @@ from blades_tpu_torch.aggregators.base import Aggregator
 from blades_tpu_torch.asyncfl import AsyncConfig
 from blades_tpu_torch.attackers.base import honest_stats
 from blades_tpu_torch.ops.distances import pairwise_sq_euclidean
+from blades_tpu_torch.telemetry import programs as _programs
 from blades_tpu_torch.telemetry import recorder as _trecorder
 from blades_tpu_torch.telemetry import timeline as _timeline
 from blades_tpu_torch.utils import rng
@@ -284,21 +285,26 @@ def search_cells(agg: Aggregator, cells, *, grids: Optional[dict] = None,
 
     devs, rhos = [], []
     params = _grid_params(g, trials[0])
-    for cell, tr in zip(cells, trials):
-        dev = tr.device
-        byz = torch.arange(k, device=dev) < int(cell["f"])
-        part = cell.get("part_mask")
-        if part is not None:
-            part = torch.as_tensor(part).to(dev, torch.bool)
-        ctx = {name: (v.to(dev) if isinstance(v, torch.Tensor) else v)
-               for name, v in (cell.get("ctx") or {}).items()}
-        for i in range(t):
-            per_template, rho = _trial(agg, tr[i], byz, part, ctx, g, params)
-            devs.append(per_template)
-            rhos.append(rho)
     n = len(cells)
-    devs = torch.stack(devs).cpu().numpy().astype(np.float64).reshape(n, t, len(TEMPLATE_NAMES))
-    rhos = torch.stack(rhos).cpu().numpy().astype(np.float64).reshape(n, t)
+    # build provenance: the group's one program, under the plan_groups key
+    # when the caller passed one (JAX :365)
+    with _programs.watch(f"attack_search/{type(agg).__name__}", fingerprint=batch_label,
+                         shapes=(n * t, k, d, any(has_part), ctx_keys)):
+        for cell, tr in zip(cells, trials):
+            dev = tr.device
+            byz = torch.arange(k, device=dev) < int(cell["f"])
+            part = cell.get("part_mask")
+            if part is not None:
+                part = torch.as_tensor(part).to(dev, torch.bool)
+            ctx = {name: (v.to(dev) if isinstance(v, torch.Tensor) else v)
+                   for name, v in (cell.get("ctx") or {}).items()}
+            for i in range(t):
+                per_template, rho = _trial(agg, tr[i], byz, part, ctx, g, params)
+                devs.append(per_template)
+                rhos.append(rho)
+        devs = torch.stack(devs).cpu().numpy().astype(np.float64).reshape(
+            n, t, len(TEMPLATE_NAMES))
+        rhos = torch.stack(rhos).cpu().numpy().astype(np.float64).reshape(n, t)
     results = [_cell_result(devs[i], rhos[i]) for i in range(n)]
 
     wall = time.perf_counter() - t0

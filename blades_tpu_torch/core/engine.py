@@ -93,8 +93,13 @@ the device's to run it. ``run_round_donated`` and ``run_block`` also open
 a launch window of the dispatch accounting (``telemetry/timeline.py``,
 JAX ``blades_tpu/core/engine.py:1141``, ``:1241``), which the caller
 closes after its own wait on the card (``Simulator.run``'s ``sync``).
-Sharding plans are not ported (``ROADMAP.md`` queue
-A, slice 12).
+``init``, each round, each block and the evaluation run inside a scope of
+the build-provenance registry (``telemetry/programs.py``;
+``_provenance``, JAX ``:1097-1111``): a kernel library built or loaded,
+or a CUDA graph captured, during it is a ``program`` record of
+``engine/<label>`` under ``program_fingerprint`` (the ``EngineCache``
+key, which ``Simulator.run`` stamps). Sharding plans are not ported
+(``ROADMAP.md`` queue A, slice 12).
 
 ``remat=True`` (the JAX engine's ``jax.checkpoint`` around each client's
 loss, ``blades_tpu/core/engine.py:599-607``) wraps the same function, the
@@ -136,6 +141,7 @@ from blades_tpu_torch.ops.streaming import (
     moments_var,
 )
 from blades_tpu_torch.telemetry import get_recorder, timeline
+from blades_tpu_torch.telemetry import programs as _programs
 from blades_tpu_torch.telemetry.metric_pack import pack_dense, pack_finalize, pack_init, pack_update
 from blades_tpu_torch.utils import rng
 
@@ -458,6 +464,10 @@ class RoundEngine:
         # core/graphs.py: the one captured round, replaced when the batch
         # source, the state layout or the fault model's program changes
         self.last_graph = None
+        # the build-provenance identity (telemetry/programs.py): the
+        # EngineCache key where Simulator.run has one, else derived from
+        # each scope's label and shapes
+        self.program_fingerprint: Optional[str] = None
         if async_config is not None:
             if self.streaming:
                 raise ValueError(
@@ -539,6 +549,18 @@ class RoundEngine:
     # -- state ---------------------------------------------------------------
 
     def init(self, params: Params) -> RoundState:
+        with self._provenance("init", shapes=(self.num_clients, self.dim)):
+            return self._init(params)
+
+    def _provenance(self, label: str, shapes, cause_hint: Optional[str] = None):
+        """The build-provenance scope of one of this engine's programs
+        (``telemetry/programs.py``): ``engine/<label>`` under this engine's
+        fingerprint."""
+        fp = self.program_fingerprint
+        return _programs.watch(f"engine/{label}", fingerprint=f"{fp}:{label}" if fp else None,
+                               shapes=shapes, cause_hint=cause_hint)
+
+    def _init(self, params: Params) -> RoundState:
         # a private float32 copy on the engine's device: the round never
         # aliases the caller's tensors
         params = {
@@ -700,7 +722,8 @@ class RoundEngine:
         # the dispatch accounting's window (telemetry/timeline.py): the
         # caller closes it after its own wait on the card
         timeline.launch_begin("round", rounds=1, attrs=self._timeline_attrs())
-        with get_recorder().span("dispatch"):
+        with get_recorder().span("dispatch"), self._provenance(
+                "round", shapes=tuple(tuple(t.shape) for t in batch)):
             out = self._round(state, batch,
                               self._inputs(client_lr, server_lr, state.round_idx), streams)
         timeline.launch_enqueued()
@@ -1056,7 +1079,8 @@ class RoundEngine:
         specs = [RoundSpec(int(seed), state.round_idx + i, r, float(c), float(s))
                  for i, (r, c, s) in enumerate(zip(rounds, client_lrs, server_lrs))]
         timeline.launch_begin("block", rounds=len(specs), attrs=self._timeline_attrs())
-        with get_recorder().span("dispatch", rounds=len(specs)):
+        with get_recorder().span("dispatch", rounds=len(specs)), self._provenance(
+                "block", shapes=(len(specs),)):
             state, outs = self._run_rounds(state, specs, sampler=sampler)
         timeline.launch_enqueued()
         return state, outs[0], block_diags(outs)
@@ -1116,13 +1140,15 @@ class RoundEngine:
     ) -> Tuple[np.ndarray, np.ndarray]:
         """Per-sample test loss and correctness (numpy ``[N]`` arrays)."""
         losses, correct = [], []
-        for beg in range(0, x.shape[0], batch_size):
-            logits = self.eval_logits_fn(state.params, x[beg : beg + batch_size])
-            yb = y[beg : beg + batch_size].long()
-            logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
-            losses.append(-logp.gather(-1, yb[:, None])[:, 0])
-            correct.append((logits.argmax(dim=-1) == yb).to(torch.float32))
-        return torch.cat(losses).cpu().numpy(), torch.cat(correct).cpu().numpy()
+        with self._provenance("eval_per_sample", shapes=(tuple(x.shape[1:]), batch_size),
+                              cause_hint="first-eval"):
+            for beg in range(0, x.shape[0], batch_size):
+                logits = self.eval_logits_fn(state.params, x[beg : beg + batch_size])
+                yb = y[beg : beg + batch_size].long()
+                logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+                losses.append(-logp.gather(-1, yb[:, None])[:, 0])
+                correct.append((logits.argmax(dim=-1) == yb).to(torch.float32))
+            return torch.cat(losses).cpu().numpy(), torch.cat(correct).cpu().numpy()
 
 
 #: the keys of a block's ``diags``, in :meth:`RoundEngine.round_outputs`

@@ -198,6 +198,9 @@ class RoundGraph:
         #: wall seconds of the capture, and of the eager warm-up round
         self.capture_seconds: Optional[float] = None
         self.warmup_seconds: Optional[float] = None
+        #: bytes the allocator reserved for the graph's private pool during
+        #: the capture (the block's ``memory`` record's ``temp_bytes``)
+        self.pool_bytes: Optional[int] = None
         self.replays = 0
 
     def _body(self, eng):
@@ -241,6 +244,7 @@ class RoundGraph:
         t0 = time.perf_counter()
         eng.last_updates = None
         torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved(self.device)
         graph = torch.cuda.CUDAGraph()
         for gen in self.streams.generators():
             graph.register_generator_state(gen)
@@ -277,6 +281,7 @@ class RoundGraph:
         self.graph = graph
         self.kernel_launches, self.batched_kernel_launches = captured
         self.capture_seconds = time.perf_counter() - t0
+        self.pool_bytes = torch.cuda.memory_reserved(self.device) - reserved0
         # the port's "compile": the timeline and the alert engine read these
         count_process("cuda.graph_captures")
         count_process("cuda.graph_capture_s", self.capture_seconds)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from blades_tpu_torch.datasets.augment import eager_normalize
+from blades_tpu_torch.telemetry import programs as _programs
 
 _STORE = ("train_x", "train_y", "train_counts", "test_x_raw", "test_y")
 
@@ -172,8 +173,11 @@ class FLDataset:
         self, generator: torch.Generator, local_steps: int, batch_size: int
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``[K, S, B, ...]`` train batches for every client, in one gather:
-        :meth:`sampler`'s function on ``generator``."""
-        return self.sampler(local_steps, batch_size)(generator)
+        :meth:`sampler`'s function on ``generator``, inside a scope of the
+        build-provenance registry (``telemetry/programs.py``, JAX :230)."""
+        with _programs.watch("dataset/sample_round",
+                             shapes=(self.num_clients, int(local_steps), int(batch_size))):
+            return self.sampler(local_steps, batch_size)(generator)
 
     def get_train_data(
         self, u_id, num_batches: int, batch_size: int = 32,

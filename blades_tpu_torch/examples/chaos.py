@@ -43,11 +43,12 @@ recovered and only the rest run. Usage::
 a poison cell quarantined while its neighbours complete, backpressure
 past the queue bound, a hung cell tripping the soft deadline, a drain
 that loses nothing, a flooding tenant held to its quota, a batch request
-preempted by an interactive one and resumed to the same reply, and, in
-``full``, a supervised server SIGKILLed mid-request that resumes from its
-spool and journal. The JAX suite's ``worker_crash`` and ``worker_hang``
-drills need the worker pool (``ROADMAP.md`` queue A, slice 13b.2) and are
-not in the list. ``--via-service SOCK`` submits the sweep instead as a
+preempted by an interactive one and resumed to the same reply, a worker
+of the pool that aborts mid-cell (the server stays up and the replacement
+runs only the unjournaled cells), a worker hung past its deadline and
+killed by its parent, and, in ``full``, a supervised server SIGKILLed
+mid-request that resumes from its spool and journal.
+``--via-service SOCK`` submits the sweep instead as a
 ``sweep`` request to a running service (the chaos driver as a batch
 tenant). Usage::
 
@@ -690,15 +691,90 @@ def _scn_preempt_resume(out_dir: str) -> dict:
         _finish_server(proc, client)
 
 
+def _scn_worker_crash(out_dir: str) -> dict:
+    """``os.abort()`` mid-cell in a worker (``--workers 1``): the server
+    stays up, a later request is served, the replacement worker runs only
+    the cells the dead one had not journaled, and the reply equals an
+    undisturbed run's."""
+    # the once sentinel arms the saboteur once: the retried attempt behaves
+    sentinel = os.path.join(out_dir, "worker_crash.once")
+    request = {"kind": "probe", "cells": [
+        {"label": "c0", "op": "ok", "value": 0},
+        {"label": "boom", "op": "abort", "once": sentinel, "value": 1},
+        {"label": "c2", "op": "ok", "value": 2},
+    ]}
+    # the reference: with the sentinel there, the abort cell behaves
+    open(sentinel, "w").close()
+    proc, client = _start_server(os.path.join(out_dir, "wcrash_ref"), ("--workers", "1"))
+    try:
+        ref = client.submit(request, request_id="wcrash-ref", timeout=120)
+    finally:
+        _finish_server(proc, client)
+    os.unlink(sentinel)
+
+    proc, client = _start_server(os.path.join(out_dir, "wcrash"), ("--workers", "1"))
+    try:
+        hurt = client.submit(request, request_id="wcrash", timeout=120)
+        after = client.submit({"kind": "probe", "cells": [{"label": "a", "op": "ok"}]},
+                              timeout=60)
+        workers = client.status().get("workers") or {}
+        summary = hurt.get("summary") or {}
+        content_identical = hurt.get("cells") == ref.get("cells")
+        ok = (ref.get("status") == "done" and ref.get("ok")
+              and hurt.get("status") == "done" and hurt.get("ok") and content_identical
+              # the replacement ran only the unjournaled rest
+              and summary.get("resumed_skipped", 0) >= 1
+              and summary.get("executed", 9) <= len(request["cells"]) - 1
+              and after.get("ok") and workers.get("restarts", 0) >= 1)
+        return {"name": "worker_crash", "ok": bool(ok),
+                "content_identical": bool(content_identical),
+                "resumed_skipped": summary.get("resumed_skipped"),
+                "executed": summary.get("executed"), "restarts": workers.get("restarts")}
+    finally:
+        _finish_server(proc, client)
+
+
+def _scn_worker_hang(out_dir: str) -> dict:
+    """A worker hangs past its cell's deadline in a 600 s sleep (a worker
+    arms no alarm): the parent kills the worker's process group, the retry on the replacement completes the request, and the
+    server serves throughout."""
+    import time as _time
+
+    sentinel = os.path.join(out_dir, "worker_hang.once")
+    proc, client = _start_server(os.path.join(out_dir, "whang"),
+                                 ("--workers", "1", "--cell-deadline", "0.5", "--attempts", "2"))
+    try:
+        t0 = _time.monotonic()
+        hung = client.submit({"kind": "probe", "cells": [
+            {"label": "hang", "op": "sleep", "sleep_s": 600, "once": sentinel, "value": 7},
+            {"label": "after", "op": "ok", "value": 8},
+        ]}, request_id="whang", timeout=120)
+        wall = _time.monotonic() - t0
+        alive = client.submit({"kind": "probe", "cells": [{"label": "ok", "op": "ok"}]},
+                              timeout=60)
+        workers = client.status().get("workers") or {}
+        cells = {c["label"]: c for c in hung.get("cells", [])}
+        ok = (hung.get("status") == "done" and hung.get("ok")
+              # the retried attempt completed the cell: a 600 s sleep cost
+              # one deadline
+              and cells["hang"].get("result", {}).get("value") == 7
+              and not cells["hang"].get("quarantined")
+              and cells["after"].get("result", {}).get("value") == 8
+              and wall < 60.0 and alive.get("ok")
+              and workers.get("kills", 0) >= 1 and workers.get("restarts", 0) >= 1)
+        return {"name": "worker_hang", "ok": bool(ok), "wall_s": round(wall, 3),
+                "kills": workers.get("kills"), "restarts": workers.get("restarts")}
+    finally:
+        _finish_server(proc, client)
+
+
 def service_chaos(out_dir: str, full: bool = False) -> dict:
     """The service drills; a summary dict. ``full`` adds the supervised
-    SIGKILL resume. The JAX suite's ``worker_crash`` and ``worker_hang``
-    drills test the worker pool, which is not ported (``ROADMAP.md`` queue
-    A, slice 13b.2), and are left out."""
+    SIGKILL resume."""
     import shutil
 
     scenarios = [_scn_poison, _scn_backpressure, _scn_deadline, _scn_drain,
-                 _scn_tenant_flood, _scn_preempt_resume]
+                 _scn_tenant_flood, _scn_preempt_resume, _scn_worker_crash, _scn_worker_hang]
     if full:
         scenarios.append(_scn_sigkill_resume)
     # the drills use fixed request ids: a stale journal or spool of an

@@ -21,9 +21,11 @@ spool's pending requests are requeued and run only their unjournaled
 cells. ``--device cuda|cpu`` (default ``cuda``) takes the place of the
 JAX command's ``--devices N``: where ``simulate`` cells and sweeps run; a
 ``cuda`` server without CUDA fails those cells (probe cells run
-anywhere). ``--workers N`` with N > 0 raises: the worker pool is
-``ROADMAP.md`` queue A, slice 13b.2. The socket is
-``<out>/service.sock`` unless ``--socket`` says otherwise.
+anywhere). ``--workers N`` runs requests in N worker processes, each
+given the server's ``--device`` (``--workers 2 --device cpu`` on a machine
+without a card); ``--cell-deadline`` is then enforced by the parent, which
+kills a worker's process group. The socket is ``<out>/service.sock``
+unless ``--socket`` says otherwise.
 """
 
 from __future__ import annotations
@@ -127,7 +129,7 @@ def _run(argv: Optional[list] = None) -> int:
     ps.add_argument("--device", default="cuda", choices=("cuda", "cpu"),
                     help="where simulate cells and sweeps run (default cuda)")
     ps.add_argument("--workers", type=int, default=0,
-                    help="worker-process pool size; only 0 (in-process) is ported")
+                    help="worker-process pool size (0: requests run in the server)")
     ps.set_defaults(func=_start)
 
     for name, func, extra in (

@@ -1,9 +1,8 @@
 """Simulation service: a long-lived, crash-tolerant experiment server.
 
 Counterpart: ``blades_tpu/service/`` (``__init__``, ``protocol``,
-``spool``, ``client``, ``scheduler``, ``handlers``, ``server``), without
-the worker pool (``worker.py``, ``workers.py``; ``ROADMAP.md`` queue A,
-slice 13b.2). One warm process keeps an
+``spool``, ``client``, ``scheduler``, ``handlers``, ``server``,
+``worker``, ``workers``). One warm process keeps an
 :class:`~blades_tpu_torch.sweeps.EngineCache` and the datasets it built,
 and serves requests submitted over a unix socket:
 
@@ -19,11 +18,16 @@ and serves requests submitted over a unix socket:
   killed process had not finished, and the reply is the same;
 - SIGTERM drains: finish what was admitted, reply, exit 0;
 - the server beats ``BLADES_HEARTBEAT_FILE`` at each cell and when idle,
-  so ``python -m blades_tpu_torch.supervision`` supervises it.
+  so ``python -m blades_tpu_torch.supervision`` supervises it;
+- with ``workers=N`` (``serve start --workers N``) requests run in N
+  worker processes on the server's device (:mod:`.worker`,
+  :mod:`.workers`): the parent kills a worker whose cell outlives its
+  deadline, and a dead worker's request (a crash, a kill, a dead CUDA
+  context) resumes on a fresh one from its journal.
 
 This ``__init__``, :mod:`.protocol`, :mod:`.client`, :mod:`.spool`,
-:mod:`.scheduler`, :mod:`.handlers` and :mod:`.server` import no torch
-at module scope: a client, and a server that serves only probe cells,
+:mod:`.scheduler`, :mod:`.handlers`, :mod:`.server`, :mod:`.worker` and
+:mod:`.workers` import no torch at module scope: a client, and a server that serves only probe cells,
 never load it. ``simulate`` cells and sweeps import it when they run, on
 the server's ``device`` (``"cuda"`` by default, ``"cpu"`` on request).
 

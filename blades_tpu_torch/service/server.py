@@ -2,11 +2,10 @@
 over a unix socket, with request-level fault isolation and a crash-safe
 resume.
 
-Counterpart: ``blades_tpu/service/server.py`` (``SimulationService``),
-without its worker pool (``_work_pool`` and what it drives, :1016-1486,
-and ``serve``'s pool branch, :1577-1590): ``workers > 0`` raises
-``NotImplementedError`` (``ROADMAP.md`` queue A, slice 13b.2). One
-process, two threads:
+Counterpart: ``blades_tpu/service/server.py`` (``SimulationService``,
+its worker pool ``_work_pool`` and what it drives at :1016-1486, and
+``serve``'s pool branch at :1577-1590). With ``workers=0`` one process, two
+threads:
 
 - the **listener** thread accepts connections, answers ``ping``,
   ``status``, ``result``, ``metrics`` and ``drain`` itself, and admits
@@ -21,6 +20,22 @@ process, two threads:
   poison cell. All CUDA work of a ``simulate`` cell or a sweep runs here.
   Between cells a lower-priority request yields to a higher one
   (``should_yield``) and is requeued; its journal resumes it.
+
+With ``workers=N > 0`` requests run in N worker processes
+(``service/worker.py``, ``service/workers.py``), each a process group of
+its own on the server's ``device``, and the main thread keeps the
+server's books (paths, ledger, spool, replies, the one trace): it
+dispatches (a worker first takes a request it is warm for), writes the
+workers' records, and enforces each cell's deadline by killing the
+worker's process group when the cell outlives ``cell_deadline_s x
+cells + DEADLINE_SLACK_S`` (no SIGALRM anywhere; a kill reaches a kernel
+or a synchronize). A worker that dies or is killed mid-request is
+replaced, and its request is requeued: the replacement recovers the
+journaled cells and runs the rest, so the reply equals an undisturbed
+run's. After ``attempts`` deaths in one cell the parent quarantines the
+cell in the journal itself. A worker whose CUDA context died exits
+without a reply (``service/worker.py``) and is salvaged the same way. The
+parent never imports torch.
 
 **SIGTERM** (or ``op: drain``) stops admission, finishes everything
 admitted, replies, and exits 0. After **SIGKILL** a relaunch under
@@ -39,7 +54,8 @@ package's ``scripts/sweep_status.py`` and ``scripts/runs.py --run-id``
 read. Each request's wall is split into queue wait, build and execute
 (``telemetry/reqpath.py``): build is what the engine cache, ``nvcc`` and
 CUDA-graph captures recorded during the request; a request that paid none
-is warm.
+is warm. Under the pool these counters are the worker's: its ``done``
+frame carries their delta, since the parent builds nothing.
 
 Module scope is stdlib plus the port's torch-free telemetry, spool,
 scheduler and heartbeat modules: a server that serves only probe cells
@@ -53,7 +69,7 @@ import signal
 import socket
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from blades_tpu_torch.service import protocol as _protocol
 from blades_tpu_torch.service import scheduler as _scheduler
@@ -76,12 +92,10 @@ TRACE_NAME = "service_trace.jsonl"
 #: Spool filename inside the --out directory.
 SPOOL_NAME = "spool.jsonl"
 
-#: What ``workers > 0`` raises: the worker pool is not ported yet.
-_POOL_NOT_PORTED = (
-    "the service's worker pool (workers > 0) is not ported to "
-    "blades_tpu_torch yet (ROADMAP.md queue A, slice 13b.2); workers=0 "
-    "runs requests in the server's main thread"
-)
+#: Grace the parent adds to a cell's budget before it kills the worker:
+#: it sees the cell only at its poll cadence and must not kill a worker
+#: that would have finished within the budget it was promised.
+DEADLINE_SLACK_S = 1.0
 
 
 class _LockedRecorder(Recorder):
@@ -194,10 +208,11 @@ class SimulationService:
     health_interval_s : the cadence of idle ``service`` health records.
     resume : requeue the spool's pending requests before accepting new
         ones; by default read from ``BLADES_RESUME``.
-    workers : the worker-process pool's size. Only ``0``, the in-process
-        path (SIGALRM deadlines, one request at a time), is ported; ``N >
-        0`` raises ``NotImplementedError`` (``ROADMAP.md`` queue A, slice
-        13b.2).
+    workers : the worker-process pool's size. ``0`` (the default) runs
+        requests in the main thread (SIGALRM deadlines, one at a time);
+        ``N > 0`` spawns N workers on ``device``, the parent enforcing each
+        cell's deadline by a group kill and salvaging a dead worker's
+        request (the module docstring).
     device : where ``simulate`` cells and sweeps run, ``"cuda"`` (the
         default) or ``"cpu"``; probe cells touch no device.
     """
@@ -217,8 +232,6 @@ class SimulationService:
         workers: int = 0,
         device: str = "cuda",
     ):
-        if int(workers) > 0:
-            raise NotImplementedError(_POOL_NOT_PORTED)
         self.out_dir = out_dir
         os.makedirs(out_dir, exist_ok=True)
         self.socket_path = _protocol.socket_path_for(out_dir, socket_path)
@@ -231,6 +244,13 @@ class SimulationService:
         self.poll_s = float(poll_s)
         self.workers = int(workers)
         self.device = str(device)
+        #: the worker pool (service/workers.py), made in serve() when
+        #: workers > 0; None on the in-process path
+        self._pool = None
+        #: (request id, cell label) -> worker deaths in it so far; at
+        #: `attempts` the parent quarantines the cell (a cell that kills
+        #: every worker must not respawn workers forever)
+        self._kills: Dict[Tuple[str, str], int] = {}
         if resume is None:
             resume = os.environ.get(_heartbeat.RESUME_ENV) == "1"
         self.resume = bool(resume)
@@ -325,6 +345,21 @@ class SimulationService:
             in_flight_since = self._in_flight_since
         now = time.time()
         oldest = min(pending.values(), default=None)
+        pool = self._pool
+        pool_block: Dict[str, Any] = {}
+        in_flight_count = 1 if in_flight else 0
+        if pool is not None:
+            wsnap = pool.snapshot()
+            pool_block["workers"] = wsnap
+            # under the pool the busy workers are in flight; the id and age
+            # shown are the oldest assignment's
+            busy = [h for h in list(pool.workers.values())
+                    if h.state == "busy" and h.entry is not None and h.assigned_ts is not None]
+            if busy:
+                oldest_busy = min(busy, key=lambda h: h.assigned_ts)
+                in_flight = getattr(oldest_busy.entry, "request_id", None)
+                in_flight_since = oldest_busy.assigned_ts
+            in_flight_count = wsnap["busy"]
         return {
             "queue_depth": self._sched.qsize(),
             # per-class depths + per-tenant composition: a starved (or
@@ -334,7 +369,7 @@ class SimulationService:
             "queue_by_class": self._sched.depth_by_class(),
             "tenants": self._sched.composition(),
             "preemptions": self.preemptions,
-            "in_flight": 1 if in_flight else 0,
+            "in_flight": in_flight_count,
             # the in-flight request's identity and age, not a bare 0/1:
             # a wedged request must be attributable from this surface
             **(
@@ -343,6 +378,7 @@ class SimulationService:
                 if in_flight and in_flight_since is not None
                 else {}
             ),
+            **pool_block,
             "served": self.served,
             "rejected": self.rejected,
             "quarantined_requests": self.quarantined_requests,
@@ -382,6 +418,9 @@ class SimulationService:
                 for k in ("in_flight_id", "in_flight_age_s")
                 if k in snap
             },
+            # the pool's block rides every service record: a hung worker
+            # (its cell's age growing) or a restart storm shows in the trace
+            **({"workers": snap["workers"]} if "workers" in snap else {}),
         )
         # the rolling serving metrics ride the same cadence: one
         # schema-locked snapshot record per health beat, so queue-wait
@@ -458,6 +497,8 @@ class SimulationService:
                 # the per-fingerprint cache stats the `cache_stats`
                 # records carry, live over the socket
                 reply["engine_cache"] = self._engine_cache.stats()
+            if self._pool is not None:
+                reply["workers"] = self._pool.snapshot()
             self._reply_and_close(f, conn, reply)
         elif op == "result":
             rid = str(msg.get("id") or "")
@@ -656,6 +697,10 @@ class SimulationService:
                 f, conn, {"ok": True, "status": "accepted", "id": rid}
             )
         path.stamp("queued")
+        if self._pool is not None:
+            # the port's own: an idle pool dispatches now, not at its next
+            # poll timeout (poll_s, 0.5 s of a warm request's wait)
+            self._pool.wake()
         self.metrics.queue_depth(self._sched.qsize(),
                                  by_class=self._sched.depth_by_class())
 
@@ -937,7 +982,346 @@ class SimulationService:
             self._health()
         return self._snapshot()
 
+    # -- worker pool -------------------------------------------------------------
+    #
+    # The pooled _work (JAX :1016-1486): requests run in worker processes
+    # (service/worker.py); the parent keeps every book (paths, ledger,
+    # spool, replies, the one trace) and enforces each cell's deadline by
+    # killing the worker's process group. A dead or killed worker's request
+    # is requeued, and the replacement recovers its journaled cells.
 
+    def _work_pool(self) -> Dict[str, Any]:
+        pool = self._pool
+        assert pool is not None
+        try:
+            while True:
+                self._dispatch(pool)
+                for wid, ev in pool.poll(self.poll_s):
+                    self._on_worker_event(pool, wid, ev)
+                self._enforce_deadlines(pool)
+                self._maybe_yield(pool)
+                # the parent beats every tick: a hung worker stalls one
+                # request, never the server's own heartbeat
+                self._beat_idle()
+                if self._draining.is_set() and self._sched.empty() and not pool.busy():
+                    # the race-free drain exit of _work: stop the listener
+                    # first, then check again
+                    self._shutdown_listener()
+                    if self._sched.empty() and not pool.busy():
+                        break
+        finally:
+            info = pool.shutdown()
+            self.event("worker", event="pool_shutdown", restarts=info["restarts"],
+                       kills=info["kills"], survivors=info["survivors"])
+        return self._snapshot()
+
+    def _dispatch(self, pool) -> None:
+        """Fill the idle workers: first each takes a request it is warm for
+        (the per-worker affinity: a repeat goes back to the process holding
+        its engines), then any still idle takes the scheduler's next."""
+        for handle in pool.idle():
+            entry = self._sched.pick(0, worker=handle.wid, warm_only=True)
+            if entry is not None:
+                self._assign(pool, handle, entry)
+        for handle in pool.idle():
+            entry = self._sched.pick(0, worker=handle.wid)
+            if entry is None:
+                break
+            self._assign(pool, handle, entry)
+
+    def _assign(self, pool, handle, entry) -> None:
+        rid = entry.request_id
+        request = entry.request
+        with self._state_lock:
+            admit_ts = self._pending_ts.get(rid)
+        queue_age = time.time() - admit_ts if admit_ts else None
+        path = self.metrics.get(rid)
+        if path is None:
+            path = self.metrics.admit(rid, op=str(request.get("kind")),
+                                      client=str(request.get("client") or "anon"))
+        # a zero baseline: the parent builds nothing, so the worker's
+        # reported delta is the request's whole build work
+        path.start(counters={})
+        handle.entry = entry
+        handle.assigned_ts = time.time()
+        handle.state = "busy"
+        handle.ledger = _ledger.run_started("request", config={
+            "id": rid, "kind": request.get("kind"),
+            "cells": len(request.get("cells") or [])})
+        self.event("request", event="started", id=rid, kind=str(request.get("kind")),
+                   cells=estimate_cells(request), worker=handle.wid,
+                   **({"queue_age_s": round(queue_age, 3)} if queue_age is not None else {}))
+        self.event("worker", event="assign", worker=handle.wid, request=rid)
+        # a dead pipe leaves the entry on the handle: the reader's _eof
+        # frame reaps and salvages at the next poll
+        pool.send(handle.wid, {"op": "assign", "id": rid, "request": request,
+                               "options": {"attempts": self.attempts,
+                                           "base_delay_s": self.base_delay_s,
+                                           "cell_deadline_s": self.cell_deadline_s}})
+
+    def _on_worker_event(self, pool, wid: str, ev: Dict[str, Any]) -> None:
+        handle = pool.workers.get(wid)
+        kind = ev.get("ev")
+        if kind == "ready":
+            if handle is not None and handle.state == "spawning":
+                handle.state = "idle"
+            self.event("worker", event="ready", worker=wid, pid=ev.get("pid"),
+                       pgid=ev.get("pgid"))
+        elif kind == "cell_start":
+            # the worker's per-attempt beat arms this unit's deadline
+            if handle is not None:
+                handle.cell_label = str(ev.get("label"))
+                handle.cell_cells = max(1, int(ev.get("cells") or 1))
+                handle.cell_start_ts = time.time()
+                ddl = ev.get("deadline_s")
+                handle.cell_deadline_s = (float(ddl) if ddl else
+                                          float(self.cell_deadline_s) if self.cell_deadline_s
+                                          else None)
+        elif kind == "record":
+            # the workers' records go to the one service trace
+            type_ = str(ev.get("type"))
+            self.rec.event(type_, **dict(ev.get("fields") or {}))
+            self.rec.flush()
+            if type_ == "sweep" and handle is not None:
+                if handle.entry is not None:
+                    self.metrics.cell(handle.entry.request_id)
+                self._beat()
+                handle.cells_done += 1
+                # a grouped unit keeps the rest of its budget; the last
+                # cell disarms, so a slow finalize is never killed
+                if handle.cell_start_ts is not None:
+                    if handle.cell_cells > 1:
+                        handle.cell_cells -= 1
+                        handle.cell_start_ts = time.time()
+                    else:
+                        handle.cell_label = None
+                        handle.cell_start_ts = None
+                        handle.cell_cells = 1
+        elif kind == "done":
+            if handle is not None:
+                self._finish_worker(pool, handle, ev)
+        elif kind == "_eof":
+            if handle is None or handle.state == "dead":
+                return  # the echo of our own kill, already salvaged
+            self._reap_worker(pool, wid, deadline_kill=False,
+                              reason="worker process exited unexpectedly",
+                              error_type="WorkerCrashed",
+                              error="worker process exited unexpectedly mid-request")
+
+    def _finish_worker(self, pool, handle, ev: Dict[str, Any]) -> None:
+        entry = handle.entry
+        if entry is None:
+            return  # a stray done (it raced a kill): nothing to book
+        rid = entry.request_id
+        wid = handle.wid
+        wall = float(ev.get("wall_s") or 0.0)
+        reply = dict(ev.get("reply") or {})
+        counters = dict(ev.get("counters") or {})
+        report = dict(ev.get("report") or {})
+        ledger_entry = handle.ledger
+        # fair share charges the wall the worker spent
+        self._sched.charge(entry.tenant, wall)
+        if entry.affinity:
+            handle.warm.add(entry.affinity)
+        handle.clear_assignment()
+        handle.state = "idle"
+        handle.served += 1
+        if ev.get("preempted"):
+            self.preemptions += 1
+            self.metrics.preempted(rid)
+            self.event("request", event="preempted", id=rid,
+                       kind=str(entry.request.get("kind")), cells=int(ev.get("cells") or 0),
+                       executed=int(report.get("executed") or 0),
+                       resumed_cells=int(report.get("resumed_skipped") or 0),
+                       preemptions=entry.preemptions + 1, wall_s=round(wall, 6), worker=wid)
+            if ledger_entry is not None:
+                ledger_entry.ended("finished", metrics={
+                    "preempted": 1, "executed": int(report.get("executed") or 0)})
+            self._sched.requeue(entry)
+            self.metrics.queue_depth(self._sched.qsize(), by_class=self._sched.depth_by_class())
+            return
+        for key in [k for k in self._kills if k[0] == rid]:
+            self._kills.pop(key, None)
+        if reply.get("status") == "error":
+            self.failed += 1
+            error = str(reply.get("error") or "error")[:300]
+            self.event("request", event="finished", id=rid, outcome="error", error=error,
+                       wall_s=round(wall, 6), worker=wid,
+                       **self.metrics.finish(rid, outcome="error", counters=counters))
+            if ledger_entry is not None:
+                ledger_entry.ended("crashed", error=error)
+        else:
+            if int(ev.get("resumed_pre") or 0):
+                self.resumed_requests += 1
+            quarantined_cells = len(report.get("quarantined") or [])
+            retried = int(report.get("retried") or 0)
+            outcome = "quarantined" if quarantined_cells else "ok"
+            if quarantined_cells:
+                self.quarantined_requests += 1
+            self.served += 1
+            path = self.metrics.get(rid)
+            client = path.client if path is not None else "anon"
+            priority = path.priority if path is not None else "normal"
+            # the worker's counter delta closes the path: warm or cold and
+            # the build split come from the process that built
+            split = self.metrics.finish(rid, outcome=outcome, retried=retried,
+                                        quarantined_cells=quarantined_cells, counters=counters)
+            self.event(
+                "request", event="finished", id=rid, outcome=outcome,
+                cells=int(ev.get("cells") or 0), executed=int(report.get("executed") or 0),
+                resumed_cells=int(report.get("resumed_skipped") or 0),
+                quarantined=quarantined_cells, retried=retried, client=client,
+                priority=priority,
+                **({"preemptions": entry.preemptions} if entry.preemptions else {}),
+                wall_s=round(wall, 6), worker=wid, **split)
+            if ledger_entry is not None:
+                ledger_entry.ended("finished", metrics={
+                    "cells": int(ev.get("cells") or 0),
+                    "executed": int(report.get("executed") or 0),
+                    "resumed_cells": int(report.get("resumed_skipped") or 0),
+                    "quarantined": quarantined_cells, "retried": retried})
+            # per-worker warmth: a repeat of this body goes to this process
+            self._sched.note_warm(entry.affinity, worker=wid)
+            if ev.get("cache"):
+                self.event("worker", event="done", worker=wid, request=rid,
+                           served=handle.served, cells_done=handle.cells_done,
+                           cache=ev.get("cache"))
+        self._sched.done(entry)
+        self.spool.complete(rid, reply)
+        with self._state_lock:
+            self._pending_ts.pop(rid, None)
+        if entry.waiter is not None:
+            f, conn = entry.waiter
+            self._reply_and_close(f, conn, reply)
+        self._health()
+
+    def _reap_worker(self, pool, wid: str, *, deadline_kill: bool, reason: str,
+                     error_type: str, error: str) -> None:
+        """Kill (or bury) one worker, salvage its request, respawn its
+        slot; ``forget_worker`` drops the dead process's warmth (its
+        EngineCache died with it)."""
+        handle = pool.workers.get(wid)
+        if handle is None or handle.state == "dead":
+            return
+        cell = handle.cell_label
+        age = time.time() - handle.cell_start_ts if handle.cell_start_ts is not None else None
+        info = pool.kill(wid)
+        self.event("worker", event="kill" if deadline_kill else "crash", worker=wid,
+                   pid=handle.proc.pid, reason=reason, escalated=bool(info.get("escalated")),
+                   survivors=list(info.get("survivors") or []),
+                   **({"request": handle.entry.request_id} if handle.entry is not None else {}),
+                   **({"cell": cell} if cell else {}),
+                   **({"age_s": round(age, 3)} if age is not None else {}))
+        if handle.entry is not None:
+            self._salvage(handle, error=error, error_type=error_type)
+        dropped = self._sched.forget_worker(wid)
+        replacement = pool.replace(wid)
+        self.event("worker", event="replace", worker=replacement.wid,
+                   pid=replacement.proc.pid, restarts=pool.restarts,
+                   **({"dropped_warm": dropped} if dropped else {}))
+
+    def _salvage(self, handle, *, error: str, error_type: str) -> None:
+        """A worker died holding a request: charge the slice, count the
+        death against the cell it died in, requeue. The journaled cells
+        are on disk: the replacement runs the rest, and the reply equals an
+        undisturbed run's. At ``attempts`` deaths in one cell the parent
+        quarantines it in the journal; a worker that keeps dying before
+        any cell starts fails the request."""
+        entry = handle.entry
+        rid = entry.request_id
+        cell = handle.cell_label
+        if handle.assigned_ts is not None:
+            self._sched.charge(entry.tenant, time.time() - handle.assigned_ts)
+        if handle.ledger is not None:
+            handle.ledger.ended("crashed", error=error)
+        key = (rid, cell if cell is not None else "__build__")
+        kills = self._kills.get(key, 0) + 1
+        self._kills[key] = kills
+        if kills >= self.attempts:
+            self._kills.pop(key, None)
+            if cell is not None:
+                self._parent_quarantine(rid, entry.request, cell, error, error_type,
+                                        attempts=kills)
+            else:
+                handle.clear_assignment()
+                self._request_failed(entry, error=(
+                    f"{error_type}: worker died {kills}x before any cell started ({error})"))
+                return
+        handle.clear_assignment()
+        self._sched.requeue(entry, preempted=False)
+        self.metrics.queue_depth(self._sched.qsize(), by_class=self._sched.depth_by_class())
+
+    def _parent_quarantine(self, rid: str, request: Dict[str, Any], label: str, error: str,
+                           error_type: str, attempts: int) -> None:
+        """Quarantine one cell in the request's journal from the parent, as
+        the in-process executor would after its attempts; the replacement
+        recovers the quarantine and goes past the cell."""
+        from blades_tpu_torch.sweeps import program_fingerprint
+        from blades_tpu_torch.sweeps.journal import SweepJournal
+
+        journal = SweepJournal(
+            os.path.join(self.out_dir, "requests", rid, "journal.jsonl"),
+            fingerprint=program_fingerprint(request={k: v for k, v in request.items()
+                                                     if k != "id"}),
+            resume=True,
+        )
+        try:
+            if not journal.has(label):
+                journal.record_quarantine(label, error, error_type, attempts=attempts)
+        finally:
+            journal.close()
+        # the executor's quarantine record
+        self.event("quarantine", sweep="service", cell=label, error=error,
+                   error_type=error_type, attempts=attempts)
+
+    def _request_failed(self, entry, *, error: str) -> None:
+        """A failure the parent decides (a worker dead before any cell, its
+        attempts spent): an error reply, the books closed, the waiter
+        answered, as on the in-process error path."""
+        rid = entry.request_id
+        self.failed += 1
+        error = error[:300]
+        reply = {"ok": False, "id": rid, "status": "error", "error": error}
+        self.event("request", event="finished", id=rid, outcome="error", error=error,
+                   **self.metrics.finish(rid, outcome="error"))
+        self._sched.done(entry)
+        self.spool.complete(rid, reply)
+        with self._state_lock:
+            self._pending_ts.pop(rid, None)
+        if entry.waiter is not None:
+            f, conn = entry.waiter
+            self._reply_and_close(f, conn, reply)
+
+    def _enforce_deadlines(self, pool) -> None:
+        """The deadline without SIGALRM: a busy worker whose armed unit has
+        outlived ``deadline x cells + DEADLINE_SLACK_S`` is group-killed.
+        SIGALRM waits for a kernel or a synchronize to return; a kill does
+        not, and only this request pays."""
+        now = time.time()
+        for handle in list(pool.busy()):
+            if handle.cell_start_ts is None or handle.cell_deadline_s is None:
+                continue
+            budget = handle.cell_deadline_s * max(1, handle.cell_cells) + DEADLINE_SLACK_S
+            age = now - handle.cell_start_ts
+            if age <= budget:
+                continue
+            label = handle.cell_label
+            self._reap_worker(pool, handle.wid, deadline_kill=True, reason="deadline",
+                              error_type="CellDeadlineExceeded",
+                              error=(f"cell {label!r} exceeded its parent-enforced deadline "
+                                     f"({age:.1f}s > {budget:.1f}s budget)"))
+
+    def _maybe_yield(self, pool) -> None:
+        """The preemption, relayed: when higher-priority work waits and no
+        worker is idle, each busy worker running lower-priority work is
+        asked to yield at its next cell boundary (sent every tick while it
+        holds)."""
+        if pool.idle():
+            return
+        for handle in pool.busy():
+            entry = handle.entry
+            if entry is not None and self._sched.waiting_above(entry.priority):
+                pool.send(handle.wid, {"op": "yield"})
 
     def _shutdown_listener(self) -> None:
         """Stop accepting: close the socket and join the listener thread
@@ -1029,6 +1413,17 @@ class SimulationService:
             resumed=len(pending), pid=os.getpid(),
         )
 
+        if self.workers > 0:
+            # the pool before the socket: a worker imports no torch and is
+            # ready within an interpreter's start, so the first request
+            # does not wait on an empty pool for long
+            from blades_tpu_torch.service.workers import WorkerPool
+
+            self._pool = WorkerPool(self.workers, self.out_dir, device=self.device)
+            self._pool.start()
+            for h in self._pool.workers.values():
+                self.event("worker", event="spawn", worker=h.wid, pid=h.proc.pid, pgid=h.pgid)
+
         try:
             os.unlink(self.socket_path)
         except OSError:
@@ -1045,7 +1440,7 @@ class SimulationService:
 
         outcome = "finished"
         try:
-            snap = self._work()
+            snap = self._work_pool() if self._pool is not None else self._work()
         except BaseException as e:
             outcome = "crashed"
             ledger_entry.ended("crashed", error=f"{type(e).__name__}: {e}")

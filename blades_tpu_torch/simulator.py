@@ -90,7 +90,7 @@ from blades_tpu_torch.sweeps import (
     static_fingerprint,
 )
 from blades_tpu_torch.telemetry import NULL_RECORDER, Recorder, context, set_recorder
-from blades_tpu_torch.telemetry import alerts, ledger, profiling, timeline
+from blades_tpu_torch.telemetry import alerts, ledger, profiling, programs, timeline
 from blades_tpu_torch.telemetry.metric_pack import pack_to_fields
 from blades_tpu_torch.utils import rng
 from blades_tpu_torch.utils.checkpoint import (
@@ -568,10 +568,15 @@ class Simulator:
         built = False  # a failure before the round loop has no state to autosave
         prev_sigterm = None
         try:
-            spec = self._model_spec(model, loss, compute_dtype)
-            batch_size = train_batch_size or self._train_bs
-            params = spec.init(rng.generator(self.seed, 0, rng.INIT))
-            trusted = torch.tensor([c.is_trusted() for c in self.get_clients()], dtype=torch.bool)
+            # build provenance (telemetry/programs.py): the model's build and
+            # init as one program, as in JAX (:583)
+            with programs.watch(f"model/{model if isinstance(model, str) else 'custom'}/init",
+                                shapes=tuple(self.dataset.sample_shape)):
+                spec = self._model_spec(model, loss, compute_dtype)
+                batch_size = train_batch_size or self._train_bs
+                params = spec.init(rng.generator(self.seed, 0, rng.INIT))
+                trusted = torch.tensor([c.is_trusted() for c in self.get_clients()],
+                                       dtype=torch.bool)
             attack = self.attack
             if self._custom_attack_entries:
                 attack = _CompositeAttack(self._custom_attack_entries)
@@ -612,10 +617,15 @@ class Simulator:
                 rec.event("engine_cache", hit=1, key=engine_key)
             else:
                 t_build = time.perf_counter()
-                self.engine = RoundEngine(
-                    spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
-                    noise_sites=spec.noise_sites, **engine_kwargs,
-                )
+                with programs.watch("engine/construct", fingerprint=(
+                        f"{engine_key}:construct" if engine_key else None)):
+                    self.engine = RoundEngine(
+                        spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
+                        noise_sites=spec.noise_sites, **engine_kwargs,
+                    )
+                # the engine's program records and the cache's stats name
+                # the same identity
+                self.engine.program_fingerprint = engine_key
                 if engine_key is not None:
                     engine_cache.put(engine_key, self.engine,
                                      build_s=time.perf_counter() - t_build)
@@ -686,10 +696,18 @@ class Simulator:
                             ))
                         c_lr = client_lr_fn(rnd - 1)
                         s_lr = server_lr_fn(rnd - 1)
+                        if rnd == start_round:
+                            arg_bytes = profiling.tensor_bytes((state, batch))
                         # the engine empties the list: nothing else holds the
                         # batch; it records the round/dispatch span
                         state, m = self.engine.run_round_donated(state, batch, c_lr, s_lr,
                                                                  self.seed)
+                        if rnd == start_round:
+                            # one memory record a run (JAX :903-915)
+                            profiling.record_program_profile(
+                                "round", self.device, argument_bytes=arg_bytes,
+                                output_bytes=profiling.tensor_bytes(
+                                    (state, self.engine.round_outputs(m))), rec=rec)
                         self.server.state = state
                         with rec.span("sync"):
                             self._sync()
@@ -906,9 +924,19 @@ class Simulator:
             with rec.span("block", rounds=bs):
                 c_lrs = [client_lr_fn(r - 1) for r in rounds]
                 s_lrs = [server_lr_fn(r - 1) for r in rounds]
+                arg_bytes = profiling.tensor_bytes(state) if rnd == start_round else 0
                 # records the block/dispatch span
                 state, ms, diags = self.engine.run_block(state, rounds, c_lrs, s_lrs, self.seed,
                                                          sampler=sampler)
+                if rnd == start_round:
+                    # one memory record a run (JAX :1134-1142); a graph's
+                    # scratch is its private pool
+                    graph = self.engine.last_graph
+                    profiling.record_program_profile(
+                        "block", self.device, argument_bytes=arg_bytes,
+                        output_bytes=profiling.tensor_bytes((state, ms, diags)),
+                        temp_bytes=(graph.pool_bytes if self.engine.last_block_mode == "graph"
+                                    and graph is not None else None), rec=rec)
                 self.server.state = state
                 with rec.span("sync"):
                     self._sync()

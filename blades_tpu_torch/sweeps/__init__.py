@@ -26,15 +26,16 @@ static configuration to the built ``RoundEngine``, so a run whose
 configuration matches an earlier one reuses that engine and whatever it
 holds warm: its captured CUDA graphs (``core/graphs.py``), where the JAX
 package reuses its compiled programs. ``Simulator.run(engine_cache=...)``
-builds the key (``blades_tpu/simulator.py:640-715``).
+builds the key (``blades_tpu/simulator.py:640-715``). An LRU eviction is
+counted in ``EngineCache.evictions`` and reported to the build-provenance
+registry (``telemetry/programs.py:note_eviction``, JAX :411), so the
+evicted engine's next build is attributed ``cache-eviction``.
 
 ``static_fingerprint`` also collapses a ``torch.Tensor`` (through
 ``.cpu()``) the way it collapses an array. The module imports neither
 torch nor numpy at its top (a probe-only service imports it): a tensor is
 recognised through ``sys.modules``, since a process that never imported
-torch holds none. The JAX package reports an eviction to its
-compile-provenance registry, which comes with slice 13b.2 (``ROADMAP.md``
-queue A); here it is counted in ``EngineCache.evictions``.
+torch holds none.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import time
 import types
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from blades_tpu_torch.telemetry import programs as _programs
 from blades_tpu_torch.telemetry.ledger import config_fingerprint
 
 __all__ = [
@@ -303,6 +305,7 @@ class EngineCache:
             for victim in victims[: len(self._entries) - self.max_entries]:
                 del self._entries[victim]
                 self.evictions += 1
+                _programs.note_eviction(victim)
 
     def __len__(self) -> int:
         return len(self._entries)

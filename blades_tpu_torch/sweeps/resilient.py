@@ -2,9 +2,9 @@
 journaled resume.
 
 Counterpart: ``blades_tpu/sweeps/resilient.py`` — ``DeadlineExceeded`` and
-``soft_deadline`` (:119), ``ResilienceOptions`` (:143),
-``ResilienceReport`` (:212, with ``preempted`` :223-225),
-``_emit_retry`` (:270), ``_quarantine_cell``
+``soft_deadline`` (:119), ``ResilienceOptions`` (:143, with ``deadline``
+and ``on_cell_start`` :185-209), ``ResilienceReport`` (:212, with
+``preempted`` :223-225), ``_emit_retry`` (:270), ``_quarantine_cell``
 (:292), ``_recover_cell`` (:336), ``run_cells_resilient`` (:373) and
 ``run_grouped_resilient`` (:495, with ``_attempt`` :537, ``_commit`` :575
 and the bisection ``_solve`` :603). The same records (``retry``,
@@ -50,7 +50,10 @@ Two rules are the port's own, for a CUDA card:
 it works from the main thread only; anywhere else a
 ``deadline_unenforced`` record says so, once an execution. The
 supervisor's heartbeat watchdog (``supervision/supervisor.py``) is the
-hard limit.
+hard limit. A worker of the service's pool runs with
+``deadline="external"``: its parent kills the worker's process group
+past the deadline (``service/server.py:_enforce_deadlines``), which
+interrupts a kernel or a synchronize where SIGALRM cannot.
 """
 
 from __future__ import annotations
@@ -181,10 +184,19 @@ class ResilienceOptions:
     ``None``, not quarantined: the caller requeues, and a later execution
     recovers the journaled cells and runs the rest (the service's
     cell-boundary preemption, ``service/scheduler.py``). The one unit of
-    progress makes back-to-back preemptions advance the journal. The JAX
-    package's worker-pool hooks (``deadline="external"``,
-    ``on_cell_start``) come with the pool (``ROADMAP.md`` queue A, slice
-    13b.2)."""
+    progress makes back-to-back preemptions advance the journal.
+
+    ``deadline``: who enforces ``cell_deadline_s``. ``"alarm"`` (the
+    default) arms the SIGALRM soft deadline, usable from the main thread
+    only (elsewhere a ``deadline_unenforced`` record says so);
+    ``"external"`` says a parent owns it (the service's worker pool,
+    ``service/workers.py``): no SIGALRM and no ``deadline_unenforced``
+    record, since the deadline is enforced one level up.
+
+    ``on_cell_start(label, cells)``: called before every attempt, not once
+    a cell, with the cell's label (a batched group's first) and the unit's
+    cell count: the pool worker's per-cell heartbeat, on which the parent
+    arms the deadline of exactly this attempt."""
 
     attempts: int = 2
     base_delay_s: float = 0.5
@@ -193,11 +205,20 @@ class ResilienceOptions:
     sleep: Callable[[float], None] = time.sleep
     runner: Optional[Callable[[Sequence[SweepCell], str], list]] = None
     should_yield: Optional[Callable[[], bool]] = None
+    deadline: str = "alarm"
+    on_cell_start: Optional[Callable[[str, int], None]] = None
 
     def __post_init__(self):
         # a budget below 1 would skip every attempt and quarantine every
         # cell with an error nothing raised
         self.attempts = max(1, int(self.attempts))
+        if self.deadline not in ("alarm", "external"):
+            raise ValueError(f"deadline must be 'alarm' or 'external', got {self.deadline!r}")
+
+    def alarm_deadline_s(self) -> Optional[float]:
+        """The per-cell deadline the in-process alarm arms: None under
+        external enforcement."""
+        return None if self.deadline == "external" else self.cell_deadline_s
 
 
 @dataclasses.dataclass
@@ -324,7 +345,7 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
     walls: List[float] = []
     report = ResilienceReport()
 
-    cell_ddl = options.cell_deadline_s
+    cell_ddl = options.alarm_deadline_s()
     if cell_ddl and not _alarm_usable():
         _note_deadline_unenforced(rec, kind, deadline_s=cell_ddl)
 
@@ -350,6 +371,10 @@ def run_cells_resilient(cells, run_cell: Callable[[Any], Any], *, sweep=None,
         wall = 0.0
         delta: Dict[str, Any] = {}
         for attempt in range(1, options.attempts + 1):
+            if options.on_cell_start is not None:
+                # per attempt: the parent's deadline re-arms after the
+                # backoff sleep, which must not eat the next attempt's budget
+                options.on_cell_start(label, 1)
             t0 = time.perf_counter()
             counters0 = _trecorder.process_counters()
             try:
@@ -413,7 +438,7 @@ def run_grouped_resilient(cells: Sequence[SweepCell], *, grids: Optional[dict] =
     rec = getattr(sweep, "rec", None) or _trecorder.get_recorder()
     runner = options.runner or (lambda group, key: _execute_group(group, key, grids=grids))
 
-    cell_ddl = options.cell_deadline_s
+    cell_ddl = options.alarm_deadline_s()
     if cell_ddl and not _alarm_usable():
         _note_deadline_unenforced(rec, kind, deadline_s=cell_ddl)
 
@@ -424,6 +449,8 @@ def run_grouped_resilient(cells: Sequence[SweepCell], *, grids: Optional[dict] =
         group = [cells[i] for i in idxs]
         ddl = cell_ddl * len(group) if cell_ddl else None
         for attempt in range(1, attempts + 1):
+            if options.on_cell_start is not None:
+                options.on_cell_start(group[0].label, len(group))
             t0 = time.perf_counter()
             counters0 = _trecorder.process_counters()
             try:

@@ -1,11 +1,25 @@
-"""Device memory gauges and guarded ``torch.profiler`` captures.
+"""A run's ``memory`` record, device memory gauges and guarded
+``torch.profiler`` captures.
 
 Counterpart: ``blades_tpu/telemetry/profiling.py`` — ``profile_dir_from_env``,
-``memory_stats`` / ``record_live_bytes`` (the ``mem.*`` gauges) and
-``start_capture`` / ``stop_capture``. The JAX module's
-``record_program_profile`` (XLA's cost and memory analysis of a compiled
-program) has no torch counterpart and is not here (``ROADMAP.md`` queue
-A, slice 13b.2).
+``record_program_profile`` (:106-143), ``memory_stats`` /
+``record_live_bytes`` (the ``mem.*`` gauges) and ``start_capture`` /
+``stop_capture``.
+
+- :func:`record_program_profile` — one ``memory`` record per run, for
+  ``round`` (the first eager round) or ``block`` (the first round block),
+  as ``Simulator.run`` calls it (JAX ``simulator.py:903-915``,
+  ``:1134-1142``), with the schema's allocator fields only:
+  ``argument_bytes`` (the state and inputs the program takes),
+  ``output_bytes`` (the state and outputs it returns) and, for a block run
+  as a CUDA graph, ``temp_bytes``: what the allocator reserved for the
+  graph's private pool during the capture (``core/graphs.py``). An eager
+  round has no ``temp_bytes``: its scratch shows only in the process's
+  peak, which only ``torch.cuda.reset_peak_memory_stats`` could isolate,
+  and a round must not reset a peak its caller reads. XLA's cost-model
+  fields (``flops``, ``bytes_accessed``, ``optimal_seconds``,
+  ``generated_code_bytes``, ``alias_bytes``) have no counterpart here and
+  never appear. A CPU run emits no record, as it has no ``mem.*`` gauges.
 
 - :func:`record_live_bytes` — ``torch.cuda.memory_stats`` watermarks
   (``mem.bytes_in_use``, ``mem.peak_bytes_in_use``,
@@ -33,6 +47,31 @@ PROFILE_ENV = "BLADES_PROFILE"
 
 #: The file a capture exports into its directory.
 TRACE_FILE = "trace.json"
+
+def tensor_bytes(tree) -> int:
+    """The bytes of the tensors in a pytree (their metadata only: no sync)."""
+    from torch.utils._pytree import tree_flatten
+
+    leaves, _ = tree_flatten(tree)
+    return sum(t.numel() * t.element_size() for t in leaves if isinstance(t, torch.Tensor))
+
+
+def record_program_profile(name: str, device, *, argument_bytes: int, output_bytes: int,
+                           temp_bytes: Optional[int] = None,
+                           rec: Optional[Recorder] = None) -> Optional[Dict[str, int]]:
+    """Emit one ``memory`` record for the program ``name`` (``"round"`` or
+    ``"block"``) on a CUDA ``device``; returns its fields, or None where
+    nothing is emitted (a CPU device, telemetry off). The JAX package's
+    ``BLADES_PROGRAM_PROFILE`` switch guards a re-lowering this record does
+    not need, and is not here."""
+    rec = rec or get_recorder()
+    if not rec.enabled or torch.device(device).type != "cuda":
+        return None
+    fields = {"argument_bytes": int(argument_bytes), "output_bytes": int(output_bytes)}
+    if temp_bytes is not None:
+        fields["temp_bytes"] = int(temp_bytes)
+    rec.event("memory", program=name, **fields)
+    return fields
 
 
 def profile_dir_from_env() -> Optional[str]:

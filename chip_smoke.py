@@ -257,7 +257,32 @@ held against the plain version, the cell bit for bit a direct
 ``Simulator`` run. ``service_certify`` submits the certify driver's
 ``--quick`` matrix with ``--via-service`` and holds it to an in-process
 run on the card (verdicts exact, ratios CERT_TOL). ``service_chaos``
-runs the service drills and the supervised SIGKILL resume.
+runs the service drills, the pool's ``worker_crash`` and ``worker_hang``
+and the supervised SIGKILL resume, every pool shut down with no survivor.
+
+The worker pool's phases (slice 13b.2), servers started by
+``examples/serve.py start --workers N --device cuda`` whose workers find
+POOL_SITE (a ``sitecustomize.py`` written into a temporary directory at
+the head of their PYTHONPATH) and hold each kernel launch against the
+plain version, writing the counts when they exit: ``pool_simulate``
+(``--workers 2``) sends the request cold to worker A, then at once its
+repeat (routed to A, warm, no build ``program`` record) and a second body
+(B, cold); the workers' spawn to ``ready``, no torch mapped before the
+first request, their memory idle and warm, the cold request's build
+records against its worker's counters, and the share of its first round
+that no program record of that round explains. ``pool_deadline``: two
+servers (``--workers 1 --attempts 1``), ``--cell-deadline 2`` and a
+deadline that lands in the middle of a cold worker's first round (from
+``pool_simulate``'s cold request on the same machine); in each the parent
+kills the cold worker in its first cell (the second inside CUDA work),
+that request alone is quarantined and the replacement serves a probe; the
+card's memory around each kill. ``pool_sticky``
+(``--attempts 2``): the worker's first launch is preceded once by the
+kernel's raw entry on an address nothing owns; the worker exits with
+``DeviceLost`` and no reply, and the request completes on its replacement
+with the held cell. Every served cell is bit for bit ``service_kernel``'s
+and the direct run's. ``--pool-only`` runs ``service_kernel``, these
+phases and the drills, then the ``kernels`` line and the result line.
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -414,6 +439,9 @@ RECORDS_ROUNDS, RECORDS_BLOCK, NAN_CLIENTS, NAN_CLIENT_LR = 3, 2, 10, 1e20
 # cell each at K=100 (BASELINE config 2's population) and CCT-2's D
 CERT_TOL = dict(rtol=1e-4, atol=1e-6)
 CERT_CPU_THREADS = 4
+#: the defenses of the certify phase's counted run: the kernel's, so it
+#: keeps every launch of the timed run at a sixteenth of its cells
+CERT_COUNTED_AGGS = ("trimmedmean",)
 CERT_SCALE_CLIENTS, CERT_SCALE_TRIALS = 100, 3
 CERT_SCALE_CELLS = (("trimmedmean", 10), ("trimmedmean", 20), ("median", 10), ("krum", 10))
 CERT_SCALE_B = 10  # the kernel's b at that shape (trimmed mean at f=10)
@@ -466,6 +494,10 @@ VMAP_BIG_SHAPE = (2, 100, 10_800_000, 10)  # [S, K, D, b]: S*K*D past 2^31 (8.64
 # chaos sweep (one seed for each defense of the pool) and its supervised
 # SIGKILL child
 RESIL_POISON = "trimmedmean/f2"
+#: the defenses of resilient_certify's matrix (``--aggs``): the poisoned
+#: cell's and two headline ones, a fifth of the committed configuration's
+#: cells, to keep the script within its time limit
+RESIL_AGGS = ("median", "trimmedmean", "krum")
 OOM_CELLS, OOM_TRIALS, OOM_B = 8, 2, 10
 STICKY_CELL = "trimmedmean/f2"
 STICKY_ARGS = ("--quick", "--no-async", "--aggs", "mean", "trimmedmean")
@@ -709,8 +741,29 @@ def phase_profile(torch, trimmed, sim, card: str, other=None) -> None:
             (theirs if turn == "other" else mine).extend(rounds(5))
         finally:
             trimmed.trimmed_mean_cuda = mine_cuda
+    # the build-provenance scope's cost with telemetry off: the engine's
+    # scope against none around the same warm round, in turns (on, off, off,
+    # on) of 25 rounds
+    from contextlib import nullcontext
+
+    from blades_tpu_torch.telemetry import set_recorder
+
+    scoped, bare = [], []
+    prev = set_recorder(None)
+    try:
+        for turn in ("on", "off", "off", "on"):
+            if turn == "off":
+                eng._provenance = lambda *a, **k: nullcontext()
+            try:
+                (bare if turn == "off" else scoped).extend(rounds(25))
+            finally:
+                eng.__dict__.pop("_provenance", None)
+    finally:
+        set_recorder(prev)
     rec = {"phase": "warm_rounds", "clients": eng.num_clients, "round_ms": mine,
-           "median_ms": sorted(mine)[len(mine) // 2], "card": card}
+           "median_ms": sorted(mine)[len(mine) // 2],
+           "provenance_on_median_ms": sorted(scoped)[len(scoped) // 2],
+           "provenance_off_median_ms": sorted(bare)[len(bare) // 2], "card": card}
     if other:
         rec.update(other_round_ms=theirs, other_median_ms=sorted(theirs)[len(theirs) // 2])
     emit(rec)
@@ -4667,13 +4720,14 @@ def certify_expected_launches(specs, k: int, trials: int, grids: dict) -> tuple:
     return search, battery
 
 
-def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool) -> dict:
+def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool,
+                    aggs: tuple = ()) -> dict:
     """One run of the certify script's ``main`` on the card in its committed
-    configuration, the matrix into ``out_dir``: its wall, kernel launches,
-    summary line, matrix, cells and results. With ``count`` it also counts
-    the host syncs (sync debug mode, which slows the host: that run's wall
-    is not the script's) and keeps every kernel launch's input, b and
-    output (``seen``)."""
+    configuration (cut to ``aggs`` where given), the matrix into
+    ``out_dir``: its wall, kernel launches, summary line, matrix, cells and
+    results. With ``count`` it also counts the host syncs (sync debug
+    mode, which slows the host: that run's wall is not the script's) and
+    keeps every kernel launch's input, b and output (``seen``)."""
     import contextlib
     import io
 
@@ -4696,7 +4750,8 @@ def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool) ->
         return out
 
     def run():
-        kept["rc"] = certify.main(["--device", str(dev), "--out", str(out_dir)])
+        kept["rc"] = certify.main(["--device", str(dev), "--out", str(out_dir),
+                                   *(("--aggs", *aggs) if aggs else ())])
 
     certify.enumerate_cells, certify.execute_cells = enumerate_cells, execute_cells
     if count:
@@ -4723,7 +4778,7 @@ def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool) ->
           f"certify on the card: rc {kept['rc']}, {lines}")
     return dict(kept, wall=wall, launches=trimmed.trimmed_mean_launches, summary=summary,
                 matrix=json.loads((out_dir / "cert_matrix.json").read_text()), sites=sites,
-                seen=seen)
+                seen=seen, aggs=aggs)
 
 
 def certify_differences(run: dict, ref: dict) -> tuple:
@@ -4735,9 +4790,15 @@ def certify_differences(run: dict, ref: dict) -> tuple:
     from blades_tpu_torch.audit import TEMPLATE_NAMES
 
     labels = [s.label for s in run["specs"]]
-    check(labels == ref["labels"], "certify: the CPU run enumerated other cells")
+    ref_by = dict(zip(ref["labels"], ref["results"]))
+    aggs = run["aggs"]
+    # a run cut to ``aggs`` has the CPU run's cells of those defenses
+    want = [lab for lab in ref["labels"] if not aggs
+            or lab.removeprefix("battery/").split("/")[0] in aggs]
+    check(labels == want, "certify: the CPU run enumerated other cells")
     ratios = []
-    for lab, got, want in zip(labels, run["results"], ref["results"]):
+    for lab, got in zip(labels, run["results"]):
+        want = ref_by[lab]
         pairs = [("worst_ratio", got["worst_ratio"], want["worst_ratio"])]
         pairs += [(f"{n}.worst_ratio", got["templates"][n]["worst_ratio"],
                    want["templates"][n]["worst_ratio"]) for n in TEMPLATE_NAMES]
@@ -4797,7 +4858,8 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple
     with 1 <= b <= 16 and no mask. The timed run is alone on the machine
     with the sync debug mode off; a second run counts its host syncs and
     keeps every launch's input, and each launch is then held against the
-    plain version (``certify_kernel_shapes``). Returns the timed run's
+    plain version (``certify_kernel_shapes``); it is cut to
+    CERT_COUNTED_AGGS, which makes every launch. Returns the timed run's
     launches, the timings at each [K, D, b], the kernel's largest error and
     the timed run (``resilient_certify``'s reference)."""
     from blades_tpu_torch.audit import DEFAULT_GRIDS
@@ -4806,7 +4868,7 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple
     ref = finish_cpu_certify(cpu_run)
     timed = certify_on_card(torch, trimmed, certify, dev, log_root / "certify", count=False)
     counted = certify_on_card(torch, trimmed, certify, dev, log_root / "certify_counted",
-                              count=True)
+                              count=True, aggs=CERT_COUNTED_AGGS)
     args = certify.parse_args([])
     search, battery = certify_expected_launches(timed["specs"], args.clients, args.trials,
                                                 DEFAULT_GRIDS)
@@ -4824,7 +4886,8 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple
           "certified_cells": summary["certified_cells"], "wall_s": timed["wall"],
           "wall_s_per_cell": timed["wall"] / n_cells, "search_s": sum(timed["walls"]),
           "wall_s_counted_run": counted["wall"],
-          "host_syncs": sum(sites.values()), "host_syncs_per_cell": sum(sites.values()) / n_cells,
+          "counted_aggs": CERT_COUNTED_AGGS, "host_syncs": sum(sites.values()),
+          "host_syncs_per_cell": sum(sites.values()) / len(counted["specs"]),
           "host_sync_sites": dict(sorted(sites.items(), key=lambda kv: -kv[1])[:12]),
           "launches": timed["launches"], "launches_planned_search": search,
           "launches_planned_battery": battery, "cpu_wall_s": ref["wall_s"],
@@ -5307,9 +5370,10 @@ class _HeldKernel:
 
 
 def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref: dict) -> tuple:
-    """The certify driver's committed configuration through its ``main``
-    with ``--attempts 2``, a ``ResilienceOptions.runner`` that raises for
-    RESIL_POISON and otherwise calls ``sweeps._execute_group``: that cell's
+    """The certify driver's committed configuration cut to RESIL_AGGS,
+    through its ``main`` with ``--attempts 2``, a
+    ``ResilienceOptions.runner`` that raises for RESIL_POISON and
+    otherwise calls ``sweeps._execute_group``: that cell's
     group is retried, bisected, and the cell alone quarantined (one
     ``quarantine`` record, one journal line); every other cell's result,
     verdict and ratio equal to the ``certify`` phase's run (``ref``) bit for
@@ -5347,7 +5411,8 @@ def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref:
     t0 = time.perf_counter()
     try:
         with _HeldKernel(torch, trimmed) as held, contextlib.redirect_stdout(buf):
-            rc = certify.main(["--device", str(dev), "--attempts", "2", "--out", str(out_dir)])
+            rc = certify.main(["--device", str(dev), "--attempts", "2", "--aggs", *RESIL_AGGS,
+                               "--out", str(out_dir)])
         torch.cuda.synchronize()
     finally:
         certify.execute_cells, certify.ResilienceOptions = orig_exec, orig_opts
@@ -5363,7 +5428,8 @@ def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref:
     rows = {(r["agg"], r["f"], r.get("scenario")): (r["certified"], r["worst_ratio"])
             for r in matrix["cells"] + matrix["async_cells"]}
     ref_rows = {(r["agg"], r["f"], r.get("scenario")): (r["certified"], r["worst_ratio"])
-                for r in ref["matrix"]["cells"] + ref["matrix"]["async_cells"]}
+                for r in ref["matrix"]["cells"] + ref["matrix"]["async_cells"]
+                if r["agg"] in RESIL_AGGS}
     rows_differ = [list(k) for k, v in ref_rows.items() if rows.get(k) != v]
     args = certify.parse_args([])
     search, battery = certify_expected_launches(
@@ -6097,7 +6163,7 @@ def phase_service_kernel(torch, trimmed, dev, card: str, log_root: Path) -> tupl
           f"service_kernel: the served cell {cell} is not the direct run's {direct}")
     check(split["k-cold"]["warm"] is False and split["k-warm"]["warm"] is True
           and split["k-warm"]["build_s"] == 0, f"service_kernel: cold/warm {split}")
-    return launches, err, timings
+    return launches, err, timings, {n: cell.get(n) for n in ("loss", "params_sha")}, direct
 
 
 def report_service_certify(run: dict, ref: dict, device: str, card: str) -> None:
@@ -6145,18 +6211,27 @@ def certify_reference(torch, dev, log_root: Path) -> dict:
     return {"matrix": matrix, "wall": time.perf_counter() - t0}
 
 
-def phase_service_chaos(drills: dict, card: str) -> None:
-    """``service_chaos``: the reduced drills and the supervised SIGKILL
-    resume (``examples/chaos.py:service_chaos(full=True)``) against servers
-    started on this machine (probe cells: no server imports torch)."""
+def phase_service_chaos(drills: dict, card: str, log_root: Path) -> None:
+    """``service_chaos``: the reduced drills, the pool's ``worker_crash``
+    and ``worker_hang``, and the supervised SIGKILL resume
+    (``examples/chaos.py:service_chaos(full=True)``) against servers
+    started on this machine (probe cells: no server or worker imports
+    torch); every pool shut down with no survivor."""
     rows = {r["name"]: r for r in drills["summary"]["scenarios"]}
     kill = rows.get("sigkill_resume", {})
+    shutdowns = {p.parent.name: [r["survivors"] for r in _trace_records(p)
+                                 if r.get("event") == "pool_shutdown"]
+                 for p in sorted((log_root / "service_chaos").glob("w*/service_trace.jsonl"))}
     emit({"phase": "service_chaos", "ok": drills["summary"]["ok"],
           "failed": [n for n, r in rows.items() if not r["ok"]],
-          "scenarios": drills["summary"]["scenarios"], "wall_s": drills["wall"], "card": card})
-    check(drills["summary"]["ok"] and len(rows) == 7 and kill.get("content_identical")
+          "scenarios": drills["summary"]["scenarios"], "pool_survivors": shutdowns,
+          "wall_s": drills["wall"], "card": card})
+    check(drills["summary"]["ok"] and len(rows) == 9 and kill.get("content_identical")
           and kill.get("resumed_skipped") == 2 and kill.get("executed") == 2,
           f"service_chaos: {drills['summary']}")
+    check(set(shutdowns) == {"wcrash_ref", "wcrash", "whang"}
+          and all(s == [[]] for s in shutdowns.values()),
+          f"service_chaos: the pools' survivors {shutdowns}")
 
 
 def run_service_drills(log_root: Path) -> dict:
@@ -6168,25 +6243,604 @@ def run_service_drills(log_root: Path) -> dict:
     return {"summary": summary, "wall": time.perf_counter() - t0}
 
 
-def service_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
-    """The slice 13b.1 phases: the server subprocess (``service_simulate``,
-    then ``service_certify``'s request) and the drills' servers run in two
-    threads beside this process's ``service_kernel`` and the certify
-    reference; the records and checks are made here after. Returns the
-    service path's launches, the largest error and the kernel's timings."""
+def service_phases(torch, trimmed, dev, card: str, log_root: Path,
+                   pool_only: bool = False) -> dict:
+    """The slice 13b phases: the server subprocess (``service_simulate``,
+    then ``service_certify``'s request), the pool's servers
+    (``pool_simulate`` and ``pool_sticky``, then ``pool_deadline`` beside
+    them) and the drills' servers run in threads beside this process's
+    ``service_kernel`` and the certify reference; the records and checks
+    are made here after. ``pool_only`` leaves out ``service_simulate``,
+    ``service_certify`` and the certify reference. Returns the launches in
+    this process and in the pool's workers, the largest error and the
+    kernel's timings."""
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        server = pool.submit(run_service_server, log_root, str(dev))
-        drills = pool.submit(run_service_drills, log_root)
-        launches, err, timings = phase_service_kernel(torch, trimmed, dev, card, log_root)
-        ref = certify_reference(torch, dev, log_root)
-        run = server.result()
+    # the threads' first imports of these, side by side, can deadlock on
+    # the import lock: made here first
+    import blades_tpu_torch.examples.certify  # noqa: F401
+    import blades_tpu_torch.examples.chaos  # noqa: F401
+    import blades_tpu_torch.service.client  # noqa: F401
+    import blades_tpu_torch.service.server  # noqa: F401
+    import blades_tpu_torch.service.spool  # noqa: F401
+    import blades_tpu_torch.supervision.supervisor  # noqa: F401
+    import blades_tpu_torch.sweeps.journal  # noqa: F401
+
+    with ThreadPoolExecutor(max_workers=3) as threads:
+        server = None if pool_only else threads.submit(run_service_server, log_root, str(dev))
+        pool = threads.submit(run_pool, torch, log_root)
+        drills = threads.submit(run_service_drills, log_root)
+        launches, err, timings, cell, direct = phase_service_kernel(torch, trimmed, dev, card,
+                                                                    log_root)
+        ref = None if pool_only else certify_reference(torch, dev, log_root)
+        run = None if pool_only else server.result()
+        pooled = pool.result()
         drill = drills.result()
-    report_service_simulate(run, card)
-    report_service_certify(run, ref, str(dev), card)
-    phase_service_chaos(drill, card)
-    return {"launches": launches, "err": err, "timings": timings}
+    if not pool_only:
+        report_service_simulate(run, card)
+        report_service_certify(run, ref, str(dev), card)
+    pool_launches = report_pool(pooled, cell, direct, card)
+    phase_service_chaos(drill, card, log_root)
+    errs = [f["max_abs_err"] for r in (pooled["simulate"], *pooled["deadline"], pooled["sticky"])
+            for f in r["held_files"]]
+    return {"launches": launches, "pool_launches": pool_launches,
+            "err": max([err, *errs]), "timings": timings}
+
+
+# -- the worker pool (slice 13b.2) ---------------------------------------------------
+# Servers started as the drills start them (examples/serve.py start --workers N
+# --device cuda), in threads beside the in-process phases: they only gather,
+# and the records and checks are made on the main thread after.
+
+#: written into the pool servers' PYTHONPATH (and so their workers'): in a
+#: worker each trimmed-mean launch is held against the plain version, the
+#: counts written at the worker's exit; CHIP_POOL_STICKY arms, once, the
+#: kernel's raw entry on an address nothing owns before a launch
+POOL_SITE = r'''"""chip_smoke.py's hold of the trimmed-mean kernel in pool workers."""
+import atexit
+import importlib.machinery
+import importlib.util
+import json
+import os
+import sys
+import threading
+import time
+
+
+def _install(mod):
+    import torch
+
+    orig, errs, bad = mod.trimmed_mean_cuda, [], []
+    sticky = os.environ.get("CHIP_POOL_STICKY")
+
+    def held(x, b):
+        if sticky and not os.path.exists(sticky):
+            open(sticky, "w").close()
+            out = torch.empty(1 << 20, device="cuda")
+            mod._library().blades_trimmed_mean_f32(16, out.data_ptr(), 8, 1 << 20, 1,
+                                                   torch.cuda.current_stream().cuda_stream)
+            torch.cuda.synchronize()  # the illegal address surfaces here
+        out = orig(x, b)
+        ref = mod.trimmed_mean_plain(x, b)
+        errs.append((out - ref).abs().max())
+        bad.append((~torch.isclose(out, ref, rtol=1e-5, atol=1e-5)).sum())
+        return out
+
+    def watch_memory():
+        # the worker's allocator, 4 times a second once CUDA is up: a
+        # killed worker leaves its last reading
+        path = os.path.join(os.environ["CHIP_POOL_HELD_DIR"], f"mem-{os.getpid()}.jsonl")
+        while True:
+            if torch.cuda.is_initialized():
+                with open(path, "a") as fh:
+                    fh.write(json.dumps({"ts": time.time(),
+                                         "reserved": torch.cuda.memory_reserved(),
+                                         "allocated": torch.cuda.memory_allocated()}) + "\n")
+            time.sleep(0.25)
+
+    threading.Thread(target=watch_memory, daemon=True).start()
+
+    def report():
+        from blades_tpu_torch.telemetry import programs, recorder
+
+        rec = {"pid": os.getpid(), "worker": os.environ.get("BLADES_WORKER_ID"),
+               "reserved": torch.cuda.memory_reserved(),
+               "peak_reserved": torch.cuda.max_memory_reserved(),
+               "launches": mod.trimmed_mean_launches, "held": len(errs),
+               "max_abs_err": float(torch.stack(errs).max()) if errs else 0.0,
+               "elements_off_tol": int(torch.stack(bad).sum()) if bad else 0,
+               "counters": recorder.process_counters(), "programs": programs.snapshot()}
+        path = os.path.join(os.environ["CHIP_POOL_HELD_DIR"], f"held-{os.getpid()}.json")
+        with open(path, "w") as fh:
+            json.dump(rec, fh)
+
+    mod.trimmed_mean_cuda = held
+    atexit.register(report)
+
+
+class _Hook:
+    def find_spec(self, name, path, target=None):
+        if name != "blades_tpu_torch.ops.trimmed":
+            return None
+        sys.meta_path.remove(self)
+        spec = importlib.machinery.PathFinder.find_spec(name, path)
+        run = spec.loader.exec_module
+
+        def exec_module(module):
+            run(module)
+            _install(module)
+
+        spec.loader.exec_module = exec_module
+        return spec
+
+
+if os.environ.get("BLADES_WORKER_ID") and os.environ.get("CHIP_POOL_HELD_DIR"):
+    sys.meta_path.insert(0, _Hook())
+# another sitecustomize further down the path still runs
+_here = os.path.dirname(os.path.abspath(__file__))
+_spec = importlib.machinery.PathFinder.find_spec(
+    "sitecustomize", [p for p in sys.path if os.path.abspath(p or ".") != _here])
+if _spec is not None and _spec.loader is not None:
+    _spec.loader.exec_module(importlib.util.module_from_spec(_spec))
+'''
+POOL_TIMEOUT_S = 600
+#: the pool_simulate phase's second body, which worker B takes cold
+POOL_OTHER_CELL = {**SERVICE_CELL, "label": "other", "seed": 2}
+#: pool_deadline's first server's cell deadline: a cold worker's first cell
+#: takes more
+POOL_DEADLINE_S = 2.0
+#: the program scopes that a Simulator round opens (``datasets/fl.py``, the
+#: engine's ``run_round``): the first record of each is the first round's
+ROUND_SCOPES = ("dataset/sample_round", "engine/round")
+
+
+def _worker_mem(run: dict, pid: int, before: float = None) -> dict:
+    """A worker's own allocator readings (POOL_SITE): its last reserved
+    and allocated bytes (before ``before``), or zeros if CUDA never came
+    up in it."""
+    recs = [r for r in run["mem"].get(pid, []) if before is None or r["ts"] <= before]
+    last = recs[-1] if recs else {}
+    return {"reserved_gb": last.get("reserved", 0) / 1e9,
+            "allocated_gb": last.get("allocated", 0) / 1e9, "readings": len(recs)}
+
+
+def maps_torch(pid: int) -> bool:
+    """Whether process ``pid`` has torch's library mapped."""
+    try:
+        return "libtorch" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+
+
+def start_pool(log_root: Path, name: str, args: tuple, env_extra: dict = None) -> dict:
+    """``examples/serve.py start --device cuda`` with ``args``, its
+    workers' PYTHONPATH headed by POOL_SITE; returns once its socket
+    answers and every worker is ready."""
+    import os
+
+    from blades_tpu_torch.service.client import ServiceClient
+
+    root = Path(__file__).resolve().parent
+    site = log_root / "pool_site"
+    site.mkdir(exist_ok=True)
+    (site / "sitecustomize.py").write_text(POOL_SITE)
+    held = log_root / "pool_held" / name
+    held.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(site), str(root)]),
+               CHIP_POOL_HELD_DIR=str(held), **BESIDE_ENV, **(env_extra or {}))
+    out = log_root / name
+    log = open(log_root / f"{name}.log", "w")
+    t0 = time.time()
+    proc = subprocess.Popen([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                             "--out", str(out), "--device", "cuda", "--health-interval", "5",
+                             *args], cwd=str(root), env=env, stdout=subprocess.PIPE,
+                            stderr=log, text=True)
+    client = ServiceClient(str(out / "service.sock"), timeout=POOL_TIMEOUT_S, connect_retries=1)
+    run = {"name": name, "proc": proc, "client": client, "out": out, "held": held, "log": log,
+           "t0": t0}
+    while True:
+        try:
+            st = client.status()
+            if st["workers"]["idle"] == st["workers"]["size"]:
+                break
+        except Exception:  # noqa: BLE001 - not listening yet
+            pass
+        check(proc.poll() is None and time.time() - t0 < 120,
+              f"{name}: the server or its workers did not start")
+        time.sleep(0.02)
+    run["ready_s"] = time.time() - t0
+    run["pids"] = {w: b["pid"] for w, b in st["workers"]["by_worker"].items()}
+    return run
+
+
+def stop_pool(run: dict) -> dict:
+    """Drain, reap, and gather the trace, the held files and the workers'
+    stderr."""
+    try:
+        run["drain"] = run["client"].drain()
+        stdout, _ = run["proc"].communicate(timeout=300)
+    finally:
+        if run["proc"].poll() is None:
+            run["proc"].kill()
+            stdout, _ = run["proc"].communicate()
+        run["log"].close()
+    run["rc"] = run["proc"].returncode
+    run["exit_line"] = stdout.strip().splitlines()[-1] if stdout.strip() else ""
+    run["trace"] = _trace_records(run["out"] / "service_trace.jsonl")
+    run["held_files"] = [json.loads(p.read_text()) for p in sorted(run["held"].glob("*.json"))]
+    run["mem"] = {int(p.stem[4:]): _trace_records(p) for p in run["held"].glob("mem-*.jsonl")}
+    run["worker_err"] = {p.stem: p.read_text()[-2000:]
+                         for p in sorted((run["out"] / "workers").glob("*.err"))}
+    run["server_log"] = (run["out"].parent / f"{run['name']}.log").read_text()[-3000:]
+    for key in ("proc", "client", "log"):
+        run.pop(key)
+    return run
+
+
+def _worker_events(trace: list, event: str) -> list:
+    return [r for r in trace if r.get("t") == "worker" and r.get("event") == event]
+
+
+def _spawn_to_ready(trace: list) -> dict:
+    """Each worker's seconds from its spawn (or replace) record to its
+    ready record."""
+    born = {r["worker"]: r["ts"] for r in trace if r.get("t") == "worker"
+            and r.get("event") in ("spawn", "replace")}
+    return {r["worker"]: r["ts"] - born[r["worker"]] for r in _worker_events(trace, "ready")
+            if r["worker"] in born}
+
+
+def _program_records(out: Path, rid: str, label: str) -> list:
+    return [r for r in _trace_records(out / "requests" / rid / label / "telemetry.jsonl")
+            if r.get("t") == "program"]
+
+
+def run_pool_simulate(log_root: Path) -> dict:
+    """``pool_simulate``'s server (``--workers 2``): SERVICE_REQUEST cold
+    on worker A, then at once its repeat (the affinity route: A, warm) and
+    a second body (B, cold); the workers' device memory idle and warm and
+    whether torch was mapped before the first request."""
+    run = start_pool(log_root, "pool_simulate", ("--workers", "2"))
+    client = run["client"]
+    try:
+        run["torch_before"] = {w: maps_torch(p) for w, p in run["pids"].items()}
+        walls, replies = {}, {}
+        t = time.perf_counter()
+        replies["cold"] = client.submit(SERVICE_REQUEST, request_id="pool-cold")
+        walls["cold"] = time.perf_counter() - t
+
+        def submit(name, request, rid):
+            t = time.perf_counter()
+            replies[name] = client.submit(request, request_id=rid)
+            walls[name] = time.perf_counter() - t
+
+        import threading
+
+        warm = threading.Thread(target=submit, args=("warm", SERVICE_REQUEST, "pool-warm"))
+        warm.start()
+        while True:  # the repeat is on its worker before the other body is sent
+            by = client.status()["workers"]["by_worker"]
+            if any(b.get("request") == "pool-warm" for b in by.values()) or not warm.is_alive():
+                break
+            time.sleep(0.005)
+        submit("other", {"kind": "simulate", "cells": [POOL_OTHER_CELL]}, "pool-other")
+        warm.join()
+        run["warm_ts"] = time.time()
+        run["torch_after"] = {w: maps_torch(p) for w, p in run["pids"].items()}
+        run.update(walls=walls, replies=replies, metrics=client.metrics())
+    finally:
+        stop_pool(run)
+    run["programs"] = {rid: _program_records(run["out"], rid, label) for rid, label in (
+        ("pool-cold", SERVICE_CELL["label"]), ("pool-warm", SERVICE_CELL["label"]),
+        ("pool-other", POOL_OTHER_CELL["label"]))}
+    run["cell_spans"] = {rid: cell_spans(run["out"] / "requests" / rid / label)
+                         for rid, label in (("pool-cold", "main"), ("pool-warm", "main"),
+                                            ("pool-other", "other"))}
+    return run
+
+
+def _sample_memory(torch, client, until, samples: list, period: float = 0.25) -> None:
+    """(time, the card's free bytes) every ``period`` seconds until
+    ``until(status)``."""
+    t_end = time.time() + POOL_TIMEOUT_S
+    while time.time() < t_end:
+        st = client.status()
+        samples.append((time.time(), torch.cuda.mem_get_info()[0]))
+        if until(st):
+            return
+        time.sleep(period)
+
+
+def _killed(torch, client, rid: str, request: dict, kills: int) -> tuple:
+    """Submit ``request`` as ``rid`` and sample the card's memory until the
+    pool's ``kills``-th kill and 5 s after it; ``(samples, reply)``."""
+    samples, killed = [], []
+    client.submit(request, request_id=rid, wait=False)
+
+    def until(st):
+        if not killed and st["workers"]["kills"] >= kills:
+            killed.append(time.time())
+        return bool(killed) and time.time() - killed[0] > 5.0
+    _sample_memory(torch, client, until, samples)
+    return samples, client.wait_result(rid, timeout=POOL_TIMEOUT_S)["reply"]
+
+
+def run_pool_deadline(torch, log_root: Path, name: str, rid: str, deadline: float) -> dict:
+    """A ``pool_deadline`` server (``--workers 1 --cell-deadline deadline
+    --attempts 1``): a cold SERVICE_REQUEST as ``rid``, its worker killed
+    by the parent in its first cell, the card's memory sampled around the
+    kill; then a probe request on the replacement."""
+    run = start_pool(log_root, name, ("--workers", "1", "--cell-deadline", str(deadline),
+                                      "--attempts", "1"))
+    client = run["client"]
+    try:
+        (run["pid0"],) = run["pids"].values()
+        run["samples"], run["reply"] = _killed(torch, client, rid, SERVICE_REQUEST, 1)
+        run["probe"] = client.submit({"kind": "probe", "cells": [{"label": "p", "op": "ok"}]},
+                                     request_id=f"{rid}-probe")
+        run["status"] = client.status()
+    finally:
+        stop_pool(run)
+    run.update(rid=rid, deadline=deadline)
+    return run
+
+
+def run_pool_sticky(torch, log_root: Path) -> dict:
+    """``pool_sticky``'s server (``--workers 1 --attempts 2``) with
+    CHIP_POOL_STICKY: SERVICE_REQUEST whose worker's context dies at its
+    first launch; the card's memory sampled until the reply."""
+    sentinel = log_root / "pool_sticky.fired"
+    run = start_pool(log_root, "pool_sticky", ("--workers", "1", "--attempts", "2"),
+                     {"CHIP_POOL_STICKY": str(sentinel)})
+    client = run["client"]
+    (pid0,) = run["pids"].values()
+    samples = []
+    try:
+        t = time.perf_counter()
+        client.submit(SERVICE_REQUEST, request_id="st-1", wait=False)
+        _sample_memory(torch, client, lambda st: st.get("served", 0) >= 1, samples)
+        run["reply"] = client.wait_result("st-1", timeout=POOL_TIMEOUT_S)["reply"]
+        run["wall"] = time.perf_counter() - t
+        run["status"] = client.status()
+    finally:
+        stop_pool(run)
+    run.update(pid0=pid0, samples=samples, fired=sentinel.exists())
+    return run
+
+
+def cuda_deadline(sim: dict) -> float:
+    """pool_deadline_cuda's cell deadline, from pool_simulate's cold request
+    on this machine: the seconds from its start to its worker's first
+    reserved bytes, plus half its first round, less the parent's slack.
+    The kill then lands in a cold worker's first round, its CUDA work
+    under way, however slow the host is."""
+    from blades_tpu_torch.service.server import DEADLINE_SLACK_S
+
+    started = next(r["ts"] for r in sim["trace"] if r.get("t") == "request"
+                   and r.get("event") == "started" and r.get("id") == "pool-cold")
+    pid = sim["pids"][_finished(sim["trace"])["pool-cold"]["worker"]]
+    first = next((r["ts"] for r in sim["mem"].get(pid, [])
+                  if r["ts"] >= started and r["reserved"] > 0), None)
+    check(first is not None and sim["cell_spans"]["pool-cold"]["round_s"],
+          "pool_deadline: pool_simulate's cold request has no CUDA reading or round")
+    first_round = sim["cell_spans"]["pool-cold"]["round_s"][0]
+    return round(first - started + first_round / 2 - DEADLINE_SLACK_S, 1)
+
+
+def run_pool(torch, log_root: Path) -> dict:
+    """The pool phases' servers: pool_simulate then pool_sticky in one
+    thread, pool_deadline's two in another, the second once pool_simulate
+    has given its deadline."""
+    from concurrent.futures import Future, ThreadPoolExecutor
+
+    simulated = Future()
+
+    def deadlines():
+        cold = run_pool_deadline(torch, log_root, "pool_deadline", "dl-cold", POOL_DEADLINE_S)
+        return [cold, run_pool_deadline(torch, log_root, "pool_deadline_cuda", "dl-cuda",
+                                        cuda_deadline(simulated.result()))]
+
+    with ThreadPoolExecutor(max_workers=1) as side:
+        deadline = side.submit(deadlines)
+        try:
+            simulate = run_pool_simulate(log_root)
+        except BaseException as e:
+            simulated.set_exception(e)
+            raise
+        simulated.set_result(simulate)
+        sticky = run_pool_sticky(torch, log_root)
+        return {"simulate": simulate, "deadline": deadline.result(), "sticky": sticky}
+
+
+def _held_total(run: dict) -> tuple:
+    """(launches, held, largest error, elements off TOL) of a server's
+    workers that exited cleanly."""
+    files = run["held_files"]
+    return (sum(f["launches"] for f in files), sum(f["held"] for f in files),
+            max((f["max_abs_err"] for f in files), default=0.0),
+            sum(f["elements_off_tol"] for f in files))
+
+
+def _cell_of(reply: dict) -> dict:
+    cells = reply.get("cells") or [{}]
+    return {k: (cells[0].get("result") or {}).get(k) for k in ("loss", "params_sha")}
+
+
+def _builds(records: list) -> list:
+    return [r for r in records if r["outcome"] != "warm-reuse"]
+
+
+def report_pool_simulate(run: dict, service_cell: dict, direct: dict, card: str) -> int:
+    """``pool_simulate``: the records and checks; returns the launches in
+    its workers."""
+    fin = _finished(run["trace"])
+    split = ("queue_wait_s", "build_s", "execute_s", "total_s", "warm", "compiles", "worker")
+    launches, n_held, err, bad = _held_total(run)
+    by_pid = {f["pid"]: f for f in run["held_files"]}
+    a = fin["pool-cold"]["worker"]
+    held_a = by_pid.get(run["pids"][a], {})
+    counters = held_a.get("counters", {})
+    builds = _builds(run["programs"]["pool-cold"])
+    tiled = {"trace_s": sum(r.get("trace_s", 0.0) for r in builds),
+             "compile_s": sum(r.get("compile_s", 0.0) for r in builds),
+             "compiles": sum(r.get("compiles", 0) for r in builds),
+             "cache_hits": sum(r.get("cache_hits", 0) for r in builds)}
+    mirror = {"trace_s": counters.get("cuda.graph_capture_s", 0.0),
+              "compile_s": counters.get("cuda.kernel_build_s", 0.0),
+              "compiles": counters.get("cuda.kernel_builds", 0)
+              + counters.get("cuda.graph_captures", 0),
+              "cache_hits": counters.get("cuda.kernel_reuses", 0)}
+    spans = run["cell_spans"]["pool-cold"]
+    first_round = spans["round_s"][0] if spans["round_s"] else None
+    # the first round's own build records: the first of each scope it opens
+    in_round = [next((r for r in run["programs"]["pool-cold"] if r["program"] == p), {})
+                for p in ROUND_SCOPES]
+    explained = sum(r.get("trace_s", 0.0) + r.get("compile_s", 0.0) for r in in_round)
+    emit({"phase": "pool_simulate", "request": SERVICE_CELL, "other": POOL_OTHER_CELL,
+          "workers_ready_s": run["ready_s"], "spawn_to_ready_s": _spawn_to_ready(run["trace"]),
+          "torch_before_first_simulate": run["torch_before"],
+          "torch_after": run["torch_after"],
+          "requests": {rid: {k: fin[rid].get(k) for k in split} for rid in fin},
+          "submit_wall_s": run["walls"],
+          "mem_idle": {w: _worker_mem(run, p, run["t0"] + run["ready_s"])
+                       for w, p in run["pids"].items()},
+          "mem_warm": {w: _worker_mem(run, p, run["warm_ts"]) for w, p in run["pids"].items()},
+          "program_records": run["programs"], "cold_build_records_tiled": tiled,
+          "worker_a_counters": mirror, "worker_a_unattributed":
+              held_a.get("programs", {}).get("unattributed"),
+          "cell_spans": run["cell_spans"], "first_round_s": first_round,
+          "first_round_records": in_round, "first_round_explained_s": explained,
+          "first_round_unexplained_share": (1 - explained / first_round) if first_round
+          else None,
+          "held": run["held_files"], "launches": launches, "max_abs_err": err,
+          "cell": _cell_of(run["replies"]["cold"]), "service_kernel_cell": service_cell,
+          "direct": direct, "drain_rc": run["rc"], "card": card})
+    check(all(r.get("ok") for r in run["replies"].values()),
+          f"pool_simulate: {run['replies']}\n{run['server_log']}\n{run['worker_err']}")
+    check(not any(run["torch_before"].values()), "pool_simulate: torch before a simulate")
+    check(fin["pool-warm"]["worker"] == a and fin["pool-other"]["worker"] != a,
+          f"pool_simulate: routing {[(r, fin[r]['worker']) for r in fin]}")
+    check(fin["pool-cold"]["warm"] is False and fin["pool-other"]["warm"] is False
+          and fin["pool-warm"]["warm"] is True and fin["pool-warm"]["build_s"] == 0,
+          f"pool_simulate: cold/warm {fin}")
+    check(_cell_of(run["replies"]["cold"]) == _cell_of(run["replies"]["warm"]) == service_cell
+          == direct, f"pool_simulate: the served cell {_cell_of(run['replies']['cold'])} is "
+          f"not service_kernel's {service_cell} or the direct run's {direct}")
+    check(len(run["held_files"]) == 2
+          and launches == n_held == len(run["replies"]) * SERVICE_CELL["rounds"]
+          and bad == 0 and all(f["launches"] == f["held"] for f in run["held_files"]),
+          f"pool_simulate: {run['held_files']}")
+    check(not _builds(run["programs"]["pool-warm"]) and builds
+          and all(abs(tiled[k] - mirror[k]) < 1e-6 for k in tiled),
+          f"pool_simulate: build records {tiled} against the worker's counters {mirror}; "
+          f"warm {run['programs']['pool-warm']}")
+    check(run["rc"] == 0, f"pool_simulate: drain rc {run['rc']}\n{run['server_log']}")
+    return launches
+
+
+def _memory_of(run: dict, event_ts: float) -> dict:
+    """Around a worker's death at ``event_ts``: its own last allocator
+    reading, whether its process is gone, the card's free memory at the
+    last sample before and each sample after, and the seconds until the
+    card's free memory rose by 90% of the worker's reserved bytes."""
+    import os
+
+    samples = run["samples"]
+    before = [s for s in samples if s[0] <= event_ts]
+    after = [s for s in samples if s[0] > event_ts]
+    free0 = before[-1][1] if before else None
+    worker = _worker_mem(run, run["pid0"], event_ts)
+    gain = worker["reserved_gb"] * 1e9
+    back = next((t for t, f in after
+                 if free0 is not None and gain > 0 and f - free0 >= 0.9 * gain), None)
+    return {"worker": worker,
+            "freed_gb": (max(f for _, f in after) - free0) / 1e9
+            if after and free0 is not None else None,
+            "process_gone": not os.path.exists(f"/proc/{run['pid0']}"),
+            "card_free_gb_before": free0 / 1e9 if free0 is not None else None,
+            "after": [[round(t - event_ts, 3), f / 1e9] for t, f in after],
+            "back_after_s": (back - event_ts) if back else None}
+
+
+def report_pool_deadline(runs: list, card: str) -> int:
+    """``pool_deadline``: the records and checks of its two servers;
+    returns the launches held in their workers (none: the killed ones'
+    are lost with them, and the replacements serve only probes)."""
+    out, total = {}, 0
+    for run in runs:
+        trace, rid = run["trace"], run["rid"]
+        kills = _worker_events(trace, "kill")
+        mem = _memory_of(run, kills[0]["ts"] if kills else time.time())
+        fin = _finished(trace)
+        launches, n_held, _, _ = _held_total(run)
+        total += launches
+        out[run["name"]] = {
+            "cell_deadline_s": run["deadline"], "kill": kills, "memory": mem,
+            "spawn_to_ready_s": _spawn_to_ready(trace), "quarantined_reply": run["reply"],
+            "probe_ok": run["probe"].get("ok"),
+            "requests": {r: {k: v.get(k) for k in ("outcome", "worker", "warm", "total_s")}
+                         for r, v in fin.items()},
+            "restarts": run["status"]["workers"]["restarts"], "drain_rc": run["rc"]}
+        name = f"pool_deadline ({run['name']})"
+        check(len(kills) == 1 and kills[0].get("request") == rid
+              and kills[0].get("cell") == SERVICE_CELL["label"]
+              and kills[0]["reason"] == "deadline", f"{name}: kills {kills}\n{run['server_log']}")
+        cells = run["reply"].get("cells") or [{}]
+        check(run["reply"].get("status") == "done" and cells[0].get("quarantined")
+              and cells[0].get("error_type") == "CellDeadlineExceeded",
+              f"{name}: {rid} {run['reply']}")
+        check(mem["process_gone"], f"{name}: the killed worker lives on: {mem}")
+        check(run["probe"].get("ok") and fin.get(f"{rid}-probe", {}).get("outcome") == "ok"
+              and [r for r, v in fin.items() if v.get("outcome") == "quarantined"] == [rid]
+              and run["status"]["workers"]["restarts"] == 1,
+              f"{name}: only the killed request is quarantined, the replacement serves: {fin}")
+        check(launches == n_held == 0, f"{name}: {run['held_files']}")
+        check(run["rc"] == 0, f"{name}: drain rc {run['rc']}\n{run['server_log']}")
+    cuda = out["pool_deadline_cuda"]
+    check(cuda["memory"]["worker"]["reserved_gb"] > 0,
+          f"pool_deadline: the {cuda['cell_deadline_s']} s kill came before any CUDA work: "
+          f"{cuda['memory']['worker']}")
+    emit({"phase": "pool_deadline", "servers": out, "card": card})
+    return total
+
+
+def report_pool_sticky(run: dict, service_cell: dict, card: str) -> int:
+    """``pool_sticky``: the records and checks; returns the launches held
+    in the replacement."""
+    trace = run["trace"]
+    crashes = _worker_events(trace, "crash")
+    crash_ts = crashes[0]["ts"] if crashes else time.time()
+    mem = _memory_of(run, crash_ts)
+    reply = run["reply"]
+    launches, n_held, err, bad = _held_total(run)
+    emit({"phase": "pool_sticky", "fired": run["fired"], "crash": crashes,
+          "restarts": run["status"]["workers"]["restarts"], "summary": reply.get("summary"),
+          "cell": _cell_of(reply), "wall_s": run["wall"], **mem,
+          "spawn_to_ready_s": _spawn_to_ready(trace),
+          "dead_worker_err": run["worker_err"].get("w0", "")[-600:],
+          "held": run["held_files"], "launches": launches, "max_abs_err": err,
+          "drain_rc": run["rc"], "card": card})
+    check(run["fired"] and len(crashes) == 1 and crashes[0].get("request") == "st-1"
+          and "DeviceLost" in run["worker_err"].get("w0", ""),
+          f"pool_sticky: {crashes}\n{run['worker_err']}\n{run['server_log']}")
+    check(reply.get("ok") and _cell_of(reply) == service_cell
+          and run["status"]["workers"]["restarts"] == 1
+          and reply["summary"]["quarantined"] == [],
+          f"pool_sticky: {reply} {run['status']['workers']}")
+    check(len(run["held_files"]) == 1 and launches == n_held == SERVICE_CELL["rounds"]
+          and bad == 0,
+          f"pool_sticky: {run['held_files']}")
+    check(mem["process_gone"] and mem["worker"]["reserved_gb"] > 0,
+          f"pool_sticky: the dead worker lives on, or never held memory: {mem}")
+    check(run["rc"] == 0, f"pool_sticky: drain rc {run['rc']}\n{run['server_log']}")
+    return launches
+
+
+def report_pool(pool: dict, service_cell: dict, direct: dict, card: str) -> int:
+    """The pool phases' records and checks; the launches held in workers."""
+    return (report_pool_simulate(pool["simulate"], service_cell, direct, card)
+            + report_pool_deadline(pool["deadline"], card)
+            + report_pool_sticky(pool["sticky"], service_cell, card))
 
 
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
@@ -6262,6 +6916,10 @@ def main() -> int:
     parser.add_argument("--service-only", action="store_true",
                         help="build the kernel, run only the simulation service's phases, "
                              "then the kernels line and the result line")
+    parser.add_argument("--pool-only", action="store_true",
+                        help="build the kernel, run only the worker pool's phases, "
+                             "service_kernel and the service drills, then the kernels line "
+                             "and the result line")
     parser.add_argument("--sticky-child", default=None, metavar="OUT",
                         help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
@@ -6330,16 +6988,19 @@ def main() -> int:
                                   count=False)
             resilient_phases(torch, trimmed, dev, card, Path(tmp), ref)
         return 0
-    if args.service_only:
+    if args.service_only or args.pool_only:
         with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
             os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
-            service = service_phases(torch, trimmed, dev, card, Path(tmp))
-        check(service["launches"] > 0, "the service path ran without the kernel")
+            service = service_phases(torch, trimmed, dev, card, Path(tmp),
+                                     pool_only=args.pool_only)
+        check(service["launches"] > 0 and service["pool_launches"] > 0,
+              "the service path ran without the kernel")
+        by_path = {"service": service["launches"], "service_pool": service["pool_launches"]}
         emit({"kernels": [{
             "name": "trimmed_mean", "route": "cuda",
             "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
             "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
-            "launches": service["launches"], "launches_by_path": {"service": service["launches"]},
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
             "shape_kdb": list(SERVICE_SHAPE), "max_abs_err": service["err"],
             **service["timings"]}]})
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -6490,12 +7151,15 @@ def main() -> int:
         # plain version
         resilient = resilient_phases(torch, trimmed, dev, card, Path(tmp), cert_ref)
         launches.update(resilient["launches"])
-        # the simulation service (slice 13b.1): the main path's MLP served
-        # cold and warm by a server process, the same request in this
+        # the simulation service (slices 13b.1, 13b.2): the main path's MLP
+        # served cold and warm by a server process and by its worker pool
+        # (every launch in a worker held), the same request in this
         # process (the kernel 3 times a request, each launch held), the
         # certify driver as a tenant and the service drills
         service = service_phases(torch, trimmed, dev, card, Path(tmp))
         launches["service"] = service["launches"]
+        # the worker pool (slice 13b.2): the launches held in its workers
+        launches["service_pool"] = service["pool_launches"]
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])

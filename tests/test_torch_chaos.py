@@ -111,19 +111,33 @@ def test_block_scheduling_neutral_under_faults_tier1(tmp_path):
 
 
 def test_the_service_part_raises_naming_slice_13b(tmp_path):
-    """Only the worker pool (slice 13b.2) is left of the service: a
-    ``SimulationService(workers=2)`` and ``examples/serve.py start
-    --workers 2`` raise and name it; the drills and ``--via-service`` run
-    (the cases below)."""
+    """The worker pool (slice 13b.2) was the last part of the service
+    that raised; now ``SimulationService(workers=2)`` builds and
+    ``examples/serve.py start --workers 2 --device cpu`` serves a probe
+    request in a worker and drains to exit 0 with its ``workers`` block."""
+    from blades_tpu_torch.service.client import ServiceClient
     from blades_tpu_torch.service.server import SimulationService
 
-    with pytest.raises(NotImplementedError, match="slice 13b.2"):
-        SimulationService(str(tmp_path / "svc"), workers=2)
-    proc = subprocess.run([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
-                           "--out", str(tmp_path / "svc2"), "--workers", "2"],
-                          capture_output=True, text=True, cwd=ROOT, env=_env(), timeout=120)
-    (line,) = [ln for ln in proc.stdout.splitlines() if ln.strip()]
-    assert proc.returncode == 1 and "slice 13b.2" in json.loads(line)["error"]
+    assert SimulationService(str(tmp_path / "svc"), workers=2).workers == 2
+    out = tmp_path / "svc2"
+    proc = subprocess.Popen([sys.executable, "-m", "blades_tpu_torch.examples.serve", "start",
+                             "--out", str(out), "--workers", "2", "--device", "cpu"],
+                            cwd=ROOT, env=_env(BLADES_LEDGER=str(tmp_path / "l.jsonl")),
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        client = ServiceClient(str(out / "service.sock"), connect_retries=100,
+                               connect_delay_s=0.1)
+        reply = client.submit({"kind": "probe", "cells": [{"label": "a", "op": "ok"}]})
+        client.drain()
+        stdout, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    (line,) = [ln for ln in stdout.splitlines() if ln.strip()]
+    summary = json.loads(line)
+    assert proc.returncode == 0 and reply["ok"] and summary["ok"] is True
+    assert summary["workers"]["size"] == 2 and summary["served"] == 1
 
 
 def test_service_flag_runs_the_drills(tmp_path_factory, capsys):
@@ -134,7 +148,26 @@ def test_service_flag_runs_the_drills(tmp_path_factory, capsys):
     assert rc == 0 and summary["ok"] is True and summary["metric"] == "chaos_service"
     assert [r["name"] for r in summary["scenarios"]] == [
         "poison_isolated", "backpressure", "deadline_hang", "drain_no_loss", "tenant_flood",
-        "preempt_resume"]
+        "preempt_resume", "worker_crash", "worker_hang"]
+
+
+def test_worker_drills_pass_as_in_the_jax_suite(tmp_path_factory, monkeypatch):
+    """``worker_crash`` and ``worker_hang`` against the port's pool (probe
+    workers on the CPU) pass, and their rows are the JAX suite's against
+    its own pool but for the wall."""
+    monkeypatch.setenv("OMP_NUM_THREADS", str(worker_threads()))
+    monkeypatch.delenv("BLADES_RESUME", raising=False)
+    rows = {}
+    for name, mod in (("port", chaos), ("jax", jax_chaos)):
+        # short base directories: a unix socket's path takes at most 108 bytes
+        out = str(tmp_path_factory.mktemp(name[0]))
+        rows[name] = [mod._scn_worker_crash(out), mod._scn_worker_hang(out)]
+    assert all(r["ok"] for r in rows["port"]), rows["port"]
+    strip = lambda rs: [{k: v for k, v in r.items() if k != "wall_s"} for r in rs]  # noqa: E731
+    assert strip(rows["port"]) == strip(rows["jax"])
+    crash = rows["port"][0]
+    assert crash["content_identical"] and crash["resumed_skipped"] == 1
+    assert crash["executed"] == 2 and crash["restarts"] == 1
 
 
 def test_via_service_runs_the_sweep_on_a_live_server(tmp_path, capsys):

@@ -3,6 +3,7 @@
 port leaves no ``jax`` in ``sys.modules``."""
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -408,3 +409,60 @@ def test_service_modules_are_covered_and_a_served_simulate_loads_no_jax(tmp_path
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
+
+
+def test_pool_and_provenance_modules_import_no_torch_and_a_probe_only_worker_never_loads_it(
+        tmp_path):
+    """``service/worker.py``, ``service/workers.py`` and
+    ``telemetry/programs.py`` are among the checked sources and import no
+    torch at module scope; a pool worker that served only probe requests
+    (a failing cell among them) never mapped torch's library, and one that
+    served a ``simulate`` cell mapped it but never JAX's."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ("service/worker.py", "service/workers.py", "telemetry/programs.py"):
+        assert pkg / rel in files
+    code = (
+        "import json, sys, threading\n"
+        "from blades_tpu_torch.service import worker, workers\n"
+        "from blades_tpu_torch.telemetry import programs\n"
+        "from blades_tpu_torch.service.client import ServiceClient\n"
+        "from blades_tpu_torch.service.server import SimulationService\n"
+        "assert 'torch' not in sys.modules, 'import'\n"
+        "def maps(pid):\n"
+        "    text = open(f'/proc/{pid}/maps').read()\n"
+        "    return {'torch': 'libtorch' in text, 'jax': 'jaxlib' in text or 'xla_extension' in text}\n"
+        "svc = SimulationService('svc', workers=2, device='cpu', base_delay_s=0.0, poll_s=0.05)\n"
+        "seen = {}\n"
+        "def drive():\n"
+        "    c = ServiceClient(svc.socket_path, connect_retries=200, connect_delay_s=0.05,\n"
+        "                      timeout=300)\n"
+        "    seen['probe'] = c.submit({'kind': 'probe', 'cells': [{'label': 'ok', 'op': 'ok'},\n"
+        "                                                          {'label': 'bad', 'op': 'fail'}]})\n"
+        "    by = c.status()['workers']['by_worker']\n"
+        "    seen['after_probe'] = {w: maps(b['pid']) for w, b in by.items()}\n"
+        "    seen['sim'] = c.submit({'kind': 'simulate', 'cells': [{'agg': 'mean', 'rounds': 1}]})\n"
+        "    by = c.status()['workers']['by_worker']\n"
+        "    seen['after_sim'] = {w: (b['served'], maps(b['pid'])) for w, b in by.items()}\n"
+        "    c.drain()\n"
+        "t = threading.Thread(target=drive)\n"
+        "t.start()\n"
+        "svc.serve()\n"
+        "t.join()\n"
+        "assert seen['sim']['ok'], seen['sim']\n"
+        "print(json.dumps({k: seen[k] for k in ('after_probe', 'after_sim')}))\n"
+        "print('SERVER TORCH', 'torch' in sys.modules)\n"
+    )
+    env = _subprocess_env()
+    env["BLADES_LEDGER"] = str(tmp_path / "ledger.jsonl")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    lines = proc.stdout.strip().splitlines()
+    seen = json.loads(lines[-2])
+    assert lines[-1] == "SERVER TORCH False"
+    assert seen["after_probe"] and not any(m["torch"] or m["jax"]
+                                           for m in seen["after_probe"].values())
+    # the simulate cell's worker, and only it, mapped torch
+    after = [m for _, m in seen["after_sim"].values()]
+    assert sum(m["torch"] for m in after) == 1 and not any(m["jax"] for m in after)

@@ -192,7 +192,8 @@ def test_service_drills_and_sigkill_resume_on_the_port(tmp_path_factory, monkeyp
     rows = {r["name"]: r for r in summary["scenarios"]}
     assert summary["ok"], summary
     assert set(rows) == {"poison_isolated", "backpressure", "deadline_hang", "drain_no_loss",
-                         "tenant_flood", "preempt_resume", "sigkill_resume"}
+                         "tenant_flood", "preempt_resume", "worker_crash", "worker_hang",
+                         "sigkill_resume"}
     kill = rows["sigkill_resume"]
     assert kill["content_identical"] and kill["resumed_skipped"] == 2 and kill["executed"] == 2
 
