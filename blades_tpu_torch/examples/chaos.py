@@ -834,10 +834,9 @@ def child_main(args) -> None:
     import numpy as np
     import torch
 
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    from blades_tpu_torch.utils.platform import apply_numerics
+
+    apply_numerics()
 
     scn = make_scenario(args.seed)
     # beside the log directory, which a relaunched Simulator wipes; a fresh

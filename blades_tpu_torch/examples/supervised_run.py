@@ -94,12 +94,10 @@ def child_main(args) -> None:
     from blades_tpu_torch.ops import _build, trimmed
     from blades_tpu_torch.ops.pytree import ravel
     from blades_tpu_torch.telemetry.recorder import process_counters
+    from blades_tpu_torch.utils.platform import apply_numerics
 
     note("imports")
-    torch.backends.cudnn.deterministic = True
-    torch.backends.cudnn.benchmark = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
+    apply_numerics()
     on_card = args.device != "cpu"
     if on_card:
         torch.cuda.init()

@@ -183,6 +183,7 @@ evaluation, and at f=20, the sort; the median and Krum at f=10), and the
 kernel at [100, 283723], b=10, against its plain version and timed beside
 its bound and the library call; then the certify script
 (``blades_tpu_torch/examples/certify.py``) in its committed configuration
+less the staleness columns (CERT_ARGS)
 on the card through its ``main``, against a CPU run of the same (a
 subprocess started before the text phases): verdicts exactly, ratios at CERT_TOL,
 the kernel's launches equal to the plan's unmasked trimmed-mean
@@ -205,7 +206,7 @@ at K=1000 in 4 chunks in f32 and bf16 (and, among the text phases,
 cold and warm rounds, peak memory and the updates compared.
 
 Then resilient sweeps and the run supervisor (slice 13a), after the vmap
-phases: the certify driver's committed configuration again through its
+phases: the certify phase's configuration again through its
 ``main`` with ``--attempts 2`` and a runner that fails one cell
 (RESIL_POISON): that cell alone quarantined by bisection, every other
 result bit for bit the ``certify`` phase's, the launches the plan's; a
@@ -283,6 +284,28 @@ kernel's raw entry on an address nothing owns; the worker exits with
 with the held cell. Every served cell is bit for bit ``service_kernel``'s
 and the direct run's. ``--pool-only`` runs ``service_kernel``, these
 phases and the drills, then the ``kernels`` line and the result line.
+
+Last, the reference CLI and the JAX examples' counterparts (slice 15a),
+each through its own ``main`` in a working directory of its own, with the
+card's numerics as the driver sets them (``utils/platform.py``) and put
+back after, every kernel launch held against the plain version:
+``drivers_cli_cifar10`` runs ``examples/cifar10.py`` on CIFAR-10 files of
+the published layout with the reference recipe (CCT-2, K=20, ALIE f=8,
+trimmed mean b=8, Adam persisting, 50 local steps of batch 32), 3 rounds
+with validation each round: the cold and warm rounds, the local steps'
+share of each (from the run's telemetry spans), the peak memory, one
+launch a round, and the kernel timed at ``[20, 283723]``, b=8, tied and
+untied; ``drivers_config1`` runs ``convergence_config1`` at its own
+settings (3 runs of 100 rounds of 50 local steps, the MLP at K=10), 100
+launches in its trimmed-mean run; ``drivers_examples`` runs the other
+examples once, at their own settings but for ``customize_attack``
+(DRIVERS_ATTACK_ROUNDS rounds) and the robustness matrix (its trimmed-mean
+column, whose expectations are checked), with their own assertions
+(FLTrust's margin among them). ``--drivers-only`` runs only these phases,
+then the ``kernels`` line (these paths alone) and the result line.
+
+Every JSON line carries ``elapsed_s``, the seconds since the script
+started, and ``since_last_s``, the seconds since the line before.
 
 Imports nothing of JAX or of the JAX package ``blades_tpu``.
 """
@@ -433,12 +456,18 @@ RESNET_ROW_REL, RESNET_F64_REL, RESNET_F64_BATCH = 2e-3, 1e-6, 16
 RECORDS_ROUNDS, RECORDS_BLOCK, NAN_CLIENTS, NAN_CLIENT_LR = 3, 2, 10, 1e20
 # defense certification (slice 10b): the certify script's committed
 # configuration (its defaults: the whole pool, the default grids, K=8,
-# D=32, 3 trials, seed 0, both staleness columns) on the card against a
+# D=32, 3 trials, seed 0), synchronous cells only, on the card against a
 # CPU run of the same (a subprocess on CERT_CPU_THREADS threads, running
 # beside the card phases); the search ratios at CERT_TOL. Then one search
 # cell each at K=100 (BASELINE config 2's population) and CCT-2's D
 CERT_TOL = dict(rtol=1e-4, atol=1e-6)
 CERT_CPU_THREADS = 4
+#: the committed configuration's synchronous cells (its 64 cells and 16
+#: batteries of 208 specs): the staleness columns doubled the certify
+#: phase (66-93 s on the card) and the whole script passed 1050 s; they
+#: stay on the card in service_certify's --quick request against its
+#: in-process run
+CERT_ARGS = ("--no-async",)
 #: the defenses of the certify phase's counted run: the kernel's, so it
 #: keeps every launch of the timed run at a sixteenth of its cells
 CERT_COUNTED_AGGS = ("trimmedmean",)
@@ -476,9 +505,11 @@ TEXT_CPU_CLIENTS, TEXT_CPU_BYZANTINE, TEXT_MAX_KINK_ROWS = 3, 1, 1
 # ExperimentBatch(mode="vmap") (slice 7b) against map mode: the experiments
 # of the MLP at K=1000, of BASELINE config 1's shape (K=10, 50 local steps),
 # of bf16 CCT-2 at K=1000 and of the looping cells (a fault model, GeoMed);
-# the warm rounds timed in each mode; remat (slice 2b): the warm rounds
+# the warm rounds timed in each mode (one since the whole script reached
+# 1050 s with the slice 15a phases: config 1's S=64 map round is the
+# largest of them); remat (slice 2b): the warm rounds
 VMAP_MLP_S, VMAP_CONFIG1_S, VMAP_CONFIG1_STEPS, VMAP_CCT2_S, VMAP_LOOP_S = 8, 64, 50, 2, 4
-VMAP_WARM, REMAT_WARM = 2, 2
+VMAP_WARM, REMAT_WARM = 1, 2
 VMAP_BIG_SHAPE = (2, 100, 10_800_000, 10)  # [S, K, D, b]: S*K*D past 2^31 (8.64 GB)
 # resilient sweeps and supervision (slice 13a): the poison cell of the
 # certify driver's committed configuration; the OOM group (OOM_CELLS
@@ -493,7 +524,10 @@ VMAP_BIG_SHAPE = (2, 100, 10_800_000, 10)  # [S, K, D, b]: S*K*D past 2^31 (8.64
 # 1.35-1.97 s, PR 9), its SIGTERM grace above the crash autosave; the
 # chaos sweep (one seed for each defense of the pool) and its supervised
 # SIGKILL child
-RESIL_POISON = "trimmedmean/f2"
+#: (a trimmed-mean cell that shares its group, here with the trimmed
+#: mean's battery: under CERT_ARGS a cell of its own, as trimmedmean/f2 is,
+#: is quarantined with no bisection)
+RESIL_POISON = "trimmedmean/f3"
 #: the defenses of resilient_certify's matrix (``--aggs``): the poisoned
 #: cell's and two headline ones, a fifth of the committed configuration's
 #: cells, to keep the script within its time limit
@@ -518,7 +552,18 @@ SERVICE_CERT_ARGS = ("--quick",)
 SERVICE_SHAPE = (MAIN_CLIENTS, 59_850, MAIN_BYZANTINE)
 
 
+#: the script's start, for the elapsed stamp on every line
+T0 = time.perf_counter()
+_LAST_EMIT = [T0]
+
+
 def emit(record: dict) -> None:
+    """One JSON line, stamped with the seconds since the script started
+    (``elapsed_s``) and since the line before (``since_last_s``)."""
+    now = time.perf_counter()
+    record = {**record, "elapsed_s": round(now - T0, 3),
+              "since_last_s": round(now - _LAST_EMIT[0], 3)}
+    _LAST_EMIT[0] = now
     print(json.dumps(record), flush=True)
 
 
@@ -4662,7 +4707,8 @@ def cpu_certify(out_path: str) -> int:
     from blades_tpu_torch.examples import certify
 
     torch.set_num_threads(CERT_CPU_THREADS)
-    args = certify.parse_args(["--device", "cpu", "--out", str(Path(out_path).parent)])
+    args = certify.parse_args([*CERT_ARGS, "--device", "cpu",
+                               "--out", str(Path(out_path).parent)])
     t0 = time.perf_counter()
     plans, specs = certify.enumerate_cells(args, "cpu")
     results, walls, report = certify.execute_cells(args, plans, specs)
@@ -4722,8 +4768,9 @@ def certify_expected_launches(specs, k: int, trials: int, grids: dict) -> tuple:
 
 def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool,
                     aggs: tuple = ()) -> dict:
-    """One run of the certify script's ``main`` on the card in its committed
-    configuration (cut to ``aggs`` where given), the matrix into
+    """One run of the certify script's ``main`` on the card in the certify
+    phase's configuration (CERT_ARGS; cut to ``aggs`` where given), the
+    matrix into
     ``out_dir``: its wall, kernel launches, summary line, matrix, cells and
     results. With ``count`` it also counts the host syncs (sync debug
     mode, which slows the host: that run's wall is not the script's) and
@@ -4750,7 +4797,7 @@ def certify_on_card(torch, trimmed, certify, dev, out_dir: Path, count: bool,
         return out
 
     def run():
-        kept["rc"] = certify.main(["--device", str(dev), "--out", str(out_dir),
+        kept["rc"] = certify.main([*CERT_ARGS, "--device", str(dev), "--out", str(out_dir),
                                    *(("--aggs", *aggs) if aggs else ())])
 
     certify.enumerate_cells, certify.execute_cells = enumerate_cells, execute_cells
@@ -4848,7 +4895,8 @@ def certify_kernel_shapes(torch, trimmed, seen: list, card: str) -> tuple:
 
 def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple) -> tuple:
     """The certify script (``blades_tpu_torch/examples/certify.py``) on the
-    card through its ``main``, in its committed configuration, the matrix
+    card through its ``main``, in its committed configuration less the
+    staleness columns (CERT_ARGS), the matrix
     into the run's temporary directory, against the same run on the CPU
     (``cpu_run``: a subprocess started before the text phases, ended by
     now): ``ok`` (the headline expectations
@@ -4869,7 +4917,7 @@ def phase_certify(torch, trimmed, dev, card: str, log_root: Path, cpu_run: tuple
     timed = certify_on_card(torch, trimmed, certify, dev, log_root / "certify", count=False)
     counted = certify_on_card(torch, trimmed, certify, dev, log_root / "certify_counted",
                               count=True, aggs=CERT_COUNTED_AGGS)
-    args = certify.parse_args([])
+    args = certify.parse_args(list(CERT_ARGS))
     search, battery = certify_expected_launches(timed["specs"], args.clients, args.trials,
                                                 DEFAULT_GRIDS)
     for name, run in (("timed", timed), ("counted", counted)):
@@ -5370,7 +5418,7 @@ class _HeldKernel:
 
 
 def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref: dict) -> tuple:
-    """The certify driver's committed configuration cut to RESIL_AGGS,
+    """The certify phase's configuration (CERT_ARGS) cut to RESIL_AGGS,
     through its ``main`` with ``--attempts 2``, a
     ``ResilienceOptions.runner`` that raises for RESIL_POISON and
     otherwise calls ``sweeps._execute_group``: that cell's
@@ -5411,7 +5459,8 @@ def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref:
     t0 = time.perf_counter()
     try:
         with _HeldKernel(torch, trimmed) as held, contextlib.redirect_stdout(buf):
-            rc = certify.main(["--device", str(dev), "--attempts", "2", "--aggs", *RESIL_AGGS,
+            rc = certify.main([*CERT_ARGS, "--device", str(dev), "--attempts", "2",
+                               "--aggs", *RESIL_AGGS,
                                "--out", str(out_dir)])
         torch.cuda.synchronize()
     finally:
@@ -5431,7 +5480,7 @@ def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref:
                 for r in ref["matrix"]["cells"] + ref["matrix"]["async_cells"]
                 if r["agg"] in RESIL_AGGS}
     rows_differ = [list(k) for k, v in ref_rows.items() if rows.get(k) != v]
-    args = certify.parse_args([])
+    args = certify.parse_args(list(CERT_ARGS))
     search, battery = certify_expected_launches(
         [s for s in kept["specs"] if s.label != RESIL_POISON], args.clients, args.trials,
         DEFAULT_GRIDS)
@@ -5455,7 +5504,8 @@ def phase_resilient_certify(torch, trimmed, dev, card: str, log_root: Path, ref:
           and [r["cell"] for r in journal if r.get("kind") == "quarantine"] == [RESIL_POISON],
           "resilient_certify: the quarantine records")
     check(report.retried >= 1 and report.degraded_groups >= 1, f"resilient_certify: {report}")
-    check(not differ and rows_differ == [["trimmedmean", 2, None]],
+    poison_agg, _, poison_f = RESIL_POISON.partition("/f")
+    check(not differ and rows_differ == [[poison_agg, int(poison_f), None]],
           f"resilient_certify: results {differ[:10]}, rows {rows_differ}")
     check(launches == search + battery == held_n and off == 0,
           f"resilient_certify: {launches} launches ({held_n} held, {off} elements off TOL), "
@@ -6843,6 +6893,327 @@ def report_pool(pool: dict, service_cell: dict, direct: dict, card: str) -> int:
             + report_pool_sticky(pool["sticky"], service_cell, card))
 
 
+# -- the reference CLI and the JAX examples (slice 15a) --------------------------------
+# The drivers under blades_tpu_torch/examples/ run through their own main(argv)
+# in this process, in a working directory of their own, the card's numerics
+# as each driver sets them (utils/platform.py:apply_numerics) and put back
+# after; every kernel launch held against the plain version.
+
+#: the CLI's CCT-2 run: the reference recipe (K=20, f=8 ALIE, trimmed mean
+#: b=8, Adam persisting, 50 local steps of batch 32) on CIFAR-10 files of
+#: the published layout, DRIVERS_CLI_ROUNDS rounds with validation each round
+DRIVERS_CLI_ROUNDS, DRIVERS_CLI_STEPS = 3, 50
+DRIVERS_CLI_ARGV = ("--model", "cct", "--agg", "trimmedmean", "--attack", "alie",
+                    "--num_clients", "20", "--num_byzantine", "8",
+                    "--local_round", str(DRIVERS_CLI_STEPS),
+                    "--batch_size", "32", "--global_round", str(DRIVERS_CLI_ROUNDS),
+                    "--log_interval", "1")
+DRIVERS_CLI_SHAPE = (20, 283_723, 8)
+#: config 1's own rounds (of 50 local steps, in each of its 3 runs)
+DRIVERS_CONFIG1_ROUNDS = 100
+#: customize_attack's rounds on the card (50 of 50 local steps in the
+#: example, 15.5 s on the H100): its claim, a finite run with the
+#: registered attackers, holds at any depth
+DRIVERS_ATTACK_ROUNDS = 10
+#: the robustness matrix's sub-grid on the card: the kernel's column under
+#: every attack (its expectations checked cell by cell)
+DRIVERS_MATRIX_AGGS = ("trimmedmean",)
+#: the other examples, in the order run, with their argv (their own
+#: settings; each runs in a working directory of its own, so "out" is its)
+DRIVERS_EXAMPLES = (
+    ("simulation_on_mnist", ("--data-root", "no_data", "--out", "out")),
+    ("robustness_matrix", ("--aggs", *DRIVERS_MATRIX_AGGS, "--out", "out")),
+    ("customize_aggregator", ()),
+    ("customize_attack", ("--synthetic",)),
+    ("fltrust_example", ()),
+    ("fault_injection", ("--out", "out")),
+    ("streaming_clients", ("--out", "out")),
+    ("async_fedbuff", ("--out", "out")),
+    ("metrics_trace", ("--out", "out")),
+)
+#: the examples whose runs reach the kernel (the dense trimmed mean)
+DRIVERS_ON_KERNEL = ("simulation_on_mnist", "robustness_matrix", "streaming_clients")
+
+
+class _Numerics:
+    """cuDNN's deterministic switch saved on entry and put back on exit: each
+    driver turns it on for its process (``apply_numerics``, which also sets
+    the other three switches as the script keeps them: cuDNN's benchmark
+    search and TF32 off)."""
+
+    def __enter__(self):
+        import torch
+
+        self.deterministic = torch.backends.cudnn.deterministic
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.deterministic = self.deterministic
+        return False
+
+
+def round_spans(trace: Path) -> list:
+    """Each round's spans from a run's telemetry trace: the ``round`` span's
+    seconds and its children's (``sample``, ``dispatch``, ``sync``,
+    ``eval``), by name."""
+    out, cur = [], {}
+    for line in trace.read_text().splitlines():
+        r = json.loads(line)
+        if r.get("t") != "span" or not r["path"].startswith("round"):
+            continue
+        head, _, child = r["path"].partition("/")
+        if head != "round":
+            continue
+        if child:
+            cur[child] = cur.get(child, 0.0) + r["dur_s"]
+        else:
+            out.append({**cur, "round": r["dur_s"]})
+            cur = {}
+    return out
+
+
+def phase_drivers_cli(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
+    """``drivers_cli_cifar10``: ``examples/cifar10.py``'s ``main`` on
+    CIFAR-10 files (``write_cifar10``) with DRIVERS_CLI_ARGV and no
+    ``--device`` (the card): the cold and warm rounds, each round's spans
+    from the run's telemetry trace (the local steps' seconds are the round
+    less its validation), the peak memory, one launch a round, each held
+    against the plain version; the kernel timed
+    at the round's ``[20, 283723]``, b=8, on the first launch's input.
+    Returns the launches, the largest error and the timings."""
+    import contextlib
+
+    from blades_tpu_torch.examples import cifar10
+    from blades_tpu_torch.utils.logging import read_stats
+    from blades_tpu_torch.utils.platform import numerics
+
+    base = log_root / "drivers_cli"
+    t0 = time.perf_counter()
+    write_cifar10(base / "data")
+    write_s = time.perf_counter() - t0
+
+    class Timed(cifar10.Simulator):
+        def run(self, *a, **kw):
+            self.round_s = super().run(*a, **kw)
+            return self.round_s
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    saved, cifar10.Simulator = cifar10.Simulator, Timed
+    try:
+        trimmed.trimmed_mean_launches = 0
+        with _Numerics(), contextlib.chdir(base), \
+                _HeldKernel(torch, trimmed, keep_first=True) as held:
+            t0 = time.perf_counter()
+            sim = cifar10.main(list(DRIVERS_CLI_ARGV))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            during = numerics()
+        launches = trimmed.trimmed_mean_launches
+    finally:
+        cifar10.Simulator = saved
+    peak = torch.cuda.max_memory_allocated()
+    log_dir = base / cifar10.parse_arguments(list(DRIVERS_CLI_ARGV)).log_dir
+    train, test = read_stats(str(log_dir), "train"), read_stats(str(log_dir), "test")
+    spans = round_spans(log_dir / "telemetry.jsonl")
+    # the local steps' share of each round: the round without its validation
+    steps_s = [r["round"] - r.get("eval", 0.0) for r in spans]
+    n_held, err, bad = held.result()
+    x, b = held.first
+    k, d = x.shape
+    bnd, by = bound_ms(k, d)
+    timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
+                   plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1),
+                   library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=5,
+                                      warmup=1),
+                   bound_ms=bnd, bound_by=by)
+    # ALIE's f=8 identical rows tie in every column; the same shape untied
+    untied = torch.randn(k, d, device=x.device, generator=torch.Generator(
+        device=x.device).manual_seed(0)) * x.std()
+    untied_ms = time_ms(lambda: trimmed.trimmed_mean_cuda(untied, b), reps=20)
+    untied_library_ms = time_ms(lambda: torch.sort(untied, 0)[0][b:k - b].mean(0), reps=5,
+                                warmup=1)
+    emit({"phase": "drivers_cli_cifar10", "argv": list(DRIVERS_CLI_ARGV),
+          "dataset": type(sim.dataset).__name__, "store_dtype": str(sim.dataset.train_x.dtype),
+          "device": str(sim.device), "model_dim": sim.engine.dim,
+          "client_opt": repr(sim.engine.client_opt), "numerics": during,
+          "write_files_s": write_s, "wall_s": wall, "cold_round_s": sim.round_s[0],
+          "warm_round_s": sim.round_s[1:], "round_spans_s": spans, "steps_s": steps_s,
+          "step_ms": [t / DRIVERS_CLI_STEPS * 1e3 for t in steps_s],
+          "peak_mem_bytes": peak, "launches": launches,
+          "held": n_held, "max_abs_err": err, "elements_off_tol": bad,
+          "train_loss": [r["Loss"] for r in train],
+          "test": [{n: r[n] for n in ("Round", "Loss", "top1")} for r in test],
+          "shape_kdb": [k, d, b], **timings, "share_of_bound": bnd / timings["ms"],
+          "untied_ms": untied_ms, "untied_library_ms": untied_library_ms, "card": card})
+    check(sim.device.type == "cuda" and sim.engine.dim == DRIVERS_CLI_SHAPE[1],
+          f"drivers_cli_cifar10: {sim.device}, D = {sim.engine.dim}")
+    check((k, d, b) == DRIVERS_CLI_SHAPE, f"drivers_cli_cifar10: the kernel saw {(k, d, b)}")
+    check(launches == DRIVERS_CLI_ROUNDS and n_held == launches and bad == 0,
+          f"drivers_cli_cifar10: {launches} launches, {n_held} held, {bad} off {TOL}")
+    check(len(train) == len(test) == len(spans) == DRIVERS_CLI_ROUNDS
+          and all(math.isfinite(r["Loss"]) for r in train + test),
+          f"drivers_cli_cifar10: records {train} {test} {spans}")
+    check(during == {"cudnn_deterministic": True, "cudnn_benchmark": False,
+                     "matmul_allow_tf32": False, "cudnn_allow_tf32": False},
+          f"drivers_cli_cifar10: numerics {during}")
+    return launches, err, timings
+
+
+def phase_drivers_config1(torch, trimmed, card: str, log_root: Path) -> tuple:
+    """``drivers_config1``: ``examples/convergence_config1.py``'s ``main``
+    at its own settings (3 runs of 100 rounds of 50 local steps, the MLP
+    at K=10, ALIE f=4), on its ``Synthetic`` fallback (no MNIST files): each
+    run's wall and launches (the trimmed-mean run's, one a round, each held
+    against the plain version). Returns the launches and the largest
+    error."""
+    from blades_tpu_torch.examples import convergence_config1 as c1
+
+    base = log_root / "drivers_config1"
+    base.mkdir(parents=True)
+    runs, run_one = [], c1.run_one
+
+    def timed_run_one(agg, *a, **kw):
+        trimmed.trimmed_mean_launches = 0
+        t0 = time.perf_counter()
+        out = run_one(agg, *a, **kw)
+        torch.cuda.synchronize()
+        runs.append({"aggregator": agg, "attack": kw.get("attack"),
+                     "wall_s": time.perf_counter() - t0,
+                     "launches": trimmed.trimmed_mean_launches, "dataset": out[1]})
+        return out
+
+    c1.run_one = timed_run_one
+    try:
+        with _Numerics(), _HeldKernel(torch, trimmed) as held:
+            t0 = time.perf_counter()
+            summary = c1.main(["--data-root", str(base / "no_data"), "--out", str(base / "out"),
+                               "--rounds", str(DRIVERS_CONFIG1_ROUNDS)])
+            wall = time.perf_counter() - t0
+    finally:
+        c1.run_one = run_one
+    n_held, err, bad = held.result()
+    launches = sum(r["launches"] for r in runs)
+    emit({"phase": "drivers_config1", "wall_s": wall, "runs": runs,
+          "final_top1": summary["final_top1"], "final_loss": summary["final_loss"],
+          "dataset": summary["dataset"], "launches": launches, "held": n_held,
+          "max_abs_err": err, "elements_off_tol": bad, "card": card})
+    check([r["launches"] for r in runs] == [0, 0, DRIVERS_CONFIG1_ROUNDS]
+          and n_held == launches and bad == 0,
+          f"drivers_config1: launches {runs}, {n_held} held, {bad} off {TOL}")
+    check(all(math.isfinite(v) for v in summary["final_loss"].values()),
+          f"drivers_config1: {summary['final_loss']}")
+    return launches, err
+
+
+def _matrix_expectations(mod, matrix: dict) -> list:
+    """The robustness matrix's expectations of the cells ``matrix`` holds
+    (a ``band_rel`` rule needs its column's ``none`` cell too)."""
+    rows, _ = mod.evaluate_expectations(matrix)
+    return [r for r in rows if r["agg"] in matrix.get(r["attack"], {})]
+
+
+#: what each example's record keeps of its ``main``'s return value
+_DRIVERS_RECORD = {
+    "simulation_on_mnist": lambda r: {"final_top1": r["final_top1"]},
+    "customize_aggregator": lambda r: {"top1": r},
+    "customize_attack": lambda r: {"rounds": DRIVERS_ATTACK_ROUNDS,
+                                   "num_byzantine": r.num_byzantine},
+    "fltrust_example": lambda r: {"top1": r},
+    "fault_injection": lambda r: r,
+    "streaming_clients": lambda r: {m: {"gauges": v["gauges"], "memory_records": v["memory"]}
+                                    for m, v in r.items()},
+    "async_fedbuff": lambda r: r,
+    "metrics_trace": lambda r: {n: r[n] for n in ("identical_under_block", "byz_away",
+                                                  "rounds")},
+}
+
+
+def phase_drivers_examples(torch, trimmed, card: str, log_root: Path) -> dict:
+    """``drivers_examples``: every other example of the slice once through
+    its ``main``, at its own settings (the robustness matrix on the
+    DRIVERS_MATRIX_AGGS column), in a directory of its own: its wall, its
+    launches (each held against the plain version) and whether its own
+    assertions held; the matrix's expectations on its column and
+    FLTrust's margin (20 rounds) are checked here. Returns the launches by
+    example and the largest error."""
+    import contextlib
+    import importlib
+    import os
+
+    from blades_tpu_torch.examples import customize_attack
+
+    out, errs = {}, []
+    env = {n: os.environ.get(n) for n in ("CA_OUT", "FT_OUT")}
+    attack_rounds = customize_attack.ROUNDS
+    customize_attack.ROUNDS = DRIVERS_ATTACK_ROUNDS
+    try:
+        for name, argv in DRIVERS_EXAMPLES:
+            base = log_root / "drivers_examples" / name
+            base.mkdir(parents=True)
+            os.environ.update(CA_OUT=str(base / "outputs"), FT_OUT=str(base / "outputs"))
+            mod = importlib.import_module(f"blades_tpu_torch.examples.{name}")
+            args = list(argv)  # relative paths: under ``base``, the working directory
+            trimmed.trimmed_mean_launches = 0
+            failure = None
+            with _Numerics(), contextlib.chdir(base), _HeldKernel(torch, trimmed) as held:
+                t0 = time.perf_counter()
+                try:
+                    result = mod.main(args)
+                except AssertionError as e:  # the example's own assertion
+                    result, failure = None, f"AssertionError: {e}"
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n_held, err, bad = held.result()
+            errs.append(err)
+            rec = {"wall_s": wall, "launches": trimmed.trimmed_mean_launches, "held": n_held,
+                   "elements_off_tol": bad, "assertions_held": failure is None,
+                   "failure": failure}
+            if name == "robustness_matrix":
+                rec["expectations"] = _matrix_expectations(mod, result)
+                rec["assertions_held"] &= all(c["ok"] for c in rec["expectations"])
+            elif result is not None:
+                rec.update(_DRIVERS_RECORD[name](result))
+            out[name] = rec
+            emit({"phase": "drivers_examples", "example": name, "argv": args, **rec,
+                  "max_abs_err": err, "card": card})
+    finally:
+        customize_attack.ROUNDS = attack_rounds
+        for n, v in env.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+    bad = {n: r for n, r in out.items() if not r["assertions_held"] or r["elements_off_tol"]
+           or r["held"] != r["launches"]}
+    check(not bad, f"drivers_examples: {bad}")
+    on = {n: out[n]["launches"] for n in DRIVERS_ON_KERNEL}
+    off = {n: r["launches"] for n, r in out.items() if n not in DRIVERS_ON_KERNEL}
+    check(all(on.values()) and not any(off.values()),
+          f"drivers_examples: launches on the kernel's paths {on}, elsewhere {off}")
+    check(out["metrics_trace"]["identical_under_block"], "drivers_examples: metrics_trace")
+    return {"launches": on, "off_kernel": off, "err": max(errs)}
+
+
+def drivers_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
+    """The slice 15a phases: the CLI's CCT-2 run, config 1, the other
+    examples. Returns the launches by path (each above 0), those of the
+    examples off the kernel (each 0), the largest error and the kernel's
+    timings at the CLI's shape."""
+    launches = {}
+    launches["drivers_cli_cifar10"], cli_err, timings = phase_drivers_cli(
+        torch, trimmed, dev, card, log_root)
+    launches["drivers_config1"], c1_err = phase_drivers_config1(torch, trimmed, card,
+                                                                log_root)
+    ex = phase_drivers_examples(torch, trimmed, card, log_root)
+    launches.update({f"drivers_{n}": v for n, v in ex["launches"].items()})
+    return {"launches": launches, "off_kernel": ex["off_kernel"],
+            "err": max(cli_err, c1_err, ex["err"]), "timings": timings}
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -6920,6 +7291,10 @@ def main() -> int:
                         help="build the kernel, run only the worker pool's phases, "
                              "service_kernel and the service drills, then the kernels line "
                              "and the result line")
+    parser.add_argument("--drivers-only", action="store_true",
+                        help="build the kernel, run only the reference CLI's and the "
+                             "examples' phases (slice 15a), then the kernels line and the "
+                             "result line")
     parser.add_argument("--sticky-child", default=None, metavar="OUT",
                         help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
@@ -6940,6 +7315,7 @@ def main() -> int:
     # directory (below): until then the ledger is off
     os.environ["BLADES_LEDGER"] = "0"
     from blades_tpu_torch.ops import _build, trimmed
+    from blades_tpu_torch.utils.platform import numerics
 
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6948,9 +7324,7 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
     emit({"phase": "env", "device": name, "nvidia_smi": card,
-          "torch": torch.__version__, "cuda": torch.version.cuda,
-          "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
-          "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32})
+          "torch": torch.__version__, "cuda": torch.version.cuda, **numerics()})
 
     t0 = time.perf_counter()
     other_build = (start_other_build(args.compare_with.resolve(), _build.BUILD_DIR)
@@ -7003,6 +7377,23 @@ def main() -> int:
             "launches": sum(by_path.values()), "launches_by_path": by_path,
             "shape_kdb": list(SERVICE_SHAPE), "max_abs_err": service["err"],
             **service["timings"]}]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.drivers_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            drivers = drivers_phases(torch, trimmed, dev, card, Path(tmp))
+        by_path = drivers["launches"]
+        check(all(by_path.values()), f"a drivers path ran without the kernel: {by_path}")
+        emit({"kernels": [{
+            "name": "trimmed_mean", "route": "cuda",
+            "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+            "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_under_drivers_off_kernel": drivers["off_kernel"],
+            "shape_kdb": list(DRIVERS_CLI_SHAPE), "max_abs_err": drivers["err"],
+            **drivers["timings"]}]})
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -7160,11 +7551,17 @@ def main() -> int:
         launches["service"] = service["launches"]
         # the worker pool (slice 13b.2): the launches held in its workers
         launches["service_pool"] = service["pool_launches"]
+        # the reference CLI and the JAX examples (slice 15a): the CLI's
+        # CCT-2 run at K=20 (the kernel once a round at [20, 283723], b=8),
+        # config 1, the IPM sweep, the matrix's kernel column and the dense
+        # half of the streaming demo, each launch held
+        drivers = drivers_phases(torch, trimmed, dev, card, Path(tmp))
+        launches.update(drivers["launches"])
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"],
-                  service["err"])
+                  service["err"], drivers["err"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
               "geomed" not in p) and not any(n for p, n in batched_launches.items()
@@ -7185,7 +7582,7 @@ def main() -> int:
     cert_shape = (CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B)
     shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings,
               cert_shape: cert_timings, TEXT_SHAPE: text["timings"], **search_shapes,
-              SERVICE_SHAPE: service["timings"]}
+              SERVICE_SHAPE: service["timings"], DRIVERS_CLI_SHAPE: drivers["timings"]}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
@@ -7193,7 +7590,7 @@ def main() -> int:
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
                         if path.startswith(("cct2", "resnet18", "certify", "text", "resilient",
-                                            "supervised", "service"))),
+                                            "supervised", "service", "drivers"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,
@@ -7218,6 +7615,9 @@ def main() -> int:
         # the chaos sweep runs every scenario under fault weather: the
         # masked forms, no launch
         "launches_under_chaos": resilient["chaos"],
+        # the examples of slice 15a whose defense is not the dense trimmed
+        # mean (the fault model's masked form among them): no launch
+        "launches_under_drivers_off_kernel": drivers["off_kernel"],
         # the certification paths (slice 10b): every unmasked trimmed-mean
         # evaluation of the search with 1 <= b <= 16 ("certify", K=8, and
         # "certify_scale", K=100 at b=10) and the battery's contract calls;

@@ -466,3 +466,42 @@ def test_pool_and_provenance_modules_import_no_torch_and_a_probe_only_worker_nev
     # the simulate cell's worker, and only it, mapped torch
     after = [m for _, m in seen["after_sim"].values()]
     assert sum(m["torch"] for m in after) == 1 and not any(m["jax"] for m in after)
+
+
+SLICE_15A = ("utils/platform.py", "examples/args.py", "examples/cifar10.py", "examples/main.py",
+             "examples/convergence_config1.py", "examples/simulation_on_mnist.py",
+             "examples/robustness_matrix.py", "examples/customize_aggregator.py",
+             "examples/customize_attack.py", "examples/fltrust_example.py",
+             "examples/fault_injection.py", "examples/streaming_clients.py",
+             "examples/async_fedbuff.py", "examples/metrics_trace.py")
+
+
+def test_cli_and_examples_are_covered_and_a_cli_run_loads_no_jax(tmp_path):
+    """The reference CLI, the card's numerics and the examples of slice
+    15a are among the checked sources; every one of them imported, and the
+    CLI's CCT-2 round run on the CPU in a subprocess (``--synthetic
+    --device cpu``, 1 round), leave no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in SLICE_15A:
+        assert pkg / rel in files
+    modules = [f"blades_tpu_torch.{rel[:-3].replace('/', '.')}" for rel in SLICE_15A]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {modules!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from blades_tpu_torch.examples import cifar10\n"
+        "sim = cifar10.main(['--synthetic', '--device', 'cpu', '--global_round', '1',\n"
+        "                    '--local_round', '1', '--num_clients', '4', '--num_byzantine', '1',\n"
+        "                    '--batch_size', '4', '--agg', 'trimmedmean', '--attack', 'alie'])\n"
+        "assert sim.server.state.round_idx == 1 and sim.engine.dim == 283723\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=_subprocess_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "LEAKED []" in proc.stdout
+    assert (tmp_path / "outputs" / "cifar10").is_dir()
