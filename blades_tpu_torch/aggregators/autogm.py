@@ -76,6 +76,8 @@ class Autogm(TwoLevelStreaming, Aggregator):
         slots = torch.arange(k, device=updates.device)
         p1 = (slots + 1).to(updates.dtype)
         i = 0
+        # the stopping rule is tested on the host, one read an iteration
+        # (ROADMAP.md queue B, item 7c)  # blades: allow[SYNC001]
         while i < self.maxiter and bool(torch.abs(prev - obj) >= self.ftol * obj):
             if msk is None:
                 d_sorted = summable = torch.sort(d).values

@@ -65,6 +65,8 @@ def weiszfeld(
     obj = (alphas * d).sum()
     prev = torch.full_like(obj, float("inf"))
     i = 0
+    # the stopping rule is tested on the host, one read an iteration
+    # (ROADMAP.md queue B, item 7c)  # blades: allow[SYNC001]
     while i < maxiter and bool(torch.abs(prev - obj) >= ftol * obj):
         w = torch.clamp_min(alphas / torch.clamp_min(d, eps), eps)
         if msk is not None:

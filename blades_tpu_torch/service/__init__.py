@@ -1,6 +1,6 @@
 """Simulation service: a long-lived, crash-tolerant experiment server.
 
-Counterpart: ``blades_tpu/service/`` (``__init__``, ``protocol``,
+Counterpart: ``blades_tpu/service/__init__.py`` and its package (``protocol``,
 ``spool``, ``client``, ``scheduler``, ``handlers``, ``server``,
 ``worker``, ``workers``). One warm process keeps an
 :class:`~blades_tpu_torch.sweeps.EngineCache` and the datasets it built,

@@ -1,2 +1,2 @@
-"""Utilities (counterpart: ``blades_tpu/utils/``): random streams, run
-logging, metrics."""
+"""Utilities (counterpart: ``blades_tpu/utils/__init__.py`` and its
+package): random streams, run logging, metrics."""

@@ -304,6 +304,24 @@ column, whose expectations are checked), with their own assertions
 (FLTrust's margin among them). ``--drivers-only`` runs only these phases,
 then the ``kernels`` line (these paths alone) and the result line.
 
+The static linter and the round-program auditor (slice 14,
+``blades_tpu_torch/analysis/``) run last, on a CIFAR-shaped store of their
+own, each kernel launch held against the plain version, those inside a CUDA
+graph after each replay on the buffers the replay left
+(``_HeldGraphKernel``): ``analysis_tier_a`` runs ``python -m
+blades_tpu_torch.analysis --check --tier a`` in a subprocess beside the
+other two (its one JSON line, its seconds, and that it loaded no torch);
+``analysis_tier_b`` runs ``run_tier_b(device="cuda")`` one program at a
+time (the dense round, the block, the streaming round, ``ExperimentBatch``
+in map and vmap modes, the async round; each check's result, the graph
+captures and the launches per program); ``analysis_cct2`` takes the
+auditor's storage, dtype and rebuild checks to the main path, bf16 CCT-2 at
+K=1000 in 4 chunks under ALIE f=5 and trimmed mean b=5: one eager round
+and one graph block of ANALYSIS_BLOCK_ROUNDS rounds, each run twice (the
+second block adds no capture and no build). ``--analysis-only`` builds
+the kernel and the CIFAR-shaped store and runs only these phases, then the
+``kernels`` line and the result line.
+
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started, and ``since_last_s``, the seconds since the line before.
 
@@ -570,6 +588,14 @@ def emit(record: dict) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"chip_smoke check failed: {msg}")
+
+
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms for a ``with`` block, put back as
+    they were after it (``utils/platform.py:numerics_scope``)."""
+    from blades_tpu_torch.utils.platform import numerics_scope
+
+    return numerics_scope(cudnn_deterministic=True)
 
 
 def card_line() -> str:
@@ -2332,16 +2358,12 @@ def phase_async_static(torch, trimmed, fl, card: str, log_root: Path) -> tuple:
     from blades_tpu_torch.ops.pytree import ravel
 
     k, d, f = CCT2_SHAPE
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         sync = slice_run(torch, trimmed, fl, log_root, "async_static_sync", ASYNC_STATIC_ROUNDS)
         p_sync = ravel(sync["sim"].server.state.params, sync["sim"].engine.layout)
         asy = slice_run(torch, trimmed, fl, log_root, "async_static", ASYNC_STATIC_ROUNDS,
                         async_config=dict(buffer_m=k))
         p_async = ravel(asy["sim"].server.state.params, asy["sim"].engine.layout)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     same = bool(torch.equal(p_async, p_sync))
     counters = [r["async"] for r in asy["seen"]]
     emit({"phase": "async_static", "async_config": {"buffer_m": k, "arrivals": "zero"},
@@ -3972,9 +3994,7 @@ def phase_resnet18_kernel(torch, trimmed, fl, card: str, log_root: Path) -> tupl
           f"resnet18_kernel: {prof['events']} profiler events, {prof['counted']} launches")
     launches = run["launches"]
     del run, sim, u, got, ref
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         block_kw = dict(model="resnet18", byzantine=b, aggregator_kws={"num_byzantine": b},
                         chunks=RESNET_CHUNKS["bfloat16"], warm_block=False)
         blocks = [engine_blocks(torch, trimmed, fl, log_root, "resnet18_block",
@@ -3982,8 +4002,6 @@ def phase_resnet18_kernel(torch, trimmed, fl, card: str, log_root: Path) -> tupl
         if blocks[0]["differs"]:
             blocks.append(engine_blocks(torch, trimmed, fl, log_root, "resnet18_block_again",
                                         RESNET_BLOCK_ROUNDS, **block_kw))
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     first = blocks[0]
     eager_repeats = (None if len(blocks) == 1 else
                      not _states_differ(torch, first["seq_state"], blocks[1]["seq_state"]))
@@ -4511,22 +4529,15 @@ def text_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
     by path, the kernel's timings at TEXT_SHAPE and its max error."""
     stores = text_stores(torch, dev)
     launches, timings, err = phase_text_round(torch, trimmed, stores["k100"], card, log_root)
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         block = phase_text_block(torch, trimmed, stores["k100"], card, log_root)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     stream = phase_text_stream(torch, trimmed, stores["k1000"], card, log_root)
     # remat (slice 2b) on the f32 round at one chunk: after the streaming
     # round, whose median sort needed the allocator as the block left it
     # (ahead of the block, the remat runs left 12.7 GB reserved and unused,
     # and the sort's 22.6 GB did not fit)
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         phase_remat_text(torch, stores["k100"], card, log_root)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     phase_text_families(torch, stores["k100"], dev, card)
     phase_text_card_vs_cpu(torch, stores["k100"], dev, card)
     del stores
@@ -5351,29 +5362,21 @@ def vmap_remat_phases(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
 
     gc.collect()
     torch.cuda.empty_cache()
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         mlp = Synthetic(num_clients=MAIN_CLIENTS, train_bs=32, train_size=50_000,
                         cache=False).get_dls(dev)
         cifar = Synthetic(num_clients=CCT2_SHAPE[0], sample_shape=(32, 32, 3), train_bs=32,
                           train_size=50_000, test_size=10_000, cache=False).get_dls(dev)
         out = phase_experiments_vmap(torch, trimmed, mlp, cifar, dev, card, log_root)
         phase_remat(torch, cifar, card, log_root)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     return out
 
 
 def vmap_phases(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
     """``--vmap-only``: the text remat cell on its store, then
     :func:`vmap_remat_phases`."""
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
+    with deterministic_cudnn():
         phase_remat_text(torch, text_stores(torch, dev)["k100"], card, log_root)
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
     return vmap_remat_phases(torch, trimmed, dev, card, log_root)
 
 
@@ -5396,10 +5399,12 @@ class _HeldKernel:
         out = self.orig(x, b)
         if self.keep_first and self.first is None:
             self.first = (x.clone(), b)
-        ref = self.trimmed.trimmed_mean_plain(x, b)
+        self._hold(out, self.trimmed.trimmed_mean_plain(x, b))
+        return out
+
+    def _hold(self, out, ref):
         self.errs.append((out - ref).abs().max())
         self.bad.append((~self.torch.isclose(out, ref, **TOL)).sum())
-        return out
 
     def __enter__(self):
         self.trimmed.trimmed_mean_cuda = self
@@ -5624,8 +5629,9 @@ def sticky_child(out_dir: str) -> int:
     from blades_tpu_torch.examples import certify
     from blades_tpu_torch.ops import trimmed
     from blades_tpu_torch.sweeps import _execute_group
+    from blades_tpu_torch.utils.platform import set_numerics
 
-    torch.backends.cuda.matmul.allow_tf32 = False
+    set_numerics(matmul_allow_tf32=False)
     sentinel = Path(out_dir + ".fault_fired")
 
     def runner(group, key):
@@ -6942,15 +6948,15 @@ class _Numerics:
     search and TF32 off)."""
 
     def __enter__(self):
-        import torch
+        from blades_tpu_torch.utils.platform import numerics
 
-        self.deterministic = torch.backends.cudnn.deterministic
+        self.deterministic = numerics()["cudnn_deterministic"]
         return self
 
     def __exit__(self, *exc):
-        import torch
+        from blades_tpu_torch.utils.platform import set_numerics
 
-        torch.backends.cudnn.deterministic = self.deterministic
+        set_numerics(cudnn_deterministic=self.deterministic)
         return False
 
 
@@ -7214,6 +7220,280 @@ def drivers_phases(torch, trimmed, dev, card: str, log_root: Path) -> dict:
             "err": max(cli_err, c1_err, ex["err"]), "timings": timings}
 
 
+# -- the static linter and the round-program auditor (slice 14) ----------------------
+
+#: rounds of each of the CCT-2 audit's two graph blocks (the first warms up,
+#: captures and replays; the second only replays)
+ANALYSIS_BLOCK_ROUNDS = 2
+#: each Tier-B program's launches in its two calls: the eager round's one a
+#: round; the block's warm-up and replays (2 blocks of 2 rounds); map mode's
+#: 2 experiments a call through one graph; vmap mode's one batched launch a
+#: call; the streaming and general async rounds take the masked form
+ANALYSIS_TIER_B_LAUNCHES = {"round": (2, 0), "block": (4, 0), "streaming": (0, 0),
+                            "experiment_batch_map": (4, 0), "experiment_batch_vmap": (0, 2),
+                            "async": (0, 0)}
+ANALYSIS_GRAPH_PROGRAMS = ("block", "experiment_batch_map", "experiment_batch_vmap")
+
+
+class _HeldGraphKernel(_HeldKernel):
+    """:class:`_HeldKernel` over both kernel entries and across CUDA graphs:
+    a launch made while a graph captures (which runs nothing) keeps its
+    input and output, buffers of the graph's own pool, and is held against
+    the plain version after each replay of that graph, on the values the
+    replay left in them; the others are held at once. Every launch is held
+    once, so the held count equals the wrappers' count."""
+
+    def __init__(self, torch, trimmed, keep_first: bool = False):
+        from blades_tpu_torch.core import graphs
+
+        super().__init__(torch, trimmed, keep_first)
+        self.graphs = graphs
+        self.orig_batched = trimmed.trimmed_mean_batched_cuda
+        self.orig_capture = graphs.RoundGraph._capture
+        self.orig_replay = torch.cuda.CUDAGraph.replay
+        self.capturing = None  # the launches of the capture under way
+        self.by_graph = {}  # id(CUDAGraph) -> (the graph, its launches)
+
+    def _launch(self, orig, plain, x, b):
+        out = orig(x, b)
+        if self.torch.cuda.is_current_stream_capturing():
+            self.capturing.append((plain, x, b, out))
+            return out
+        if self.keep_first and self.first is None and plain is self.trimmed.trimmed_mean_plain:
+            self.first = (x.clone(), b)
+        self._hold(out, plain(x, b))
+        return out
+
+    def __call__(self, x, b):
+        return self._launch(self.orig, self.trimmed.trimmed_mean_plain, x, b)
+
+    def batched(self, x, b):
+        return self._launch(self.orig_batched, self.trimmed.trimmed_mean_batched_plain, x, b)
+
+    def __enter__(self):
+        held = self
+
+        def capture(graph, eng):
+            held.capturing = []
+            try:
+                held.orig_capture(graph, eng)
+                held.by_graph[id(graph.graph)] = (graph.graph, held.capturing)
+            finally:
+                held.capturing = None
+
+        def replay(cuda_graph):
+            held.orig_replay(cuda_graph)
+            for plain, x, b, out in held.by_graph.get(id(cuda_graph), (None, ()))[1]:
+                held._hold(out, plain(x, b))
+
+        self.trimmed.trimmed_mean_cuda = self
+        self.trimmed.trimmed_mean_batched_cuda = self.batched
+        self.graphs.RoundGraph._capture = capture
+        self.torch.cuda.CUDAGraph.replay = replay
+        return self
+
+    def __exit__(self, *exc):
+        self.trimmed.trimmed_mean_cuda = self.orig
+        self.trimmed.trimmed_mean_batched_cuda = self.orig_batched
+        self.graphs.RoundGraph._capture = self.orig_capture
+        self.torch.cuda.CUDAGraph.replay = self.orig_replay
+        self.by_graph.clear()  # the graphs and their buffers go with their engines
+        return False
+
+
+def start_analysis_tier_a():
+    """``python -m blades_tpu_torch.analysis --check --tier a`` in a
+    subprocess of its own, which says on stderr whether torch was loaded;
+    returns the process and its start time."""
+    code = ("import runpy, sys\n"
+            "sys.argv = ['analysis', '--check', '--tier', 'a']\n"
+            "try:\n"
+            "    runpy.run_module('blades_tpu_torch.analysis', run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    print('ANALYSIS_EXIT', e.code, 'ANALYSIS_TORCH', 'torch' in sys.modules,\n"
+            "          file=sys.stderr)\n")
+    import os
+
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=str(root))
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=root, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, time.perf_counter()
+
+
+def finish_analysis_tier_a(handle, card: str) -> float:
+    """Wait for :func:`start_analysis_tier_a`'s run, emit its line; its
+    seconds."""
+    proc, t0 = handle
+    out, err = proc.communicate(timeout=300)
+    seconds = time.perf_counter() - t0
+    lines = out.strip().splitlines()
+    tail = re.search(r"ANALYSIS_EXIT (\S+) ANALYSIS_TORCH (\S+)", err)
+    line = json.loads(lines[-1]) if lines else None
+    emit({"phase": "analysis_tier_a", "seconds": seconds, "returncode": proc.returncode,
+          "stdout_lines": len(lines), "line": line,
+          "torch_loaded": None if tail is None else tail.group(2) == "True",
+          "waivers": [w for w in err.splitlines() if w.startswith("waived")], "card": card})
+    check(proc.returncode == 0 and len(lines) == 1 and line["ok"] is True,
+          f"analysis_tier_a: rc {proc.returncode}, {len(lines)} lines: {out[-500:]}{err[-2000:]}")
+    check(tail is not None and tail.group(2) == "False",
+          f"analysis_tier_a: torch loaded by --tier a ({err[-500:]})")
+    return seconds
+
+
+def phase_analysis_tier_b(torch, trimmed, card: str) -> dict:
+    """``run_tier_b(device="cuda")``, one program at a time: every check's
+    result, the graph captures and the launches (single and batched) per
+    program, each launch held. Returns the launches, the batched launches,
+    the largest error and the seconds."""
+    from blades_tpu_torch.analysis.program_audit import PROGRAMS, run_tier_b
+    from blades_tpu_torch.telemetry.recorder import process_counters
+
+    t0 = time.perf_counter()
+    per, checks = {}, []
+    with _HeldGraphKernel(torch, trimmed) as held:
+        trimmed.trimmed_mean_launches = trimmed.trimmed_mean_batched_launches = 0
+        for program in PROGRAMS:
+            c0 = process_counters().get("cuda.graph_captures", 0)
+            l0, b0 = trimmed.trimmed_mean_launches, trimmed.trimmed_mean_batched_launches
+            p0 = time.perf_counter()
+            report = run_tier_b("cuda", programs=[program])
+            torch.cuda.synchronize()
+            batched = trimmed.trimmed_mean_batched_launches - b0
+            per[program] = {"ok": report["ok"], "seconds": time.perf_counter() - p0,
+                            "graph_captures": process_counters().get(
+                                "cuda.graph_captures", 0) - c0,
+                            "launches": trimmed.trimmed_mean_launches - l0 - batched,
+                            "batched_launches": batched}
+            checks += report["checks"]
+        launches = trimmed.trimmed_mean_launches
+        batched = trimmed.trimmed_mean_batched_launches
+        n_held, err, bad = held.result()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "analysis_tier_b", "checks": checks, "by_program": per,
+          "launches": launches - batched, "batched_launches": batched, "held": n_held,
+          "max_abs_err": err, "elements_off_tol": bad, "seconds": seconds, "card": card})
+    failed = [f"{c['program']}/{c['check']}: {c['detail']}" for c in checks if c["ok"] is False]
+    check(not failed, f"analysis_tier_b: {failed}")
+    check(all((c["ok"] is None) == (c["check"] == "sharding_axis") for c in checks),
+          "analysis_tier_b: a check other than sharding_axis was skipped, or it was not")
+    for program, (single, batch) in ANALYSIS_TIER_B_LAUNCHES.items():
+        got = per[program]
+        check((got["launches"], got["batched_launches"]) == (single, batch),
+              f"analysis_tier_b {program}: launches {got}")
+        check(got["graph_captures"] == (program in ANALYSIS_GRAPH_PROGRAMS),
+              f"analysis_tier_b {program}: {got['graph_captures']} graph captures")
+    check(n_held == launches and bad == 0,
+          f"analysis_tier_b: {n_held} of {launches} launches held, {bad} elements off")
+    return {"launches": launches - batched, "batched": batched, "err": err,
+            "seconds": seconds}
+
+
+def phase_analysis_cct2(torch, trimmed, fl, card: str, log_root: Path,
+                        keep_first: bool = False) -> dict:
+    """The auditor's storage, dtype and rebuild checks on the main path:
+    bf16 CCT-2 at K=1000 in CCT2_CHUNKS chunks, ALIE f=5, trimmed mean b=5,
+    on the store ``fl``; one eager round run twice, then one graph block of
+    ANALYSIS_BLOCK_ROUNDS rounds run twice, the engine looked up in an
+    ``EngineCache`` before each call. Returns the launches, the largest
+    error, the seconds and (``keep_first``) the first launch's input."""
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.analysis.program_audit import audit_program, block_call, round_call
+    from blades_tpu_torch.sweeps import EngineCache
+    from blades_tpu_torch.telemetry.recorder import process_counters
+    from blades_tpu_torch.utils import rng
+
+    t0 = time.perf_counter()
+    k, _, b = CCT2_SHAPE
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim = Simulator(dataset=fl, attack="alie", num_byzantine=b, aggregator="trimmedmean",
+                    aggregator_kws={"num_byzantine": b}, seed=1,
+                    log_path=str(log_root / "analysis_cct2"))
+    sim.run(model="cct_2_3x2_32", global_rounds=0, client_chunks=CCT2_CHUNKS,
+            compute_dtype="bfloat16")
+    eng, seed = sim.engine, sim.seed
+    p0 = {n: t.clone() for n, t in sim.server.state.params.items()}
+    del sim
+    cache = EngineCache()
+    cache.put("cct2_bf16_k1000", eng)
+    draws = iter(range(1, 100))
+
+    def batch():
+        gen = rng.generator(seed, next(draws), rng.DATA, device=eng.device)
+        return list(fl.sample_round(gen, 1, 32))
+
+    build_s = time.perf_counter() - t0
+    rec = {}
+    with _HeldGraphKernel(torch, trimmed, keep_first=keep_first) as held:
+        trimmed.trimmed_mean_launches = 0
+        checks = []
+        for program, call in (
+                ("cct2_round", round_call(seed, batch)),
+                ("cct2_block", block_call(fl.sampler(1, 32), ANALYSIS_BLOCK_ROUNDS, seed))):
+            c0 = process_counters().get("cuda.graph_captures", 0)
+            l0 = trimmed.trimmed_mean_launches
+            p1 = time.perf_counter()
+            checks += audit_program(program, lambda: cache.get("cct2_bf16_k1000"),
+                                    eng.init(p0), call, cache)
+            torch.cuda.synchronize()
+            rec[program] = {"seconds": time.perf_counter() - p1,
+                            "graph_captures": process_counters().get(
+                                "cuda.graph_captures", 0) - c0,
+                            "launches": trimmed.trimmed_mean_launches - l0,
+                            "mode": eng.last_block_mode if program == "cct2_block" else "eager"}
+        launches = trimmed.trimmed_mean_launches
+        n_held, err, bad = held.result()
+        first = held.first
+    graph = eng.last_graph
+    peak = torch.cuda.max_memory_allocated()
+    del eng, graph, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    emit({"phase": "analysis_cct2", "model": "cct_2_3x2_32", "dtype": "bfloat16",
+          "clients": k, "client_chunks": CCT2_CHUNKS, "attack": "alie",
+          "aggregator": "trimmedmean", "block_rounds": ANALYSIS_BLOCK_ROUNDS,
+          "checks": checks, "by_program": rec, "launches": launches, "held": n_held,
+          "max_abs_err": err, "elements_off_tol": bad, "engine_build_s": build_s,
+          "seconds": seconds, "peak_mem_bytes": peak, "card": card})
+    failed = [f"{c['program']}/{c['check']}: {c['detail']}" for c in checks if c["ok"] is False]
+    check(not failed, f"analysis_cct2: {failed}")
+    check(rec["cct2_block"]["mode"] == "graph", f"analysis_cct2: the block ran {rec}")
+    check(rec["cct2_round"]["graph_captures"] == 0 and rec["cct2_block"]["graph_captures"] == 1,
+          f"analysis_cct2: graph captures {rec}")
+    check(rec["cct2_round"]["launches"] == 2
+          and rec["cct2_block"]["launches"] == 2 * ANALYSIS_BLOCK_ROUNDS,
+          f"analysis_cct2: launches {rec}")
+    check(n_held == launches and bad == 0,
+          f"analysis_cct2: {n_held} of {launches} launches held, {bad} elements off")
+    return {"launches": launches, "err": err, "seconds": seconds, "first": first}
+
+
+def analysis_phases(torch, trimmed, card: str, log_root: Path,
+                    keep_first: bool = False) -> dict:
+    """The slice 14 phases: Tier A in a subprocess beside Tier B on the
+    card, then the CCT-2 audit on a CIFAR-shaped store built here. Returns
+    the launches by path, the batched launches, the largest error and the
+    CCT-2 audit's first launch's input (``keep_first``)."""
+    t0 = time.perf_counter()
+    tier_a = start_analysis_tier_a()
+    tier_b = phase_analysis_tier_b(torch, trimmed, card)
+    tier_a_s = finish_analysis_tier_a(tier_a, card)
+    t1 = time.perf_counter()
+    fl = cct2_simulator(torch, log_root).dataset
+    store_s = time.perf_counter() - t1
+    cct2 = phase_analysis_cct2(torch, trimmed, fl, card, log_root, keep_first)
+    seconds = {"analysis_tier_a": tier_a_s, "analysis_tier_b": tier_b["seconds"],
+               "analysis_cct2": cct2["seconds"], "store": store_s,
+               "total": time.perf_counter() - t0}
+    emit({"phase": "analysis", "seconds": seconds, "card": card})
+    return {"launches": {"analysis_tier_b": tier_b["launches"],
+                         "analysis_cct2": cct2["launches"]},
+            "batched": {"analysis_tier_b_vmap": tier_b["batched"]},
+            "err": max(tier_b["err"], cct2["err"]), "first": cct2["first"]}
+
+
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
     """``[within eps of 0, all]``: the ReLU inputs of a float64 forward of
     ``spec``'s model on the CPU, each a point where float32 rounding may
@@ -7295,6 +7575,10 @@ def main() -> int:
                         help="build the kernel, run only the reference CLI's and the "
                              "examples' phases (slice 15a), then the kernels line and the "
                              "result line")
+    parser.add_argument("--analysis-only", action="store_true",
+                        help="build the kernel and the CIFAR-shaped store, run only the "
+                             "static linter's and the round-program auditor's phases "
+                             "(slice 14), then the kernels line and the result line")
     parser.add_argument("--sticky-child", default=None, metavar="OUT",
                         help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
@@ -7315,11 +7599,10 @@ def main() -> int:
     # directory (below): until then the ledger is off
     os.environ["BLADES_LEDGER"] = "0"
     from blades_tpu_torch.ops import _build, trimmed
-    from blades_tpu_torch.utils.platform import numerics
+    from blades_tpu_torch.utils.platform import numerics, set_numerics
 
     dev = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    set_numerics(matmul_allow_tf32=False, cudnn_allow_tf32=False)
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(card, flush=True)
@@ -7397,6 +7680,41 @@ def main() -> int:
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
+    if args.analysis_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            analysis = analysis_phases(torch, trimmed, card, Path(tmp), keep_first=True)
+            x, b = analysis.pop("first")
+            k, d = x.shape
+            bnd, by = bound_ms(k, d)
+            timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
+                           plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=3,
+                                            warmup=1),
+                           library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0),
+                                              reps=3, warmup=1),
+                           bound_ms=bnd, bound_by=by)
+            del x
+            xs = torch.randn(VMAP_MLP_S, MAIN_CLIENTS, 59_850, device=dev)
+            batched_timings = batched_kernel_timings(torch, trimmed, xs, MAIN_BYZANTINE)
+            del xs
+        by_path, batched = analysis["launches"], analysis["batched"]
+        check(all(by_path.values()) and all(batched.values()),
+              f"an analysis path ran without the kernel: {by_path} {batched}")
+        emit({"kernels": [{
+            "name": "trimmed_mean", "route": "cuda",
+            "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+            "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "shape_kdb": [k, d, b], "max_abs_err": analysis["err"], **timings}, {
+            "name": "trimmed_mean_batched", "route": "cuda",
+            "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+            "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+            "launches": sum(batched.values()), "launches_by_path": batched,
+            "shape_skdb": [VMAP_MLP_S, MAIN_CLIENTS, 59_850, MAIN_BYZANTINE],
+            "max_abs_err": analysis["err"], **batched_timings}]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
     max_err, timings = phase_kernel(torch, trimmed, dev, card, other)
     # run logs go under the (git-ignored) build directory of the checkout
     with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
@@ -7449,9 +7767,7 @@ def main() -> int:
         async_launches["async_fault"] = phase_async_fault(torch, trimmed, fl, card, Path(tmp))
         # round blocks: a graph or an eager block against the same rounds one
         # by one, bit for bit (cuDNN's deterministic algorithms on)
-        deterministic = torch.backends.cudnn.deterministic
-        torch.backends.cudnn.deterministic = True
-        try:
+        with deterministic_cudnn():
             graph_launches, graph_events = phase_block_mlp(torch, trimmed, mlp_fl, card,
                                                            Path(tmp))
             graph_launches["text_cct2_bf16_block"] = text["block"]
@@ -7495,8 +7811,6 @@ def main() -> int:
                                                                  Path(tmp), data / "mnist")
             fault_launches.update(phase_checkpoint(torch, trimmed, cifar, card, Path(tmp), data))
             del cifar
-        finally:
-            torch.backends.cudnn.deterministic = deterministic
         del fl, mlp_fl
         # the BASELINE models (slice 11a): ResNet-18 at K=100 (the kernel
         # once a round under ALIE + trimmed mean, eager and in a graph
@@ -7557,11 +7871,20 @@ def main() -> int:
         # half of the streaming demo, each launch held
         drivers = drivers_phases(torch, trimmed, dev, card, Path(tmp))
         launches.update(drivers["launches"])
+        # the static linter and the round-program auditor (slice 14): the
+        # toy programs of Tier B and the CCT-2 round and block audited on a
+        # CIFAR-shaped store of their own, each launch held (those in a
+        # graph after each replay). Last: ahead of the BASELINE phases the
+        # CCT-2 block's graph left the allocator too fragmented for
+        # wrn_stream (47.58 GB reserved and unused at its OOM)
+        analysis = analysis_phases(torch, trimmed, card, Path(tmp))
+        launches.update(analysis["launches"])
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"],
-                  service["err"], drivers["err"])
+                  service["err"], drivers["err"], analysis["err"])
+    batched_launches.update(analysis["batched"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
               "geomed" not in p) and not any(n for p, n in batched_launches.items()
@@ -7590,7 +7913,8 @@ def main() -> int:
         "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
         "launches": sum(n for path, n in launches.items()
                         if path.startswith(("cct2", "resnet18", "certify", "text", "resilient",
-                                            "supervised", "service", "drivers"))),
+                                            "supervised", "service", "drivers",
+                                            "analysis"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,

@@ -505,3 +505,42 @@ def test_cli_and_examples_are_covered_and_a_cli_run_loads_no_jax(tmp_path):
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "LEAKED []" in proc.stdout
     assert (tmp_path / "outputs" / "cifar10").is_dir()
+
+
+ANALYSIS = ("analysis/__init__.py", "analysis/__main__.py", "analysis/core.py",
+            "analysis/program_audit.py", "analysis/rules/__init__.py",
+            "analysis/rules/aliasing.py", "analysis/rules/citations.py",
+            "analysis/rules/host_sync.py", "analysis/rules/imports.py",
+            "analysis/rules/json_contract.py", "analysis/rules/pallas.py",
+            "analysis/rules/schema_drift.py", "analysis/rules/telemetry_io.py",
+            "analysis/rules/xla_flags.py")
+
+
+def test_analysis_modules_are_covered_and_tier_a_imports_no_torch(tmp_path):
+    """The port's analysis package (slice 14) is among the checked
+    sources; ``analysis/__init__``, ``core``, every rule and the CLI import
+    no torch (IMP001 lints the same contract), and Tier B run on the CPU
+    leaves no ``jax`` in ``sys.modules``."""
+    files = _port_files()
+    pkg = ROOT / "blades_tpu_torch"
+    for rel in ANALYSIS:
+        assert pkg / rel in files
+    torch_free = [f"blades_tpu_torch.{rel[:-3].replace('/', '.')}" for rel in ANALYSIS
+                  if rel != "analysis/program_audit.py"]
+    code = (
+        "import importlib, sys\n"
+        f"for m in {torch_free!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print('TORCH', 'torch' in sys.modules)\n"
+        "from blades_tpu_torch.analysis.program_audit import run_tier_b\n"
+        "report = run_tier_b('cpu', programs=['round', 'block'])\n"
+        "assert report['ok'], report\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "print('LEAKED', leaked)\n"
+        "assert not leaked, leaked\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path, env=_subprocess_env(),
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "TORCH False" in proc.stdout and "LEAKED []" in proc.stdout
