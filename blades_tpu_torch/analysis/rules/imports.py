@@ -73,6 +73,19 @@ NO_TORCH_SUFFIXES = (
     "blades_tpu_torch/sweeps/journal.py",
     "blades_tpu_torch/sweeps/resilient.py",
     "blades_tpu_torch/utils/retry.py",
+    # the port's own: the run-record readers and the LEAF tools, which read
+    # a live run's files beside it
+    "blades_tpu_torch/examples/trace_summary.py",
+    "blades_tpu_torch/examples/runs.py",
+    "blades_tpu_torch/examples/sweep_status.py",
+    "blades_tpu_torch/leaf/__init__.py",
+    "blades_tpu_torch/leaf/util.py",
+    "blades_tpu_torch/leaf/sample.py",
+    "blades_tpu_torch/leaf/split_data.py",
+    "blades_tpu_torch/leaf/stats.py",
+    "blades_tpu_torch/leaf/remove_users.py",
+    "blades_tpu_torch/leaf/preprocess.py",
+    "blades_tpu_torch/leaf/download.py",
 )
 
 #: Packages outside the port that load torch's library.

@@ -6,9 +6,8 @@ Counterpart: ``blades_tpu/analysis/rules/json_contract.py:57``
 counterparts in the port where one exists. A caller (the certify matrix's
 driver, the service's clients, this gate's own CI step) parses exactly
 one JSON line from each of these; a traceback-only death with empty
-stdout reads as a hung card. ``bench.py``, ``scripts/perf_report.py``,
-``scripts/runs.py`` and ``scripts/sweep_status.py`` have no counterpart in
-the port yet.
+stdout reads as a hung card. ``bench.py`` and ``scripts/perf_report.py``
+have no counterpart in the port yet.
 
 The rule, over the registered contract scripts: the module must define a
 ``main`` function whose body is wrapped in a top-level ``try`` with a
@@ -28,7 +27,9 @@ from blades_tpu_torch.analysis.core import RepoIndex, Rule, Violation, dotted_na
 #: Repo-relative suffixes of the scripts bound by the contract.
 CONTRACT_SCRIPTS = (
     "blades_tpu_torch/examples/certify.py",  # scripts/certify.py
+    "blades_tpu_torch/examples/runs.py",  # scripts/runs.py
     "blades_tpu_torch/examples/serve.py",  # scripts/serve.py
+    "blades_tpu_torch/examples/sweep_status.py",  # scripts/sweep_status.py
     "blades_tpu_torch/analysis/__main__.py",  # blades_tpu/analysis/__main__.py
 )
 

@@ -296,8 +296,9 @@ with validation each round: the cold and warm rounds, the local steps'
 share of each (from the run's telemetry spans), the peak memory, one
 launch a round, and the kernel timed at ``[20, 283723]``, b=8, tied and
 untied; ``drivers_config1`` runs ``convergence_config1`` at its own
-settings (3 runs of 100 rounds of 50 local steps, the MLP at K=10), 100
-launches in its trimmed-mean run; ``drivers_examples`` runs the other
+settings but DRIVERS_CONFIG1_ROUNDS rounds (3 runs of 30 of its 100
+rounds of 50 local steps, the MLP at K=10), one launch a round in its
+trimmed-mean run; ``drivers_examples`` runs the other
 examples once, at their own settings but for ``customize_attack``
 (DRIVERS_ATTACK_ROUNDS rounds) and the robustness matrix (its trimmed-mean
 column, whose expectations are checked), with their own assertions
@@ -305,7 +306,7 @@ column, whose expectations are checked), with their own assertions
 then the ``kernels`` line (these paths alone) and the result line.
 
 The static linter and the round-program auditor (slice 14,
-``blades_tpu_torch/analysis/``) run last, on a CIFAR-shaped store of their
+``blades_tpu_torch/analysis/``) run next to last, on a CIFAR-shaped store of their
 own, each kernel launch held against the plain version, those inside a CUDA
 graph after each replay on the buffers the replay left
 (``_HeldGraphKernel``): ``analysis_tier_a`` runs ``python -m
@@ -321,6 +322,29 @@ and one graph block of ANALYSIS_BLOCK_ROUNDS rounds, each run twice (the
 second block adds no capture and no build). ``--analysis-only`` builds
 the kernel and the CIFAR-shaped store and runs only these phases, then the
 ``kernels`` line and the result line.
+
+After them, on the same store, the run-record readers, the last single-card
+examples and the LEAF tools (slice 15b), every kernel launch held:
+``tools_trace_cct2`` runs the telemetry example's recipe on the main path
+(bf16 CCT-2 at K=1000 in 4 chunks, ALIE f=5 + trimmed mean b=5, 1 local
+step, TOOLS_TRACE_ROUNDS rounds, ``collect_diagnostics=True``) and reads
+its trace with the port's ``trace_summary --json``: ``format_table``'s
+text, then one line with the round span's split (sample / dispatch /
+sync / eval, the first round apart from the warm ones), the dispatch
+share, the provenance, the byzantine share of the trimmed slots, the
+peak memory and the launches; ``tools_examples`` runs ``telemetry_trace``,
+``run_ledger``, ``defense_audit``, ``plot_comparing_aggregation_schemes``
+and ``fedavg_ipm`` once each at their own settings (wall, launches, their
+own assertions and claims), and the kernel is timed on each kernel path's
+first input; ``tools_readers`` runs the certify driver's trimmed-mean
+cells on the card, then the port's ``runs``, ``sweep_status`` and
+``trace_summary`` over this run's ledger and traces, each a process of
+its own that must exit 0 with one JSON line; ``tools_leaf`` runs the LEAF
+preprocess pipeline and ``--verify`` on a FEMNIST-shaped directory it
+writes (10,000 samples of 784 floats over 100 users), on the host only, in
+a process of its own beside the others. ``--tools-only`` builds the kernel
+and the store and runs only these phases, then the ``kernels`` line and the
+result line.
 
 Every JSON line carries ``elapsed_s``, the seconds since the script
 started, and ``since_last_s``, the seconds since the line before.
@@ -630,6 +654,19 @@ def bound_ms(k: int, d: int) -> tuple:
     bytes_ms = (k * d * 4 + d * 4) / HBM_BYTES_PER_S * 1e3
     ops_ms = 2 * k * d / F32_FLOPS * 1e3
     return (bytes_ms, "bytes") if bytes_ms >= ops_ms else (ops_ms, "operations")
+
+
+def kernel_timings(torch, trimmed, x, b: int, reps: int = 5) -> dict:
+    """The kernel, its plain version and ``torch.sort`` + slice + mean on
+    ``x`` (CUDA events; the kernel over 20 calls, the others over ``reps``),
+    beside the card's bound for ``x``'s shape."""
+    k, d = x.shape
+    bnd, by = bound_ms(k, d)
+    return dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
+                plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=reps, warmup=1),
+                library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=reps,
+                                   warmup=1),
+                bound_ms=bnd, bound_by=by)
 
 
 def profiled_kernel_ms(torch, fn, reps: int = 20):
@@ -6199,12 +6236,7 @@ def phase_service_kernel(torch, trimmed, dev, card: str, log_root: Path) -> tupl
     check(held.first is not None, f"service_kernel: no kernel launch in {replies}")
     x, b = held.first
     k, d = x.shape
-    bnd, by = bound_ms(k, d)
-    timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
-                   plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1),
-                   library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=5,
-                                      warmup=1),
-                   bound_ms=bnd, bound_by=by)
+    timings = kernel_timings(torch, trimmed, x, b)
     direct = direct_service_cell(torch, dev, log_root, dataset)
     cell = replies["k-cold"]["cells"][0].get("result", {})
     emit({"phase": "service_kernel", "launches": launches, "held": n_held,
@@ -6915,8 +6947,11 @@ DRIVERS_CLI_ARGV = ("--model", "cct", "--agg", "trimmedmean", "--attack", "alie"
                     "--batch_size", "32", "--global_round", str(DRIVERS_CLI_ROUNDS),
                     "--log_interval", "1")
 DRIVERS_CLI_SHAPE = (20, 283_723, 8)
-#: config 1's own rounds (of 50 local steps, in each of its 3 runs)
-DRIVERS_CONFIG1_ROUNDS = 100
+#: config 1's rounds on the card (of 50 local steps, in each of its 3 runs;
+#: 100 in the example, 57 s on the H100): the runs, the kernel once a round
+#: and finite losses hold at any depth; the accuracies after 100 rounds
+#: (0.888, 0.876 and 0.871 on the H100) are not shown at 30
+DRIVERS_CONFIG1_ROUNDS = 30
 #: customize_attack's rounds on the card (50 of 50 local steps in the
 #: example, 15.5 s on the H100): its claim, a finite run with the
 #: registered attackers, holds at any depth
@@ -7030,12 +7065,7 @@ def phase_drivers_cli(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
     n_held, err, bad = held.result()
     x, b = held.first
     k, d = x.shape
-    bnd, by = bound_ms(k, d)
-    timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
-                   plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=5, warmup=1),
-                   library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0), reps=5,
-                                      warmup=1),
-                   bound_ms=bnd, bound_by=by)
+    timings = kernel_timings(torch, trimmed, x, b)
     # ALIE's f=8 identical rows tie in every column; the same shape untied
     untied = torch.randn(k, d, device=x.device, generator=torch.Generator(
         device=x.device).manual_seed(0)) * x.std()
@@ -7053,7 +7083,8 @@ def phase_drivers_cli(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
           "held": n_held, "max_abs_err": err, "elements_off_tol": bad,
           "train_loss": [r["Loss"] for r in train],
           "test": [{n: r[n] for n in ("Round", "Loss", "top1")} for r in test],
-          "shape_kdb": [k, d, b], **timings, "share_of_bound": bnd / timings["ms"],
+          "shape_kdb": [k, d, b], **timings,
+          "share_of_bound": timings["bound_ms"] / timings["ms"],
           "untied_ms": untied_ms, "untied_library_ms": untied_library_ms, "card": card})
     check(sim.device.type == "cuda" and sim.engine.dim == DRIVERS_CLI_SHAPE[1],
           f"drivers_cli_cifar10: {sim.device}, D = {sim.engine.dim}")
@@ -7071,11 +7102,11 @@ def phase_drivers_cli(torch, trimmed, dev, card: str, log_root: Path) -> tuple:
 
 def phase_drivers_config1(torch, trimmed, card: str, log_root: Path) -> tuple:
     """``drivers_config1``: ``examples/convergence_config1.py``'s ``main``
-    at its own settings (3 runs of 100 rounds of 50 local steps, the MLP
-    at K=10, ALIE f=4), on its ``Synthetic`` fallback (no MNIST files): each
-    run's wall and launches (the trimmed-mean run's, one a round, each held
-    against the plain version). Returns the launches and the largest
-    error."""
+    at its own settings but DRIVERS_CONFIG1_ROUNDS rounds (3 runs of 50
+    local steps a round, the MLP at K=10, ALIE f=4), on its ``Synthetic``
+    fallback (no MNIST files): each run's wall and launches (the
+    trimmed-mean run's, one a round, each held against the plain version).
+    Returns the launches and the largest error."""
     from blades_tpu_torch.examples import convergence_config1 as c1
 
     base = log_root / "drivers_config1"
@@ -7491,7 +7522,458 @@ def analysis_phases(torch, trimmed, card: str, log_root: Path,
     return {"launches": {"analysis_tier_b": tier_b["launches"],
                          "analysis_cct2": cct2["launches"]},
             "batched": {"analysis_tier_b_vmap": tier_b["batched"]},
-            "err": max(tier_b["err"], cct2["err"]), "first": cct2["first"]}
+            "err": max(tier_b["err"], cct2["err"]), "first": cct2["first"], "store": fl}
+
+
+# -- the run-record readers, the last single-card examples and the LEAF tools (slice 15b) --
+
+#: rounds of the telemetry example's recipe on the main path
+TOOLS_TRACE_ROUNDS = 3
+#: the slice's examples, in the order run, with their argv (their own
+#: settings; each runs in a working directory of its own, so "out" is its)
+TOOLS_EXAMPLES = (
+    ("telemetry_trace", ("--out", "out")),
+    ("run_ledger", ("--out", "out")),
+    ("defense_audit", ("--out", "out")),
+    ("plot_comparing_aggregation_schemes", ("--out", "out/aggregation_schemes.png")),
+    ("fedavg_ipm", ("--out", "out")),
+)
+#: the launches of the examples whose runs reach the kernel: the telemetry
+#: demo's defense once a round (2 rounds, [8, 59850], b=2), the aggregator
+#: comparison's trimmed mean once ([100, 2], b=5); the others' defenses
+#: are not the trimmed mean
+TOOLS_ON_KERNEL = {"telemetry_trace": 2, "plot_comparing_aggregation_schemes": 1}
+#: the certify driver's trimmed-mean cells, on the card: the sweep trace
+#: and the ledger record that tools_readers reads
+TOOLS_CERT_ARGS = ("--quick", "--no-async", "--aggs", "trimmedmean")
+#: FEMNIST in LEAF's format: 784 floats and one of 62 classes a sample,
+#: 10,000 samples over 100 users; the preprocess pipeline's flags
+LEAF_USERS, LEAF_SAMPLES, LEAF_WIDTH, LEAF_CLASSES = 100, 10_000, 784, 62
+LEAF_ARGS = ("-s", "niid", "--sf", "0.5", "-k", "10", "-t", "sample", "--tf", "0.9",
+             "--smplseed", "1", "--spltseed", "2")
+
+
+def write_leaf_femnist(root: Path, seed: int = 0) -> None:
+    """A FEMNIST-shaped LEAF ``all_data`` directory (``LEAF_*``): users of
+    uneven size (at least 20 samples), white background pixels (1.0) and
+    strokes of k/255, 4 decimals, as LEAF's JSON holds them; two files."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    counts = 20 + rng.multinomial(LEAF_SAMPLES - 20 * LEAF_USERS,
+                                  rng.dirichlet(np.ones(LEAF_USERS)))
+    root.mkdir(parents=True)
+    users = [f"f_{i:04d}" for i in range(LEAF_USERS)]
+    half = LEAF_USERS // 2
+    for part, chunk in enumerate((range(half), range(half, LEAF_USERS))):
+        data = {"users": [], "num_samples": [], "user_data": {}}
+        for i in chunk:
+            n = int(counts[i])
+            x = np.where(rng.random((n, LEAF_WIDTH)) < 0.8, 1.0,
+                         np.round(rng.integers(0, 255, (n, LEAF_WIDTH)) / 255, 4))
+            data["users"].append(users[i])
+            data["num_samples"].append(n)
+            data["user_data"][users[i]] = {"x": x.tolist(),
+                                           "y": rng.integers(0, LEAF_CLASSES, n).tolist()}
+        with open(root / f"all_data_{part}.json", "w") as f:
+            json.dump(data, f)
+
+
+def leaf_child(out: str) -> int:
+    """``--leaf-child OUT``: the LEAF tools on the host, no torch: write the
+    FEMNIST-shaped directory, run the preprocess pipeline (``LEAF_ARGS``)
+    through its ``main``, then ``--verify`` as a process of its own on the
+    pipeline's output (must pass) and on a tampered copy of one stage file
+    (must fail). One ``LEAF`` line gives the walls and the results."""
+    import contextlib
+    import io
+    import os
+    import shutil
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    from blades_tpu_torch.leaf import preprocess
+
+    base = Path(out)
+    t0 = time.perf_counter()
+    write_leaf_femnist(base / "all_data")
+    write_s = time.perf_counter() - t0
+    raw_bytes = sum(f.stat().st_size for f in (base / "all_data").iterdir())
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        preprocess.main(["--data-dir", str(base / "all_data"), "--out-dir", str(base / "out"),
+                         *LEAF_ARGS])
+    pipeline_s = time.perf_counter() - t0
+    stats = json.loads(printed.getvalue()[printed.getvalue().index("{"):])
+    manifest = base / "out" / "meta" / "manifest.json"
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent)}
+
+    def verify(out_dir: Path) -> dict:
+        t1 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "blades_tpu_torch.leaf.preprocess",
+                               "--out-dir", str(out_dir), "--verify", str(manifest)], env=env,
+                              capture_output=True, text=True, timeout=300)
+        return {"rc": proc.returncode, "wall_s": time.perf_counter() - t1,
+                "last_line": (proc.stdout.strip().splitlines() or [""])[-1]}
+
+    good = verify(base / "out")
+    shutil.copytree(base / "out", base / "tampered")
+    (base / "tampered" / "test" / "test.json").write_text('{"users": []}')
+    tampered = verify(base / "tampered")
+    print("LEAF " + json.dumps({
+        "users": LEAF_USERS, "samples": LEAF_SAMPLES, "width": LEAF_WIDTH,
+        "classes": LEAF_CLASSES, "args": list(LEAF_ARGS), "raw_bytes": raw_bytes,
+        "write_s": write_s, "pipeline_s": pipeline_s, "final_stats": stats,
+        "manifest_files": sorted(json.loads(manifest.read_text())), "verify": good,
+        "verify_tampered": tampered, "torch_imported": "torch" in sys.modules}), flush=True)
+    return 0
+
+
+def start_leaf(log_root: Path):
+    """``tools_leaf`` in a process of its own, beside the card's phases
+    (killed at exit should a later phase fail before it is collected)."""
+    import atexit
+    import os
+
+    out = log_root / "tools_leaf"
+    proc = subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--leaf-child", str(out)],
+        cwd=str(Path(__file__).resolve().parent), stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env={**os.environ, **BESIDE_ENV})
+    atexit.register(proc.kill)
+    return out, time.perf_counter(), proc
+
+
+def finish_leaf(handle, card: str) -> float:
+    """``tools_leaf``: the LEAF pipeline's record (host work only, no card):
+    its walls, the final stats and the ``--verify`` results. Returns the
+    child's wall."""
+    out, t0, proc = handle
+    text, _ = proc.communicate(timeout=900)
+    wall = time.perf_counter() - t0
+    lines = [json.loads(line[5:]) for line in text.splitlines() if line.startswith("LEAF ")]
+    check(proc.returncode == 0 and len(lines) == 1, f"tools_leaf: rc {proc.returncode}\n"
+          f"{text[-3000:]}")
+    rec = lines[0]
+    emit({"phase": "tools_leaf", "host_only": True, "child_wall_s": wall, **rec, "card": card})
+    check(rec["verify"]["rc"] == 0 and "Matching" in rec["verify"]["last_line"]
+          and rec["verify_tampered"]["rc"] == 1 and not rec["torch_imported"],
+          f"tools_leaf: {rec}")
+    check(rec["manifest_files"] == ["rem_user_data/pruned.json", "sampled_data/sampled.json",
+                                    "test/test.json", "train/train.json"]
+          and 0 < rec["final_stats"]["num_samples"] < LEAF_SAMPLES,
+          f"tools_leaf: {rec['manifest_files']} {rec['final_stats']}")
+    return wall
+
+
+def phase_tools_trace_cct2(torch, trimmed, fl, card: str, log_root: Path,
+                           keep_first: bool = False) -> dict:
+    """``tools_trace_cct2``: the telemetry example's recipe on the main
+    path (bf16 CCT-2 at K=1000 in CCT2_CHUNKS chunks, ALIE f=5 + trimmed
+    mean b=5, 1 local step of batch 32, TOOLS_TRACE_ROUNDS rounds,
+    ``collect_diagnostics=True``) on the store ``fl``, its trace read by the
+    port's ``trace_summary --json``: the table on the lines before, then the
+    round span's split (sample / dispatch / sync / eval), the first round
+    apart from the warm ones, the dispatch share, the provenance, the
+    byzantine share of the trimmed slots, the peak memory and the
+    launches, each held. Returns the launches, the largest error, the
+    trace and (``keep_first``) the first launch's input."""
+    import contextlib
+    import io
+
+    from blades_tpu_torch import Simulator
+    from blades_tpu_torch.examples import trace_summary
+
+    k, _, b = CCT2_SHAPE
+    gc.collect()
+    torch.cuda.empty_cache()
+    log_dir = log_root / "tools_trace_cct2"
+    sim = Simulator(dataset=fl, attack="alie", num_byzantine=b, aggregator="trimmedmean",
+                    aggregator_kws={"num_byzantine": b}, seed=1, log_path=str(log_dir))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trimmed.trimmed_mean_launches = 0
+    with _HeldKernel(torch, trimmed, keep_first=keep_first) as held:
+        t0 = time.perf_counter()
+        round_s = sim.run(model="cct_2_3x2_32", global_rounds=TOOLS_TRACE_ROUNDS, local_steps=1,
+                          server_lr=1.0, client_lr=0.1, validate_interval=TOOLS_TRACE_ROUNDS,
+                          client_chunks=CCT2_CHUNKS, compute_dtype="bfloat16",
+                          collect_diagnostics=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = trimmed.trimmed_mean_launches
+        n_held, err, bad = held.result()
+    peak = torch.cuda.max_memory_allocated()
+    del sim
+    trace = log_dir / "telemetry.jsonl"
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        rc = trace_summary.main([str(trace), "--json"])
+    summary = json.loads(printed.getvalue())
+    read_s = time.perf_counter() - t0
+    print(trace_summary.format_table(summary), flush=True)
+    spans = round_spans(trace)
+    split = {n: {"first_s": spans[0].get(n, 0.0), "warm_s": [r.get(n, 0.0) for r in spans[1:]],
+                 "total_s": sum(r.get(n, 0.0) for r in spans)}
+             for n in ("round", "sample", "dispatch", "sync", "eval")}
+    defense = [r for r in map(json.loads, trace.read_text().splitlines())
+               if r.get("t") == "defense"]
+    emit({"phase": "tools_trace_cct2", "model": "cct_2_3x2_32", "dtype": "bfloat16",
+          "clients": k, "client_chunks": CCT2_CHUNKS, "attack": "alie", "b": b,
+          "rounds": TOOLS_TRACE_ROUNDS, "round_s": round_s, "wall_s": wall, "split": split,
+          "dispatch_share": summary["dispatch"].get("dispatch_share"),
+          "dispatch": {n: summary["dispatch"].get(n) for n in ("launches", "enqueue_s",
+                                                               "ready_s")},
+          "provenance": {n: v for n, v in summary["provenance"].items()
+                         if n != "by_fingerprint"},
+          "mean_byz_trim_frac": summary["defense"].get("mean_byz_trim_frac"),
+          "config_fingerprint": summary["run"].get("config_fingerprint"),
+          "peak_mem_bytes": peak, "launches": launches, "held": n_held, "max_abs_err": err,
+          "elements_off_tol": bad, "reader_s": read_s, "card": card})
+    check(rc == 0 and summary["rounds"]["count"] == TOOLS_TRACE_ROUNDS == len(spans),
+          f"tools_trace_cct2: reader rc {rc}, rounds {summary['rounds']}, spans {spans}")
+    check(all(n in r for r in spans for n in ("sample", "dispatch", "sync"))
+          and "eval" in spans[-1], f"tools_trace_cct2: spans {spans}")
+    check(len(defense) == TOOLS_TRACE_ROUNDS
+          and 0.0 <= summary["defense"]["mean_byz_trim_frac"] <= 1.0
+          and all(sum(r["trim_counts"]) == 2 * b * CCT2_SHAPE[1] for r in defense),
+          f"tools_trace_cct2: defense {summary['defense']}")
+    check(launches == TOOLS_TRACE_ROUNDS and n_held == launches and bad == 0,
+          f"tools_trace_cct2: {launches} launches, {n_held} held, {bad} off {TOL}")
+    return {"launches": launches, "err": err, "trace": trace, "first": held.first}
+
+
+#: what each example's record keeps of its ``main``'s return value
+_TOOLS_RECORD = {
+    "telemetry_trace": lambda r: {"mean_byz_trim_frac": r["defense"].get("mean_byz_trim_frac"),
+                                  "rounds": r["rounds"]["count"]},
+    "run_ledger": lambda r: {"alerts_diverging": [a["rule"] for a in r["alerts"]],
+                             "alerts_healthy": r["healthy_alerts"],
+                             "rerun_fingerprint": ("same" if r["same_config_same_fingerprint"]
+                                                   else "different"),
+                             "diverging_fingerprint": ("different" if r["diverging_differs"]
+                                                       else "same"),
+                             "stamped": r["stamped"]},
+    "defense_audit": lambda r: {"verdicts": {n: c["verdict"] for n, c in r["cells"].items()},
+                                "worst_ratio": {n: c["worst_ratio"]
+                                                for n, c in r["cells"].items()},
+                                "breached_rounds": sum(a["breach"] for a in r["audits"]),
+                                "fallback_rounds": sum(a["fallback_used"] for a in r["audits"]),
+                                "bit_reproducible": r["bit_reproducible"],
+                                "final_eval": r["final_eval"]},
+    "plot_comparing_aggregation_schemes": lambda r: {"tags": {n: v["tag"]
+                                                              for n, v in r.items()}},
+    "fedavg_ipm": lambda r: {"final_top1": r["summary"]["final_top1"],
+                             "d2_d4_agreement": r["d2_d4_agreement"],
+                             "rounds_checked": r["verdict"]["rounds_checked"],
+                             "krum_selected_byzantine_frac":
+                                 r["verdict"]["fraction_rounds_krum_selected_byzantine"],
+                             "initial_capture_streak":
+                                 r["verdict"]["initial_byzantine_capture_streak"],
+                             "reference": (None if not r["verdict"]["reference_available"]
+                                           else r["verdict"]["selection_agreement_with_reference"]),
+                             "dataset": r["dataset"]},
+}
+
+
+def phase_tools_examples(torch, trimmed, card: str, log_root: Path) -> dict:
+    """``tools_examples``: the slice's examples once each through ``main``
+    at their own settings, in a directory of their own: the wall, the
+    launches (each held against the plain version), whether the example's
+    own assertions held, and what each claims (the four verdicts; the
+    alerts and fingerprints; the tags; both arms' top-1, the d^2/d^4
+    agreement and the captured rounds). Returns the launches by example,
+    the largest error, and the first launch's input on each kernel path."""
+    import contextlib
+    import importlib
+    import os
+
+    out, errs, firsts = {}, [], {}
+    saved_ledger = os.environ.get("BLADES_LEDGER")
+    try:
+        for name, argv in TOOLS_EXAMPLES:
+            base = log_root / "tools_examples" / name
+            base.mkdir(parents=True)
+            mod = importlib.import_module(f"blades_tpu_torch.examples.{name}")
+            trimmed.trimmed_mean_launches = 0
+            failure = None
+            with _Numerics(), contextlib.chdir(base), \
+                    _HeldKernel(torch, trimmed, keep_first=True) as held:
+                t0 = time.perf_counter()
+                try:
+                    result = mod.main(list(argv))
+                except AssertionError as e:  # the example's own assertion
+                    result, failure = None, f"AssertionError: {e}"
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            n_held, err, bad = held.result()
+            errs.append(err)
+            if held.first is not None:
+                firsts[name] = held.first
+            rec = {"wall_s": wall, "launches": trimmed.trimmed_mean_launches, "held": n_held,
+                   "elements_off_tol": bad, "assertions_held": failure is None,
+                   "failure": failure}
+            if result is not None:
+                rec.update(_TOOLS_RECORD[name](result))
+            out[name] = rec
+            emit({"phase": "tools_examples", "example": name, "argv": list(argv), **rec,
+                  "max_abs_err": err, "card": card})
+            # run_ledger points BLADES_LEDGER at its demo ledger
+            os.environ["BLADES_LEDGER"] = saved_ledger
+    finally:
+        os.environ["BLADES_LEDGER"] = saved_ledger
+    bad = {n: r for n, r in out.items() if not r["assertions_held"] or r["elements_off_tol"]
+           or r["held"] != r["launches"] or r["launches"] != TOOLS_ON_KERNEL.get(n, 0)}
+    check(not bad, f"tools_examples: {bad}")
+    audit = out["defense_audit"]
+    check(audit["verdicts"] == {"mean": "BREAKS", "median": "CERTIFIED", "krum": "CERTIFIED",
+                                "centeredclipping": "CERTIFIED"} and audit["bit_reproducible"]
+          and audit["breached_rounds"] == audit["fallback_rounds"] > 0,
+          f"tools_examples: defense_audit {audit}")
+    ledger_demo = out["run_ledger"]
+    # throughput_drop reads the wall clock (a round 3x the run's median, the
+    # final round's validation among them): it may join loss_divergence
+    check("loss_divergence" in ledger_demo["alerts_diverging"]
+          and set(ledger_demo["alerts_diverging"]) <= {"loss_divergence", "throughput_drop"}
+          and ledger_demo["alerts_healthy"] == 0 and ledger_demo["rerun_fingerprint"] == "same"
+          and ledger_demo["diverging_fingerprint"] == "different" and ledger_demo["stamped"],
+          f"tools_examples: run_ledger {ledger_demo}")
+    ipm = out["fedavg_ipm"]
+    check(ipm["rounds_checked"] == 30 and ipm["reference"] is None
+          and all(0.0 <= v <= 1.0 for v in ipm["final_top1"].values()),
+          f"tools_examples: fedavg_ipm {ipm}")
+    check(len(out["plot_comparing_aggregation_schemes"]["tags"]) == 14,
+          f"tools_examples: plot {out['plot_comparing_aggregation_schemes']}")
+    return {"launches": {n: out[n]["launches"] for n in TOOLS_ON_KERNEL},
+            "off_kernel": {n: r["launches"] for n, r in out.items() if n not in TOOLS_ON_KERNEL},
+            "err": max(errs), "firsts": firsts}
+
+
+def _reader(argv: list) -> dict:
+    """One reader of the port run as a process of its own: its exit code,
+    wall and the one JSON line it printed."""
+    import os
+
+    root = Path(__file__).resolve().parent
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *argv], cwd=str(root), capture_output=True,
+                          text=True, timeout=300, env={**os.environ, "PYTHONPATH": str(root)})
+    lines = proc.stdout.strip().splitlines()
+    try:
+        payload = json.loads(lines[0]) if len(lines) == 1 else None
+    except json.JSONDecodeError:
+        payload = None
+    return {"rc": proc.returncode, "wall_s": time.perf_counter() - t0, "lines": len(lines),
+            "payload": payload, "stderr": proc.stderr[-500:]}
+
+
+def phase_tools_readers(torch, trimmed, card: str, log_root: Path, trace: Path) -> tuple:
+    """``tools_readers``: the certify driver's trimmed-mean cells on the
+    card (TOOLS_CERT_ARGS; each launch held), then the port's ``runs``
+    (the whole ledger, and ``--run-id`` of that certify run),
+    ``sweep_status`` (its sweep trace and every service trace of this
+    script's run) and ``trace_summary`` (``--json`` and ``--compare``
+    on ``tools_trace_cct2``'s trace), each a process of its own: each
+    exits 0 with one JSON line. Returns the certify run's launches and the
+    largest error."""
+    import os
+
+    from blades_tpu_torch.examples import certify
+    from blades_tpu_torch.telemetry.ledger import read_ledger
+
+    cert_out = log_root / "tools_readers" / "certify"
+    trimmed.trimmed_mean_launches = 0
+    with _HeldKernel(torch, trimmed) as held:
+        t0 = time.perf_counter()
+        cert_rc = certify.main([*TOOLS_CERT_ARGS, "--out", str(cert_out)])
+        torch.cuda.synchronize()
+        cert_s = time.perf_counter() - t0
+        launches = trimmed.trimmed_mean_launches
+        n_held, err, bad = held.result()
+    ledger_path = os.environ["BLADES_LEDGER"]
+    run_id = [r for r in read_ledger(ledger_path)
+              if r.get("kind") == "certify" and r.get("event") == "started"][-1]["run_id"]
+    calls = {
+        "runs": ["blades_tpu_torch.examples.runs", "--ledger", ledger_path],
+        "runs_run_id": ["blades_tpu_torch.examples.runs", "--ledger", ledger_path,
+                        "--run-id", run_id],
+        "sweep_status": ["blades_tpu_torch.examples.sweep_status", str(cert_out)],
+        "trace_summary": ["blades_tpu_torch.examples.trace_summary", "--json", str(trace)],
+        "trace_summary_compare": ["blades_tpu_torch.examples.trace_summary", "--compare",
+                                  str(trace), str(trace), "--json"],
+    }
+    for i, svc in enumerate(sorted(log_root.rglob("service_trace.jsonl"))):
+        calls[f"sweep_status_service_{i}"] = ["blades_tpu_torch.examples.sweep_status", str(svc)]
+    got = {name: _reader(argv) for name, argv in calls.items()}
+    runs, by_id, status = got["runs"]["payload"], got["runs_run_id"]["payload"], got[
+        "sweep_status"]["payload"]
+    emit({"phase": "tools_readers", "certify_rc": cert_rc, "certify_s": cert_s,
+          "launches": launches, "held": n_held, "max_abs_err": err, "elements_off_tol": bad,
+          "readers": {n: {"rc": r["rc"], "wall_s": r["wall_s"], "lines": r["lines"]}
+                      for n, r in got.items()},
+          "ledger_runs": runs and runs.get("runs"), "by_kind": runs and runs.get("by_kind"),
+          "by_outcome": runs and runs.get("by_outcome"),
+          "sweep_progress": by_id and by_id.get("sweep_progress"),
+          "sweep_families": status and status.get("sweeps"),
+          "service_traces": sum(n.startswith("sweep_status_service") for n in got),
+          "card": card})
+    failed = {n: r for n, r in got.items() if r["rc"] != 0 or r["payload"] is None}
+    check(cert_rc == 0 and not failed, f"tools_readers: certify rc {cert_rc}, {failed}")
+    check(runs["ok"] and runs["runs"] > 0 and by_id["found"]
+          and by_id["sweep_progress"]["cells_completed"] == by_id["sweep_progress"]["total"]
+          and status["ok"], f"tools_readers: {runs} {by_id} {status}")
+    summary = got["trace_summary"]["payload"]
+    check(summary["rounds"]["count"] == TOOLS_TRACE_ROUNDS
+          and got["trace_summary_compare"]["payload"]["a"] == summary,
+          "tools_readers: the trace's summary")
+    check(launches > 0 and n_held == launches and bad == 0,
+          f"tools_readers: {launches} launches, {n_held} held, {bad} off {TOL}")
+    return launches, err
+
+
+def tools_phases(torch, trimmed, card: str, log_root: Path, fl=None,
+                 keep_first: bool = False, leaf=None) -> dict:
+    """The slice 15b phases: the LEAF pipeline in a process of its own
+    beside the others (host work only; started here unless ``leaf`` is the
+    handle of one started before), the CCT-2 trace on the store ``fl``
+    (built here when None), the examples, then the readers. Returns the
+    launches by path, those of the examples off the kernel (each 0), the
+    largest error and the kernel's timings at the examples' shapes (and at
+    the trace's, ``keep_first``)."""
+    t0 = time.perf_counter()
+    leaf = leaf or start_leaf(log_root)
+    store_s = 0.0
+    if fl is None:
+        t1 = time.perf_counter()
+        fl = cct2_simulator(torch, log_root).dataset
+        store_s = time.perf_counter() - t1
+    trace = phase_tools_trace_cct2(torch, trimmed, fl, card, log_root, keep_first)
+    del fl
+    t1 = time.perf_counter()
+    examples = phase_tools_examples(torch, trimmed, card, log_root)
+    examples_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    launches = {"tools_trace_cct2": trace["launches"],
+                **{f"tools_{n}": v for n, v in examples["launches"].items()}}
+    launches["tools_readers_certify"], readers_err = phase_tools_readers(
+        torch, trimmed, card, log_root, trace["trace"])
+    readers_s = time.perf_counter() - t1
+    leaf_s = finish_leaf(leaf, card)
+    shapes = {}
+    for name, (x, b) in examples["firsts"].items():
+        shapes[(*x.shape, b)] = kernel_timings(torch, trimmed, x, b)
+    if trace["first"] is not None:
+        x, b = trace["first"]
+        shapes[(*x.shape, b)] = kernel_timings(torch, trimmed, x, b, reps=3)
+        del x
+    trace["first"] = None
+    emit({"phase": "tools", "seconds": {"store": store_s, "examples": examples_s,
+                                        "readers": readers_s, "leaf_child": leaf_s,
+                                        "total": time.perf_counter() - t0},
+          "by_shape": [{"shape_kdb": list(s), **t} for s, t in shapes.items()], "card": card})
+    return {"launches": launches, "off_kernel": examples["off_kernel"],
+            "err": max(trace["err"], examples["err"], readers_err), "shapes": shapes}
 
 
 def relu_near_zero(torch, spec, params, x, eps: float = 1e-6) -> list:
@@ -7579,6 +8061,12 @@ def main() -> int:
                         help="build the kernel and the CIFAR-shaped store, run only the "
                              "static linter's and the round-program auditor's phases "
                              "(slice 14), then the kernels line and the result line")
+    parser.add_argument("--tools-only", action="store_true",
+                        help="build the kernel and the CIFAR-shaped store, run only the "
+                             "run-record readers', the last examples' and the LEAF tools' "
+                             "phases (slice 15b), then the kernels line and the result line")
+    parser.add_argument("--leaf-child", default=None, metavar="OUT",
+                        help="(the tools_leaf phase's process: the LEAF tools, no torch)")
     parser.add_argument("--sticky-child", default=None, metavar="OUT",
                         help="(the resilient_sticky phase's supervised child)")
     args = parser.parse_args()
@@ -7586,6 +8074,8 @@ def main() -> int:
         return cpu_certify(args.cpu_certify)
     if args.sticky_child:
         return sticky_child(args.sticky_child)
+    if args.leaf_child:
+        return leaf_child(args.leaf_child)
     import os
 
     import torch
@@ -7686,13 +8176,7 @@ def main() -> int:
             analysis = analysis_phases(torch, trimmed, card, Path(tmp), keep_first=True)
             x, b = analysis.pop("first")
             k, d = x.shape
-            bnd, by = bound_ms(k, d)
-            timings = dict(ms=time_ms(lambda: trimmed.trimmed_mean_cuda(x, b), reps=20),
-                           plain_ms=time_ms(lambda: trimmed.trimmed_mean_plain(x, b), reps=3,
-                                            warmup=1),
-                           library_ms=time_ms(lambda: torch.sort(x, 0)[0][b:k - b].mean(0),
-                                              reps=3, warmup=1),
-                           bound_ms=bnd, bound_by=by)
+            timings = kernel_timings(torch, trimmed, x, b, reps=3)
             del x
             xs = torch.randn(VMAP_MLP_S, MAIN_CLIENTS, 59_850, device=dev)
             batched_timings = batched_kernel_timings(torch, trimmed, xs, MAIN_BYZANTINE)
@@ -7712,6 +8196,24 @@ def main() -> int:
             "launches": sum(batched.values()), "launches_by_path": batched,
             "shape_skdb": [VMAP_MLP_S, MAIN_CLIENTS, 59_850, MAIN_BYZANTINE],
             "max_abs_err": analysis["err"], **batched_timings}]})
+        emit({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                     "count": torch.cuda.device_count()}})
+        return 0
+    if args.tools_only:
+        with tempfile.TemporaryDirectory(dir=built.path.parent) as tmp:
+            os.environ["BLADES_LEDGER"] = str(Path(tmp) / "ledger.jsonl")
+            tools = tools_phases(torch, trimmed, card, Path(tmp), keep_first=True)
+        by_path = tools["launches"]
+        check(all(by_path.values()), f"a tools path ran without the kernel: {by_path}")
+        emit({"kernels": [{
+            "name": "trimmed_mean", "route": "cuda",
+            "source": "blades_tpu_torch/csrc/trimmed_mean.cu",
+            "replaces": "blades_tpu/ops/pallas_trimmed.py:91",
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "launches_under_tools_off_kernel": tools["off_kernel"],
+            "shape_kdb": list(CCT2_SHAPE), "max_abs_err": tools["err"],
+            **tools["shapes"][CCT2_SHAPE],
+            "by_shape": [{"shape_kdb": list(s), **t} for s, t in tools["shapes"].items()]}]})
         emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                      "count": torch.cuda.device_count()}})
         return 0
@@ -7816,6 +8318,11 @@ def main() -> int:
         # once a round under ALIE + trimmed mean, eager and in a graph
         # block), IPM + Krum, and the streaming rounds of ResNet-18 and
         # WideResNet-28-10 at K=1000, which never launch it
+        # slice 15b's LEAF pipeline, host work only, in a process of its own
+        # from here on: beside the BASELINE phases, whose rounds keep the
+        # card busy while the host waits (beside the host-bound drivers
+        # phases it doubled drivers_config1 on a slow host)
+        leaf = start_leaf(Path(tmp))
         stores = baseline_stores(torch, dev, Path(tmp) / "baseline_data")
         baseline = phase_resnet18_round(torch, trimmed, stores["cifar10_k100"], card, Path(tmp))
         (launches["resnet18_bf16_alie_trimmedmean"], graph_launches["resnet18_bf16_block"],
@@ -7879,11 +8386,20 @@ def main() -> int:
         # wrn_stream (47.58 GB reserved and unused at its OOM)
         analysis = analysis_phases(torch, trimmed, card, Path(tmp))
         launches.update(analysis["launches"])
+        # the run-record readers, the last examples and the LEAF tools
+        # (slice 15b): the telemetry example's recipe on the main path
+        # (the kernel once a round, held) on the analysis phases' store,
+        # read back by the port's trace reader; the examples, the aggregator
+        # comparison's [100, 2] launch among them; the readers over this
+        # run's ledger and traces; the LEAF pipeline on the host beside them
+        tools = tools_phases(torch, trimmed, card, Path(tmp), fl=analysis.pop("store"),
+                             leaf=leaf)
+        launches.update(tools["launches"])
     for dtype, run in runs.items():
         launches[f"cct2_{dtype}"] = run["launches"]
         max_err = max(max_err, run["max_abs_err"])
     max_err = max(max_err, resnet_err, cert_err, search_err, text["err"], resilient["err"],
-                  service["err"], drivers["err"], analysis["err"])
+                  service["err"], drivers["err"], analysis["err"], tools["err"])
     batched_launches.update(analysis["batched"])
     check(all(launches.values()), f"a path ran without the kernel: {launches}")
     check(all(n > 0 for p, n in batched_launches.items() if "fault" not in p and
@@ -7905,7 +8421,8 @@ def main() -> int:
     cert_shape = (CERT_SCALE_CLIENTS, CCT2_SHAPE[1], CERT_SCALE_B)
     shapes = {CCT2_SHAPE: timings[CCT2_SHAPE], RESNET18_SHAPE: resnet_timings,
               cert_shape: cert_timings, TEXT_SHAPE: text["timings"], **search_shapes,
-              SERVICE_SHAPE: service["timings"], DRIVERS_CLI_SHAPE: drivers["timings"]}
+              SERVICE_SHAPE: service["timings"], DRIVERS_CLI_SHAPE: drivers["timings"],
+              **tools["shapes"]}
     emit({"kernels": [{
         "name": "trimmed_mean",
         "route": "cuda",
@@ -7914,7 +8431,7 @@ def main() -> int:
         "launches": sum(n for path, n in launches.items()
                         if path.startswith(("cct2", "resnet18", "certify", "text", "resilient",
                                             "supervised", "service", "drivers",
-                                            "analysis"))),
+                                            "analysis", "tools"))),
         "launches_by_path": launches,
         # the BASELINE models' paths that take another defense (mean, Krum)
         "launches_under_baseline_models": baseline,
@@ -7942,6 +8459,10 @@ def main() -> int:
         # the examples of slice 15a whose defense is not the dense trimmed
         # mean (the fault model's masked form among them): no launch
         "launches_under_drivers_off_kernel": drivers["off_kernel"],
+        # the examples of slice 15b whose defenses are not the trimmed mean
+        # (run_ledger's median, defense_audit's four and its fallback,
+        # fedavg_ipm's mean and Krum): no launch
+        "launches_under_tools_off_kernel": tools["off_kernel"],
         # the certification paths (slice 10b): every unmasked trimmed-mean
         # evaluation of the search with 1 <= b <= 16 ("certify", K=8, and
         # "certify_scale", K=100 at b=10) and the battery's contract calls;

@@ -257,7 +257,9 @@ def test_json001_binds_the_ports_contract_scripts(tmp_path):
     from blades_tpu_torch.analysis.rules.json_contract import CONTRACT_SCRIPTS
 
     assert set(CONTRACT_SCRIPTS) == {"blades_tpu_torch/examples/certify.py",
+                                     "blades_tpu_torch/examples/runs.py",
                                      "blades_tpu_torch/examples/serve.py",
+                                     "blades_tpu_torch/examples/sweep_status.py",
                                      "blades_tpu_torch/analysis/__main__.py"}
     for rel in CONTRACT_SCRIPTS:
         assert os.path.isfile(os.path.join(REPO, rel))
