@@ -77,6 +77,13 @@ class Aggregator:
         """Initial carry for stateful aggregators; ``()`` when stateless."""
         return ()
 
+    def column_separable(self, num_clients: int) -> bool:
+        """True where :meth:`aggregate` of ``[K, D]`` is coordinate-wise and
+        stateless, so that a sharding plan may run it in model-axis column
+        blocks (``parallel/mesh.py:ShardingPlan.aggregate_columns``); only
+        the trimmed mean's kernel route says so."""
+        return False
+
     def aggregate(
         self,
         updates: torch.Tensor,

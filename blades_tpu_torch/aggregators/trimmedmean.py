@@ -20,7 +20,7 @@ import torch
 
 from blades_tpu_torch.aggregators.base import Aggregator, TwoLevelStreaming
 from blades_tpu_torch.ops.masked import masked_trimmed_mean
-from blades_tpu_torch.ops.trimmed import trimmed_mean, trimmed_mean_batched
+from blades_tpu_torch.ops.trimmed import _kernel_route, trimmed_mean, trimmed_mean_batched
 
 #: ``diagnostics`` sorts this many elements at a time (columns in slabs of
 #: ``TRIM_SLAB_ELEMS // K``), which bounds the sort's buffers
@@ -42,6 +42,11 @@ class Trimmedmean(TwoLevelStreaming, Aggregator):
 
     def aggregate(self, updates, state=(), **ctx):
         return trimmed_mean(updates, self._effective_b(updates.shape[0])), state
+
+    def column_separable(self, num_clients: int) -> bool:
+        """The kernel route (``ops/trimmed.py:_kernel_route``): a sharding
+        plan's model axis aggregates its column blocks, one launch each."""
+        return _kernel_route(num_clients, self._effective_b(num_clients))
 
     def aggregate_masked_batched(self, updates, states, *, masks=None, ctxs,
                                  diagnostics=False):

@@ -31,8 +31,17 @@ kernel route) on a caller-given device, and checks, per program:
   float32 outputs, which the JAX auditor's compiled program leaves out too;
   the check runs that pack on the call's outputs outside the window and
   reports its float64 tensors in ``detail``, never as a failure.
-- **sharding axis**: no counterpart on one card until ``ROADMAP.md`` item
-  12 (the parallel layer); reported ``skipped`` with that reason.
+- **sharding axis**, the counterpart of the JAX check (:194-225,
+  :313-326, :370-371) that no sharding constraint partitions the fresh
+  ``[K, D]`` matrix along the model axis, the reshard under which XLA once
+  miscompiled every row into ``update + params``. The port places its
+  round itself (``parallel/mesh.py``), so the check tests that failure
+  directly: the program runs once more on an engine with a sharding plan
+  over a virtual ``(2, 4)`` mesh of the device (``_MESH_SHAPE``: the
+  clients axis cuts each chunk in two, the trimmed mean runs in 4 column
+  blocks), from the same state, and the post-attack ``[K, D]`` rows (where
+  the program keeps them) and the new params must equal the first call's,
+  at the JAX test's tolerances (``tests/test_engine.py:242-252``).
 - **rebuild stability**, the counterpart of retrace stability. The
   program's engine comes from an
   :class:`~blades_tpu_torch.sweeps.EngineCache` keyed as ``Simulator.run``
@@ -67,7 +76,13 @@ _S = 2
 #: the programs of :func:`run_tier_b`, in its order
 PROGRAMS = ("round", "block", "streaming", "experiment_batch_map",
             "experiment_batch_vmap", "async")
-#: the checks of every program (``sharding_axis`` is always ``skipped``)
+#: the sharding check's virtual mesh: (clients, model) entries of the device
+_MESH_SHAPE = (2, 4)
+#: the sharding check's tolerances (JAX ``tests/test_engine.py:242-252``)
+_ROWS_TOL = dict(rtol=1e-4, atol=1e-6)
+_PARAMS_TOL = dict(rtol=1e-5, atol=1e-7)
+
+#: the checks of every program
 CHECKS = ("storage", "dtype", "sharding_axis", "rebuild_stability")
 
 #: the process counters a second same-shape call must leave alone
@@ -84,7 +99,8 @@ def _result(check: str, program: str, ok, detail: str) -> Dict[str, Any]:
 # -- building the toy programs ---------------------------------------------------
 
 
-def _parts(streaming: bool = False, client_chunks: int = 1, use_async: bool = False) -> dict:
+def _parts(streaming: bool = False, client_chunks: int = 1, use_async: bool = False,
+           plan=None) -> dict:
     """A fresh configuration of the toy engine (new attack, defense and
     option objects each call, as a new ``Simulator.run`` makes them)."""
     from blades_tpu_torch.aggregators import get_aggregator
@@ -102,7 +118,7 @@ def _parts(streaming: bool = False, client_chunks: int = 1, use_async: bool = Fa
         )
     return dict(attack=get_attack("signflipping"), aggregator=get_aggregator("trimmedmean"),
                 client_opt=ClientOptSpec(), server_opt=ServerOptSpec(), streaming=streaming,
-                client_chunks=client_chunks, async_config=async_config)
+                client_chunks=client_chunks, async_config=async_config, plan=plan)
 
 
 def engine_key(engine_cls=None, **kw) -> str:
@@ -111,8 +127,11 @@ def engine_key(engine_cls=None, **kw) -> str:
     from blades_tpu_torch.core import RoundEngine
     from blades_tpu_torch.sweeps import program_fingerprint
 
+    parts = _parts(**kw)
+    plan = parts.pop("plan")
     return program_fingerprint(model="mlp-8", clients=_K, byzantine=2,
-                               engine=(engine_cls or RoundEngine).__qualname__, **_parts(**kw))
+                               engine=(engine_cls or RoundEngine).__qualname__,
+                               plan=None if plan is None else plan.mesh.fingerprint(), **parts)
 
 
 def build_engine(device, engine_cls=None, **kw):
@@ -129,7 +148,7 @@ def build_engine(device, engine_cls=None, **kw):
     params = spec.init(torch.Generator().manual_seed(0))
     engine = (engine_cls or RoundEngine)(
         spec.train_loss_fn, spec.eval_logits_fn, params, spec.layout,
-        num_clients=_K, num_byzantine=2, num_classes=10, keep_updates=False,
+        num_clients=_K, num_byzantine=2, num_classes=10, keep_updates=True,
         device=device, noise_sites=spec.noise_sites, **_parts(**kw),
     )
     return engine, params
@@ -249,10 +268,45 @@ def check_storage(program: str, caller: Dict[str, tuple], caller_after: Dict[str
     return _result("storage", program, not bad, "; ".join(bad) if bad else "; ".join(parts))
 
 
-def check_sharding(program: str) -> Dict[str, Any]:
-    return _result("sharding_axis", program, None,
-                   "skipped: one card, no mesh; the model-axis guard waits for the parallel "
-                   "layer (ROADMAP.md item 12)")
+def _max_diff(a, b) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def _close(a, b, rtol: float, atol: float) -> bool:
+    return bool(torch.allclose(a.double(), b.double(), rtol=rtol, atol=atol))
+
+
+def check_sharding(program: str, plain: dict, sharded: dict) -> Dict[str, Any]:
+    """The sharded call's rows and new params against the plain call's:
+    ``plain`` / ``sharded`` hold ``rows`` (the post-attack ``[K, D]``
+    matrix, or None where the program keeps none) and ``params`` (the new
+    params' tensor leaves in order)."""
+    bad, parts = [], []
+    if plain["rows"] is not None and sharded["rows"] is not None:
+        diff = _max_diff(sharded["rows"], plain["rows"])
+        parts.append(f"rows {tuple(plain['rows'].shape)} max |diff| {diff:.3g}")
+        if not _close(sharded["rows"], plain["rows"], **_ROWS_TOL):
+            bad.append(f"the sharded rows differ from the unsharded ones by {diff:.3g} "
+                       "(a row of update + params?)")
+    elif (plain["rows"] is None) != (sharded["rows"] is None):
+        bad.append("one engine kept its rows and the other did not")
+    diffs = [_max_diff(s, p) for s, p in zip(sharded["params"], plain["params"])]
+    parts.append(f"{len(diffs)} param leaves max |diff| {max(diffs, default=0.0):.3g}")
+    if len(sharded["params"]) != len(plain["params"]) or not all(
+            _close(s, p, **_PARAMS_TOL) for s, p in zip(sharded["params"], plain["params"])):
+        bad.append("the sharded program's new params differ from the unsharded program's")
+    return _result("sharding_axis", program, not bad,
+                   "; ".join(bad) if bad else
+                   f"virtual {_MESH_SHAPE} mesh equals the unsharded program: "
+                   + ", ".join(parts))
+
+
+def _call_result(engine, new_state) -> dict:
+    """A call's rows (``engine.last_updates``, None after a block or a
+    streaming round) and its new params' leaves, copied."""
+    params = [t.detach().clone() for p, t in _leaves(new_state) if ".params" in p]
+    rows = engine.last_updates
+    return {"rows": None if rows is None else rows.detach().clone(), "params": params}
 
 
 def check_rebuild(program: str, deltas: List[Dict[str, int]]) -> Dict[str, Any]:
@@ -271,10 +325,11 @@ def _graph_of(engine):
 
 
 def audit_program(program: str, get_engine: Callable[[], Any], state, call: Callable,
-                  cache) -> List[Dict[str, Any]]:
+                  cache, sharded_engine: Callable[[], Any]) -> List[Dict[str, Any]]:
     """Run ``call(engine, state) -> (new state, outputs, batch lists)``
     twice, the second from the first's new state, with ``get_engine()``
-    looked up before each call; return the four checks. ``cache``: the
+    looked up before each call; then once on ``sharded_engine()`` from the
+    first call's state; return the four checks. ``cache``: the
     ``EngineCache`` ``get_engine`` reads, whose growth the rebuild check
     counts."""
     from blades_tpu_torch.telemetry.recorder import (
@@ -290,6 +345,7 @@ def audit_program(program: str, get_engine: Callable[[], Any], state, call: Call
     deltas: List[Dict[str, int]] = []
     caller, caller_after, batches, graph_snaps = {}, {}, [], []
     watch, first_outs, values_ok = DtypeWatch(), None, None
+    state0, plain = state, None
     try:
         for i in range(2):
             counters0 = process_counters()
@@ -300,6 +356,7 @@ def audit_program(program: str, get_engine: Callable[[], Any], state, call: Call
             if i == 0:
                 with watch:
                     new_state, first_outs, lists = call(engine, state)
+                plain = _call_result(engine, new_state)
             else:
                 new_state, _, lists = call(engine, state)
             if engine.device.type == "cuda":
@@ -325,6 +382,11 @@ def audit_program(program: str, get_engine: Callable[[], Any], state, call: Call
                     torch.equal(g, n) or (n.dim() == g.dim() + 1 and torch.equal(g, n[-1]))
                     for (_, g), (_, n) in zip(_leaves(graph.state), _leaves(new_state)))
             state = new_state
+        # the sharding check: the same first call on a plan's engine
+        s_engine = sharded_engine()
+        sharded = _call_result(s_engine, call(s_engine, state0)[0])
+        if s_engine.device.type == "cuda":
+            torch.cuda.synchronize(s_engine.device)
     finally:
         set_recorder(prev)
     graph_kw = {}
@@ -334,7 +396,7 @@ def audit_program(program: str, get_engine: Callable[[], Any], state, call: Call
     return [
         check_storage(program, caller, caller_after, batches, **graph_kw),
         check_dtype(program, watch, first_outs),
-        check_sharding(program),
+        check_sharding(program, plain, sharded),
         check_rebuild(program, deltas),
     ]
 
@@ -379,6 +441,7 @@ def run_tier_b(device=None, engine_cls=None,
     (``ok`` None) is neither a pass nor a violation."""
     from blades_tpu_torch.core import ExperimentBatch
     from blades_tpu_torch.core.engine import resolve_device
+    from blades_tpu_torch.parallel.mesh import make_mesh, make_plan
     from blades_tpu_torch.sweeps import EngineCache
 
     dev = resolve_device(device if device is not None else "cuda")
@@ -402,29 +465,33 @@ def run_tier_b(device=None, engine_cls=None,
                 cache.put(key, hit)
             return hit
 
-        return engine, params, get
+        return engine, params, get, lambda: build_engine(
+            dev, engine_cls=engine_cls, plan=make_plan(make_mesh([dev] * 8, _MESH_SHAPE)),
+            **kw)[0]
 
     # -- the dense round -------------------------------------------------------------
     if "round" in wanted:
-        engine, params, get = cached()
-        checks += audit_program("round", get, engine.init(params), round_call(), cache)
+        engine, params, get, sharded = cached()
+        checks += audit_program("round", get, engine.init(params), round_call(), cache,
+                                sharded)
 
     # -- the round block (a graph on the card, eager on the CPU) ----------------------
     if "block" in wanted:
-        engine, params, get = cached()
+        engine, params, get, sharded = cached()
         checks += audit_program("block", get, engine.init(params),
-                                block_call(toy_sampler(dev)), cache)
+                                block_call(toy_sampler(dev)), cache, sharded)
 
     # -- the streaming round -----------------------------------------------------------
     if "streaming" in wanted:
-        engine, params, get = cached(streaming=True, client_chunks=_CHUNKS)
-        checks += audit_program("streaming", get, engine.init(params), round_call(), cache)
+        engine, params, get, sharded = cached(streaming=True, client_chunks=_CHUNKS)
+        checks += audit_program("streaming", get, engine.init(params), round_call(), cache,
+                                sharded)
 
     # -- ExperimentBatch, map and vmap -------------------------------------------------
     for mode in ("map", "vmap"):
         if f"experiment_batch_{mode}" not in wanted:
             continue
-        engine, params, get = cached()
+        engine, params, get, sharded = cached()
 
         def batch_call(eng, states, mode=mode):
             cx, cy = toy_batch(eng.device)
@@ -434,12 +501,13 @@ def run_tier_b(device=None, engine_cls=None,
 
         states = ExperimentBatch(engine, _S, mode=mode).init_batch(params)
         checks += audit_program(f"experiment_batch_{mode}", get, states,
-                                batch_call, cache)
+                                batch_call, cache, sharded)
 
     # -- the buffered-async round ---------------------------------------------------------
     if "async" in wanted:
-        engine, params, get = cached(use_async=True)
-        checks += audit_program("async", get, engine.init(params), round_call(), cache)
+        engine, params, get, sharded = cached(use_async=True)
+        checks += audit_program("async", get, engine.init(params), round_call(), cache,
+                                sharded)
 
     violations = [c for c in checks if c["ok"] is False]
     return {

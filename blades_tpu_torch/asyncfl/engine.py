@@ -44,6 +44,15 @@ its certificates and fallback on the tick's aggregate, with
 ``round_metrics`` the metric pack against the aggregate applied. On the
 general path they are gated on the fire: a breach on a tick that did not
 fire swapped nothing in, and its ``breach`` and ``fallback_used`` read 0.
+
+With a sharding plan (JAX ``:115-146``, ``:182-183``) the tick trains
+through the engine's ``_train_clients``, so the clients axis is the dense
+round's: each chunk's rows on their mesh rows' devices, each client's
+lagged start params moved to its row's device with its rows, and the
+``[K, D]`` rows, the buffer and the defense on the primary device. The
+static tick's unmasked trimmed mean runs in the plan's model-axis column
+blocks (``core/engine.py:RoundEngine._column_blocks``); the masked path
+runs whole.
 """
 
 from __future__ import annotations

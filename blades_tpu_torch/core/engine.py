@@ -98,8 +98,39 @@ the build-provenance registry (``telemetry/programs.py``;
 ``_provenance``, JAX ``:1097-1111``): a kernel library built or loaded,
 or a CUDA graph captured, during it is a ``program`` record of
 ``engine/<label>`` under ``program_fingerprint`` (the ``EngineCache``
-key, which ``Simulator.run`` stamps). Sharding plans are not ported
-(``ROADMAP.md`` queue A, slice 12).
+key, which ``Simulator.run`` stamps).
+
+``plan`` (``parallel/mesh.py:ShardingPlan``; JAX ``:186``, ``:318``,
+``:505-532``, ``:714-743``, streaming ``:892-894``, ``:973-976``) lays the
+round over a (clients, model) mesh, so that it gives the unsharded round's
+results (JAX ``tests/test_engine.py:225-252``):
+
+- clients axis: each chunk's rows are cut at the mesh rows' contiguous
+  client ranges; each part trains on its row's device from that device's
+  replica of the params (a replica on the primary device is the params
+  themselves), and the parts are gathered on the primary device
+  ``devices[0, 0]`` in client order. The streaming round and the async
+  tick train through the same path, chunk by chunk. The fresh rows are
+  never resharded along the model axis (the JAX package guards a
+  miscompile there, :730-743): they are the unsharded round's rows;
+- on the primary device: the attack, the fault model, the audit and the
+  metric pack, on the whole ``[K, D]`` matrix;
+- model axis: where the defense takes the trimmed mean's kernel route
+  (``Aggregator.column_separable``; ``ops/trimmed.py:_kernel_route``),
+  the unmasked dense aggregate runs in ``m`` contiguous column blocks,
+  block ``j`` on ``devices[0, j]`` (one kernel launch per block on the
+  card), concatenated on the primary device. Every other defense, every
+  masked form, the diagnostics and ``ExperimentBatch`` aggregate the whole
+  matrix on the primary device.
+
+In a job mesh (``parallel/distributed.py:make_global_mesh`` with a process
+group initialized) each process trains its own contiguous client rows
+(``cx`` / ``cy`` may be ``GlobalClientArray``s of just those rows), and
+``all_gather_into_tensor`` assembles the ``[K, D]`` matrix, the losses and
+the persistent client state on every rank; the attack, the aggregation
+(each column block on its owner, broadcast) and the server step then run
+on every rank alike, so every rank holds ``K x D``. The streaming round
+has no multi-process form.
 
 ``remat=True`` (the JAX engine's ``jax.checkpoint`` around each client's
 loss, ``blades_tpu/core/engine.py:599-607``) wraps the same function, the
@@ -140,6 +171,7 @@ from blades_tpu_torch.ops.streaming import (
     moments_update,
     moments_var,
 )
+from blades_tpu_torch.parallel.mesh import ShardingPlan
 from blades_tpu_torch.telemetry import get_recorder, timeline
 from blades_tpu_torch.telemetry import programs as _programs
 from blades_tpu_torch.telemetry.metric_pack import pack_dense, pack_finalize, pack_init, pack_update
@@ -156,6 +188,13 @@ def resolve_device(device=None) -> torch.device:
             "CUDA is not available here; pass device='cpu' to run on the CPU"
         )
     return device
+
+
+def same_device(device, other: torch.device) -> bool:
+    """``device`` names ``other``: the same device, or ``other``'s type with
+    no index (``"cuda"`` names no particular card)."""
+    device = torch.device(device)
+    return device.type == other.type if device.index is None else device == other
 
 
 # -- optimizers: optax's chains, literally -------------------------------------
@@ -389,6 +428,11 @@ class RoundEngine:
     ``remat``: rematerialize each client's clamped loss (module
     docstring); the results do not change.
 
+    ``plan``: a :class:`~blades_tpu_torch.parallel.mesh.ShardingPlan`
+    laying the round over a device mesh (module docstring); the engine's
+    device is then the plan's primary device, and ``device`` may only name
+    it.
+
     ``async_config``: an :class:`~blades_tpu_torch.asyncfl.AsyncConfig`;
     each round is then one buffered-asynchronous tick (module docstring),
     and its 10 counters are ``self.last_async_diag`` (0-d tensors).
@@ -424,9 +468,16 @@ class RoundEngine:
         audit_monitor: Optional[AuditMonitor] = None,
         round_metrics: bool = False,
         remat: bool = False,
+        plan: Optional[ShardingPlan] = None,
     ):
         if int(client_chunks) < 1:
             raise ValueError(f"client_chunks must be >= 1, got {client_chunks}")
+        self.plan = plan
+        if plan is not None:
+            if device is not None and not same_device(device, plan.primary):
+                raise ValueError(f"device {device} is not the plan's primary device "
+                                 f"{plan.primary}")
+            device = plan.primary
         self.device = resolve_device(device)
         self.train_loss_fn = train_loss_fn
         self.eval_logits_fn = eval_logits_fn
@@ -486,6 +537,12 @@ class RoundEngine:
             self.async_buffer_m = max(1, min(int(async_config.buffer_m), self.num_clients))
         if self.streaming:
             self._validate_streaming()
+        if plan is not None and plan.collective:
+            if self.streaming:
+                raise ValueError("streaming=True has no multi-process form: a chunk's rows "
+                                 "span processes unevenly")
+            # this process's rows must be one contiguous block, in rank order
+            plan.process_rows(self.num_clients)
         self.dim, self.unravel = make_unraveler(params_template, layout)
         # reference convention: the FIRST num_byzantine client ids are byzantine
         self.byz_mask = torch.arange(self.num_clients, device=self.device) < self.num_byzantine
@@ -617,9 +674,34 @@ class RoundEngine:
 
     def _train_chunk(self, params, flat0, client_lr, cx, cy, rows, noise, opt_state=(),
                      start=None):
-        """Local training of the clients ``rows`` (``_local_update`` with the
+        """Local training of the clients ``rows`` (:meth:`_train_part`).
+        With a sharding plan the rows are cut at the mesh rows' client
+        ranges (``ShardingPlan.shard_batch``), each part trained on its
+        row's device from that device's replica of ``params`` and on its
+        rows of the batch, ``opt_state`` and ``start``, moved there once,
+        and the parts concatenated on the primary device in client order;
+        in a job mesh only this process's parts."""
+        if self.plan is None:
+            return self._train_part(params, flat0, client_lr, cx[rows], cy[rows], rows, noise,
+                                    opt_state, start)
+        replicas = self.plan.replicate((params, flat0, client_lr))
+        outs = [self._train_part(*replicas[r], x, y, part, noise, opt, st,
+                                 dev=self.plan.row_device(r))
+                for r, part, (x, y, opt, st) in self.plan.shard_batch(
+                    (cx[rows], cy[rows], opt_state, start), rows, self.num_clients)]
+        to0 = lambda t: t.to(self.device, non_blocking=True)  # noqa: E731
+        updates, losses, top1s = (torch.cat([to0(t) for t in parts])
+                                  for parts in list(zip(*outs))[:3])
+        return (updates, losses, top1s,
+                self._cat_opt_states([tree_map(to0, o[3]) for o in outs]))
+
+    def _train_part(self, params, flat0, client_lr, cx, cy, rows, noise, opt_state=(),
+                    start=None, dev=None):
+        """Local training of the clients ``rows`` on ``dev`` (default the
+        engine's device; ``_local_update`` with the
         chunk's client axis written out): ``(updates [n, D], losses [n],
-        top1s [n], opt_state)``; ``noise`` holds each step's masks for all K;
+        top1s [n], opt_state)``; ``cx`` / ``cy`` are the rows' ``[n, S, B,
+        ...]`` batches on ``dev``; ``noise`` holds each step's masks for all K;
         ``client_lr`` is a 0-d tensor. ``opt_state``: the chunk's rows of
         the persistent client state (``persist=True``), else ``()`` and each
         client starts from a fresh one. ``start``: the chunk's ``[n, D]``
@@ -627,8 +709,9 @@ class RoundEngine:
         client starts from ``params``. No host sync and no draw: the
         batched round (``core/batched.py``) maps it over experiments with
         ``torch.func.vmap``."""
-        ids = torch.arange(self.num_clients, device=self.device)[rows]
-        byz = self.byz_mask[rows]
+        dev = self.device if dev is None else dev
+        ids = torch.arange(self.num_clients, device=dev)[rows]
+        byz = self.byz_mask[rows].to(dev)
         if start is None:
             p = {n: t.expand(ids.numel(), *t.shape) for n, t in params.items()}
         else:
@@ -638,9 +721,10 @@ class RoundEngine:
         losses, top1s = [], []
         for s, masks in enumerate(noise):
             x, y = self.attack.on_batch(
-                cx[rows, s], cy[rows, s], byz, num_classes=self.num_classes, client_idx=ids,
+                cx[:, s], cy[:, s], byz, num_classes=self.num_classes, client_idx=ids,
             )
-            grads, (loss, aux) = self._grad_fn(p, x, y, {n: m[rows] for n, m in masks.items()})
+            grads, (loss, aux) = self._grad_fn(
+                p, x, y, {n: m[rows].to(dev, non_blocking=True) for n, m in masks.items()})
             grads = self.attack.on_grads(grads, byz, client_idx=ids)
             u, opt_state = self._client_tx.update(grads, opt_state, p)
             p = {n: p[n] - client_lr * u[n] for n in p}
@@ -663,7 +747,13 @@ class RoundEngine:
         cx, cy = batch
         lag = req.lag
         out = []
+        mine = (self.plan.process_rows(self.num_clients)
+                if self.plan is not None and self.plan.collective else None)
         for rows in self._chunk_rows():
+            if mine is not None:  # this process's rows of the chunk
+                rows = slice(max(rows.start, mine.start), min(rows.stop, mine.stop))
+                if rows.start >= rows.stop:
+                    continue
             opt = tree_map(lambda t: t[rows], req.opt_state)
             start = None if lag is None else lag[0][lag[1][rows]]
             out.append(self._train_chunk(req.params, req.flat0, req.client_lr, cx, cy, rows,
@@ -671,7 +761,12 @@ class RoundEngine:
         del cx, cy
         batch.clear()
         updates, losses, top1s = (torch.cat(parts) for parts in list(zip(*out))[:3])
-        return updates, losses, top1s, self._cat_opt_states([o[3] for o in out])
+        opt_state = self._cat_opt_states([o[3] for o in out])
+        if self.plan is not None and self.plan.collective:
+            # every rank's rows, in rank (= client) order, on every rank
+            updates, losses, top1s = (_all_gather_rows(t) for t in (updates, losses, top1s))
+            opt_state = tree_map(_all_gather_rows, opt_state)
+        return updates, losses, top1s, opt_state
 
     def _cat_opt_states(self, states, dim: int = 0):
         """The chunks' persistent client states, concatenated along K."""
@@ -786,6 +881,10 @@ class RoundEngine:
             return self.attack.on_updates(updates, byz, generator, attack_state)
         if kind == "aggregate":
             updates, agg_state, mask, ctx = req
+            if self._column_blocks(updates, mask):
+                agg = self.plan.aggregate_columns(
+                    updates, lambda block: self.aggregator.aggregate(block, agg_state, **ctx)[0])
+                return agg, agg_state, None
             if self.collect_diagnostics:
                 return self.aggregator.aggregate_masked_with_diagnostics(
                     updates, agg_state, mask=mask, **ctx)
@@ -793,6 +892,14 @@ class RoundEngine:
         if kind == "server":
             return self._server_step(*req)
         raise ValueError(f"unknown round request {kind!r}")
+
+    def _column_blocks(self, updates, mask) -> bool:
+        """The unmasked aggregate runs in the plan's model-axis column
+        blocks: a model axis wider than 1 and a defense on its
+        column-separable route, without diagnostics (module docstring)."""
+        return (self.plan is not None and self.plan.model_width > 1 and mask is None
+                and not self.collect_diagnostics
+                and self.aggregator.column_separable(updates.shape[0]))
 
     def _round_dense(self, state, inputs, streams, steps_batch):
         """The dense round (module docstring, steps 1-6), as a round body."""
@@ -1023,6 +1130,11 @@ class RoundEngine:
         that fails on a configuration this calls graph-safe raises."""
         if self.device.type != "cuda":
             return f"the engine runs on {self.device}; a CUDA graph needs the card"
+        if self.plan is not None and self.plan.collective:
+            return "the multi-process round runs collectives between its steps"
+        n_devices = 0 if self.plan is None else len(self.plan.mesh.distinct_devices())
+        if n_devices > 1:
+            return f"the mesh spans {n_devices} devices; a CUDA graph is captured on one"
         if self.streaming:
             return ("the streaming round draws from per-chunk generators, not yet "
                     "registered with a graph (ROADMAP.md queue B, item 7c)")
@@ -1160,6 +1272,15 @@ def block_diags(outs) -> dict:
     """A block's stacked :meth:`RoundEngine.round_outputs` as the JAX
     package's ``diags`` dict."""
     return dict(zip(BLOCK_DIAGS, outs[1:]))
+
+
+def _all_gather_rows(t: torch.Tensor) -> torch.Tensor:
+    """Every rank's ``[n, ...]`` rows (equal ``n``) concatenated in rank
+    order, on every rank (``all_gather_into_tensor``)."""
+    dist = torch.distributed
+    out = t.new_empty((t.shape[0] * dist.get_world_size(),) + tuple(t.shape[1:]))
+    dist.all_gather_into_tensor(out, t.contiguous())
+    return out
 
 
 _HOST_DTYPES = {torch.float32: np.float32, torch.float64: np.float64, torch.int32: np.int32,

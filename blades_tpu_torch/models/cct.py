@@ -115,10 +115,15 @@ class Attention(nn.Module):
         self.proj = nn.Linear(dim, dim)
         self.attention_dropout = attention_dropout
         self.projection_dropout = projection_dropout
+        # the text models' sequence parallelism (models/text.py): a
+        # ``(attention fn, mesh, axis name)`` or None for dense attention
+        self.seq_parallel = None
 
     def noise_sites(self, batch: int, n: int) -> NoiseSites:
         sites = {"attn": ((batch, self.num_heads, n, n), 1.0 - self.attention_dropout),
                  "proj": ((batch, n, self.proj.out_features), 1.0 - self.projection_dropout)}
+        if self.seq_parallel is not None:
+            del sites["attn"]  # no attention dropout on the sequence-parallel path
         return {k: v for k, v in sites.items() if v[1] < 1.0}
 
     def forward(self, x: torch.Tensor, noise: Masks = None, prefix: str = "",
@@ -131,6 +136,13 @@ class Attention(nn.Module):
         head_dim = c // self.num_heads
         qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # [B, N, H, Dh]
+        rate = self.projection_dropout
+        if self.seq_parallel is not None:
+            # only the key side of the mask, and no attention dropout
+            # (blades_tpu/models/text.py:134-143)
+            fn, mesh, axis = self.seq_parallel
+            out = fn(q, k, v, mesh, axis, kv_mask=mask).reshape(b, n, c)
+            return dropout(self.proj(out), _mask(noise, prefix + "proj", rate), rate)
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * (head_dim**-0.5)
         if mask is not None:
             pair = mask[:, :, None] & mask[:, None, :]  # [B, N, N]

@@ -35,8 +35,17 @@ the JAX encoder to float32 (bf16 is held to the JAX package within a
 relative L2 error of 2e-2, ``tests/test_torch_text.py``).
 
 The attention, conv and embedding are stock torch ops, as the JAX package
-left them to XLA. Sequence parallelism over a mesh (``ring_mesh``) is not
-ported: it raises, naming ``ROADMAP.md`` queue A, item 12.
+left them to XLA.
+
+With ``ring_mesh`` (a ``parallel/mesh.py:Mesh`` with the axis
+``ring_axis``) every encoder layer's attention runs sequence-parallel
+(JAX ``MaskedAttention``, :130-187): the K/V ring
+(``seq_parallel="ring"``, ``ops/ring_attention.py``) or the head-parallel
+all-to-all (``"ulysses"``, ``ops/ulysses.py``); any other schedule raises
+``ValueError``. The JAX package's two stated deviations hold (:134-143):
+no attention dropout on that path (its keep-mask is not drawn either), and
+only the key side of the mask (the rows of padded queries differ, and
+every consumer masks them out).
 """
 
 from __future__ import annotations
@@ -141,13 +150,16 @@ class TextCCT(nn.Module):
                  stochastic_depth: float = 0.1, positional_embedding: str = "sine",
                  ring_mesh=None, ring_axis: str = "seq", seq_parallel: str = "ring"):
         super().__init__()
+        sp_attn = None
         if ring_mesh is not None:
-            raise NotImplementedError(
-                "sequence-parallel attention over a mesh (ring_mesh, "
-                f"seq_parallel={seq_parallel!r}, axis {ring_axis!r}) is not ported to "
-                "blades_tpu_torch yet (ROADMAP.md queue A, item 12); pass mesh=None "
-                "for the dense model"
-            )
+            if seq_parallel == "ulysses":
+                from blades_tpu_torch.ops.ulysses import ulysses_attention as sp_attn
+            elif seq_parallel == "ring":
+                from blades_tpu_torch.ops.ring_attention import ring_attention as sp_attn
+            else:  # a typo must not silently run the wrong schedule
+                raise ValueError(f"seq_parallel must be 'ring' or 'ulysses', got "
+                                 f"{seq_parallel!r}")
+        self.ring_mesh, self.ring_axis, self.seq_parallel = ring_mesh, ring_axis, seq_parallel
         if positional_embedding not in ("learnable", "sine", "none"):
             raise ValueError(f"positional_embedding {positional_embedding!r}")
         self.seq_len_in = int(seq_len)
@@ -176,6 +188,9 @@ class TextCCT(nn.Module):
                                     attention_dropout, rate)
             for rate in dpr
         )
+        if sp_attn is not None:
+            for layer in self.layers:
+                layer.self_attn.seq_parallel = (sp_attn, ring_mesh, ring_axis)
         self.norm = nn.LayerNorm(width, eps=LN_EPS)
         self.attention_pool = nn.Linear(width, 1) if seq_pool else None
         self.fc = nn.Linear(width, num_classes)
@@ -309,9 +324,12 @@ def text_transformer_6(num_classes: int = 2, **kw) -> TextCCT:
 def long_text_transformer(num_classes: int = 2, mesh=None, axis_name: str = "seq",
                           depth: int = 2, **kw) -> TextCCT:
     """Long-sequence text classifier: tokenizer-free, seq-pool head (no
-    class token). With ``mesh=None`` it is the dense model; sharding the
-    token axis over ``mesh[axis_name]`` (ring or Ulysses attention) raises,
-    naming ``ROADMAP.md`` queue A, item 12."""
+    class token, which would break the N-divisibility the split needs).
+    With a ``mesh`` the token axis is split over ``mesh[axis_name]``: the
+    K/V ring by default, ``seq_parallel="ulysses"`` for the head-parallel
+    all-to-all (heads divisible by the axis size); ``mesh=None`` is the
+    dense model. ``seq_len`` (a keyword of :class:`TextCCT`) is the input
+    length."""
     layers, heads, ratio, _ = _GRID[depth]
     cfg = dict(num_classes=num_classes, num_layers=layers, num_heads=heads, mlp_ratio=ratio,
                use_tokenizer=False, seq_pool=True, ring_mesh=mesh, ring_axis=axis_name)

@@ -42,9 +42,24 @@ SIGTERM becomes :class:`SupervisorTermination` in the round loop (:61,
 :728-745), so the crash autosave fires before the supervisor's SIGKILL.
 
 ``device=None`` runs on the GPU and raises where CUDA is unavailable; pass
-``device="cpu"`` to run on the CPU. Options that select a path not ported
-yet raise ``NotImplementedError`` naming the ``ROADMAP.md`` slice (queue A)
-that brings it.
+``device="cpu"`` to run on the CPU.
+
+``mesh_shape=(c, m)`` (JAX :163, :220-231) lays the rounds over a
+(clients, model) mesh (``parallel/mesh.py``); on CUDA with more than one
+visible card and ``device`` naming no card (``None`` or ``"cuda"``) the
+mesh is built without being asked, over every card, shaped by
+``auto_mesh_shape``, as the JAX package shards whenever more than one
+device is visible. Its devices: the port-only ``mesh_devices`` (a list of
+``torch.device``; repeated entries make a virtual mesh, e.g.
+``[torch.device("cpu")] * 8``), else every visible card when ``device``
+names none, else the run's one device. A ``device`` that names a card
+(``"cuda:1"``) builds no mesh unasked and must be the mesh's primary entry
+``devices[0, 0]``. The store stays whole on the primary device; the
+engine moves each mesh row's batches to its device (``core/engine.py``;
+the JAX package's ``FLDataset.place``, JAX :226-229, has no port: a
+transform that draws from one generator over the whole batch cannot be
+split by row without changing its draws). The engine cache's key carries
+the mesh (JAX :653-670).
 """
 
 from __future__ import annotations
@@ -75,12 +90,14 @@ from blades_tpu_torch.core.engine import (
     multistep_lr,
     outputs_to_host,
     resolve_device,
+    same_device,
 )
 from blades_tpu_torch.datasets.base import BaseDataset
 from blades_tpu_torch.datasets.fl import FLDataset
 from blades_tpu_torch.faults import FaultModel
 from blades_tpu_torch.models import create_model
 from blades_tpu_torch.models.common import ModelSpec, build_fns
+from blades_tpu_torch.parallel.mesh import auto_mesh_shape, make_mesh, make_plan
 from blades_tpu_torch.server import BladesServer
 from blades_tpu_torch.supervision import heartbeat
 from blades_tpu_torch.sweeps import (
@@ -139,13 +156,6 @@ def _torch_dtype(name) -> Optional[torch.dtype]:
     if not isinstance(dtype, torch.dtype) or not dtype.is_floating_point:
         raise ValueError(f"compute_dtype {name!r} is not a float dtype")
     return dtype
-
-
-def _unported(what: str, slice_name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to blades_tpu_torch yet (ROADMAP.md queue A, "
-        f"{slice_name})"
-    )
 
 
 class _CompositeAttack(Attack):
@@ -256,16 +266,32 @@ class Simulator:
         mode: Optional[str] = "actor",
         use_cuda: Optional[bool] = False,
         device=None,
+        mesh_devices: Optional[List] = None,
         **kwargs,
     ):
         if kwargs:
             # parity: strict unknown-kwarg error
             unknown = ", ".join(kwargs)
             raise RuntimeError(f"Unknown keyword argument(s): {unknown}")
-        if mesh_shape is not None:
-            raise _unported("mesh_shape (sharding over devices)", "slice 12 (parallel)")
+        if mesh_devices is not None and mesh_shape is None:
+            raise ValueError("mesh_devices needs mesh_shape: the devices of a mesh of that "
+                             "shape")
         # first: a run asked of the GPU must not start anything on the CPU
         self.device = resolve_device(device)
+        self.plan = None
+        if mesh_devices is None and self.device.type == "cuda" and self.device.index is None:
+            mesh_devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+            if mesh_shape is None and len(mesh_devices) < 2:
+                mesh_devices = None
+        if mesh_shape is not None or mesh_devices is not None:
+            devices = list(mesh_devices) if mesh_devices is not None else [self.device]
+            if mesh_shape is None:
+                mesh_shape = auto_mesh_shape(len(devices), dataset.num_clients)
+            self.plan = make_plan(make_mesh(devices, tuple(mesh_shape)))
+            if not same_device(self.device, self.plan.primary):
+                raise ValueError(f"device {self.device} is not the mesh's primary entry "
+                                 f"{self.plan.primary}")
+            self.device = self.plan.primary
 
         self.aggregator = get_aggregator(aggregator, **(aggregator_kws or {}))
 
@@ -599,13 +625,17 @@ class Simulator:
                 collect_diagnostics=collect_diagnostics,
                 audit_monitor=audit_monitor,
                 round_metrics=round_metrics,
+                plan=self.plan,
             )
             engine_key = None
             if (engine_cache is not None and isinstance(model, str)
                     and not self._custom_attack_entries):
-                view = static_fingerprint({"model": model, "loss": loss,
-                                           "compute_dtype": str(compute_dtype),
-                                           **engine_kwargs, "device": str(self.device)})
+                # the plan by its mesh: axis names, shape, entries
+                view = static_fingerprint({
+                    "model": model, "loss": loss, "compute_dtype": str(compute_dtype),
+                    **{k: v for k, v in engine_kwargs.items() if k != "plan"},
+                    "plan": None if self.plan is None else self.plan.mesh.fingerprint(),
+                    "device": str(self.device)})
                 if not contains_callables(view):
                     engine_key = program_fingerprint(view=view)
             cached = engine_cache.get(engine_key) if engine_key is not None else None

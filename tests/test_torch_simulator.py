@@ -201,8 +201,12 @@ def test_streaming_refuses_parts_without_a_streaming_form(tmp_path):
 
 def test_unported_choices_raise(tmp_path):
     ds = Synthetic(num_clients=4, train_size=100, cache=False)
-    with pytest.raises(NotImplementedError, match="slice 12"):
-        Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
+    # mesh_shape builds a plan over the run's device (slice 12); a shape
+    # whose product is not the device count raises
+    sim = Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(1, 1))
+    assert sim.plan is not None and sim.plan.mesh.shape == {"clients": 1, "model": 1}
+    with pytest.raises(ValueError, match="!= 1 devices"):
+        Simulator(ds, device="cpu", log_path=str(tmp_path), mesh_shape=(2, 1))
     # the async pair and register_attackers are ported (slices 9 and 3b)
     assert repr(Simulator(ds, device="cpu", log_path=str(tmp_path),
                           aggregator="asyncmean").aggregator) == "Asyncmean"

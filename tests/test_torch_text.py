@@ -293,8 +293,11 @@ def test_bf16_logits_and_grad_match_jax_bf16(name):
 def test_registry_and_unported_mesh():
     assert {n for n in MODELS if "text" in n} == {n for n in JAX_MODELS if "text" in n}
     assert len([n for n in MODELS if "text" in n]) == 13
-    with pytest.raises(NotImplementedError, match="item 12"):
-        text.long_text_transformer(mesh=object())
+    # the sequence-parallel model builds over a mesh (slice 12)
+    from blades_tpu_torch.parallel import Mesh
+
+    mesh = Mesh([torch.device("cpu")] * 2, ("seq",))
+    assert text.long_text_transformer(mesh=mesh).ring_mesh is mesh
     with pytest.raises(ValueError, match="sample shape"):
         create_model("text_cct_2", sample_shape=(28, 28, 1))
     with pytest.raises(ValueError, match="input length"):
