@@ -39,9 +39,12 @@ kernel route) on a caller-given device, and checks, per program:
   directly: the program runs once more on an engine with a sharding plan
   over a virtual ``(2, 4)`` mesh of the device (``_MESH_SHAPE``: the
   clients axis cuts each chunk in two, the trimmed mean runs in 4 column
-  blocks), from the same state, and the post-attack ``[K, D]`` rows (where
-  the program keeps them) and the new params must equal the first call's,
-  at the JAX test's tolerances (``tests/test_engine.py:242-252``).
+  blocks), from the same state, on the same batches laid out by the mesh's
+  clients-axis rows as a placed store's sampler lays them out
+  (``ShardingPlan.place_rows``, ``datasets/fl.py:FLDataset.place``), and
+  the post-attack ``[K, D]`` rows (where the program keeps them) and the
+  new params must equal the first call's, at the JAX test's tolerances
+  (``tests/test_engine.py:242-252``).
 - **rebuild stability**, the counterpart of retrace stability. The
   program's engine comes from an
   :class:`~blades_tpu_torch.sweeps.EngineCache` keyed as ``Simulator.run``
@@ -178,6 +181,14 @@ def toy_sampler(device) -> Callable:
     return sampler
 
 
+def place_batch(engine, batch) -> list:
+    """``batch`` laid out by the clients-axis rows of ``engine``'s plan, as
+    a placed store's sampler returns it (``GlobalClientArray``s); the batch
+    itself for an engine without a plan."""
+    plan = engine.plan
+    return list(batch) if plan is None else [plan.place_rows(t) for t in batch]
+
+
 # -- the invariants ------------------------------------------------------------------
 
 
@@ -297,7 +308,8 @@ def check_sharding(program: str, plain: dict, sharded: dict) -> Dict[str, Any]:
         bad.append("the sharded program's new params differ from the unsharded program's")
     return _result("sharding_axis", program, not bad,
                    "; ".join(bad) if bad else
-                   f"virtual {_MESH_SHAPE} mesh equals the unsharded program: "
+                   f"virtual {_MESH_SHAPE} mesh, its batches placed by mesh rows, "
+                   "equals the unsharded program: "
                    + ", ".join(parts))
 
 
@@ -403,10 +415,11 @@ def audit_program(program: str, get_engine: Callable[[], Any], state, call: Call
 
 def round_call(seed: int = 3, batch_fn: Optional[Callable[[], list]] = None):
     """A dense, streaming or async round through ``run_round_donated`` on a
-    fresh batch list each call."""
+    fresh batch list each call (placed by the rows of the engine's plan)."""
 
     def call(engine, state):
-        batch = batch_fn() if batch_fn is not None else toy_batch(engine.device)
+        batch = place_batch(engine, batch_fn() if batch_fn is not None
+                            else toy_batch(engine.device))
         new_state, metrics = engine.run_round_donated(state, batch, 0.1, 1.0, seed)
         return new_state, engine.round_outputs(metrics), [batch]
 
@@ -415,13 +428,19 @@ def round_call(seed: int = 3, batch_fn: Optional[Callable[[], list]] = None):
 
 def block_call(sampler, rounds: int = _BLOCK_ROUNDS, seed: int = 3):
     """A block of ``rounds`` rounds with ``sampler`` fused in, continuing
-    from the state's round."""
+    from the state's round; an engine with a plan gets one sampler of its
+    own whose batches are placed by the plan's rows."""
+    placed = {}
 
     def call(engine, state):
         start = int(state.round_idx)
         r = list(range(start, start + rounds))
+        source = sampler
+        if engine.plan is not None:
+            source = placed.setdefault(
+                id(engine), lambda gen: tuple(place_batch(engine, sampler(gen))))
         new_state, metrics, diags = engine.run_block(
-            state, r, [0.1] * rounds, [1.0] * rounds, seed, sampler=sampler)
+            state, r, [0.1] * rounds, [1.0] * rounds, seed, sampler=source)
         return new_state, (metrics, diags), []
 
     return call
@@ -494,7 +513,7 @@ def run_tier_b(device=None, engine_cls=None,
         engine, params, get, sharded = cached()
 
         def batch_call(eng, states, mode=mode):
-            cx, cy = toy_batch(eng.device)
+            cx, cy = place_batch(eng, toy_batch(eng.device))
             new_states, metrics, diags = ExperimentBatch(eng, _S, mode=mode).run_round_batch(
                 states, cx, cy, [0.1] * _S, [1.0] * _S, list(range(_S)), shared_data=True)
             return new_states, (metrics, diags), []

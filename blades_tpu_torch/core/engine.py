@@ -109,10 +109,15 @@ results (JAX ``tests/test_engine.py:225-252``):
   client ranges; each part trains on its row's device from that device's
   replica of the params (a replica on the primary device is the params
   themselves), and the parts are gathered on the primary device
-  ``devices[0, 0]`` in client order. The streaming round and the async
-  tick train through the same path, chunk by chunk. The fresh rows are
-  never resharded along the model axis (the JAX package guards a
-  miscompile there, :730-743): they are the unsharded round's rows;
+  ``devices[0, 0]`` in client order. A batch laid out by mesh rows (a
+  ``GlobalClientArray``, what a placed store's sampler returns,
+  ``datasets/fl.py:FLDataset.place``) is read part by part on the device
+  where each row's piece lies, with no copy to the primary device and
+  back; a whole ``[K, ...]`` batch is cut and moved. The streaming round
+  and the async tick train through the same path, chunk by chunk. The
+  fresh rows are never resharded along the model axis (the JAX package
+  guards a miscompile there, :730-743): they are the unsharded round's
+  rows;
 - on the primary device: the attack, the fault model, the audit and the
   metric pack, on the whole ``[K, D]`` matrix;
 - model axis: where the defense takes the trimmed mean's kernel route
@@ -680,15 +685,20 @@ class RoundEngine:
         row's device from that device's replica of ``params`` and on its
         rows of the batch, ``opt_state`` and ``start``, moved there once,
         and the parts concatenated on the primary device in client order;
-        in a job mesh only this process's parts."""
+        in a job mesh only this process's parts. ``cx`` / ``cy``: the whole
+        ``[K, ...]`` batch, or a ``GlobalClientArray`` of its rows (a placed
+        store's batch, ``FLDataset.place``), whose part for a mesh row is
+        read on the row's device where it already lies, with no copy."""
         if self.plan is None:
             return self._train_part(params, flat0, client_lr, cx[rows], cy[rows], rows, noise,
                                     opt_state, start)
         replicas = self.plan.replicate((params, flat0, client_lr))
-        outs = [self._train_part(*replicas[r], x, y, part, noise, opt, st,
-                                 dev=self.plan.row_device(r))
-                for r, part, (x, y, opt, st) in self.plan.shard_batch(
-                    (cx[rows], cy[rows], opt_state, start), rows, self.num_clients)]
+        outs = []
+        for r, part, (opt, st) in self.plan.shard_batch((opt_state, start), rows,
+                                                        self.num_clients):
+            dev = self.plan.row_device(r)
+            x, y = (b[part].to(dev, non_blocking=True) for b in (cx, cy))
+            outs.append(self._train_part(*replicas[r], x, y, part, noise, opt, st, dev=dev))
         to0 = lambda t: t.to(self.device, non_blocking=True)  # noqa: E731
         updates, losses, top1s = (torch.cat([to0(t) for t in parts])
                                   for parts in list(zip(*outs))[:3])

@@ -58,7 +58,7 @@ import time
 from typing import Any, Dict, List, Optional
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 from blades_tpu_torch.ops import trimmed
 from blades_tpu_torch.telemetry.recorder import count_process
@@ -182,7 +182,8 @@ class RoundGraph:
         self.streams = rng.RoundStreams(0, 0, dev)
         self.inputs = engine._inputs(0.0, 0.0, 0)
         self.state = _clone_state(state, dev)
-        self.batch = None if sampler is not None else [torch.empty_like(t) for t in batch]
+        self.batch = (None if sampler is not None else
+                      [tree_map(torch.empty_like, t) for t in batch])
         # every object whose device tensors the captured round reads stays
         # alive with the graph, even if the engine is rebound
         self._keep = (engine.attack, engine.aggregator, engine.fault_model, engine.audit_monitor,
@@ -220,7 +221,7 @@ class RoundGraph:
         self.inputs.server_lr.fill_(spec.server_lr)
         self.inputs.round_t.fill_(spec.round_idx)
         if batch is not None:
-            for dst, src in zip(self.batch, batch):
+            for dst, src in zip(tree_leaves(self.batch), tree_leaves(list(batch))):
                 dst.copy_(src)
 
     def _warm_up(self, eng) -> Dict[torch.dtype, torch.Tensor]:
@@ -342,7 +343,7 @@ class BatchRoundGraph(RoundGraph):
                           (self.inputs.server_lr, "server_lr")):
             dst.copy_(torch.tensor([getattr(sp, name) for sp in specs], dtype=torch.float32))
         self.inputs.round_t.fill_(spec.round_idx)
-        for dst, src in zip(self.batch, batch):
+        for dst, src in zip(tree_leaves(self.batch), tree_leaves(list(batch))):
             dst.copy_(src)
 
 
@@ -363,13 +364,17 @@ def run_batch_graph(engine, state, spec, batch, shared: bool, num_experiments: i
 
 def graph_key(engine, state, sampler=None, batch=None) -> tuple:
     """What one captured round is good for: the batch source (the sampler
-    object, or the batch's shapes and dtypes), the state's layout and the
-    fault model's program (``sweeps.static_fingerprint``: an engine-cache
-    hit rebinds an equal one)."""
+    object, or the batch's layout: its tree, a placed batch's pieces
+    among its leaves, and their shapes and dtypes), the state's layout and
+    the fault model's program (``sweeps.static_fingerprint``: an
+    engine-cache hit rebinds an equal one)."""
     from blades_tpu_torch.sweeps import program_fingerprint
 
-    source: Any = (sampler if sampler is not None else
-                   tuple((tuple(t.shape), t.dtype) for t in batch))
+    if sampler is not None:
+        source: Any = sampler
+    else:
+        leaves, spec = tree_flatten(list(batch))
+        source = (str(spec), tuple((tuple(t.shape), t.dtype) for t in leaves))
     return (source, state_signature(state),
             program_fingerprint(fault_model=engine.fault_model))
 

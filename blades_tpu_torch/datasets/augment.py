@@ -12,7 +12,10 @@ store is uint8), and is split in two:
   crop and flip as one index gather (no padded copy, no loop over images),
   then erasing as one ``torch.where`` on a box mask.
 
-The split lets a test hand the JAX package's draws to the port. Neither
+The split lets a test hand the JAX package's draws to the port, and a
+sampler laid out by mesh rows (``datasets/fl.py:FLDataset.place``) draw a
+round's parameters once and apply each row's slice of them on the row's
+device (``cifar_train_transform.draw`` / ``.apply``). Neither
 part synchronizes with the host, so the sampler that calls them can be
 captured in a CUDA graph (``core/graphs.py``).
 
@@ -161,9 +164,21 @@ def random_erasing(x: torch.Tensor, generator: torch.Generator, p: float = 0.25,
 
 def cifar_train_transform(x: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
     """Crop, flip and erasing of a batch ``[N, 32, 32, 3]`` (any dtype):
-    the batched form ``(x, generator) -> x`` the sampler calls."""
+    the batched form ``(x, generator) -> x`` the sampler calls.
+
+    Its split form is two attributes, ``draw`` (:func:`draw_cifar_params`,
+    ``(generator, n, h, w) -> CifarParams``) and ``apply``
+    (:func:`apply_cifar_transform`, ``(x, params) -> x``), with
+    ``cifar_train_transform(x, g) == apply(x, draw(g, n, h, w))``. A
+    sampler laid out by mesh rows (``FLDataset.place``) draws every image's
+    parameters at once, as this call does, and applies each row's slice of
+    them on the row's device."""
     n, h, w = x.shape[:3]
     return apply_cifar_transform(x, draw_cifar_params(generator, n, h, w))
+
+
+cifar_train_transform.draw = draw_cifar_params
+cifar_train_transform.apply = apply_cifar_transform
 
 
 class Normalizer:

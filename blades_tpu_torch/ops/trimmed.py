@@ -7,8 +7,14 @@ Counterpart: ``blades_tpu/ops/pallas_trimmed.py`` — the Pallas TPU kernel
 - :func:`trimmed_mean_plain` transcribes ``_trim_survivor_mean`` step for
   step: 2b masked argmax passes (b for the maxima, then b for the minima of
   the rows left, first index on ties), then the sum of the survivors over
-  ``K - 2b``. The trimmed extremes never enter the sum. It serves CPU
-  tensors, and is the reference the kernel is held against on the card.
+  ``K - 2b``. The trimmed extremes never enter the sum. The sum is a
+  pairwise halving over the rows in elementwise adds (:func:`_column_sum`),
+  so each column's value does not depend on the columns beside it: the
+  model axis's column blocks (``parallel/mesh.py:aggregate_columns``) give
+  the whole matrix's bits on the CPU, as the kernel's do on the card
+  (``torch.sum`` over the rows rounds a block's edge columns in another
+  order on the CPU). It serves CPU tensors, and is the reference the
+  kernel is held against on the card.
 - :func:`trimmed_mean_cuda` launches ``csrc/trimmed_mean.cu`` (built on
   first use by ``ops/_build.py``, its C functions bound once when the
   library loads) and counts each launch in :data:`trimmed_mean_launches`.
@@ -66,6 +72,19 @@ trimmed_mean_launches = 0
 trimmed_mean_batched_launches = 0
 
 
+def _column_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum over the rows of ``[K, D]``, per column in an order that K
+    alone fixes: the first half of the rows added to the second (an odd
+    last row into the first sum), until one row is left."""
+    while x.shape[0] > 1:
+        half = x.shape[0] // 2
+        top = x[:half] + x[half:2 * half]
+        if x.shape[0] % 2:
+            top[0] += x[2 * half]
+        x = top
+    return x[0]
+
+
 def trimmed_mean_plain(updates: torch.Tensor, b: int) -> torch.Tensor:
     """Mean of the rows that survive a 2b-extremum trim, per column."""
     x = updates.to(torch.float32)
@@ -78,7 +97,7 @@ def trimmed_mean_plain(updates: torch.Tensor, b: int) -> torch.Tensor:
             masked = torch.where(removed, neg_inf, sign * x)
             idx = torch.argmax(masked, dim=0)  # first index among equal maxima
             removed = removed | (rows == idx[None, :])
-    return torch.where(removed, 0.0, x).sum(dim=0) / (k - 2 * b)
+    return _column_sum(torch.where(removed, 0.0, x)) / (k - 2 * b)
 
 
 def trimmed_mean_batched_plain(updates: torch.Tensor, b: int) -> torch.Tensor:

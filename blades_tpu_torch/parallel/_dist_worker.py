@@ -12,7 +12,10 @@ Counterpart: ``blades_tpu/parallel/_dist_worker.py:1-242`` (``make_data``
 2. builds the global (clients, model) mesh over every rank's
    ``--local-devices`` entries of ``--device``;
 3. holds ONLY its own clients' rows (``host_client_slice``,
-   ``make_global_client_array``);
+   ``make_global_client_array``); with ``--placed`` it builds the round's
+   batches from a client store instead (:func:`make_store`), placed on the
+   job mesh (``FLDataset.place``: the store keeps only this process's
+   rows) and sampled from the generator of :data:`SEED` on every rank;
 4. runs one round of the MLP (local SGD, IPM, the trimmed mean, the server
    step) through the round engine's multi-process path, from the params
    in ``--params`` (an ``.npz`` whose ``flat`` is the JAX package's init in
@@ -26,7 +29,7 @@ Run as::
 
     python -m blades_tpu_torch.parallel._dist_worker <process_id> \\
         <num_processes> <coordinator_port> [--backend gloo] [--device cpu] \\
-        [--local-devices 4] [--params init.npz]
+        [--local-devices 4] [--params init.npz] [--placed]
 """
 
 from __future__ import annotations
@@ -48,6 +51,33 @@ def make_data(num_clients: int, local_steps: int, batch: int):
     cx = rng.randn(num_clients, local_steps, batch, 28, 28, 1).astype(np.float32)
     cy = rng.randint(0, 10, (num_clients, local_steps, batch)).astype(np.int32)
     return cx, cy
+
+
+#: the client store of --placed: samples per client (the counts are
+#: ragged, so the sampler pads and wraps around)
+STORE_SAMPLES = 8
+
+
+def make_store(num_clients: int, device="cpu"):
+    """A deterministic MNIST-shaped ``FLDataset`` of ``num_clients``
+    clients with ragged counts: every process makes the same store (and
+    ``place`` keeps its own rows)."""
+    from blades_tpu_torch.datasets.fl import FLDataset
+
+    rng = np.random.RandomState(42)
+    x = rng.randn(num_clients, STORE_SAMPLES, 28, 28, 1).astype(np.float32)
+    y = rng.randint(0, 10, (num_clients, STORE_SAMPLES)).astype(np.int32)
+    counts = rng.randint(STORE_SAMPLES // 2, STORE_SAMPLES + 1, num_clients)
+    return FLDataset(x, y, counts, x[:, 0], y[:, 0], device=device)
+
+
+def sample_store(fl, local_steps: int, batch: int):
+    """One round's batches of the store ``fl`` from the generator of
+    :data:`SEED` on its (primary) device."""
+    import torch
+
+    gen = torch.Generator(device=fl.device).manual_seed(SEED)
+    return fl.sample_round(gen, local_steps, batch)
 
 
 def initial_params(spec, flat=None):
@@ -105,6 +135,7 @@ def run_local_cluster(
     backend: str = "gloo",
     device: str = "cpu",
     params_path=None,
+    placed: bool = False,
     _fault_injector=None,
 ):
     """Spawn ``n_processes`` workers joined into one localhost job and
@@ -119,8 +150,9 @@ def run_local_cluster(
     - every worker is always reaped.
 
     ``_fault_injector(procs)``: a test hook called once right after the
-    spawn (the failure test kills a worker). Raises RuntimeError on any
-    worker's failure or timeout."""
+    spawn (the failure test kills a worker). ``placed``: the workers sample
+    their batches from a placed store (``--placed``). Raises RuntimeError
+    on any worker's failure or timeout."""
     import os
     import socket
     import subprocess
@@ -140,6 +172,8 @@ def run_local_cluster(
              "--local-devices", str(devices_per_process)]
     if params_path is not None:
         extra += ["--params", str(params_path)]
+    if placed:
+        extra.append("--placed")
     results = {}
     with tempfile.TemporaryDirectory(prefix="blades_torch_dist_") as tmp:
         outs, errs, procs = [], [], []
@@ -224,6 +258,8 @@ def main(argv=None) -> None:
     parser.add_argument("--device", default="cpu")
     parser.add_argument("--local-devices", type=int, default=4)
     parser.add_argument("--params", default=None, help=".npz with the flat init 'flat'")
+    parser.add_argument("--placed", action="store_true",
+                        help="sample the batches from a client store placed on the mesh")
     args = parser.parse_args(sys.argv[1:] if argv is None else argv)
 
     import torch
@@ -244,10 +280,19 @@ def main(argv=None) -> None:
     num_clients = 2 * mesh.size
     local_steps, batch = 2, 4
     lo, hi = dist.host_client_slice(num_clients, mesh)
-    cx_full, cy_full = make_data(num_clients, local_steps, batch)
-    # only this process's rows are kept
-    cx = dist.make_global_client_array(cx_full[lo:hi], num_clients, plan)
-    cy = dist.make_global_client_array(cy_full[lo:hi], num_clients, plan)
+    store = {}
+    if args.placed:
+        fl = make_store(num_clients, plan.primary).place(plan)
+        cx, cy = sample_store(fl, local_steps, batch)
+        store = {"placed": fl.placed, "store_rows": [fl.train_x.lo, fl.train_x.hi],
+                 "store_pieces": [int(p.shape[0]) for p in fl.train_x.pieces],
+                 "batch_rows": [cx.lo, cx.hi]}
+        del fl
+    else:
+        cx_full, cy_full = make_data(num_clients, local_steps, batch)
+        # only this process's rows are kept
+        cx = dist.make_global_client_array(cx_full[lo:hi], num_clients, plan)
+        cy = dist.make_global_client_array(cy_full[lo:hi], num_clients, plan)
     flat = np.load(args.params)["flat"] if args.params else None
 
     held = _Held(trimmed) if device.type == "cuda" else None
@@ -267,6 +312,7 @@ def main(argv=None) -> None:
         "global_devices": mesh.size,
         "client_slice": [lo, hi],
         "is_coordinator": dist.is_coordinator(),
+        **store,
         **summary,
         **({"launches": held.launches, "max_abs_err": held.max_abs_err} if held else {}),
     }), flush=True)

@@ -35,7 +35,7 @@ from __future__ import annotations
 import math
 import os
 import warnings
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +43,7 @@ import torch
 from blades_tpu_torch.parallel.mesh import (
     CLIENTS_AXIS,
     MODEL_AXIS,
+    GlobalClientArray,
     Mesh,
     _as_object_array,
     _this_rank,
@@ -210,30 +211,6 @@ def host_client_slice(num_clients: int, mesh: Mesh, rank: Optional[int] = None) 
             "(e.g. keep the clients axis slice-major in make_global_mesh)"
         )
     return lo * per, (hi + 1) * per
-
-
-class GlobalClientArray(NamedTuple):
-    """This process's rows ``[lo, hi)`` of a global ``[K, ...]`` client
-    array (``make_global_client_array``): ``local`` holds them, on this
-    process's primary device. Indexing with a slice of global client ids
-    inside ``[lo, hi)`` reads the local rows; ``shape`` is the global
-    one. The round engine takes it in place of ``cx`` / ``cy``."""
-
-    local: torch.Tensor
-    lo: int
-    hi: int
-    num_clients: int
-
-    @property
-    def shape(self) -> tuple:
-        return (self.num_clients,) + tuple(self.local.shape[1:])
-
-    def __getitem__(self, index):
-        rows, rest = (index[0], index[1:]) if isinstance(index, tuple) else (index, ())
-        if not isinstance(rows, slice) or rows.start < self.lo or rows.stop > self.hi:
-            raise IndexError(f"rows {rows} outside this process's [{self.lo}, {self.hi})")
-        local = self.local[slice(rows.start - self.lo, rows.stop - self.lo)]
-        return local[(slice(None),) + rest] if rest else local
 
 
 def make_global_client_array(local_rows, num_clients: int, plan) -> GlobalClientArray:

@@ -25,6 +25,13 @@ process). Entries may repeat: ``[torch.device("cpu")] * 8`` on the CPU or
 counterpart of JAX's forced host-platform devices
 (``tests/conftest.py:29``). On a virtual mesh every ``.to()`` is a no-op,
 so a sharded round there costs the partitioning alone, not transfers.
+
+:class:`GlobalClientArray` is the one way the port indexes a ``[K, ...]``
+family by client rows when it is not one tensor: consecutive pieces, each
+on its own device (one piece of a process's rows in a job mesh,
+``parallel/distributed.py:make_global_client_array``; one piece per
+clients-axis row on that row's device, :meth:`ShardingPlan.place_rows`, the
+store and the batches of ``datasets/fl.py:FLDataset.place``).
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_leaves, tree_map
+from torch.utils._pytree import register_pytree_node, tree_leaves, tree_map
 
 CLIENTS_AXIS = "clients"
 MODEL_AXIS = "model"
@@ -137,6 +144,89 @@ def split_ranges(n: int, parts: int) -> List[slice]:
         out.append(slice(lo, hi))
         lo = hi
     return out
+
+
+class GlobalClientArray:
+    """Client rows ``[lo, hi)`` of a global ``[K, ...]`` client array, held
+    as consecutive pieces, each a tensor on its own device (``local``: one
+    tensor, or the pieces in client order). No piece holds a row outside
+    ``[lo, hi)``, and ``shape`` is the global one. Indexing with a slice of
+    global client ids (or one id) that lies inside one piece reads those
+    rows where they are, a view with no copy; a range outside ``[lo, hi)``
+    or across pieces raises ``IndexError``. The round engine takes it in
+    place of ``cx`` / ``cy`` (``core/engine.py``) and reads each mesh row's
+    part from its piece."""
+
+    def __init__(self, local, lo: int, hi: int, num_clients: int):
+        self.pieces = (local,) if isinstance(local, torch.Tensor) else tuple(local)
+        self.lo, self.hi, self.num_clients = int(lo), int(hi), int(num_clients)
+        self.starts = [self.lo]
+        for piece in self.pieces:
+            self.starts.append(self.starts[-1] + int(piece.shape[0]))
+        if self.starts[-1] != self.hi:
+            raise ValueError(f"pieces of {self.starts[-1] - self.lo} rows for the range "
+                             f"[{self.lo}, {self.hi})")
+
+    @property
+    def local(self) -> torch.Tensor:
+        """The rows as one tensor: the piece itself where there is one, else
+        the pieces concatenated on the first piece's device (a copy)."""
+        if len(self.pieces) == 1:
+            return self.pieces[0]
+        dev = self.pieces[0].device
+        return torch.cat([_to(p, dev) for p in self.pieces])
+
+    @property
+    def shape(self) -> tuple:
+        return (self.num_clients,) + tuple(self.pieces[0].shape[1:])
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.pieces[0].dtype
+
+    def __getitem__(self, index):
+        rows, rest = (index[0], index[1:]) if isinstance(index, tuple) else (index, ())
+        one = isinstance(rows, int)
+        if one:
+            rows = slice(rows, rows + 1)
+        if not isinstance(rows, slice) or rows.step not in (None, 1):
+            raise IndexError(f"rows {rows}: a slice of client ids or one id")
+        start = self.lo if rows.start is None else rows.start
+        stop = self.hi if rows.stop is None else rows.stop
+        if start < self.lo or stop > self.hi:
+            raise IndexError(f"rows {rows} outside this array's [{self.lo}, {self.hi})")
+        for piece, a, b in zip(self.pieces, self.starts, self.starts[1:]):
+            if a <= start and stop <= b:
+                local = piece[start - a: stop - a]
+                if rest:
+                    local = local[(slice(None),) + rest]
+                return local[0] if one else local
+        raise IndexError(f"rows {rows} span pieces of {self.starts}: read each mesh row's "
+                         "part alone (ShardingPlan.split_rows)")
+
+    def __repr__(self) -> str:
+        pieces = [(a, b, str(p.device))
+                  for p, a, b in zip(self.pieces, self.starts, self.starts[1:])]
+        return f"GlobalClientArray(rows [{self.lo}, {self.hi}) of {self.num_clients}, {pieces})"
+
+
+def _unflatten_rows(pieces, ctx) -> GlobalClientArray:
+    # no checks: vmap unflattens its in_dims, ints, into the tree
+    a = GlobalClientArray.__new__(GlobalClientArray)
+    a.pieces = tuple(pieces)
+    a.lo, a.hi, a.num_clients, starts = ctx
+    a.starts = list(starts)
+    return a
+
+
+# a pytree node whose leaves are its pieces: tree_map, tree_leaves and
+# vmap's pass-through of an unbatched input see its tensors
+register_pytree_node(
+    GlobalClientArray,
+    lambda a: (list(a.pieces), (a.lo, a.hi, a.num_clients, tuple(a.starts))),
+    _unflatten_rows,
+    serialized_type_name="blades_tpu_torch.parallel.mesh.GlobalClientArray",
+)
 
 
 def _this_rank() -> int:
@@ -255,6 +345,18 @@ class ShardingPlan:
             out.append((r, part, tree_map(
                 lambda t: _to(t[at], dev) if isinstance(t, torch.Tensor) else t, tree)))
         return out
+
+    def place_rows(self, t: torch.Tensor, copy: bool = False) -> GlobalClientArray:
+        """The ``[K, ...]`` tensor ``t`` laid out by the clients-axis rows:
+        each row's contiguous range (:meth:`row_ranges`) on the row's
+        device, a view where it is there already; in a job mesh only this
+        process's rows (:meth:`process_rows`). ``copy``: every piece a copy
+        of its own, so that ``t`` can be freed."""
+        k = int(t.shape[0])
+        rows = self.process_rows(k)
+        return GlobalClientArray(
+            [t[part].to(self.row_device(r), non_blocking=True, copy=copy)
+             for r, part in self.split_rows(slice(0, k), k)], rows.start, rows.stop, k)
 
     def aggregate_columns(self, updates: torch.Tensor,
                           fn: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:

@@ -54,12 +54,19 @@ device is visible. Its devices: the port-only ``mesh_devices`` (a list of
 ``[torch.device("cpu")] * 8``), else every visible card when ``device``
 names none, else the run's one device. A ``device`` that names a card
 (``"cuda:1"``) builds no mesh unasked and must be the mesh's primary entry
-``devices[0, 0]``. The store stays whole on the primary device; the
-engine moves each mesh row's batches to its device (``core/engine.py``;
-the JAX package's ``FLDataset.place``, JAX :226-229, has no port: a
-transform that draws from one generator over the whole batch cannot be
-split by row without changing its draws). The engine cache's key carries
-the mesh (JAX :653-670).
+``devices[0, 0]``. Wherever it builds a plan the Simulator places the
+store on it (``FLDataset.place``, JAX :226-229): each clients-axis row's
+clients on the row's device (in a job mesh only this process's rows),
+and the sampler hands the engine a batch laid out the same way, which it
+trains row by row where each piece lies (``core/engine.py``). The placed
+sampler makes the unplaced one's draws on the primary device and gives
+its batches bit for bit. Where ``place`` is a no-op (K not divisible by
+the clients axis, a transform with no split form) the store stays whole
+on the primary device and the engine moves each row's part of the batch.
+A store placed for another mesh is placed again in this mesh's layout; a
+Simulator with no mesh gathers a placed store whole on its device
+(``FLDataset.to``), so its engine gets the unplaced store's batches. The
+engine cache's key carries the mesh (JAX :653-670).
 """
 
 from __future__ import annotations
@@ -296,13 +303,19 @@ class Simulator:
         self.aggregator = get_aggregator(aggregator, **(aggregator_kws or {}))
 
         if isinstance(dataset, FLDataset):
-            self.dataset = dataset.to(self.device)
+            self.dataset = dataset
             self._num_classes = int(dataset.test_y.max()) + 1
             self._train_bs = 32
         else:
             self.dataset = dataset.get_dls(self.device)
             self._num_classes = dataset.num_classes
             self._train_bs = dataset.train_bs
+        # the store's layout (JAX :226-229): placed on the mesh's rows, else
+        # whole on the run's device (a store placed before is gathered)
+        if self.plan is not None:
+            self.dataset.place(self.plan)
+        else:
+            self.dataset.to(self.device)
 
         self.seed = 0 if seed is None else int(seed)
         self.num_byzantine = int(num_byzantine) if attack is not None else 0

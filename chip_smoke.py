@@ -98,7 +98,11 @@ host syncs and its kernel events under the profiler against its counted
 launches; the round with sampling beside the same round on the float32
 Synthetic store; the sampler's device time on each store; the transform
 and the normalizer alone on a round's ``[32000, 32, 32, 3]`` batch, and
-on the card against the CPU on the same draws. Then the MLP at K=1000 on
+on the card against the CPU on the same draws; the store placed on a
+virtual ``(4, 1)`` mesh of the card (``FLDataset.place``), one round's
+placed batches held bit for bit to the unplaced sampler's from the same
+generator state, each sampler's device time beside the other, and the
+store gathered whole again. Then the MLP at K=1000 on
 the MNIST files (3 rounds) and the mini example
 (``blades_tpu_torch/examples/mini_example.py``, K=10, ALIE f=4, mean, 2
 rounds of 50 local steps). Then checkpoint and resume of the CIFAR-10
@@ -354,8 +358,11 @@ is a no-op and a sharded run costs the partitioning alone, not transfers):
 chunks, ALIE f=5 + trimmed mean b=5, 1 local step of batch 32)
 PARALLEL_ROUNDS rounds unsharded and then through
 ``Simulator(mesh_shape=(2, 2), mesh_devices=[cuda:0] * 4)`` from the same
-seed, and compares their params and each round's aggregate (bar
-``ROUND_TOL``, and whether bit for bit), the kernel twice a round on the
+seed, the unsharded run on the store whole, the mesh run on the store the
+Simulator places (``FLDataset.place``: each mesh row's 500 clients a view
+on its row's entry, the batches sampled by rows), and compares their
+params and each round's aggregate (bar ``ROUND_TOL``, and bit for bit),
+each row's store rows printed, the kernel twice a round on the
 model axis's column blocks ``[1000, 141862]`` and ``[1000, 141861]``, each
 launch held, the warm rounds and the peak memory side by side;
 ``parallel_seq_text`` builds the long-context example's model
@@ -3518,6 +3525,39 @@ def sampled_round_ms(torch, sim, reps: int = 3) -> list:
     return walls
 
 
+def placed_sampler_check(torch, fl) -> dict:
+    """The store ``fl`` placed on a virtual ``(4, 1)`` mesh of the card
+    (``FLDataset.place``): one round's placed batches (1 step of batch 32,
+    the transform and the normalizer per row) against the unplaced
+    sampler's from the same generator state, bit for bit, and each
+    sampler's device time (CUDA events); then the store is gathered whole
+    again (``FLDataset.to``)."""
+    from blades_tpu_torch.parallel import make_mesh, make_plan
+    from blades_tpu_torch.utils import rng
+
+    home = fl.device
+    gen = lambda: rng.generator(1, 302, rng.DATA, device=home)  # noqa: E731
+    g_plain, g_placed = gen(), gen()
+    cx, cy = fl.sample_round(g_plain, 1, 32)
+    plain_ms = time_ms(lambda: fl.sample_round(gen(), 1, 32), reps=10)
+    plan = make_plan(make_mesh([_entry(torch, home)] * 4, (4, 1)))
+    fl.place(plan)
+    px, py = fl.sample_round(g_placed, 1, 32)
+    bitwise = (torch.equal(px.local, cx) and torch.equal(py.local, cy)
+               and torch.equal(g_plain.get_state(), g_placed.get_state()))
+    rows = [[a, b, str(t.device)] for t, a, b in zip(px.pieces, px.starts, px.starts[1:])]
+    want = [[r.start, r.stop, str(plan.row_device(i))]
+            for i, r in enumerate(plan.row_ranges(fl.num_clients))]
+    placed_ms = time_ms(lambda: fl.sample_round(gen(), 1, 32), reps=10)
+    was_placed = fl.placed
+    del cx, cy, px, py
+    fl.to(home)
+    return {"mesh_shape": [4, 1], "placed": was_placed, "rows": rows, "rows_ok": rows == want,
+            "bit_for_bit": bitwise,
+            "sampler_ms": {"unplaced": plain_ms, "placed": placed_ms},
+            "unplaced_after": not fl.placed}
+
+
 def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
                        data_root: Path):
     """CIFAR-10 from files (slice 4): the pickles written at their real
@@ -3532,8 +3572,10 @@ def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
     included) on this store and on the float32 Synthetic store ``syn_fl``
     without a transform; the sampler's device time on each store; the
     transform and the normalizer alone on a round's [32000, 32, 32, 3]
-    uint8 batch; and the card's transform and normalizer against the
-    CPU's on the same batch and draws. Returns the dataset, the launches
+    uint8 batch; the card's transform and normalizer against the CPU's on
+    the same batch and draws; and the store placed on a virtual (4, 1)
+    mesh of the card, its sampler held bit for bit to the unplaced one
+    (:func:`placed_sampler_check`). Returns the dataset, the launches
     by path, the graph launches and the profiler's kernel events."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -3625,6 +3667,7 @@ def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
         sampler_profiled[name] = {
             "ms": _union_ms([(e.time_range.start, e.time_range.end) for e in kernels])
             / SAMPLER_CALLS, "kernels_per_call": len(kernels) / SAMPLER_CALLS}
+    placed = placed_sampler_check(torch, fl)
     gen = rng.generator(1, 301, rng.DATA, device=fl.device)
     u = torch.rand(fl.train_y.shape, generator=gen, device=fl.device)
     idx = torch.argsort(u, dim=1)[:, :32]
@@ -3663,7 +3706,7 @@ def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
           "profiled_block_kernel_events": events, "profiled_block_counted_launches": counted,
           "profiled_block_events_by_attempt": prof["events_by_attempt"],
           "warm_round_ms": round_ms, "sampler_ms": sampler_ms,
-          "sampler_profiled": sampler_profiled,
+          "sampler_profiled": sampler_profiled, "placed_sampler": placed,
           "augment_batch": AUGMENT_BATCH, "transform_ms": transform_ms, "draw_ms": draw_ms,
           "normalize_ms": normalize_ms, "images_erased": erased,
           "transform_card_equals_cpu": transform_equal,
@@ -3677,6 +3720,8 @@ def phase_data_cifar10(torch, trimmed, dev, syn_fl, card: str, log_root: Path,
     check(sum(syncs.values()) == 1, f"data_cifar10: a warm block synced {syncs}")
     check(all(math.isfinite(x["Loss"]) for x in train + test), f"data_cifar10: {train} {test}")
     check(transform_equal and normalize_equal, "data_cifar10: card and CPU augmentations differ")
+    check(placed["placed"] and placed["bit_for_bit"] and placed["rows_ok"]
+          and placed["unplaced_after"], f"data_cifar10: the placed sampler {placed}")
     launches = {"cct2_bf16_cifar10_files": ev["launches"],
                 "cct2_bf16_cifar10_files_graph_block": gr["launches"]}
     graph = {"cct2_bf16_cifar10_files_graph_block": gr["launches"],
@@ -8215,7 +8260,11 @@ def parallel_cct2_run(torch, trimmed, fl, log_root: Path, name: str, keep_first:
     finally:
         RoundEngine._server_step = orig
     n_held, err, bad = held.result()
+    x = sim.dataset.train_x
+    rows = ([[a, b, str(t.device)] for t, a, b in zip(x.pieces, x.starts, x.starts[1:])]
+            if sim.dataset.placed else None)
     return {"times": times, "launches": launches, "held": n_held, "err": err, "bad": bad,
+            "placed": sim.dataset.placed, "store_rows": rows,
             "shapes": held.shapes, "first": held.first, "aggs": aggs,
             "params": {n: t.detach().clone() for n, t in sim.server.state.params.items()},
             "peak": torch.cuda.max_memory_allocated(), "plan": sim.plan,
@@ -8259,6 +8308,8 @@ def phase_parallel_mesh_cct2(torch, trimmed, fl, dev, card: str, log_root: Path)
     emit({"phase": "parallel_mesh_cct2", "model": "cct_2_3x2_32", "dtype": "bfloat16",
           "clients": k, "byzantine": b, "chunks": CCT2_CHUNKS, "rounds": PARALLEL_ROUNDS,
           "mesh_shape": list(PARALLEL_MESH_SHAPE), "mesh": repr(mesh["plan"].mesh),
+          "placed": {"unsharded": plain["placed"], "mesh": mesh["placed"]},
+          "store_rows": mesh["store_rows"],
           "round_s": {"unsharded": plain["times"], "mesh": mesh["times"]},
           "warm_round_s": {"unsharded": plain["times"][-1], "mesh": mesh["times"][-1]},
           "peak_mem_bytes": {"unsharded": plain["peak"], "mesh": mesh["peak"]},
@@ -8275,8 +8326,12 @@ def phase_parallel_mesh_cct2(torch, trimmed, fl, dev, card: str, log_root: Path)
                   "extra launches), not transfers",
           "by_shape": [{"shape_kdb": list(s), **t} for s, t in shapes.items()],
           "seconds": time.perf_counter() - t0, "card": card})
-    check(close, f"parallel_mesh_cct2: the mesh run differs from the unsharded one "
-                 f"(params {params_err}, aggregates {agg_err})")
+    check(close and bitwise, f"parallel_mesh_cct2: the mesh run differs from the unsharded "
+                             f"one (params {params_err}, aggregates {agg_err})")
+    want_rows = [[r.start, r.stop, str(dev0)] for r in mesh["plan"].row_ranges(k)]
+    check(not plain["placed"] and mesh["placed"] and mesh["store_rows"] == want_rows,
+          f"parallel_mesh_cct2: placed {plain['placed']}, {mesh['placed']}, store rows "
+          f"{mesh['store_rows']}, want {want_rows}")
     check(plain["launches"] == PARALLEL_ROUNDS and plain["shapes"] == [(k, d)] * PARALLEL_ROUNDS,
           f"parallel_mesh_cct2 unsharded: {plain['launches']} launches {plain['shapes']}")
     check(mesh["launches"] == 2 * PARALLEL_ROUNDS and mesh["shapes"] == want_shapes,

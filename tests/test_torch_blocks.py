@@ -614,6 +614,27 @@ def test_graph_block_from_the_cifar_sampler_matches_rounds(graph_device, tmp_pat
                                                                   "train")
 
 
+def test_graph_block_from_a_placed_store_matches_unsharded_rounds(graph_device, tmp_path):
+    """The augmenting sampler of a store placed on a virtual ``(2, 4)`` mesh
+    (``FLDataset.place``) inside the captured round: the graph keys on the
+    placed sampler, and a block of 3 equals the unsharded store's rounds
+    one by one, bit for bit."""
+    from blades_tpu_torch.parallel.mesh import GlobalClientArray
+
+    entry = torch.device("cuda", 0) if graph_device.type == "cuda" else graph_device
+    run = dict(global_rounds=3, local_steps=2, train_batch_size=4, validate_interval=3)
+    seq = _store_sim(_cifar_store(graph_device), tmp_path, "seq")
+    seq.run("mlp", **run)
+    blk = _store_sim(_cifar_store(graph_device), tmp_path, "blk", mesh_shape=(2, 4),
+                     mesh_devices=[entry] * 8)
+    store = blk.dataset
+    assert store.placed and isinstance(store.train_x, GlobalClientArray)
+    blk.run("mlp", block_size=3, **run)
+    assert blk.engine.last_block_mode == "graph"
+    assert blk.engine.last_graph.sampler is store.sampler(2, 4)
+    _assert_states_equal(seq.server.state, blk.server.state)
+
+
 def test_resume_into_an_engine_whose_graph_is_captured(graph_device, tmp_path):
     """A checkpoint restored into a cached engine whose round is already
     captured: ``write_back`` copies the restored state into the graph's

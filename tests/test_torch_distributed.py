@@ -8,7 +8,9 @@ package's MLP init (its flat vector in an ``.npz``, read through the port's
 weight map), so its ``train_loss`` and ``agg_norm`` are held to JAX's
 2-process cluster at ``rtol=1e-4``; the ranks agree with each other, and
 with the same round run in this process on an 8-entry virtual mesh, at
-``rtol=1e-5``. NCCL's form needs the card (``chip_smoke.py``,
+``rtol=1e-5``; the 2-rank round on a placed store (``--placed``) is held
+to the same store's round sampled unplaced in this process at that bar.
+NCCL's form needs the card (``chip_smoke.py``,
 ``parallel_dist_nccl``; NCCL refuses two ranks on one device).
 """
 
@@ -28,9 +30,11 @@ from blades_tpu_torch.parallel import distributed as dist
 from blades_tpu_torch.parallel import make_plan
 from blades_tpu_torch.parallel._dist_worker import (
     make_data,
+    make_store,
     round_summary,
     run_local_cluster,
     run_round,
+    sample_store,
 )
 from torch_threads_helpers import torch_threads_per_worker  # noqa: F401
 
@@ -115,6 +119,29 @@ def test_two_rank_gloo_cluster_matches_jax(jax_flat):
     ref = jax_run_local_cluster(2, 4, timeout=500)
     for key in ("train_loss", "agg_norm"):
         assert results[0][key] == pytest.approx(ref[0][key], rel=1e-4), key
+
+
+def test_two_rank_gloo_cluster_samples_a_placed_store(jax_flat):
+    """The workers build their round's batches from a client store placed
+    on the job mesh (``--placed``): each rank keeps only its K/2 store rows
+    (one piece of 2 clients per clients-axis row of its 4), samples them
+    from the shared generator, and the round equals the same store's round
+    sampled unplaced in this process on an 8-entry virtual mesh."""
+    flat, path = jax_flat
+    results = run_local_cluster(2, 4, timeout=300, params_path=path, placed=True)
+    assert set(results) == {0, 1}
+    for pid, r in results.items():
+        assert r["placed"] and r["store_rows"] == [pid * 8, (pid + 1) * 8]
+        assert r["store_pieces"] == [2, 2, 2, 2] and r["batch_rows"] == r["store_rows"]
+        for key in ("train_loss", "agg_norm", "params_sum", "params_norm"):
+            assert r[key] == pytest.approx(results[0][key], rel=1e-5), key
+    fl = make_store(16)
+    cx, cy = sample_store(fl, 2, 4)
+    assert isinstance(cx, torch.Tensor) and cx.shape == (16, 2, 4, 28, 28, 1)
+    mesh = dist.make_global_mesh(local_devices=[torch.device("cpu")] * 8)
+    local = round_summary(*run_round(make_plan(mesh), 16, cx, cy, 4, flat))
+    for key, value in local.items():
+        assert results[0][key] == pytest.approx(value, rel=1e-5), key
 
 
 def test_worker_failure_fails_fast_and_reaps():
